@@ -1,0 +1,340 @@
+"""The l4_flow_log sketch step: every sketch of one batch in one call.
+
+One `update` advances, for a static-shape batch of flow records:
+
+- Count-Min over the 5-tuple flow key      -> heavy-hitter counts
+- the candidate ring                       -> top-K flows
+- per-service HyperLogLog                  -> distinct client IPs
+- 4-feature entropy histograms             -> DDoS signals
+
+`flush` closes a window into a `FlowWindowOutput` and resets the window
+state. State is a NamedTuple of tensors with the JAX package's field
+names, leaf order and layouts (uint32 leaves held as int32 bits). The
+step updates the Count-Min counts, entropy histograms and HLL registers
+IN PLACE: the state passed in must not be used afterwards except
+through the returned state (the JAX package donates it).
+
+Three input forms share `_advance_sketches`: full-row columns
+(`update`), packed 16 B lane planes (`update_packed`,
+`update_lanes_fused`, `make_coalesced_update`) and the dict wire
+(models/flow_dict.py). On CUDA the lane and dict paths take the fused
+kernels of ops/cuda_sketch.py unless `cfg.fused_hists` is False.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepflow_tpu_torch.ops import cms, cuda_sketch, entropy, hll, topk
+from deepflow_tpu_torch.utils.u32 import as_u32, fold_columns, to_bits
+
+ENTROPY_FEATURES = ("ip_src", "ip_dst", "port_src", "port_dst")
+
+
+@dataclass(frozen=True)
+class FlowSuiteConfig:
+    cms_depth: int = 4
+    cms_log2_width: int = 17
+    ring_size: int = 2048
+    top_k: int = 100
+    hll_groups: int = 1024       # service hash space
+    hll_precision: int = 10
+    entropy_log2_buckets: int = 12
+    # conservative Count-Min update: not ported yet (raises)
+    conservative: bool = False
+    # admit a 1/2^s stride-sample of lanes to the top-K ring per batch
+    topk_sample_log2: int = 4
+    # fused unpack+sketch kernel on the lane and dict paths: None = on
+    # for CUDA tensors, off on the CPU; True forces it (its plain version
+    # on the CPU); False never
+    fused_hists: Optional[bool] = None
+    seed: int = 0xDEC0DE
+
+
+class FlowSuiteState(NamedTuple):
+    sketch: cms.CMSState
+    ring: topk.TopKState
+    services: hll.HLLState
+    ent: entropy.EntropyState
+    rows_seen: torch.Tensor      # [] int32 valid rows this window
+    batches_seen: torch.Tensor   # [] int32
+
+
+class FlowWindowOutput(NamedTuple):
+    topk_keys: torch.Tensor      # [K] int32 u32 bits of flow keys
+    topk_counts: torch.Tensor    # [K] int32
+    service_cardinality: torch.Tensor  # [hll_groups] float32
+    entropies: torch.Tensor      # [4] float32
+    rows: torch.Tensor           # [] int32
+
+
+def check_device(device) -> torch.device:
+    """An entry point's device: CUDA unless the caller names the CPU;
+    CUDA without a card raises instead of falling back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("deepflow_tpu_torch: CUDA device requested but "
+                           "torch.cuda.is_available() is False; pass "
+                           "device='cpu' to run the plain versions")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def init(cfg: FlowSuiteConfig, device="cuda") -> FlowSuiteState:
+    device = check_device(device)
+    return FlowSuiteState(
+        sketch=cms.init(cfg.cms_depth, cfg.cms_log2_width, cfg.seed, device),
+        ring=topk.init(cfg.ring_size, device),
+        services=hll.init(cfg.hll_groups, cfg.hll_precision, device),
+        ent=entropy.init(len(ENTROPY_FEATURES), cfg.entropy_log2_buckets,
+                         cfg.seed ^ 0xE27, device),
+        rows_seen=torch.zeros((), dtype=torch.int32, device=device),
+        batches_seen=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def flow_key(cols: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """u32 flow key from the 5-tuple (the heavy-hitter key space)."""
+    return fold_columns([cols["ip_src"], cols["ip_dst"], cols["port_src"],
+                         cols["port_dst"], cols["proto"]])
+
+
+def service_key(cols: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """u32 service key: (server ip, server port, proto)."""
+    return fold_columns([cols["ip_dst"], cols["port_dst"], cols["proto"]])
+
+
+def use_fused_hists(cfg: FlowSuiteConfig, device) -> bool:
+    """Fused kernel dispatch: `cfg.fused_hists` True/False forces it;
+    None takes it for CUDA tensors. The conservative update has no
+    fused form."""
+    if cfg.conservative:
+        return False
+    if cfg.fused_hists is not None:
+        return bool(cfg.fused_hists)
+    return torch.device(device).type == "cuda"
+
+
+def _advance_sketches(state: FlowSuiteState, cols: Dict[str, torch.Tensor],
+                      mask: torch.Tensor, cfg: FlowSuiteConfig,
+                      hists_done: bool = False):
+    """Everything except ring admission, shared by every path. With
+    `hists_done` a fused kernel has already added this batch's CMS and
+    entropy counts into the state; HLL, the counters and the flow keys
+    stay this one definition. Returns (state, flow keys)."""
+    fkey = flow_key(cols)
+    skey = service_key(cols)
+    sketch, ent = state.sketch, state.ent
+    if not hists_done:
+        upd = cms.update_conservative if cfg.conservative else cms.update
+        sketch = upd(state.sketch, fkey, mask=mask)
+        feats = torch.stack([as_u32(cols[f]) for f in ENTROPY_FEATURES])
+        # packets wrap as u32 and are then read as int32, as in the
+        # reference; 2 weight planes saturate them at 65535
+        packets = to_bits(as_u32(cols["packet_tx"]) + as_u32(cols["packet_rx"]))
+        ent = entropy.update(state.ent, feats, packets, mask, weight_planes=2)
+    group = skey % cfg.hll_groups
+    services = hll.update(state.services, group, cols["ip_src"], mask=mask)
+    mid = FlowSuiteState(
+        sketch=sketch,
+        ring=state.ring,
+        services=services,
+        ent=ent,
+        rows_seen=state.rows_seen + mask.sum(dtype=torch.int32),
+        batches_seen=state.batches_seen + 1,
+    )
+    return mid, fkey
+
+
+def _admit(state: FlowSuiteState, mid: FlowSuiteState, fkey: torch.Tensor,
+           mask: torch.Tensor, cfg: FlowSuiteConfig) -> FlowSuiteState:
+    ring = topk.offer(state.ring, fkey, mid.sketch, mask=mask,
+                      sample_log2=cfg.topk_sample_log2,
+                      phase=state.batches_seen)
+    return mid._replace(ring=ring)
+
+
+def update(state: FlowSuiteState, cols: Dict[str, torch.Tensor],
+           mask: torch.Tensor, cfg: FlowSuiteConfig,
+           hists_done: bool = False) -> FlowSuiteState:
+    """Advance all sketches by one static-shape batch of columns (any
+    integer dtype, read as u32; rows where `mask` is False are padding).
+    `hists_done` says a fused kernel already counted the CMS and entropy
+    rows of this batch (the dict wire's fused path)."""
+    mid, fkey = _advance_sketches(state, cols, mask, cfg, hists_done)
+    return _admit(state, mid, fkey, mask, cfg)
+
+
+SKETCH_LANE_NAMES = ("ip_src", "ip_dst", "ports", "proto_pkts")
+
+
+def pack_lanes(cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Host pack of the 7 sketch columns into 4 uint32 planes:
+    ip_src, ip_dst, port_src<<16|port_dst, proto<<24|min(tx+rx, 2^24-1).
+    The packet sum is taken in uint64 before its 24-bit cap."""
+    u32 = np.uint32
+    pkts = np.minimum(cols["packet_tx"].astype(np.uint64)
+                      + cols["packet_rx"], 0xFFFFFF).astype(u32)
+    return {
+        "ip_src": cols["ip_src"].astype(u32, copy=False),
+        "ip_dst": cols["ip_dst"].astype(u32, copy=False),
+        "ports": ((cols["port_src"].astype(u32) & u32(0xFFFF)) << u32(16))
+                 | (cols["port_dst"].astype(u32) & u32(0xFFFF)),
+        "proto_pkts": ((cols["proto"].astype(u32) & u32(0xFF)) << u32(24))
+                      | pkts,
+    }
+
+
+def pack_lanes_into(cols: Dict[str, np.ndarray], out: np.ndarray) -> None:
+    """`pack_lanes` writing into a preallocated (4, n) uint32 view."""
+    u32 = np.uint32
+    np.copyto(out[0], cols["ip_src"], casting="unsafe")
+    np.copyto(out[1], cols["ip_dst"], casting="unsafe")
+    out[2][:] = ((cols["port_src"].astype(u32) & u32(0xFFFF)) << u32(16)) \
+        | (cols["port_dst"].astype(u32) & u32(0xFFFF))
+    out[3][:] = ((cols["proto"].astype(u32) & u32(0xFF)) << u32(24)) \
+        | np.minimum(cols["packet_tx"].astype(np.uint64)
+                     + cols["packet_rx"], 0xFFFFFF).astype(u32)
+
+
+def unpack_lanes(lanes: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Lane planes (any integer dtype, read as u32) -> the column dict
+    `update` consumes, as u32 values."""
+    ports = as_u32(lanes["ports"])
+    pp = as_u32(lanes["proto_pkts"])
+    ip_src = as_u32(lanes["ip_src"])
+    return {
+        "ip_src": ip_src,
+        "ip_dst": as_u32(lanes["ip_dst"]),
+        "port_src": ports >> 16,
+        "port_dst": ports & 0xFFFF,
+        "proto": pp >> 24,
+        "packet_tx": pp & 0xFFFFFF,
+        "packet_rx": torch.zeros_like(ip_src),
+    }
+
+
+def _lanes_of(plane: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return dict(zip(SKETCH_LANE_NAMES, plane))
+
+
+def _valid(n, C: int, device) -> torch.Tensor:
+    """arange(C) < n with n a host int or a device scalar (no sync)."""
+    n = torch.as_tensor(n, device=device).reshape(()).to(torch.int64)
+    return torch.arange(C, device=device) < n
+
+
+def update_packed(state: FlowSuiteState, lanes: Dict[str, torch.Tensor],
+                  mask: torch.Tensor, cfg: FlowSuiteConfig) -> FlowSuiteState:
+    """`update` over the packed 4-plane batch (unfused)."""
+    return update(state, unpack_lanes(lanes), mask, cfg)
+
+
+def update_lanes_fused(state: FlowSuiteState, plane: torch.Tensor, n,
+                       cfg: FlowSuiteConfig) -> FlowSuiteState:
+    """`update` over one (4, C) int32 lane plane whose Count-Min and
+    entropy counts come from the fused lane kernel (added in place);
+    HLL, the ring and the counters stay `_advance_sketches`."""
+    cuda_sketch.fused_lane_hists(
+        plane, n, state.sketch.counts, state.ent.hist, state.sketch.seeds,
+        state.ent.seeds)
+    mask = _valid(n, plane.shape[1], plane.device)
+    mid, fkey = _advance_sketches(state, unpack_lanes(_lanes_of(plane)),
+                                  mask, cfg, hists_done=True)
+    return _admit(state, mid, fkey, mask, cfg)
+
+
+def update_plane(state: FlowSuiteState, plane: torch.Tensor, n,
+                 cfg: FlowSuiteConfig) -> FlowSuiteState:
+    """One (4, C) lane plane with valid count n: the fused kernel when
+    `use_fused_hists`, else the unfused ops."""
+    if use_fused_hists(cfg, plane.device):
+        return update_lanes_fused(state, plane, n, cfg)
+    return update_packed(state, _lanes_of(plane),
+                         _valid(n, plane.shape[1], plane.device), cfg)
+
+
+# Coalesced staging layout for K lane batches of capacity C (one flat
+# uint32 buffer, one transfer): slot k at [k*(1+4C), (k+1)*(1+4C)) holds
+# [n_k | plane_k (4*C)], so a prefix of k complete slots is itself a
+# valid k-batch buffer.
+def slot_words(capacity: int) -> int:
+    return 1 + 4 * capacity
+
+
+def coalesced_lanes_words(k_batches: int, capacity: int) -> int:
+    return k_batches * slot_words(capacity)
+
+
+def slot_plane(flat: np.ndarray, k: int, capacity: int) -> np.ndarray:
+    """(4, C) view of slot k's lane plane inside a coalesced buffer; the
+    caller stamps the slot's n word at flat[k * slot_words(capacity)]."""
+    s = slot_words(capacity)
+    return flat[k * s + 1:(k + 1) * s].reshape(4, capacity)
+
+
+def make_coalesced_update(cfg: FlowSuiteConfig, k_batches: int,
+                          capacity: int):
+    """fn(state, flat) -> (state, fence) advancing the suite by the K
+    lane batches of one coalesced int32 buffer on the device, in order.
+    Each batch's n is read on the device from its slot (the fused
+    kernel takes it by pointer), so no call syncs the host. `fence` is
+    the sum of the n words."""
+    K, C = int(k_batches), int(capacity)
+    s = slot_words(C)
+
+    def prog(state: FlowSuiteState, flat: torch.Tensor):
+        if flat.dtype != torch.int32 or flat.numel() != K * s:
+            raise ValueError(f"flat must be {K * s} int32 words")
+        slots = flat.view(K, s)
+        for k in range(K):
+            state = update_plane(state, slots[k, 1:].view(4, C),
+                                 slots[k, 0:1], cfg)
+        return state, slots[:, 0].sum()
+
+    return prog
+
+
+def flush(state: FlowSuiteState, cfg: FlowSuiteConfig
+          ) -> Tuple[FlowSuiteState, FlowWindowOutput]:
+    """Read the window outputs, then start a fresh window state."""
+    keys, counts = topk.result(state.ring, cfg.top_k)
+    out = FlowWindowOutput(
+        topk_keys=keys,
+        topk_counts=counts,
+        service_cardinality=hll.estimate(state.services),
+        entropies=entropy.entropies(state.ent),
+        rows=state.rows_seen,
+    )
+    fresh = FlowSuiteState(
+        sketch=cms.reset(state.sketch),
+        ring=topk.reset(state.ring),
+        services=hll.reset(state.services),
+        ent=entropy.reset(state.ent),
+        rows_seen=torch.zeros_like(state.rows_seen),
+        batches_seen=torch.zeros_like(state.batches_seen),
+    )
+    return fresh, out
+
+
+def merge(a: FlowSuiteState, b: FlowSuiteState,
+          cfg: FlowSuiteConfig) -> FlowSuiteState:
+    """Merge two window states: CMS add, HLL max, histogram add, ring
+    re-dedup + top-k."""
+    all_keys = torch.cat([a.ring.keys, b.ring.keys])
+    all_counts = torch.cat([a.ring.counts, b.ring.counts])
+    k, c = topk.sort_pairs(all_keys, all_counts)
+    ring = topk.select_ring(k, c, a.ring.keys.shape[0])
+    return FlowSuiteState(
+        sketch=cms.merge(a.sketch, b.sketch),
+        ring=ring,
+        services=hll.merge(a.services, b.services),
+        ent=entropy.merge(a.ent, b.ent),
+        rows_seen=a.rows_seen + b.rows_seen,
+        batches_seen=a.batches_seen + b.batches_seen,
+    )

@@ -1,0 +1,85 @@
+"""Count-Min sketch: `[depth, width]` int32 counts, power-of-two width.
+
+`update` adds IN PLACE into `state.counts` and returns a state holding
+the same tensor (the JAX package donates the old state instead). The
+conservative update is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from deepflow_tpu_torch.ops import hashing, mxu_hist
+
+
+class CMSState(NamedTuple):
+    counts: torch.Tensor  # [depth, width] int32
+    seeds: torch.Tensor   # [depth, 2] int32 (u32 bits)
+
+
+def init(depth: int, log2_width: int, seed: int = 0xDEC0DE,
+         device="cuda") -> CMSState:
+    if not 1 <= log2_width <= 26:
+        raise ValueError(f"log2_width {log2_width} out of range")
+    return CMSState(
+        counts=torch.zeros(depth, 1 << log2_width, dtype=torch.int32,
+                           device=device),
+        seeds=hashing.make_seeds(depth, seed, device=device))
+
+
+def log2_width(state: CMSState) -> int:
+    return int(state.counts.shape[1]).bit_length() - 1
+
+
+def update(state: CMSState, keys: torch.Tensor,
+           weights: Optional[torch.Tensor] = None,
+           mask: Optional[torch.Tensor] = None,
+           weight_planes: int = 2) -> CMSState:
+    """Add a batch of (key, weight) into all rows, in place.
+
+    Batches of at least `mxu_hist.MIN_LANES` lanes go through the
+    histogram kernel, whose weights saturate at 256**weight_planes - 1;
+    smaller ones take an exact scatter-add -- the reference's "auto"
+    dispatch, so both packages give the same counts for the same batch."""
+    d, w = state.counts.shape
+    n = keys.shape[0]
+    idx = hashing.multi_bucket(keys, state.seeds, log2_width(state))
+    if n >= mxu_hist.MIN_LANES:
+        h = mxu_hist.hist_masked(idx, w, weights, mask, weight_planes)
+        state.counts.add_(h.to(state.counts.dtype))
+        return state
+    if weights is None:
+        weights = torch.ones(n, dtype=state.counts.dtype, device=keys.device)
+    else:
+        weights = weights.to(state.counts.dtype)
+    if mask is not None:
+        weights = weights * mask.to(state.counts.dtype)
+    flat = idx.to(torch.int64) + torch.arange(d, device=keys.device)[:, None] * w
+    state.counts.view(-1).index_add_(0, flat.reshape(-1),
+                                     weights.expand(d, n).reshape(-1))
+    return state
+
+
+def query(state: CMSState, keys: torch.Tensor) -> torch.Tensor:
+    """Point estimate: min over rows of the hashed buckets ([n] int32)."""
+    d, w = state.counts.shape
+    idx = hashing.multi_bucket(keys, state.seeds, log2_width(state))
+    flat = idx.to(torch.int64) + torch.arange(d, device=keys.device)[:, None] * w
+    est = state.counts.view(-1)[flat.reshape(-1)].reshape(d, -1)
+    return est.min(dim=0).values
+
+
+def update_conservative(state: CMSState, keys, weights=None, mask=None):
+    raise NotImplementedError(
+        "conservative Count-Min update is not ported to deepflow_tpu_torch yet")
+
+
+def merge(a: CMSState, b: CMSState) -> CMSState:
+    """Elementwise add (seeds must match); a new tensor."""
+    return a._replace(counts=a.counts + b.counts)
+
+
+def reset(state: CMSState) -> CMSState:
+    return state._replace(counts=torch.zeros_like(state.counts))

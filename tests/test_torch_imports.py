@@ -1,0 +1,83 @@
+"""deepflow_tpu_torch and chip_smoke.py stand alone: no import of jax or of
+the deepflow_tpu package (host-only helpers are kept as the port's own
+copies), and chip_smoke.py refuses to report a result without a card."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "deepflow_tpu_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib", "deepflow_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and isinstance(
+                node.args[0], ast.Constant):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"chip_smoke.py", "flow_suite.py", "flow_dict.py",
+            "cuda_hist.py", "cuda_sketch.py", "convert.py"} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_jax_or_deepflow_tpu_import(path):
+    bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_port_imports_leave_jax_unloaded():
+    code = ("import sys, pkgutil, importlib, deepflow_tpu_torch\n"
+            "for m in pkgutil.walk_packages(deepflow_tpu_torch.__path__, "
+            "'deepflow_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "import chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deepflow_tpu')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _run_smoke(cwd, env):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
+    import torch
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    if not torch.cuda.is_available():
+        res = _run_smoke(REPO, env)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path, env)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
