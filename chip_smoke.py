@@ -10,9 +10,15 @@ is printed):
    deepflow_tpu_torch/csrc built with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, bit-exact, with padded batches and saturating
-   weights: hist at the Count-Min and entropy shapes, the lane kernel at
-   C=32768, the news kernel at C=8192; kernel, plain and library times
-   from CUDA events after a warm-up;
+   weights, on uniform and on Zipf(1.1) inputs: hist_add at the
+   Count-Min (mask only) and entropy (weights and mask) shapes and on
+   one row of 2^19 bins (the wide path), the lane kernel at C=32768,
+   the news kernel at C=8192; kernel, plain and library times per call
+   from CUDA events after a warm-up (median of 5 runs of 20 calls),
+   device times from torch.profiler; then, checked but not timed, hist on
+   its widest block-private row (2^15 bins) and the lane kernel with
+   entropy rows of 2^13 bins (its widest shared copy) and 2^16 bins (too
+   wide for one, added straight into the state);
 3. the slice at the exporter defaults (FlowSuiteConfig(), batch_rows
    32768): two windows of 2^20 records each, drawn by Zipf(1.1) from a
    pool of 2^17 distinct 5-tuples, through full-row `update`, the lean
@@ -24,7 +30,9 @@ is printed):
 4. the same small input through both exporters on the card and on the
    CPU (plain versions), state and outputs compared;
 5. one window of each path under torch.profiler: device time, its share
-   of the wall time, and the largest device ops (reported, not checked).
+   of the wall time, and the largest device ops (reported, not checked);
+   then one full-row batch's device kernels, which must hold exactly two
+   hist launches and no float conversion.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -49,7 +57,7 @@ ALU_OPS_PER_S = 67e12
 FUSED_OPS_PER_RECORD = 150
 # per (row, lane) item of hist: clamp, weight, address, add
 HIST_OPS_PER_ITEM = 4
-WARMUP, ITERS = 3, 20
+WARMUP, ITERS, REPEATS = 3, 20, 5
 
 
 def log(msg: str) -> None:
@@ -65,18 +73,22 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn) -> float:
-    """Mean time of fn on the current stream, from CUDA events."""
+    """Time per call of fn on the current stream, from CUDA events: the
+    median over REPEATS runs of the mean of ITERS back-to-back calls."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(ITERS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / ITERS
+    means = []
+    for _ in range(REPEATS):
+        start.record()
+        for _ in range(ITERS):
+            fn()
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / ITERS)
+    return float(np.median(means))
 
 
 def bound(nbytes: int, ops: int):
@@ -135,10 +147,113 @@ def device_ms(torch, fn, names):
 
 # -- phase 2: kernels against their plain versions ---------------------------
 
+C_LANE, C_NEWS = 1 << 15, 1 << 13      # the lane and news kernels' batches
+HIST_C = 1 << 15                       # lanes per hist call (batch_rows)
+# (label, log2 width, rows, weight planes or None for mask-only lanes)
+HIST_SHAPES = (("cms", 17, 4, None), ("entropy", 12, 4, 2),
+               ("wide", 19, 1, 2))
+
+
+def zipf_ranks(rng, size, pool):
+    """Zipf(1.1) ranks in [0, pool), as `make_windows` draws records."""
+    return (rng.zipf(1.1, size) - 1).clip(max=pool - 1)
+
+
+def hist_inputs(torch, rng, dev, lw, d, planes, skew, C=HIST_C, pad=777):
+    """idx [d, C] (uniform, or Zipf(1.1) over a permuted bin order with
+    out-of-range indices on both sides), a mask of the first C - pad lanes
+    and, with `planes`, weights that saturate at 256**planes - 1."""
+    width = 1 << lw
+    if skew:
+        idx = np.stack([rng.permutation(width)[zipf_ranks(rng, C, width)]
+                        for _ in range(d)]).astype(np.int32)
+    else:
+        idx = rng.integers(-3, width + 3, (d, C)).astype(np.int32)
+    mask = torch.arange(C, device=dev) < C - pad
+    w = None if planes is None else torch.from_numpy(
+        rng.integers(0, 1 << 24, C).astype(np.int32)).to(dev)
+    return torch.from_numpy(idx).to(dev), w, mask
+
+
+def check_hist(torch, rng, cuda_hist, idx, width, w, mask, planes, label):
+    """hist_add_cuda against hist_add_plain on the same non-zero state;
+    returns a fresh copy of that state for timing."""
+    d = idx.shape[0]
+    base = torch.from_numpy(rng.integers(0, 100, (d, width)).astype(
+        np.int32)).to(idx.device)
+    got, ref = base.clone(), base.clone()
+    cuda_hist.hist_add_cuda(got, idx, width, w, mask, planes or 2)
+    cuda_hist.hist_add_plain(ref, idx, width, w, mask, planes or 2)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"hist_add[{label}] differs from its plain "
+                             "version")
+    return base.clone()
+
+
+def lane_plane(torch, rng, dev, C, skew):
+    """(4, C) lane plane: uniform words, or the Zipf(1.1) records of
+    `make_windows` packed as the lanes wire packs them."""
+    from deepflow_tpu_torch.models import flow_suite
+    if skew:
+        cols = make_windows(rng, 1, C)[0]
+        lanes = flow_suite.pack_lanes(cols)
+        plane = np.stack([lanes[k] for k in flow_suite.SKETCH_LANE_NAMES])
+    else:
+        plane = rng.integers(0, 1 << 32, (4, C), dtype=np.uint64).astype(
+            np.uint32)
+        plane[3] = (rng.integers(0, 256, C).astype(np.uint32) << 24) \
+            | rng.integers(0, 1 << 24, C).astype(np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(plane).view(np.int32)).to(dev)
+
+
+def news_plane(torch, rng, dev, C, skew):
+    """(6, C) dict-wire news plane, uniform or from Zipf(1.1) records."""
+    plane = rng.integers(0, 1 << 32, (6, C), dtype=np.uint64).astype(np.uint32)
+    plane[0] = np.arange(C)
+    if skew:
+        cols = make_windows(rng, 1, C)[0]
+        plane[1], plane[2] = cols["ip_src"], cols["ip_dst"]
+        plane[3] = (cols["port_src"] << 16) | cols["port_dst"]
+        plane[4] = cols["proto"]
+        plane[5] = np.minimum(cols["packet_tx"] + cols["packet_rx"], 0xFFFF)
+    else:
+        plane[4] = rng.integers(0, 256, C)
+        plane[5] = rng.integers(0, 0x10000, C)
+    return torch.from_numpy(plane.view(np.int32)).to(dev)
+
+
+def sketch_state(torch, rng, dev, ent_lw=12):
+    """Non-zero CMS [4, 2^17] and entropy [4, 2^ent_lw] (the exporter
+    defaults unless ent_lw is given)."""
+    return (torch.from_numpy(rng.integers(0, 100, (4, 1 << 17)).astype(
+                np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, 100, (4, 1 << ent_lw)).astype(
+                np.int32)).to(dev))
+
+
+def check_fused(torch, rng, cuda_sketch, label, plane, n_d, seeds,
+                ent_lw=12):
+    """One fused kernel against its plain version on the same non-zero
+    state; returns fresh copies of that state for timing."""
+    n = int(n_d)
+    base_c, base_e = sketch_state(torch, rng, plane.device, ent_lw)
+    kc, ke, pc, pe = (base_c.clone(), base_e.clone(), base_c.clone(),
+                      base_e.clone())
+    getattr(cuda_sketch, label + "_cuda")(plane, n_d, kc, ke, *seeds)
+    getattr(cuda_sketch, label + "_plain")(plane, n_d, pc, pe, *seeds)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, pc) and torch.equal(ke, pe)):
+        raise AssertionError(f"{label} differs from its plain version")
+    if int((kc - base_c).sum()) != 4 * n:
+        raise AssertionError(f"{label}: CMS rows do not count n records")
+    return base_c.clone(), base_e.clone()
+
+
 def check_kernels(torch, rng, dev):
     from deepflow_tpu_torch.ops import cuda_hist, cuda_sketch, hashing
 
-    results = []
+    results, extra = [], []
 
     def record(name, source, replaces, err, k_ms, p_ms, b, lib_ms, d_ms):
         b_ms, b_by = b
@@ -155,86 +270,96 @@ def check_kernels(torch, rng, dev):
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms, "device_ms": d_ms})
 
-    C = 1 << 15
-    n = C - 777                                        # a padded batch
-    valid = torch.arange(C, device=dev) < n
-    for label, lw, planes in (("cms", 17, 1), ("entropy", 12, 2)):
-        width, d = 1 << lw, 4
-        idx = torch.from_numpy(rng.integers(0, width, (d, C)).astype(
-            np.int32)).to(dev)
-        if planes == 1:     # cms.update: the mask is the 0/1 weight
-            w = valid.to(torch.int32)
-        else:               # entropy: packets, saturating at 65535
-            w = torch.from_numpy(rng.integers(0, 1 << 24, C).astype(
-                np.int32)).to(dev) * valid.to(torch.int32)
-        got = cuda_hist.hist_cuda(idx, width, w, planes)
-        ref = cuda_hist.hist_plain(idx, width, w, planes)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"hist[{label}] differs from its plain version")
-        err = float((got - ref).abs().max())
-        flat = (idx.to(torch.int64) + torch.arange(d, device=dev)[:, None]
-                * width).reshape(-1)
-        wl = (torch.clamp(w, max=256 ** planes - 1)).expand(d, C).reshape(-1)
-        acc = torch.zeros(d * width, dtype=torch.int32, device=dev)
-        lib_ms = time_ms(torch, lambda: acc.index_add_(0, flat, wl))
-        nbytes = d * C * 4 + C * 4 + d * width * 4
-        record(f"hist[{label}]", "deepflow_tpu_torch/csrc/hist.cu",
-               "deepflow_tpu/ops/pallas_hist.py:90", err,
-               time_ms(torch, lambda: cuda_hist.hist_cuda(idx, width, w,
-                                                          planes)),
-               time_ms(torch, lambda: cuda_hist.hist_plain(idx, width, w,
-                                                           planes)),
-               bound(nbytes, HIST_OPS_PER_ITEM * d * C), lib_ms,
-               device_ms(torch, lambda: cuda_hist.hist_cuda(idx, width, w,
-                                                            planes),
-                         ("hist_kernel", "to_float_kernel", "Memset",
-                          "FillFunctor")))
+    hist_names = ("hist_smem_kernel", "hist_global_kernel")
+    for label, lw, d, planes in HIST_SHAPES:
+        width = 1 << lw
+        for skew in (False, True):
+            idx, w, mask = hist_inputs(torch, rng, dev, lw, d, planes, skew)
+            acc = check_hist(torch, rng, cuda_hist, idx, width, w, mask,
+                             planes, label + ("/zipf" if skew else ""))
+            args = (idx, width, w, mask, planes or 2)
+            k_ms = time_ms(torch, lambda: cuda_hist.hist_add_cuda(acc, *args))
+            d_ms = device_ms(torch, lambda: cuda_hist.hist_add_cuda(acc, *args),
+                             hist_names)
+            # the library call on the same in-place contract: index_add_
+            # of the clamped, saturated and masked weights into the state
+            flat = (idx.to(torch.int64).clamp(0, width - 1)
+                    + torch.arange(d, device=dev)[:, None] * width).reshape(-1)
+            wl = torch.ones_like(idx[0]) if w is None else \
+                torch.clamp(w, max=256 ** planes - 1) & (256 ** planes - 1)
+            wl = (wl * mask.to(torch.int32)).expand(d, -1).reshape(-1)
+            lib = acc.view(-1)
+            lib_ms = time_ms(torch, lambda: lib.index_add_(0, flat, wl))
+            nbytes = (idx.numel() * 4 + mask.numel()
+                      + (0 if w is None else w.numel() * 4) + 2 * d * width * 4)
+            b = bound(nbytes, HIST_OPS_PER_ITEM * idx.numel())
+            if label != "wide" and not skew:
+                p_acc = acc.clone()
+                record(f"hist[{label}]", "deepflow_tpu_torch/csrc/hist.cu",
+                       "deepflow_tpu/ops/pallas_hist.py:90", 0.0, k_ms,
+                       time_ms(torch, lambda: cuda_hist.hist_add_plain(
+                           p_acc, *args)), b, lib_ms, d_ms)
+            else:
+                log(f"  hist_add[{label}{'/zipf' if skew else ''}]: kernel "
+                    f"{k_ms * 1e3:.2f} us per call, "
+                    + ("device not measured" if d_ms is None
+                       else f"{d_ms * 1e3:.2f} us on the device")
+                    + f", bound {b[0] * 1e3:.3f} us, library "
+                    f"{lib_ms * 1e3:.2f} us, bit-equal")
+                extra.append({"name": f"hist[{label}]", "zipf": skew,
+                              "ms": k_ms, "device_ms": d_ms,
+                              "bound_ms": b[0], "library_ms": lib_ms})
 
-    cms_seeds = hashing.make_seeds(4, 0xDEC0DE, device=dev)
-    ent_seeds = hashing.make_seeds(4, 0xDEC0DE ^ 0xE27, device=dev)
-    for label, rows, C, n in (("fused_lane_hists", 4, 1 << 15, (1 << 15) - 777),
-                              ("fused_news_hists", 6, 1 << 13, (1 << 13) - 100)):
-        plane = rng.integers(0, 1 << 32, (rows, C), dtype=np.uint64).astype(
-            np.uint32)
-        if rows == 4:
-            plane[3] = (rng.integers(0, 256, C).astype(np.uint32) << 24) \
-                | rng.integers(0, 1 << 24, C).astype(np.uint32)
-        else:
-            plane[4] = rng.integers(0, 256, C)
-            plane[5] = rng.integers(0, 0x10000, C)
-        plane_d = torch.from_numpy(plane.view(np.int32)).to(dev)
-        n_d = torch.tensor([n], dtype=torch.int32, device=dev)
-        base_c = torch.from_numpy(rng.integers(0, 100, (4, 1 << 17)).astype(
-            np.int32)).to(dev)
-        base_e = torch.from_numpy(rng.integers(0, 100, (4, 1 << 12)).astype(
-            np.int32)).to(dev)
-        kc, ke, pc, pe = (base_c.clone(), base_e.clone(), base_c.clone(),
-                          base_e.clone())
+    seeds = (hashing.make_seeds(4, 0xDEC0DE, device=dev),
+             hashing.make_seeds(4, 0xDEC0DE ^ 0xE27, device=dev))
+    for label, make, C, n, line in (
+            ("fused_lane_hists", lane_plane, C_LANE, C_LANE - 777, "253"),
+            ("fused_news_hists", news_plane, C_NEWS, C_NEWS - 100, "277")):
         cuda_fn = getattr(cuda_sketch, label + "_cuda")
         plain_fn = getattr(cuda_sketch, label + "_plain")
-        cuda_fn(plane_d, n_d, kc, ke, cms_seeds, ent_seeds)
-        plain_fn(plane_d, n_d, pc, pe, cms_seeds, ent_seeds)
-        torch.cuda.synchronize()
-        if not (torch.equal(kc, pc) and torch.equal(ke, pe)):
-            raise AssertionError(f"{label} differs from its plain version")
-        if int((kc - base_c).sum()) != 4 * n:
-            raise AssertionError(f"{label}: CMS rows do not count n records")
-        err = max(int((kc - pc).abs().max()), int((ke - pe).abs().max()))
-        state_bytes = (4 << 17) * 4 + (4 << 12) * 4
-        nbytes = rows * C * 4 + 4 + 2 * state_bytes
-        record(label, "deepflow_tpu_torch/csrc/fused_sketch.cu",
-               "deepflow_tpu/ops/pallas_sketch.py:"
-               + ("253" if rows == 4 else "277"), float(err),
-               time_ms(torch, lambda: cuda_fn(plane_d, n_d, kc, ke, cms_seeds,
-                                              ent_seeds)),
-               time_ms(torch, lambda: plain_fn(plane_d, n_d, pc, pe,
-                                               cms_seeds, ent_seeds)),
-               bound(nbytes, n * FUSED_OPS_PER_RECORD), None,
-               device_ms(torch, lambda: cuda_fn(plane_d, n_d, kc, ke,
-                                                cms_seeds, ent_seeds),
-                         ("fused_hists_kernel",)))
-    return results
+        n_d = torch.tensor([n], dtype=torch.int32, device=dev)
+        for skew in (False, True):
+            plane = make(torch, rng, dev, C, skew)
+            kc, ke = check_fused(torch, rng, cuda_sketch, label, plane, n_d,
+                                 seeds)
+            k_ms = time_ms(torch, lambda: cuda_fn(plane, n_d, kc, ke, *seeds))
+            d_ms = device_ms(torch, lambda: cuda_fn(plane, n_d, kc, ke,
+                                                    *seeds),
+                             ("fused_hists_kernel",))
+            state_bytes = (4 << 17) * 4 + (4 << 12) * 4
+            b = bound(plane.numel() * 4 + 4 + 2 * state_bytes,
+                      n * FUSED_OPS_PER_RECORD)
+            if not skew:
+                pc, pe = kc.clone(), ke.clone()
+                record(label, "deepflow_tpu_torch/csrc/fused_sketch.cu",
+                       "deepflow_tpu/ops/pallas_sketch.py:" + line, 0.0, k_ms,
+                       time_ms(torch, lambda: plain_fn(plane, n_d, pc, pe,
+                                                       *seeds)),
+                       b, None, d_ms)
+            else:
+                log(f"  {label}/zipf: kernel {k_ms * 1e3:.2f} us per call, "
+                    + ("device not measured" if d_ms is None
+                       else f"{d_ms * 1e3:.2f} us on the device")
+                    + ", bit-equal")
+                extra.append({"name": label, "zipf": True, "ms": k_ms,
+                              "device_ms": d_ms, "bound_ms": b[0],
+                              "library_ms": None})
+
+    # launch shapes the main path does not take, checked but not timed:
+    # hist's widest block-private row, and the lane kernel's widest shared
+    # copy of the entropy rows and rows too wide for one
+    idx, w, mask = hist_inputs(torch, rng, dev, 15, 4, 2, True)
+    check_hist(torch, rng, cuda_hist, idx, 1 << 15, w, mask, 2, "2^15")
+    log("  hist_add[4 x 2^15/zipf]: bit-equal")
+    n_d = torch.tensor([C_LANE - 777], dtype=torch.int32, device=dev)
+    for ent_lw in (13, 16):
+        for skew in (False, True):
+            plane = lane_plane(torch, rng, dev, C_LANE, skew)
+            check_fused(torch, rng, cuda_sketch, "fused_lane_hists", plane,
+                        n_d, seeds, ent_lw)
+        log(f"  fused_lane_hists, entropy rows of 2^{ent_lw} bins: "
+            "bit-equal (uniform and Zipf)")
+    return results, extra
 
 
 # -- phase 3: the slice ------------------------------------------------------
@@ -348,7 +473,7 @@ def run_paths(torch, runners, windows):
     records/s and launches."""
     from deepflow_tpu_torch.ops import cuda_hist, cuda_sketch
 
-    counters = {"hist": cuda_hist.hist_cuda,
+    counters = {"hist": cuda_hist.hist_add_cuda,
                 "fused_lane_hists": cuda_sketch.fused_lane_hists_cuda,
                 "fused_news_hists": cuda_sketch.fused_news_hists_cuda}
     records = sum(len(w["ip_src"]) for w in windows)
@@ -379,6 +504,12 @@ def check_slice(torch, dev, rng, args, card):
     windows = make_windows(rng, 2, args.window_records)
     runners = path_runners(torch, dev, cfg, batch_rows, chunk=1 << 16)
     paths = run_paths(torch, runners, windows)
+    # full-row update: one hist launch per histogram, Count-Min and entropy
+    batches = sum(-(-len(w["ip_src"]) // batch_rows) for w in windows)
+    hist_launches = paths["full_row_update"]["launches"]["hist"]
+    if hist_launches != 2 * batches:
+        raise AssertionError(f"full_row_update: {hist_launches} hist launches "
+                             f"for {batches} batches, not 2 per batch")
     names = list(paths)
     ref = paths[names[0]]
     for name in names[1:]:
@@ -435,6 +566,40 @@ def profile_paths(torch, runners, windows):
         for k, t, calls in out[name]["top_torch_ops"]:
             log(f"    {t:9.3f} ms device, {calls:6d} calls  {k}")
     return out
+
+
+def profile_full_row_update(torch, dev, rng):
+    """The device kernels of one full-row `update` batch at the exporter
+    defaults (torch.profiler), by name and call count: the Count-Min and
+    entropy histograms must be one hist launch each, with no float
+    conversion and no fill of a d x width buffer."""
+    from torch.profiler import ProfilerActivity, profile
+    from deepflow_tpu_torch.models import flow_suite
+
+    cfg = flow_suite.FlowSuiteConfig()
+    C = 1 << 15
+    state = flow_suite.init(cfg, dev)
+    cols = make_windows(rng, 1, C)[0]
+    part = {k: torch.from_numpy(v.view(np.int32)).to(dev)
+            for k, v in cols.items()}
+    mask = torch.arange(C, device=dev) < C - 777
+    state = flow_suite.update(state, part, mask, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flow_suite.update(state, part, mask, cfg)
+        torch.cuda.synchronize()
+    counts = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            counts[evt.key[:100]] = counts.get(evt.key[:100], 0) + evt.count
+    hist = sum(c for k, c in counts.items() if "hist_" in k)
+    bad = [k for k in counts if "to_float" in k]
+    fills = [f"{k} x{c}" for k, c in counts.items() if "fill" in k.lower()]
+    log(f"  full-row update, one batch: {sum(counts.values())} device "
+        f"kernels, {hist} hist launches; fills: {', '.join(fills) or 'none'}")
+    if hist != 2 or bad:
+        raise AssertionError(f"full-row update kernels: {counts}")
+    return sorted(counts.items(), key=lambda kv: -kv[1])
 
 
 def check_small_against_cpu(torch, dev, rng):
@@ -498,7 +663,7 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     log("phase 2: kernels against their plain versions (bit-exact)")
-    kernels = check_kernels(torch, rng, dev)
+    kernels, extra = check_kernels(torch, rng, dev)
 
     log("phase 3: the slice at the exporter defaults")
     paths, runners, windows = check_slice(torch, dev, rng, args, card)
@@ -515,11 +680,13 @@ def main() -> int:
 
     log("phase 5: one window of each path under torch.profiler")
     profiles = profile_paths(torch, runners, windows[:1])
+    update_kernels = profile_full_row_update(torch, dev, rng)
 
     log(json.dumps({"paths": {
         name: {"records_per_s": p["records_per_s"], "recall": p["recall"],
                "launches": p["launches"], "profile": profiles[name]}
-        for name, p in paths.items()}, "card": card}))
+        for name, p in paths.items()}, "kernel_inputs": extra,
+        "full_row_update_kernels": update_kernels, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

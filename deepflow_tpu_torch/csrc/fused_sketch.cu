@@ -7,7 +7,7 @@
 // prologue: a (4, C) packed-lane plane or a (6, C) dict-wire news plane.
 //
 // Per record j < n (n is read from device memory, so the caller never
-// syncs to learn it; records j >= n carry weight 0 and are skipped):
+// syncs to learn it; records j >= n count nothing):
 //   unpack   ports, proto and packets from the plane words;
 //   fold     the 5-tuple into the flow key (utils/u32.fold_columns);
 //   CMS      d rows, bucket(fkey, mult_r, salt_r) += 1;
@@ -19,13 +19,25 @@
 //
 // Bound: bytes. The plane is read once (16 B or 24 B per record) and the
 // state is read and written once (CMS d x 2^cms_lw int32, entropy
-// 4 x 2^ent_lw int32). The CMS adds go straight to global memory (2 MiB at
-// the defaults, L2-resident). The grid is (record chunks, 4): block
-// (x, f) counts entropy feature f into a private shared-memory copy of
-// its row (16 KiB at the defaults), merged with one global atomic per
-// non-zero bin, and the Count-Min rows f, f+4, ...; the plane is read
-// from L2 by the four blocks of a chunk. Loads are coalesced along C:
-// thread j reads column j of each plane row.
+// 4 x 2^ent_lw int32). Design:
+// - one thread per record: it loads the record once (coalesced along C:
+//   thread j reads column j of each plane row), folds the 5-tuple once and
+//   issues all d Count-Min adds and all 4 entropy adds;
+// - the Count-Min adds are atomics (RED) into the L2-resident state
+//   (2 MiB at the defaults);
+// - the 4 entropy rows (64 KiB at the defaults) are counted in a copy in
+//   each block's shared memory and merged into `ent` once per block, one
+//   atomic (RED) per non-zero bin: a skewed stream's hot entropy bins (a
+//   few service ports) stay on the SM. Batches of at most
+//   kGlobalEntropyRecords records, too small to pay for zeroing and
+//   merging the copy, and entropy rows too wide for one block's shared
+//   memory add straight into `ent` instead. Thread-block clusters sharing
+//   one copy in distributed shared memory lost to both on the H100, on
+//   uniform and Zipf(1.1) planes (PERF.md);
+// - one block per kThreads records, at most one block per SM (a block
+//   then loops), sized from C and the SM count;
+// - a thread loads its first record before the shared copy is zeroed,
+//   so the load's latency overlaps the zeroing and the barrier.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,10 +45,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRecordsPerBlock = 2048;
 constexpr int kMaxCmsDepth = 16;
+constexpr int kMaxLog2Width = 27;   // keeps (row << lw) + bin in an int
 constexpr int kEntFeatures = 4;
-constexpr int kSmemMaxBytes = 96 * 1024;
+constexpr int kMaxSmemBytes = 128 * 1024;   // the widest shared copy
+// On the card global entropy atomics beat the shared copy at 8192
+// records and lost 1.8x to it on Zipf planes at 32768 (PERF.md).
+constexpr int kGlobalEntropyRecords = 8192;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -91,44 +106,43 @@ __device__ __forceinline__ Record load_record(const uint32_t* __restrict__ p,
 }
 
 // The shared histogram half (pallas_sketch._hist_body): one definition
-// for both wires. `part` (the block's y index, one of kEntFeatures) picks
-// the entropy feature this block counts and the Count-Min rows it owns
-// (part, part + kEntFeatures, ...).
-__device__ __forceinline__ void hist_body(const Record& r, int part,
+// for both wires. `ent_rows` is the block's shared copy of the 4 entropy
+// rows, or `ent` itself.
+__device__ __forceinline__ void hist_body(const Record& r,
                                           const uint32_t* s_cms_seeds,
                                           int cms_d, int cms_lw,
                                           const uint32_t* s_ent_seeds,
                                           int ent_lw, int32_t wmax,
                                           int32_t* __restrict__ cms,
-                                          int32_t* ent_row) {
-  if (part < cms_d) {
-    uint32_t h = kGolden;
-    h = fold_step(h, r.ip_src);
-    h = fold_step(h, r.ip_dst);
-    h = fold_step(h, r.port_src);
-    h = fold_step(h, r.port_dst);
-    h = fold_step(h, r.proto);
-    const int cms_w = 1 << cms_lw;
-    for (int row = part; row < cms_d; row += kEntFeatures) {
-      const uint32_t b =
-          bucket(h, s_cms_seeds[2 * row], s_cms_seeds[2 * row + 1], cms_lw);
-      atomicAdd(cms + row * cms_w + (int)b, 1);
-    }
+                                          int32_t* ent_rows) {
+  uint32_t h = kGolden;
+  h = fold_step(h, r.ip_src);
+  h = fold_step(h, r.ip_dst);
+  h = fold_step(h, r.port_src);
+  h = fold_step(h, r.port_dst);
+  h = fold_step(h, r.proto);
+  for (int row = 0; row < cms_d; ++row) {
+    const uint32_t b =
+        bucket(h, s_cms_seeds[2 * row], s_cms_seeds[2 * row + 1], cms_lw);
+    atomicAdd(cms + (row << cms_lw) + (int)b, 1);
   }
   const int32_t wm = min(r.pkts, wmax) & wmax;
   if (wm == 0) return;
-  const uint32_t feat = part == 0 ? r.ip_src
-                        : part == 1 ? r.ip_dst
-                        : part == 2 ? r.port_src : r.port_dst;
-  const uint32_t b =
-      bucket(feat, s_ent_seeds[2 * part], s_ent_seeds[2 * part + 1], ent_lw);
-  atomicAdd(ent_row + (int)b, wm);
+  const uint32_t feats[kEntFeatures] = {r.ip_src, r.ip_dst, r.port_src,
+                                        r.port_dst};
+#pragma unroll
+  for (int f = 0; f < kEntFeatures; ++f) {
+    const uint32_t b =
+        bucket(feats[f], s_ent_seeds[2 * f], s_ent_seeds[2 * f + 1], ent_lw);
+    atomicAdd(ent_rows + (f << ent_lw) + (int)b, wm);
+  }
 }
 
-// grid (chunks, kEntFeatures): block (x, part) takes records
-// [x*kRecordsPerBlock, ...) below n, entropy feature `part` (privatized in
-// shared memory) and the Count-Min rows of `part`.
-template <bool kNews, bool kSharedEnt>
+// grid (blocks): block b takes records [b*per, (b+1)*per) below n. kLocal:
+// the block counts the entropy adds into its own copy of the 4 rows
+// (dynamic shared memory) and merges it into `ent`; otherwise they go
+// straight into `ent`.
+template <bool kNews, bool kLocal>
 __global__ void __launch_bounds__(kThreads)
 fused_hists_kernel(const uint32_t* __restrict__ plane, int C,
                    const int32_t* __restrict__ n_ptr,
@@ -136,71 +150,108 @@ fused_hists_kernel(const uint32_t* __restrict__ plane, int C,
                    int cms_lw, const uint32_t* __restrict__ ent_seeds,
                    int ent_lw, int32_t wmax, int32_t* __restrict__ cms,
                    int32_t* __restrict__ ent) {
-  extern __shared__ int32_t s_ent[];
+  extern __shared__ int4 s_raw[];
   __shared__ uint32_t s_cms_seeds[2 * kMaxCmsDepth];
   __shared__ uint32_t s_ent_seeds[2 * kEntFeatures];
   int n = __ldg(n_ptr);
   n = n > C ? C : n;
-  const int begin = blockIdx.x * kRecordsPerBlock;
-  if (begin >= n) return;               // n is the same for the whole block
-  const int end = min(n, begin + kRecordsPerBlock);
-  const int part = blockIdx.y;
-  const int ent_w = 1 << ent_lw;
+  const int per = (C + gridDim.x - 1) / gridDim.x;
+  const int begin = blockIdx.x * per;
+  if (begin >= n) return;   // the whole block leaves together
+  const int end = min(n, begin + per);
+
+  const int quads = kLocal ? 1 << ent_lw : 0;   // 4 rows in int4s
+  const int first = begin + threadIdx.x;
+  Record r0;
+  if (first < end) r0 = load_record<kNews>(plane, C, first);
   for (int i = threadIdx.x; i < 2 * cms_d; i += blockDim.x)
     s_cms_seeds[i] = cms_seeds[i];
   for (int i = threadIdx.x; i < 2 * kEntFeatures; i += blockDim.x)
     s_ent_seeds[i] = ent_seeds[i];
-  if (kSharedEnt)
-    for (int i = threadIdx.x; i < ent_w; i += blockDim.x) s_ent[i] = 0;
+  for (int i = threadIdx.x; i < quads; i += blockDim.x)
+    s_raw[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
 
-  int32_t* ent_row = kSharedEnt ? s_ent : ent + part * ent_w;
-  for (int j = begin + threadIdx.x; j < end; j += blockDim.x) {
-    const Record r = load_record<kNews>(plane, C, j);
-    hist_body(r, part, s_cms_seeds, cms_d, cms_lw, s_ent_seeds, ent_lw, wmax,
-              cms, ent_row);
+  int32_t* ent_rows = kLocal ? reinterpret_cast<int32_t*>(s_raw) : ent;
+  if (first < end)
+    hist_body(r0, s_cms_seeds, cms_d, cms_lw, s_ent_seeds, ent_lw, wmax, cms,
+              ent_rows);
+  for (int j = first + blockDim.x; j < end; j += blockDim.x)
+    hist_body(load_record<kNews>(plane, C, j), s_cms_seeds, cms_d, cms_lw,
+              s_ent_seeds, ent_lw, wmax, cms, ent_rows);
+  if (!kLocal) return;
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < quads; i += blockDim.x) {
+    const int4 v = s_raw[i];
+    int32_t* p = ent + 4 * i;
+    if (v.x) atomicAdd(p, v.x);
+    if (v.y) atomicAdd(p + 1, v.y);
+    if (v.z) atomicAdd(p + 2, v.z);
+    if (v.w) atomicAdd(p + 3, v.w);
   }
-  if (kSharedEnt) {
-    __syncthreads();
-    int32_t* dst = ent + part * ent_w;
-    for (int i = threadIdx.x; i < ent_w; i += blockDim.x) {
-      const int32_t v = s_ent[i];
-      if (v != 0) atomicAdd(dst + i, v);
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 132;
+  }
+  return count;
+}
+
+template <bool kNews, bool kLocal>
+cudaError_t launch_with(const void* plane, int C, const void* n_ptr,
+                        const void* cms_seeds, int cms_d, int cms_lw,
+                        const void* ent_seeds, int ent_lw, int wmax,
+                        void* cms, void* ent, cudaStream_t s) {
+  const size_t smem =
+      kLocal ? ((size_t)kEntFeatures << ent_lw) * sizeof(int32_t) : 0;
+  if (kLocal) {
+    static bool smem_set = false;   // the attribute, once per process
+    if (!smem_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fused_hists_kernel<kNews, kLocal>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+      if (err != cudaSuccess) return err;
+      smem_set = true;
     }
   }
+  int blocks = (C + kThreads - 1) / kThreads;
+  blocks = blocks > sm_count() ? sm_count() : blocks;
+  fused_hists_kernel<kNews, kLocal><<<blocks, kThreads, smem, s>>>(
+      static_cast<const uint32_t*>(plane), C,
+      static_cast<const int32_t*>(n_ptr),
+      static_cast<const uint32_t*>(cms_seeds), cms_d, cms_lw,
+      static_cast<const uint32_t*>(ent_seeds), ent_lw, (int32_t)wmax,
+      static_cast<int32_t*>(cms), static_cast<int32_t*>(ent));
+  return cudaGetLastError();
 }
 
 template <bool kNews>
 int launch(const void* plane, int C, const void* n_ptr, const void* cms_seeds,
            int cms_d, int cms_lw, const void* ent_seeds, int ent_lw, int wmax,
            void* cms, void* ent, void* stream) {
-  if (cms_d < 1 || cms_d > kMaxCmsDepth) return (int)cudaErrorInvalidValue;
+  if (cms_d < 1 || cms_d > kMaxCmsDepth || C < 1 || ent_lw < 1 ||
+      cms_lw < 1 || ent_lw > kMaxLog2Width || cms_lw > kMaxLog2Width)
+    return (int)cudaErrorInvalidValue;
+  const bool local =
+      C > kGlobalEntropyRecords &&
+      ((size_t)kEntFeatures << ent_lw) * sizeof(int32_t) <=
+          (size_t)kMaxSmemBytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(1 << ent_lw) * sizeof(int32_t);
-  int chunks = (C + kRecordsPerBlock - 1) / kRecordsPerBlock;
-  if (chunks < 1) chunks = 1;
-  const dim3 blocks(chunks, kEntFeatures);
-  const uint32_t* p = static_cast<const uint32_t*>(plane);
-  const int32_t* np = static_cast<const int32_t*>(n_ptr);
-  const uint32_t* cs = static_cast<const uint32_t*>(cms_seeds);
-  const uint32_t* es = static_cast<const uint32_t*>(ent_seeds);
-  int32_t* c = static_cast<int32_t*>(cms);
-  int32_t* e = static_cast<int32_t*>(ent);
-  if (smem <= (size_t)kSmemMaxBytes) {
-    static bool attr_set = false;
-    if (!attr_set) {
-      cudaFuncSetAttribute(fused_hists_kernel<kNews, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemMaxBytes);
-      attr_set = true;
-    }
-    fused_hists_kernel<kNews, true><<<blocks, kThreads, smem, s>>>(
-        p, C, np, cs, cms_d, cms_lw, es, ent_lw, wmax, c, e);
-  } else {
-    fused_hists_kernel<kNews, false><<<blocks, kThreads, 0, s>>>(
-        p, C, np, cs, cms_d, cms_lw, es, ent_lw, wmax, c, e);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      local ? launch_with<kNews, true>(plane, C, n_ptr, cms_seeds, cms_d,
+                                       cms_lw, ent_seeds, ent_lw, wmax, cms,
+                                       ent, s)
+            : launch_with<kNews, false>(plane, C, n_ptr, cms_seeds, cms_d,
+                                        cms_lw, ent_seeds, ent_lw, wmax, cms,
+                                        ent, s);
+  const cudaError_t last = cudaGetLastError();   // consumed either way
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // namespace

@@ -1,94 +1,206 @@
-// Batched histogram for Hopper (sm_90a): idx [d, n] int32 -> [d, width]
-// float32 counts, weights [n] shared across the d rows.
+// Batched histogram for Hopper (sm_90a), added in place:
+// acc[r, clamp(idx[r, j])] += weight(j) for r < d, j < n, acc [d, width]
+// int32, idx [d, n] int32, one weight per lane shared across the d rows.
 //
 // Replaces deepflow_tpu/ops/pallas_hist.py `hist_pallas` (the one-hot
 // bf16 matmul into an f32 VMEM accumulator). A scatter-add has no dense
 // form worth keeping on Hopper: this kernel counts with int32 atomics,
-// exact at any count, and converts to float32 at the end as the
-// reference's `hist` returns.
+// exact at any count, straight into the caller's int32 state.
 //
-// Semantics (mxu_hist.hist): indices clamp to [0, width); a weight is
+// Semantics (state + mxu_hist.hist_masked): indices clamp to [0, width);
+// a lane whose mask byte is 0 adds nothing; otherwise its weight is
 // min(w, wmax) & wmax with wmax = 256**planes - 1 (the value the
-// reference's base-256 digit planes carry); no weights = 1 per lane.
+// reference's base-256 digit planes carry), or 1 without weights.
 //
-// Bound: bytes. idx is read once (d*n*4 B), weights once (n*4 B), the
-// output written once (d*width*4 B). Where one row fits in kSmemMaxBytes
-// (entropy: 2^12 bins = 16 KiB), each block takes one row and a chunk of
-// kLanesPerBlock lanes, counts into a private copy of that row in shared
-// memory and adds its non-zero bins to global memory; wider rows
-// (Count-Min: 2^17 bins = 512 KiB) take atomics straight into global
-// memory, which the 50 MB L2 absorbs.
+// Bound: bytes. idx is read once (d*n*4 B), the weights or the mask once,
+// the state read and written once (2*d*width*4 B). One launch does it,
+// adding straight into the int32 state:
+//
+// - Rows that fit one block's shared memory (the entropy width, 2^12
+//   bins = 16 KiB): each block keeps a private copy of its row, counts
+//   kLanesPerSmemBlock lanes into it with shared-memory atomics (a skewed
+//   stream's hot bins stay on the SM) and adds its non-zero bins into
+//   `acc` with one atomic (RED) each.
+// - Wider rows (the Count-Min width 2^17, DDSketch's 2^19): atomics
+//   straight into `acc`, which the 50 MB L2 absorbs, kLanesPerGlobalBlock
+//   lanes per block.
+//
+// Thread-block clusters holding a row in distributed shared memory were
+// measured and lost to both paths at both main-path widths on the H100
+// (PERF.md): a cluster launch and its barriers cost ~1 us more than a
+// plain block, and a remote add issues no faster than a global one.
+//
+// Every path loads 16 bytes of indices at a time (the unaligned head and
+// tail lane by lane), and a thread loads its first lanes before the
+// shared copy is zeroed, so the loads' latency overlaps the zeroing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemMaxBytes = 96 * 1024;    // one row's histogram
-constexpr int kLanesPerBlock = 4096;
+constexpr int kThreads = 512;
+constexpr int kMaxSmemBytes = 128 * 1024;   // the widest block-private row
+// lanes per block: the best of the launch-shape sweep (PERF.md)
+constexpr int kLanesPerSmemBlock = 2048;
+constexpr int kLanesPerGlobalBlock = 1024;
+constexpr int kPrefetch = 2;   // quads of lanes a thread loads up front
 
-__device__ __forceinline__ int32_t load_weight(const int32_t* w, int lane,
-                                               int32_t wmax) {
-  if (w == nullptr) return 1;
-  return min(__ldg(w + lane), wmax) & wmax;
+struct Weights {
+  const int32_t* w;      // [n] or null (1 per lane)
+  const uint8_t* mask;   // [n] bool bytes or null (every lane)
+  int32_t wmax;
+  __device__ __forceinline__ int32_t operator()(int lane) const {
+    if (mask != nullptr && __ldg(mask + lane) == 0) return 0;
+    if (w == nullptr) return 1;
+    return min(__ldg(w + lane), wmax) & wmax;
+  }
+};
+
+__device__ __forceinline__ int clamp_bin(int b, int width) {
+  return b < 0 ? 0 : (b >= width ? width - 1 : b);
 }
 
-// Histograms that fit in shared memory: grid (chunks, d), block (x, row)
-// counts lanes [x*kLanesPerBlock, ...) of one row into a private copy of
-// that row's histogram, then adds its non-zero bins to global memory.
+// Lanes [lo, hi) of one row: an unaligned head (under 4 lanes), `nvec`
+// aligned quads from `vlo` read as int4, a tail (under 4 lanes) at `tlo`.
+struct Lanes {
+  int lo, hi, head, vlo, nvec, tlo;
+};
+
+__device__ __forceinline__ Lanes lanes_of(const int32_t* ridx, int lo,
+                                          int hi) {
+  Lanes l;
+  l.lo = lo;
+  l.hi = hi;
+  l.head = lo >= hi ? 0 : min(
+      (int)(((16 - ((uintptr_t)(ridx + lo) & 15)) & 15) >> 2), hi - lo);
+  l.vlo = lo + l.head;
+  l.nvec = lo >= hi ? 0 : (hi - l.vlo) >> 2;
+  l.tlo = l.vlo + 4 * l.nvec;
+  return l;
+}
+
+// Four lanes' bins and weights, loaded.
+struct Quad {
+  int b[4];
+  int32_t w[4];
+};
+
+__device__ __forceinline__ Quad load_quad(const int32_t* ridx, const Lanes& l,
+                                          int i, int width,
+                                          const Weights& wf) {
+  const int4 q = __ldg(reinterpret_cast<const int4*>(ridx + l.vlo) + i);
+  const int j = l.vlo + 4 * i;
+  Quad r;
+  r.b[0] = clamp_bin(q.x, width);
+  r.b[1] = clamp_bin(q.y, width);
+  r.b[2] = clamp_bin(q.z, width);
+  r.b[3] = clamp_bin(q.w, width);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r.w[k] = wf(j + k);
+  return r;
+}
+
+// Adds into a row: the block's shared copy or the row of `acc`.
+struct RowSink {
+  int32_t* row;
+  __device__ __forceinline__ void operator()(int bin, int32_t v) const {
+    atomicAdd(row + bin, v);
+  }
+};
+
+__device__ __forceinline__ void add_quad(const Quad& q, const RowSink& sink) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (q.w[k] != 0) sink(q.b[k], q.w[k]);
+}
+
+// Counts the quads from `first` on, then the head and tail lanes (warp 0).
+__device__ __forceinline__ void count_rest(const int32_t* __restrict__ ridx,
+                                           const Lanes& l, int first,
+                                           int width, const Weights& wf,
+                                           const RowSink& sink) {
+  for (int i = first + threadIdx.x; i < l.nvec; i += blockDim.x)
+    add_quad(load_quad(ridx, l, i, width, wf), sink);
+  int j = -1;
+  if (threadIdx.x < l.head) j = l.lo + threadIdx.x;
+  else if (threadIdx.x >= 4 && threadIdx.x < 4 + l.hi - l.tlo)
+    j = l.tlo + threadIdx.x - 4;
+  if (j >= 0) {
+    const int32_t wt = wf(j);
+    if (wt != 0) sink(clamp_bin(__ldg(ridx + j), width), wt);
+  }
+}
+
+// Lane range [lo, hi) of chunk `c` when a row's n lanes are cut into
+// `chunks` pieces of a multiple of 4 lanes.
+__device__ __forceinline__ void chunk_range(int n, int chunks, int c,
+                                            int* lo, int* hi) {
+  const int per = (((n + chunks - 1) / chunks) + 3) & ~3;
+  *lo = min(n, c * per);
+  *hi = min(n, *lo + per);
+}
+
+// grid (chunks, d): block x of row y counts lane chunk x into its own
+// copy of the row, then adds the copy's non-zero bins into acc.
 __global__ void __launch_bounds__(kThreads)
-hist_smem_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ w,
-                 int32_t* __restrict__ acc, int n, int width, int32_t wmax) {
-  extern __shared__ int32_t smem[];
-  const int begin = blockIdx.x * kLanesPerBlock;
-  if (begin >= n) return;
-  const int end = min(n, begin + kLanesPerBlock);
+hist_smem_kernel(const int32_t* __restrict__ idx, Weights wf,
+                 int32_t* __restrict__ acc, int n, int width) {
+  extern __shared__ int4 smem4[];
+  int32_t* smem = reinterpret_cast<int32_t*>(smem4);
   const int row = blockIdx.y;
-  for (int i = threadIdx.x; i < width; i += blockDim.x) smem[i] = 0;
-  __syncthreads();
   const int32_t* ridx = idx + (long long)row * n;
-  for (int lane = begin + threadIdx.x; lane < end; lane += blockDim.x) {
-    const int32_t wt = load_weight(w, lane, wmax);
-    if (wt == 0) continue;
-    int b = __ldg(ridx + lane);
-    b = b < 0 ? 0 : (b >= width ? width - 1 : b);
-    atomicAdd(smem + b, wt);
+  int lo, hi;
+  chunk_range(n, gridDim.x, blockIdx.x, &lo, &hi);
+  const Lanes l = lanes_of(ridx, lo, hi);
+
+  Quad pre[kPrefetch];
+#pragma unroll
+  for (int k = 0; k < kPrefetch; ++k)
+    if (threadIdx.x + k * blockDim.x < l.nvec)
+      pre[k] = load_quad(ridx, l, threadIdx.x + k * blockDim.x, width, wf);
+  const bool vec = (width & 3) == 0;
+  if (vec) {
+    for (int i = threadIdx.x; i < width / 4; i += blockDim.x)
+      smem4[i] = make_int4(0, 0, 0, 0);
+  } else {
+    for (int i = threadIdx.x; i < width; i += blockDim.x) smem[i] = 0;
   }
   __syncthreads();
-  int32_t* racc = acc + (long long)row * width;
-  for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    const int32_t v = smem[i];
-    if (v != 0) atomicAdd(racc + i, v);
+
+  const RowSink sink{smem};
+#pragma unroll
+  for (int k = 0; k < kPrefetch; ++k)
+    if (threadIdx.x + k * blockDim.x < l.nvec) add_quad(pre[k], sink);
+  count_rest(ridx, l, kPrefetch * blockDim.x, width, wf, sink);
+  __syncthreads();
+
+  int32_t* dst = acc + (long long)row * width;
+  if (vec) {
+    for (int i = threadIdx.x; i < width / 4; i += blockDim.x) {
+      const int4 s = smem4[i];
+      int32_t* p = dst + 4 * i;
+      if (s.x) atomicAdd(p, s.x);
+      if (s.y) atomicAdd(p + 1, s.y);
+      if (s.z) atomicAdd(p + 2, s.z);
+      if (s.w) atomicAdd(p + 3, s.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < width; i += blockDim.x)
+      if (smem[i]) atomicAdd(dst + i, smem[i]);
   }
 }
 
-// Wider histograms: grid-stride over the d*n (row, lane) items, atomics
-// straight into global memory.
+// grid (chunks, d): block x of row y counts lane chunk x into acc.
 __global__ void __launch_bounds__(kThreads)
-hist_global_kernel(const int32_t* __restrict__ idx,
-                   const int32_t* __restrict__ w, int32_t* __restrict__ acc,
-                   int d, int n, int width, int32_t wmax) {
-  const long long total = (long long)d * n;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const int row = (int)(t / n);
-    const int lane = (int)(t - (long long)row * n);
-    const int32_t wt = load_weight(w, lane, wmax);
-    if (wt == 0) continue;
-    int b = __ldg(idx + t);
-    b = b < 0 ? 0 : (b >= width ? width - 1 : b);
-    atomicAdd(acc + (long long)row * width + b, wt);
-  }
-}
-
-__global__ void to_float_kernel(const int32_t* __restrict__ acc,
-                                float* __restrict__ out, long long m) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-       i += stride)
-    out[i] = (float)acc[i];
+hist_global_kernel(const int32_t* __restrict__ idx, Weights wf,
+                   int32_t* __restrict__ acc, int n, int width) {
+  const int row = blockIdx.y;
+  const int32_t* ridx = idx + (long long)row * n;
+  int lo, hi;
+  chunk_range(n, gridDim.x, blockIdx.x, &lo, &hi);
+  count_rest(ridx, lanes_of(ridx, lo, hi), 0, width, wf,
+             RowSink{acc + (long long)row * width});
 }
 
 int sm_count() {
@@ -102,41 +214,44 @@ int sm_count() {
   return count;
 }
 
+cudaError_t launch(const int32_t* idx, const Weights& wf, int32_t* acc,
+                   int d, int n, int width, cudaStream_t s) {
+  const size_t row_bytes = (size_t)width * sizeof(int32_t);
+  if (row_bytes <= (size_t)kMaxSmemBytes) {
+    static bool smem_set = false;   // the attribute, once per process
+    if (!smem_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          hist_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMaxSmemBytes);
+      if (err != cudaSuccess) return err;
+      smem_set = true;
+    }
+    const int chunks = (n + kLanesPerSmemBlock - 1) / kLanesPerSmemBlock;
+    hist_smem_kernel<<<dim3(chunks, d), kThreads, row_bytes, s>>>(
+        idx, wf, acc, n, width);
+    return cudaGetLastError();
+  }
+  int chunks = (n + kLanesPerGlobalBlock - 1) / kLanesPerGlobalBlock;
+  const int cap = (4 * sm_count() + d - 1) / d;
+  chunks = chunks > cap ? cap : chunks;
+  hist_global_kernel<<<dim3(chunks, d), kThreads, 0, s>>>(idx, wf, acc, n,
+                                                          width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// acc: [d*width] int32, zeroed by the caller; out: [d*width] float32.
-// w may be null (unweighted). Returns cudaGetLastError() after the launches.
-extern "C" int df_hist(const void* idx, const void* w, void* acc, void* out,
-                       int d, int n, int width, int wmax, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)d * n;
-  const long long bins = (long long)d * width;
-  const size_t smem = (size_t)width * sizeof(int32_t);
-  if (total > 0) {
-    if (smem <= (size_t)kSmemMaxBytes) {
-      static bool attr_set = false;
-      if (!attr_set) {
-        cudaFuncSetAttribute(hist_smem_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemMaxBytes);
-        attr_set = true;
-      }
-      const dim3 grid((n + kLanesPerBlock - 1) / kLanesPerBlock, d);
-      hist_smem_kernel<<<grid, kThreads, smem, s>>>(
-          static_cast<const int32_t*>(idx), static_cast<const int32_t*>(w),
-          static_cast<int32_t*>(acc), n, width, wmax);
-    } else {
-      long long blocks = (total + kThreads - 1) / kThreads;
-      if (blocks > 8LL * sm_count()) blocks = 8LL * sm_count();
-      hist_global_kernel<<<(int)blocks, kThreads, 0, s>>>(
-          static_cast<const int32_t*>(idx), static_cast<const int32_t*>(w),
-          static_cast<int32_t*>(acc), d, n, width, wmax);
-    }
-  }
-  long long cblocks = (bins + kThreads - 1) / kThreads;
-  if (cblocks > 8LL * sm_count()) cblocks = 8LL * sm_count();
-  if (cblocks > 0)
-    to_float_kernel<<<(int)cblocks, kThreads, 0, s>>>(
-        static_cast<const int32_t*>(acc), static_cast<float*>(out), bins);
-  return (int)cudaGetLastError();
+// acc: [d, width] int32, added into in place; idx: [d, n] int32; w: [n]
+// int32 or null; mask: [n] bool bytes or null; wmax = 256**planes - 1.
+// Returns the launch's CUDA error (0 on success). n and d are > 0.
+extern "C" int df_hist_add(const void* idx, const void* w, const void* mask,
+                           void* acc, int d, int n, int width, int wmax,
+                           void* stream) {
+  const Weights wf{static_cast<const int32_t*>(w),
+                   static_cast<const uint8_t*>(mask), wmax};
+  const cudaError_t err =
+      launch(static_cast<const int32_t*>(idx), wf, static_cast<int32_t*>(acc),
+             d, n, width, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();   // consumed either way
+  return (int)(err != cudaSuccess ? err : last);
 }

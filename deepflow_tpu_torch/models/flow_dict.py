@@ -55,25 +55,33 @@ def update_news(state: FlowSuiteState, dstate: FlowDictState,
     the table (IN PLACE) and count the records themselves (a news row is
     the flow's first record). Rows >= n are padding and change nothing.
 
-    The reference routes padded rows out of bounds and drops them; torch
-    raises on such an index, and selecting the valid rows on the host
-    would sync. So every padded row writes the same value to the same
-    column as the last valid row does (or, with n == 0, the column's own
-    value back), which leaves the table as the valid rows alone would."""
+    The index word is read as int32, as the reference reads it: a
+    negative index counts from the end of the table (-1 is the last
+    column), and a valid row whose index lies outside [-capacity,
+    capacity) writes nothing (the reference's scatter drops it) but is
+    still counted in the sketches. Torch raises on such an index, and
+    selecting the writing rows on the host would sync. So every row that
+    writes nothing writes the same value to the same column as the last
+    writing row does (or, when no row writes, a column's own value back),
+    which leaves the table as the writing rows alone would."""
     C = plane.shape[1]
     dev = plane.device
     table = dstate.table
+    cap = table.shape[1]
     mask = flow_suite._valid(n, C, dev)
-    idx = torch.clamp(plane[0].to(torch.int64) & 0xFFFFFFFF, max=table.shape[1] - 1)
+    idx = plane[0].to(torch.int64)
+    idx = torch.where(idx < 0, idx + cap, idx)
+    writes = mask & (idx >= 0) & (idx < cap)
+    idx = torch.clamp(idx, 0, cap - 1)
     proto_word = to_bits(as_u32(plane[4]) << 24)
     key_rows = torch.cat([plane[1:4], proto_word[None]], dim=0)
-    n_t = torch.as_tensor(n, device=dev).reshape(1).to(torch.int64)
-    last = torch.clamp(n_t - 1, min=0)                  # [1], on device
+    pos = torch.arange(C, device=dev)
+    last = torch.where(writes, pos, 0).max().reshape(1)   # [1], on device
     tgt = idx.index_select(0, last)
-    pad_val = torch.where(n_t > 0, key_rows.index_select(1, last),
+    pad_val = torch.where(writes.any(), key_rows.index_select(1, last),
                           table.index_select(1, tgt))  # (4, 1)
-    safe = torch.where(mask, idx, tgt)
-    vals = torch.where(mask[None, :], key_rows, pad_val)
+    safe = torch.where(writes, idx, tgt)
+    vals = torch.where(writes[None, :], key_rows, pad_val)
     table[:, safe] = vals
     lanes = {"ip_src": plane[1], "ip_dst": plane[2], "ports": plane[3],
              "proto_pkts": as_u32(proto_word) | as_u32(plane[5])}

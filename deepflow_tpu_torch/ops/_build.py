@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _bound: set = set()           # libraries whose argtypes are set
+_fns: Dict[Tuple[str, str], object] = {}    # held ctypes functions
 build_log: List[str] = []      # nvcc's stderr per source (ptxas report)
 
 
@@ -105,6 +106,15 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, fn: str, signatures: Dict[str, Sequence]):
+    """The ctypes function object `fn` of lib<name>.so (see `library`),
+    held after the first call so a launch costs one dict lookup."""
+    got = _fns.get((name, fn))
+    if got is None:
+        got = _fns[(name, fn)] = getattr(library(name, signatures), fn)
+    return got
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if err != 0:
@@ -112,5 +122,9 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.device(device).index or 0)
     return torch.cuda.current_stream(device).cuda_stream

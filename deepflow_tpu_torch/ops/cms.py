@@ -47,8 +47,7 @@ def update(state: CMSState, keys: torch.Tensor,
     n = keys.shape[0]
     idx = hashing.multi_bucket(keys, state.seeds, log2_width(state))
     if n >= mxu_hist.MIN_LANES:
-        h = mxu_hist.hist_masked(idx, w, weights, mask, weight_planes)
-        state.counts.add_(h.to(state.counts.dtype))
+        mxu_hist.hist_add_(state.counts, idx, w, weights, mask, weight_planes)
         return state
     if weights is None:
         weights = torch.ones(n, dtype=state.counts.dtype, device=keys.device)

@@ -17,9 +17,11 @@ from device memory (on the coalesced and wire paths it lives in the
 staged buffer, so the host never syncs to learn it); the counts go
 straight into the int32 state with atomics, IN PLACE -- there are no
 delta buffers (the reference returns f32 deltas that the caller adds);
-the grid's second axis splits the work four ways, one entropy feature
-(privatized in shared memory, 16 KiB at the defaults) and a share of the
-Count-Min rows (L2-resident global atomics) per block.
+one thread per record loads and folds it once and issues every
+Count-Min add (L2-resident global atomics) and every entropy add (into a
+block's copy of the 4 entropy rows in shared memory, merged once per
+block, or for batches of at most 8192 records and for entropy rows too
+wide for shared memory straight into the state).
 
 Both wrappers update `cms_counts` and `ent_hist` in place and return
 nothing. The result equals the reference's `_advance_sketches` given the
@@ -134,12 +136,12 @@ def _launch(fn_name, rows, plane, n, cms_counts, ent_hist, cms_seeds,
     for t in (plane, n, cms_counts, ent_hist, cms_seeds, ent_seeds):
         if not t.is_contiguous():
             raise ValueError(f"{fn_name} needs contiguous tensors")
-    lib = _build.library("fused_sketch", _SIGNATURES)
-    err = getattr(lib, fn_name)(
-        plane.data_ptr(), plane.shape[1], n.data_ptr(), cms_seeds.data_ptr(),
-        cms_counts.shape[0], cms_lw, ent_seeds.data_ptr(), ent_lw,
-        256 ** weight_planes - 1, cms_counts.data_ptr(), ent_hist.data_ptr(),
-        _build.stream_handle(dev))
+    fn = _build.function("fused_sketch", fn_name, _SIGNATURES)
+    err = fn(plane.data_ptr(), plane.shape[1], n.data_ptr(),
+             cms_seeds.data_ptr(), cms_counts.shape[0], cms_lw,
+             ent_seeds.data_ptr(), ent_lw, 256 ** weight_planes - 1,
+             cms_counts.data_ptr(), ent_hist.data_ptr(),
+             _build.stream_handle(dev))
     _build.check(err, fn_name)
 
 

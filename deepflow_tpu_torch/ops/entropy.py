@@ -41,8 +41,7 @@ def update(state: EntropyState, feature_cols: torch.Tensor,
     idx = hashing.bucket(feature_cols, state.seeds[:, 0:1],
                          state.seeds[:, 1:2], lb)
     if n >= mxu_hist.MIN_LANES:
-        h = mxu_hist.hist_masked(idx, b, weights, mask, weight_planes)
-        state.hist.add_(h.to(state.hist.dtype))
+        mxu_hist.hist_add_(state.hist, idx, b, weights, mask, weight_planes)
         return state
     dev = feature_cols.device
     if weights is None:

@@ -2,8 +2,10 @@
 
 The reference computes histograms as one-hot matmuls on the TPU's MXU;
 on the H100 the same function is the hand-written scatter kernel of
-`ops/cuda_hist.py`. `hist` takes the kernel for a CUDA tensor and its
-plain version for a CPU one; both return float32, as the reference does.
+`ops/cuda_hist.py`, which adds into an int32 state in place. `hist_add_`
+is what the sketches call (state + the reference's `hist_masked`, in one
+launch); `hist` and `hist_masked` return the reference's float32 counts.
+The kernel runs for CUDA tensors, its plain version for CPU ones.
 """
 
 from __future__ import annotations
@@ -20,26 +22,46 @@ from deepflow_tpu_torch.ops import cuda_hist
 MIN_LANES = 8192
 
 
-def hist(idx: torch.Tensor, width: int,
-         weights: Optional[torch.Tensor] = None,
-         weight_planes: int = 2) -> torch.Tensor:
-    """idx [d, n] int32 -> [d, width] float32 counts. `weights` [n] is
-    shared across rows and saturates at 256**weight_planes - 1; indices
-    are clamped to [0, width)."""
+def hist_add_(acc: torch.Tensor, idx: torch.Tensor, width: int,
+              weights: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              weight_planes: int = 2) -> torch.Tensor:
+    """acc [d, width] int32 += hist_masked(idx, width, weights, mask,
+    weight_planes), in place; returns acc. idx [d, n] and weights [n] are
+    read as int32, mask [n] as bool; a masked-out lane adds nothing, and
+    without weights every other lane adds 1."""
+    if idx.dtype != torch.int32:
+        idx = idx.to(torch.int32)
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
     if weights is not None:
-        weights = weights.to(torch.int32).contiguous()
-    return cuda_hist.hist(idx.to(torch.int32).contiguous(), width, weights,
-                          weight_planes)
+        if weights.dtype != torch.int32:
+            weights = weights.to(torch.int32)
+        if not weights.is_contiguous():
+            weights = weights.contiguous()
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            mask = mask.to(torch.bool)
+        if not mask.is_contiguous():
+            mask = mask.contiguous()
+    return cuda_hist.hist_add_(acc, idx, width, weights, mask, weight_planes)
 
 
 def hist_masked(idx: torch.Tensor, width: int,
                 weights: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor],
                 weight_planes: int = 2) -> torch.Tensor:
-    """`hist` with the mask folded into the weights (mask-only batches
-    need one weight plane)."""
-    if weights is None and mask is not None:
-        weights, weight_planes = mask.to(torch.int32), 1
-    elif weights is not None and mask is not None:
-        weights = weights.to(torch.int32) * mask.to(torch.int32)
-    return hist(idx, width, weights, weight_planes)
+    """[d, width] float32 counts of the masked lanes."""
+    acc = torch.zeros(idx.shape[0], width, dtype=torch.int32,
+                      device=idx.device)
+    return hist_add_(acc, idx, width, weights, mask,
+                     weight_planes).to(torch.float32)
+
+
+def hist(idx: torch.Tensor, width: int,
+         weights: Optional[torch.Tensor] = None,
+         weight_planes: int = 2) -> torch.Tensor:
+    """idx [d, n] -> [d, width] float32 counts. `weights` [n] is shared
+    across rows and saturates at 256**weight_planes - 1; indices are
+    clamped to [0, width)."""
+    return hist_masked(idx, width, weights, None, weight_planes)

@@ -340,3 +340,34 @@ def test_update_news_padding_never_touches_the_table(n):
     js, jd = jfd.update_news(js, jd, jnp.asarray(plane), jnp.uint32(n), jcfg)
     ts, td = flow_dict.update_news(ts, td, _bits(plane), n, tcfg)
     _assert_state_equal(ts, js, td, jd)
+
+
+@pytest.mark.parametrize("fused,n", [(None, 200), (True, 200), (None, 6),
+                                     (True, 2)])
+def test_update_news_out_of_range_index_matches_jax(fused, n):
+    """A valid news row whose index word lies outside the table is read
+    as the reference reads it (int32; negatives count from the end, the
+    rest is dropped by the scatter) and is still counted in the sketches:
+    index capacity + 3 writes nothing, 2^32 - 1 (int32 -1) writes the
+    last column."""
+    jcfg, tcfg = _cfgs(fused)
+    rng = np.random.default_rng(31 + n)
+    cap, C = 512, 256
+    table = rng.integers(0, 1 << 32, (4, cap), dtype=np.uint64).astype(
+        np.uint32)
+    plane = rng.integers(0, 1 << 32, (6, C), dtype=np.uint64).astype(np.uint32)
+    plane[0] = rng.permutation(cap - 1)[:C]
+    plane[0, 0] = cap + 3
+    plane[0, 1] = 0xFFFFFFFF
+    plane[0, n - 1] = cap + 3 if n > 2 else plane[0, n - 1]   # last valid row
+    plane[4] &= 0xFF
+    plane[5] &= 0xFFFF
+    js, ts = _start(jcfg)
+    jd = jfd.FlowDictState(table=jnp.asarray(table))
+    td = flow_dict.FlowDictState(table=_bits(table))
+    js, jd = jfd.update_news(js, jd, jnp.asarray(plane), jnp.uint32(n), jcfg)
+    ts, td = flow_dict.update_news(ts, td, _bits(plane), n, tcfg)
+    _assert_state_equal(ts, js, td, jd)
+    assert int(ts.rows_seen) == n
+    np.testing.assert_array_equal(td.table.numpy().view(np.uint32)[:, -1],
+                                  np.asarray(jd.table)[:, -1])

@@ -24,6 +24,10 @@ def _bits(a):
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy())
 
 
+def _acc(d=2, width=16, dtype=torch.int32):
+    return torch.zeros(d, width, dtype=dtype)
+
+
 @pytest.mark.parametrize("d,n,log2_width,weighted,planes", [
     (4, 3000, 10, False, 2),        # padded past the chunk, unweighted
     (4, 4096, 12, True, 2),         # weights saturating at 65535
@@ -37,11 +41,65 @@ def test_hist_plain_matches_hist_pallas(d, n, log2_width, weighted, planes):
     ref = np.asarray(hist_pallas(jnp.asarray(idx), width,
                                  None if w is None else jnp.asarray(w),
                                  weight_planes=planes, interpret=True))
-    got = cuda_hist.hist_plain(torch.from_numpy(idx), width,
-                               None if w is None else torch.from_numpy(w),
-                               weight_planes=planes)
+    got = mxu_hist.hist(torch.from_numpy(idx), width,
+                        None if w is None else torch.from_numpy(w),
+                        weight_planes=planes)
     assert got.dtype == torch.float32 and tuple(got.shape) == (d, width)
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("d,n,log2_width,weights,masked,planes", [
+    (4, 3001, 10, None, False, 2),     # no weights: 1 per lane
+    (4, 3001, 10, None, True, 2),      # mask only: the 0/1 weight, 1 plane
+    (2, 1000, 8, "w", False, 1),       # saturate at 255
+    (4, 4097, 12, "w", False, 2),      # saturate at 65535
+    (3, 777, 9, "w", False, 3),        # saturate at 2^24 - 1
+    (4, 5000, 11, "w", True, 2),       # weights and a mask
+    (1, 4099, 13, "w", True, 3)])      # one row, n past a chunk
+def test_hist_add_plain_matches_state_plus_hist_pallas(d, n, log2_width,
+                                                       weights, masked,
+                                                       planes):
+    """hist_add_plain adds into a non-zero int32 state exactly what the
+    reference's `hist_masked` contract gives through `hist_pallas`:
+    indices out of range on both sides clamp, weights saturate."""
+    rng = np.random.default_rng(7 * n + log2_width + masked)
+    width = 1 << log2_width
+    idx = rng.integers(-5, width + 5, (d, n)).astype(np.int32)
+    w = None
+    if weights and planes < 3:      # three quarters of them saturate
+        w = rng.integers(0, 1 << (8 * planes + 2), n).astype(np.int32)
+    elif weights:
+        # the reference sums in f32, exact below 2^24 per cell: the lanes
+        # that saturate at 2^24 - 1 get bins of their own
+        w = rng.integers(0, 1 << 20, n).astype(np.int32)
+        sat = rng.choice(n, 3, replace=False)
+        w[sat] = [1 << 24, (1 << 31) - 1, (1 << 25) + 3]
+        idx[np.isin(idx, [100, 101, 102])] = 103
+        idx[:, sat] = [100, 101, 102]
+    mask = rng.random(n) < 0.6 if masked else None
+    ref_w, ref_planes = w, planes          # mxu_hist.hist_masked's folding
+    if w is None and mask is not None:
+        ref_w, ref_planes = mask.astype(np.int32), 1
+    elif w is not None and mask is not None:
+        ref_w = w * mask.astype(np.int32)
+    ref = np.asarray(hist_pallas(jnp.asarray(idx), width,
+                                 None if ref_w is None else jnp.asarray(ref_w),
+                                 weight_planes=ref_planes, interpret=True))
+    base = rng.integers(0, 1000, (d, width)).astype(np.int32)
+    acc = torch.from_numpy(base.copy())
+    out = cuda_hist.hist_add_plain(
+        acc, torch.from_numpy(idx), width,
+        None if w is None else torch.from_numpy(w),
+        None if mask is None else torch.from_numpy(mask), planes)
+    assert out is acc
+    np.testing.assert_array_equal(acc.numpy(), base + ref.astype(np.int32))
+    # the dispatching front ends agree with the plain version on the CPU
+    acc2 = torch.from_numpy(base.copy())
+    mxu_hist.hist_add_(acc2, torch.from_numpy(idx).to(torch.int64), width,
+                       None if w is None else torch.from_numpy(w),
+                       None if mask is None else torch.from_numpy(mask),
+                       planes)
+    np.testing.assert_array_equal(acc2.numpy(), acc.numpy())
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -84,7 +142,10 @@ def _news_plane(rng, C):
 @pytest.mark.parametrize("kind,C,n", [
     ("lane", 2048, 2048), ("lane", 2048, 2011), ("lane", 1024, 1),
     ("lane", 512, 0), ("news", 1024, 1024), ("news", 2048, 1500),
-    ("news", 256, 3)])
+    ("news", 256, 3),
+    # n that split unevenly across the kernel's blocks
+    ("lane", 2048, 2047), ("news", 1024, 1023), ("lane", 1024, 257),
+    ("news", 512, 257), ("lane", 32768, 32767)])
 def test_fused_plain_matches_pallas_interpret(kind, C, n):
     rng = np.random.default_rng(C + n + (kind == "news"))
     plane = (_lane_plane if kind == "lane" else _news_plane)(rng, C)
@@ -112,12 +173,17 @@ def test_fused_plain_matches_pallas_interpret(kind, C, n):
 
 def test_dispatch_on_cpu_runs_plain_and_counts_no_launch():
     rng = np.random.default_rng(2)
-    before = (cuda_hist.hist_cuda.launches,
+    before = (cuda_hist.hist_add_cuda.launches,
               cuda_sketch.fused_lane_hists_cuda.launches,
               cuda_sketch.fused_news_hists_cuda.launches)
     idx = torch.from_numpy(rng.integers(0, 64, (2, 100)).astype(np.int32))
-    np.testing.assert_array_equal(cuda_hist.hist(idx, 64).numpy(),
-                                  cuda_hist.hist_plain(idx, 64).numpy())
+    np.testing.assert_array_equal(
+        mxu_hist.hist(idx, 64).numpy(),
+        cuda_hist.hist_add_plain(_acc(2, 64), idx, 64).numpy())
+    acc = torch.zeros(2, 64, dtype=torch.int32)
+    mask = torch.from_numpy(rng.random(100) < 0.5)
+    cuda_hist.hist_add_(acc, idx, 64, mask=mask)
+    assert int(acc.sum()) == 2 * int(mask.sum())
     _, tc = _seeds(2, 1)
     _, te = _seeds(4, 2)
     for fn, rows in ((cuda_sketch.fused_lane_hists, 4),
@@ -126,19 +192,51 @@ def test_dispatch_on_cpu_runs_plain_and_counts_no_launch():
         e = torch.zeros(4, 64, dtype=torch.int32)
         fn(_bits(_news_plane(rng, 300)[:rows]), 300, c, e, tc, te)
         assert int(c.sum()) == 2 * 300
-    assert before == (cuda_hist.hist_cuda.launches,
+    assert before == (cuda_hist.hist_add_cuda.launches,
                       cuda_sketch.fused_lane_hists_cuda.launches,
                       cuda_sketch.fused_news_hists_cuda.launches)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "needs CUDA"),
+    ("acc_dtype", "acc must be"),
+    ("acc_shape", "acc must be"),
+    ("acc_strided", "acc must be"),
+    ("idx_strided", "contiguous"),
+    ("weights_strided", "contiguous"),
+    ("mask_dtype", "mask must be"),
+    ("weights_shape", "weights must be")])
+def test_hist_add_cuda_refuses_bad_input(case, match):
+    idx = torch.zeros(2, 8, dtype=torch.int32)
+    acc, w, mask = _acc(), None, None
+    if case == "acc_dtype":
+        acc = _acc(dtype=torch.int64)
+    elif case == "acc_shape":
+        acc = _acc(width=15)
+    elif case == "acc_strided":
+        acc = _acc(width=32)[:, ::2]
+    elif case == "idx_strided":
+        idx = torch.zeros(8, 2, dtype=torch.int32).t()
+    elif case == "weights_strided":
+        w = torch.ones(16, dtype=torch.int32)[::2]
+    elif case == "mask_dtype":
+        mask = torch.ones(8, dtype=torch.int32)
+    elif case == "weights_shape":
+        w = torch.ones(7, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        cuda_hist.hist_add_cuda(acc, idx, 16, w, mask)
+    assert int(acc.abs().sum()) == 0
 
 
 def test_wrappers_refuse_bad_input():
     idx = torch.zeros(2, 8, dtype=torch.int32)
     with pytest.raises(ValueError):
-        cuda_hist.hist_cuda(idx, 16)                       # CPU tensor
+        cuda_hist.hist_add_cuda(_acc(), idx, 16)            # CPU tensor
     with pytest.raises(ValueError):
-        cuda_hist.hist(idx.to(torch.int64), 16)            # dtype
+        cuda_hist.hist_add_(_acc(), idx.to(torch.int64), 16)   # dtype
     with pytest.raises(ValueError):
-        cuda_hist.hist(idx, 16, torch.ones(7, dtype=torch.int32))  # shape
+        cuda_hist.hist_add_(_acc(), idx, 16,
+                            torch.ones(7, dtype=torch.int32))   # shape
     _, tc = _seeds(2, 1)
     _, te = _seeds(4, 2)
     c = torch.zeros(2, 256, dtype=torch.int32)

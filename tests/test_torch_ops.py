@@ -14,7 +14,8 @@ from deepflow_tpu.ops import cms as jcms
 from deepflow_tpu.ops import entropy as jentropy
 from deepflow_tpu.ops import hll as jhll
 from deepflow_tpu.ops import topk as jtopk
-from deepflow_tpu_torch.ops import cms, entropy, hll, topk
+from deepflow_tpu_torch.ops import (cms, cuda_hist, entropy, hll, mxu_hist,
+                                    topk)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -39,7 +40,9 @@ def _keys(rng, n, universe=1 << 32):
 
 @pytest.mark.parametrize("n,masked,weighted", [
     (512, False, False), (512, True, True), (9000, True, False),
-    (9000, True, True), (16384, False, True)])
+    (9000, True, True), (16384, False, True),
+    # at and past MIN_LANES: the in-place histogram path
+    (8192, False, False), (12289, True, False)])
 def test_cms_update_query_matches_jax(n, masked, weighted):
     rng = np.random.default_rng(n + masked * 3 + weighted)
     keys = _keys(rng, n, 1 << 11)           # repeats: real collisions
@@ -79,7 +82,8 @@ def test_cms_merge_reset_and_conservative():
 # -- entropy ----------------------------------------------------------------
 
 @pytest.mark.parametrize("n,masked", [(700, False), (700, True),
-                                      (8192, True), (12000, False)])
+                                      (8192, True), (12000, False),
+                                      (8192, False), (16385, True)])
 def test_entropy_update_matches_jax(n, masked):
     rng = np.random.default_rng(n + masked)
     feats = np.stack([_keys(rng, n, 1 << 9) for _ in range(4)])
@@ -94,6 +98,40 @@ def test_entropy_update_matches_jax(n, masked):
     np.testing.assert_array_equal(ts.hist.numpy(), np.asarray(js.hist))
     np.testing.assert_allclose(entropy.entropies(ts).numpy(),
                                np.asarray(jentropy.entropies(js)), **F32_TOL)
+
+
+@pytest.mark.parametrize("sketch", ["cms", "entropy"])
+def test_sketch_update_adds_histogram_in_place(sketch, monkeypatch):
+    """At n >= MIN_LANES a sketch update is one `hist_add_` call into the
+    sketch's own int32 state: no float histogram, no separate add."""
+    calls = []
+    real = cuda_hist.hist_add_
+
+    def spy(acc, *args, **kw):
+        calls.append(acc.data_ptr())
+        return real(acc, *args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("float histogram on the update path")
+
+    monkeypatch.setattr(cuda_hist, "hist_add_", spy)
+    monkeypatch.setattr(mxu_hist, "hist_masked", refuse)
+    rng = np.random.default_rng(17)
+    n = mxu_hist.MIN_LANES + 5
+    mask = torch.from_numpy(rng.random(n) < 0.5)
+    if sketch == "cms":
+        state = cms.init(4, 10, device="cpu")
+        target = state.counts
+        state = cms.update(state, _t(_keys(rng, n)), mask=mask)
+        assert int(state.counts.sum()) == 4 * int(mask.sum())
+    else:
+        state = entropy.init(4, 10, device="cpu")
+        target = state.hist
+        w = _t(rng.integers(0, 1 << 18, n).astype(np.int32))
+        state = entropy.update(state, _t(np.stack(
+            [_keys(rng, n) for _ in range(4)])), w, mask)
+        assert int(state.hist.sum()) > 0
+    assert calls == [target.data_ptr()]
 
 
 def test_entropy_empty_and_merge():
