@@ -21,18 +21,41 @@ is printed):
    wide for one, added straight into the state);
 3. the slice at the exporter defaults (FlowSuiteConfig(), batch_rows
    32768): two windows of 2^20 records each, drawn by Zipf(1.1) from a
-   pool of 2^17 distinct 5-tuples, through full-row `update`, the lean
-   exporter on the lanes wire (coalesced K=4) and on the dict wire. The
-   three paths must agree on CMS, HLL, entropy and rows before each
-   flush, each path must launch its kernels (counts set to 0 just before
-   the path runs), and top-K recall against an exact GROUP BY must be at
-   least 0.99; the window outputs must be finite and of their shapes;
+   pool of 2^17 distinct 5-tuples, through full-row `update`, the
+   exporter's inline path on the lanes wire (coalesced K=4) and on the
+   dict wire. The three paths must agree on CMS, HLL, entropy and rows
+   at each window close (the exporters' state read through their
+   snapshot bus), each path must launch its kernels (counts set to 0
+   just before the path runs), and top-K recall against an exact GROUP
+   BY must be at least 0.99; the window outputs must be finite and of
+   their shapes;
 4. the same small input through both exporters on the card and on the
    CPU (plain versions), state and outputs compared;
 5. one window of each path under torch.profiler: device time, its share
    of the wall time, and the largest device ops (reported, not checked);
    then one full-row batch's device kernels, which must hold exactly two
-   hist launches and no float conversion.
+   hist launches and no float conversion;
+6. the exporter as the ingester runs it, on the same two windows: the
+   dict wire with the overlapped feed (depth 2) and zero-copy staging,
+   fed through put() and the exporter's worker thread; the lanes wire
+   with the feed (K=4); the inline dict path; each with a checkpoint
+   directory. Every leaf equal at every window close (dict feed = inline
+   dict, lanes feed = phase 3's inline lanes, the wire-free leaves
+   across wires), recall >= 0.99, no staging buffer back before its
+   fence, and a fresh exporter restores the last snapshot leaf-equal.
+   The feed runs' free staging buffers must be page-locked. Then the
+   device-error ladder with `tpu.device_error` armed: rollback from a
+   snapshot, then (no host fallback runs for a CUDA device) the rows
+   shed and counted lost, probe recovery, delivered + lost == sent.
+   Then one window of each run under torch.profiler, ingest and flush
+   apart: device busy share, host-to-device copy time and its overlap
+   with kernels, and the CUDA runtime's copy and synchronizing calls
+   between two marker calls that bracket the measured range (so the
+   profiler's own calls at its start and stop fall outside), beside the
+   copy activities the trace recorded by direction. While ingesting,
+   the feed paths must make no stream or device sync (a host read of
+   device data, `.item()` or `.cpu()`, syncs the stream after its copy),
+   one event sync per fence, and no recorded device-to-host copy.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -42,8 +65,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -395,11 +420,46 @@ def exact_topk(cols, k: int) -> set:
     return set(uniq[order[:k]].tolist())
 
 
+# FlowSuiteState leaves (convert.SUITE_LEAVES order) that every wire
+# must agree on; the ring (2, 3) and batches_seen (8) follow each wire's
+# batch partition
+WIRE_FREE_LEAVES = {"cms": 0, "cms_seeds": 1, "hll": 4, "entropy": 5,
+                    "entropy_seeds": 6, "rows": 7}
+
+
 def snapshot(state):
-    return {"cms": state.sketch.counts.clone(),
-            "hll": state.services.registers.clone(),
-            "entropy": state.ent.hist.clone(),
-            "rows": state.rows_seen.clone()}
+    """The 9 state leaves as host numpy, in the reference's order."""
+    from deepflow_tpu_torch import convert
+    return convert.state_to_numpy(state)
+
+
+def bus_snapshots(exp):
+    """Every window the exporter publishes (its pre-flush state, copied
+    to the host on its own stream) as a list of leaf lists."""
+    snaps = []
+    exp.snapshot_bus.subscribe(lambda s: snaps.append(list(s.leaves)))
+    return snaps
+
+
+def feed_chunks(exp, cols, chunk):
+    total = len(cols["ip_src"])
+    for s in range(0, total, chunk):
+        exp.process([("l4_flow_log", 0,
+                      {k: v[s:s + chunk] for k, v in cols.items()}, -1)])
+
+
+def compare_snaps(a_snaps, b_snaps, leaves, a_name, b_name):
+    """Leaf-equal window snapshots; `leaves` maps name -> leaf index
+    (None: all nine)."""
+    if len(a_snaps) != len(b_snaps) or not a_snaps:
+        raise AssertionError(f"{a_name}: {len(a_snaps)} windows, {b_name}: "
+                             f"{len(b_snaps)}")
+    pick = leaves or {f"leaf_{i}": i for i in range(len(a_snaps[0]))}
+    for w, (a, b) in enumerate(zip(a_snaps, b_snaps)):
+        for leaf, i in pick.items():
+            if a[i].dtype != b[i].dtype or not np.array_equal(a[i], b[i]):
+                raise AssertionError(f"window {w}: {leaf} differs between "
+                                     f"{a_name} and {b_name}")
 
 
 def check_output(torch, out, cfg):
@@ -449,13 +509,14 @@ def path_runners(torch, dev, cfg, batch_rows, chunk):
             exp = TpuSketchExporter(cfg=cfg, batch_rows=batch_rows,
                                     wire=wire, coalesce_batches=coalesce,
                                     device=dev)
-            for cols in windows:
-                total = len(cols["ip_src"])
-                for s in range(0, total, chunk):
-                    exp.process({k: v[s:s + chunk] for k, v in cols.items()})
-                exp.drain()
-                snaps.append(snapshot(exp.state))
-                outs.append(exp.flush_window())
+            try:
+                published = bus_snapshots(exp)
+                for cols in windows:
+                    feed_chunks(exp, cols, chunk)
+                    outs.append(exp.flush_window())
+                snaps.extend(published)
+            finally:
+                exp.close()
             records = sum(len(w["ip_src"]) for w in windows)
             if exp.rows_in != records:
                 raise AssertionError(f"{wire}: rows_in {exp.rows_in}")
@@ -467,15 +528,19 @@ def path_runners(torch, dev, cfg, batch_rows, chunk):
                               ("fused_news_hists", "fused_lane_hists"))}
 
 
+def launch_counters():
+    """kernel name -> the wrapper that counts its launches."""
+    from deepflow_tpu_torch.ops import cuda_hist, cuda_sketch
+    return {"hist": cuda_hist.hist_add_cuda,
+            "fused_lane_hists": cuda_sketch.fused_lane_hists_cuda,
+            "fused_news_hists": cuda_sketch.fused_news_hists_cuda}
+
+
 def run_paths(torch, runners, windows):
     """Each path over every window, its launch counts set to 0 just
     before and read just after; returns per path its snapshots, outputs,
     records/s and launches."""
-    from deepflow_tpu_torch.ops import cuda_hist, cuda_sketch
-
-    counters = {"hist": cuda_hist.hist_add_cuda,
-                "fused_lane_hists": cuda_sketch.fused_lane_hists_cuda,
-                "fused_news_hists": cuda_sketch.fused_news_hists_cuda}
+    counters = launch_counters()
     records = sum(len(w["ip_src"]) for w in windows)
     paths = {}
     for name, (fn, wants) in runners.items():
@@ -513,12 +578,8 @@ def check_slice(torch, dev, rng, args, card):
     names = list(paths)
     ref = paths[names[0]]
     for name in names[1:]:
-        for w, (a, b) in enumerate(zip(ref["snaps"], paths[name]["snaps"])):
-            for leaf in a:
-                if not torch.equal(a[leaf], b[leaf]):
-                    raise AssertionError(
-                        f"window {w}: {leaf} differs between {names[0]} "
-                        f"and {name}")
+        compare_snaps(ref["snaps"], paths[name]["snaps"],
+                      WIRE_FREE_LEAVES, names[0], name)
     for name, p in paths.items():
         recalls = []
         for w, out in enumerate(p["outs"]):
@@ -605,7 +666,6 @@ def profile_full_row_update(torch, dev, rng):
 def check_small_against_cpu(torch, dev, rng):
     """The dict exporter on the card and on the CPU (plain versions) over
     the same small stream: identical state, matching window outputs."""
-    from deepflow_tpu_torch import convert
     from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
     from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
 
@@ -615,15 +675,23 @@ def check_small_against_cpu(torch, dev, rng):
     exps = [TpuSketchExporter(cfg=cfg, batch_rows=4096, wire=wire,
                               device=d)
             for wire in ("dict", "lanes") for d in (dev, "cpu")]
+    snaps = [bus_snapshots(exp) for exp in exps]
+    try:
+        compare_small(windows, exps, snaps)
+    finally:
+        for exp in exps:
+            exp.close()
+
+
+def compare_small(windows, exps, snaps):
     for cols in windows:
         for exp in exps:
-            exp.process(cols)
-            exp.drain()
-        for gpu, cpu in (exps[0:2], exps[2:4]):
-            for a, b in zip(convert.state_to_numpy(gpu.state),
-                            convert.state_to_numpy(cpu.state)):
-                np.testing.assert_array_equal(a, b)
+            feed_chunks(exp, cols, len(cols["ip_src"]))
+        for (gpu, cpu), (sg, sc) in zip((exps[0:2], exps[2:4]),
+                                        (snaps[0:2], snaps[2:4])):
             og, oc = gpu.flush_window(), cpu.flush_window()
+            for a, b in zip(sg[-1], sc[-1]):
+                np.testing.assert_array_equal(a, b)
             for name in ("topk_keys", "topk_counts", "rows"):
                 np.testing.assert_array_equal(getattr(og, name).cpu().numpy(),
                                               getattr(oc, name).numpy())
@@ -632,6 +700,352 @@ def check_small_against_cpu(torch, dev, rng):
                 np.testing.assert_allclose(getattr(og, name).cpu().numpy(),
                                            getattr(oc, name).numpy(),
                                            rtol=1e-5, atol=1e-6)
+
+
+# -- phase 6: the exporter as the ingester runs it ---------------------------
+
+# (name, exporter knobs, fed through put() and the exporter's worker
+# thread as the ingester hands chunks over, kernels the run must launch)
+INGESTER_RUNS = (
+    ("dict_feed", dict(wire="dict", prefetch_depth=2, zero_copy=True), True,
+     ("fused_news_hists", "fused_lane_hists")),
+    ("lanes_feed", dict(wire="lanes", prefetch_depth=2, coalesce_batches=4),
+     False, ("fused_lane_hists",)),
+    ("dict_inline", dict(wire="dict"), False,
+     ("fused_news_hists", "fused_lane_hists")),
+)
+CHUNK = 1 << 16            # records per decoded chunk
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize")
+MARK = "cudaMemGetInfo"    # a runtime call the exporter never makes
+
+
+def mark(torch, dev):
+    """One marker call into the CUDA runtime trace (see trace_session)."""
+    torch.cuda.mem_get_info(dev)
+
+
+def staging_buffers(exp):
+    """The free staging buffers of a feed exporter's stager."""
+    free = exp._stager._free
+    return free if isinstance(free, list) else [
+        b for bufs in free.values() for b in bufs]
+
+
+def make_exporter(dev, knobs, checkpoint_dir):
+    """An exporter at the ingester's sizes: FlowSuiteConfig(), 2^15-row
+    batches, a checkpoint directory; windows are closed by the caller."""
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
+    return TpuSketchExporter(cfg=FlowSuiteConfig(), batch_rows=1 << 15,
+                             window_seconds=3600,
+                             checkpoint_dir=checkpoint_dir, device=dev,
+                             **knobs)
+
+
+def ingest_window(exp, cols, via_put):
+    """One window of records into the exporter: through put() and its
+    worker thread (waiting until the worker has processed every chunk),
+    or process() on this thread."""
+    if not via_put:
+        feed_chunks(exp, cols, CHUNK)
+        return
+    total = len(cols["ip_src"])
+    want = exp.processed + -(-total // CHUNK)
+    for s in range(0, total, CHUNK):
+        exp.put("l4_flow_log", 0, {k: v[s:s + CHUNK] for k, v in cols.items()})
+    deadline = time.monotonic() + 300
+    while exp.processed + exp.process_errors < want:
+        if time.monotonic() > deadline:
+            raise AssertionError("the exporter's worker did not drain")
+        time.sleep(0.0005)
+    if exp.process_errors:
+        raise AssertionError(f"process() raised {exp.process_errors} times")
+
+
+def run_ingester_paths(torch, dev, windows, card, tmp, lanes_inline_snaps):
+    """Phase 6.1-6.3: the three runs, unprofiled, their launch counts
+    set to 0 just before and read just after each; leaf equality at
+    every window close, recall, outputs; restore from disk."""
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+
+    cfg = FlowSuiteConfig()
+    counters = launch_counters()
+    records = sum(len(w["ip_src"]) for w in windows)
+    runs = {}
+    for name, knobs, via_put, wants in INGESTER_RUNS:
+        exp = make_exporter(dev, knobs, os.path.join(tmp, name))
+        snaps, outs = bus_snapshots(exp), []
+        try:
+            if via_put:
+                exp.start()
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            for cols in windows:
+                ingest_window(exp, cols, via_put)
+                outs.append(exp.flush_window())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+        finally:
+            exp.close()
+        c = exp.counters()
+        for k in wants:
+            if launches[k] <= 0:
+                raise AssertionError(f"{name}: kernel {k} never launched")
+        if c["rows_in"] != records or c["lost_rows"] or c["device_errors"]:
+            raise AssertionError(f"{name}: counters {c}")
+        if c.get("staging_recycle_refused", 0):
+            raise AssertionError(f"{name}: a staging buffer came back "
+                                 "before its fence retired")
+        if knobs.get("prefetch_depth"):
+            bufs = staging_buffers(exp)
+            pinned = sum(torch.from_numpy(b.view(np.int32)).is_pinned()
+                         for b in bufs)
+            if not bufs or pinned != len(bufs):
+                raise AssertionError(f"{name}: {pinned} of {len(bufs)} free "
+                                     "staging buffers page-locked")
+            c["staging_free_pinned"] = pinned
+        recalls = []
+        for w, out in enumerate(outs):
+            check_output(torch, out, cfg)
+            if int(out.rows) != len(windows[w]["ip_src"]):
+                raise AssertionError(f"{name}: window {w} rows {int(out.rows)}")
+            got = set(out.topk_keys.cpu().numpy().view(np.uint32).tolist())
+            recalls.append(len(got & exact_topk(windows[w], cfg.top_k))
+                           / cfg.top_k)
+        if min(recalls) < 0.99:
+            raise AssertionError(f"{name}: top-K recall {recalls} < 0.99")
+        keep = ("dispatches", "h2d_transfers", "batches", "feed_groups",
+                "feed_fences", "staged_groups", "staging_pool_hits",
+                "staging_recycled", "staging_recycle_refused",
+                "staging_free_pinned", "saves")
+        runs[name] = {"snaps": snaps, "seconds": dt, "recall": recalls,
+                      "records_per_s": records / dt, "launches": launches,
+                      "counters": {k: c[k] for k in keep if k in c}}
+        log(f"  {name}: {records / dt:.0f} records/s ({dt:.3f} s for "
+            f"{records} records, unprofiled) on {card}; recall {recalls}; "
+            f"launches {launches}; {runs[name]['counters']}")
+    compare_snaps(runs["dict_inline"]["snaps"], runs["dict_feed"]["snaps"],
+                  None, "dict_inline", "dict_feed")
+    compare_snaps(lanes_inline_snaps, runs["lanes_feed"]["snaps"], None,
+                  "lanes_exporter_k4 (phase 3, inline)", "lanes_feed")
+    compare_snaps(runs["dict_feed"]["snaps"], runs["lanes_feed"]["snaps"],
+                  WIRE_FREE_LEAVES, "dict_feed", "lanes_feed")
+    log("  every leaf equal at every window close: dict_feed = dict_inline, "
+        "lanes_feed = phase 3's inline lanes (K=4); across the wires "
+        f"{sorted(WIRE_FREE_LEAVES)} equal")
+    # 6.3: a fresh exporter on dict_feed's checkpoint directory
+    fresh = make_exporter(dev, INGESTER_RUNS[0][1],
+                          os.path.join(tmp, "dict_feed"))
+    try:
+        torch.cuda.synchronize()
+        compare_snaps([runs["dict_feed"]["snaps"][-1]], [snapshot(fresh.state)],
+                      None, "dict_feed's last snapshot", "the restored state")
+        if fresh.windows != len(windows):
+            raise AssertionError(f"restored window counter {fresh.windows}")
+    finally:
+        fresh.close()
+    log("  a fresh exporter restores dict_feed's last snapshot leaf-equal")
+    return runs
+
+
+def walk_ladder(torch, dev, rng, tmp):
+    """Phase 6.4: the dict feed path with tpu.device_error armed. Window
+    A is clean and checkpointed; in window B the first two dispatches
+    fail (a rollback from A's snapshot into fresh tensors, then degraded
+    mode, which on the card sheds the rows, counted lost, and computes
+    nothing on the CPU); B's flush probes and recovers. Conservation
+    over A and B is exact; window C holds A's rows once more, the
+    restored snapshot replayed (the reference's at-least-once
+    restore)."""
+    from deepflow_tpu_torch.runtime.faults import default_faults
+
+    a, b1, b2, c = make_windows(rng, 4, 1 << 18)
+    exp = make_exporter(dev, INGESTER_RUNS[0][1], os.path.join(tmp, "ladder"))
+    faults = default_faults()
+    try:
+        feed_chunks(exp, a, CHUNK)
+        out_a = exp.flush_window()
+        snap_a = exp.snapshot_bus.latest()
+        faults.arm("tpu.device_error", count=2, match="dict")
+        feed_chunks(exp, b1, CHUNK)
+        if not exp._feed.drain(60):
+            raise AssertionError("ladder: feed did not drain")
+        rolled = exp.counters()
+        if not (exp.degraded and exp.device_errors == 2
+                and rolled["restores"] >= 2
+                and exp.snapshot_bus.last_restored_step == 1):
+            raise AssertionError(f"ladder: no rollback/degrade: {rolled}")
+        feed_chunks(exp, b2, CHUNK)
+        out_b = exp.flush_window()
+        if (out_b is not None or exp.degraded or exp.recoveries != 1
+                or exp.host_rows or exp.shed_rows < len(b2["ip_src"])):
+            raise AssertionError(f"ladder: no shed or no recovery: "
+                                 f"{exp.counters()}")
+        sent = sum(len(w["ip_src"]) for w in (a, b1, b2))
+        delivered = int(out_a.rows)
+        if delivered + exp.lost_rows != sent:
+            raise AssertionError(f"ladder: delivered {delivered} + lost "
+                                 f"{exp.lost_rows} != sent {sent}")
+        feed_chunks(exp, c, CHUNK)
+        out_c = exp.flush_window()
+        replayed = int(snap_a.leaves[7])
+        if int(out_c.rows) != len(c["ip_src"]) + replayed:
+            raise AssertionError(f"ladder: window C rows {int(out_c.rows)}")
+        summary = {k: exp.counters()[k] for k in (
+            "device_errors", "recoveries", "lost_windows", "lost_rows",
+            "shed_rows", "host_rows", "restores", "dict_epoch_drops")}
+    finally:
+        faults.disarm()
+        exp.close()
+    summary.update(sent=sent, delivered=delivered, replayed_in_c=replayed)
+    log(f"  ladder: rollback, rows shed, probe recovery; delivered "
+        f"{delivered} + lost {summary['lost_rows']} == sent {sent}; "
+        f"{summary}")
+    return summary
+
+
+def _union_us(spans):
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def _overlap_us(spans, cover):
+    """Time of `spans` covered by the union of `cover`."""
+    merged = []
+    for s, e in sorted(cover):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return sum(max(0.0, min(e, me) - max(s, ms))
+               for s, e in spans for ms, me in merged)
+
+
+def trace_session(torch, prof, wall_s):
+    """One profiler session (its work ended inside it): the device's busy
+    share (union of its kernels and copies over `wall_s`), host-to-device
+    copy time and the part of it that overlaps kernels, copy activities
+    by direction and host memory kind, and the CUDA runtime's copy and
+    synchronizing calls made between the session's two `mark` calls
+    (runtime calls of every thread share one clock)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.events())
+    d = [(e.name, e.time_range.start, e.time_range.end)
+         for e in events if e.device_type == cuda]
+    api = sorted((e.time_range.start, e.name) for e in events
+                 if e.device_type != cuda and e.name.startswith("cuda"))
+    marks = [t for t, n in api if n == MARK]
+    if len(marks) != 2:
+        raise AssertionError(f"{len(marks)} {MARK} markers in the runtime "
+                             "trace, expected 2")
+    host = [n for t, n in api if marks[0] < t < marks[1]]
+    kernels = [(s, e) for n, s, e in d
+               if not n.startswith(("Memcpy", "Memset"))]
+    h2d = [(s, e) for n, s, e in d if "HtoD" in n]
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_busy_share": _union_us([(s, e) for _, s, e in d])
+        / 1e6 / wall_s,
+        "kernels": len(kernels),
+        "h2d_copies": len(h2d),
+        "h2d_ms": sum(e - s for s, e in h2d) / 1e3,
+        "h2d_overlapping_kernels_ms": _overlap_us(h2d, kernels) / 1e3,
+        "h2d_pinned": sum(1 for n, _, _ in d if "HtoD" in n and "Pinned" in n),
+        "h2d_pageable": sum(1 for n, _, _ in d
+                            if "HtoD" in n and "Pageable" in n),
+        "d2h_copy_activities": sum(1 for n, _, _ in d if "DtoH" in n),
+        "d2d_copy_activities": sum(1 for n, _, _ in d if "DtoD" in n),
+        "copy_activities": sum(1 for n, _, _ in d if n.startswith("Memcpy")),
+        "memcpy_calls": sum(1 for n in host if n.startswith("cudaMemcpy")),
+        "runtime_calls": {n: host.count(n) for n in SYNC_CALLS + (
+            "cudaLaunchKernel", "cudaMemcpyAsync")}}
+
+
+def profile_ingester_paths(torch, dev, windows, tmp, card):
+    """Phase 6.5: per run, one warm-up window, then one window under
+    torch.profiler in two sessions: its ingest (every chunk in; the feed
+    drained, or on the inline path a device synchronize) and its flush
+    (publish, readout), each bracketed by two `mark` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    for name, knobs, via_put, _ in INGESTER_RUNS:
+        exp = make_exporter(dev, knobs, os.path.join(tmp, "prof_" + name))
+        try:
+            if via_put:
+                exp.start()
+            ingest_window(exp, windows[0], via_put)
+            exp.flush_window()
+            torch.cuda.synchronize()
+            before = exp.counters()
+            with profile(activities=acts) as prof_ingest:
+                mark(torch, dev)
+                t0 = time.perf_counter()
+                ingest_window(exp, windows[1], via_put)
+                if exp._feed is None:
+                    torch.cuda.synchronize()
+                elif not exp._feed.drain(60):
+                    raise AssertionError(f"{name}: feed did not drain")
+                t_ingest = time.perf_counter() - t0
+                mark(torch, dev)
+            after = exp.counters()
+            fences = after.get("feed_fences", 0) - before.get("feed_fences", 0)
+            h2d = after["h2d_transfers"] - before["h2d_transfers"]
+            with profile(activities=acts) as prof_flush:
+                mark(torch, dev)
+                t0 = time.perf_counter()
+                exp.flush_window()
+                torch.cuda.synchronize()
+                t_flush = time.perf_counter() - t0
+                mark(torch, dev)
+        finally:
+            exp.close()
+        ingest = trace_session(torch, prof_ingest, t_ingest)
+        flush = trace_session(torch, prof_flush, t_flush)
+        ingest["h2d_transfers"] = h2d
+        out[name] = {"ingest": ingest, "flush": flush, "fences": fences}
+        calls = ingest["runtime_calls"]
+        if calls["cudaLaunchKernel"] == 0:
+            raise AssertionError(f"{name}: the profiler saw no runtime calls")
+        log(f"  {name} on {card}: ingest {ingest['wall_ms']:.1f} ms, device "
+            f"busy {100 * ingest['device_busy_share']:.1f}%, h2d "
+            f"{ingest['h2d_copies']} copies ({ingest['h2d_pinned']} pinned, "
+            f"{ingest['h2d_pageable']} pageable) {ingest['h2d_ms']:.3f} ms of "
+            f"which {ingest['h2d_overlapping_kernels_ms']:.3f} ms overlap "
+            f"kernels; {h2d} transfers; runtime copy calls "
+            f"{ingest['memcpy_calls']}, copy activities recorded "
+            f"{ingest['copy_activities']} (d2h {ingest['d2h_copy_activities']}"
+            f", d2d {ingest['d2d_copy_activities']}); syncs "
+            + ", ".join(f"{k} {calls[k]}" for k in SYNC_CALLS)
+            + f"; {fences} fences; flush {flush['wall_ms']:.1f} ms, runtime "
+            f"copy calls {flush['memcpy_calls']}, copy activities "
+            f"{flush['copy_activities']} (d2h "
+            f"{flush['d2h_copy_activities']}), syncs "
+            + ", ".join(f"{k} {flush['runtime_calls'][k]}"
+                        for k in SYNC_CALLS))
+        if knobs.get("prefetch_depth"):
+            # between fences the feed path reads nothing back and waits
+            # on nothing but its fences, and it copies from pinned memory
+            if (ingest["d2h_copy_activities"] or not h2d
+                    or calls["cudaStreamSynchronize"]
+                    or calls["cudaDeviceSynchronize"]
+                    or calls["cudaEventSynchronize"] != fences
+                    or ingest["h2d_pageable"]):
+                raise AssertionError(f"{name}: the feed path synced or "
+                                     f"copied outside its fences: {ingest}")
+    return out
 
 
 def main() -> int:
@@ -667,12 +1081,6 @@ def main() -> int:
 
     log("phase 3: the slice at the exporter defaults")
     paths, runners, windows = check_slice(torch, dev, rng, args, card)
-    totals = {}
-    for p in paths.values():
-        for k, v in p["launches"].items():
-            totals[k] = totals.get(k, 0) + v
-    for entry in kernels:
-        entry["launches"] = totals[entry["name"].split("[")[0]]
 
     log("phase 4: small stream on the card against the CPU")
     check_small_against_cpu(torch, dev, rng)
@@ -682,11 +1090,30 @@ def main() -> int:
     profiles = profile_paths(torch, runners, windows[:1])
     update_kernels = profile_full_row_update(torch, dev, rng)
 
+    log("phase 6: the exporter as the ingester runs it")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ingester = run_ingester_paths(torch, dev, windows, card, tmp,
+                                      paths["lanes_exporter_k4"]["snaps"])
+        ladder = walk_ladder(torch, dev, rng, tmp)
+        ingester_profiles = profile_ingester_paths(torch, dev, windows, tmp,
+                                                   card)
+
+    totals = {}
+    for p in list(paths.values()) + list(ingester.values()):
+        for k, v in p["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    for entry in kernels:
+        entry["launches"] = totals[entry["name"].split("[")[0]]
     log(json.dumps({"paths": {
         name: {"records_per_s": p["records_per_s"], "recall": p["recall"],
                "launches": p["launches"], "profile": profiles[name]}
-        for name, p in paths.items()}, "kernel_inputs": extra,
-        "full_row_update_kernels": update_kernels, "card": card}))
+        for name, p in paths.items()}, "ingester_paths": {
+        name: {"records_per_s": p["records_per_s"], "recall": p["recall"],
+               "launches": p["launches"], "counters": p["counters"],
+               "profile": ingester_profiles[name]}
+        for name, p in ingester.items()}, "ladder": ladder,
+        "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
+        "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,10 +48,13 @@ def _leaves(obj, spec) -> List[np.ndarray]:
 
 
 def _to_torch(arr: np.ndarray, dtype, device) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    arr = np.asarray(arr)
     if arr.dtype != np.dtype(dtype):
         raise ValueError(f"leaf dtype {arr.dtype}, expected {np.dtype(dtype)}")
-    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+    # a C-ordered copy that keeps 0-d leaves 0-d (np.ascontiguousarray
+    # would make them 1-d)
+    return torch.from_numpy(arr.astype(arr.dtype, order="C").view(np.int32)
+                            ).to(device)
 
 
 def state_from_numpy(suite, dict_state=None, device="cuda"
@@ -75,16 +78,25 @@ def state_from_numpy(suite, dict_state=None, device="cuda"
 
 
 def _to_numpy(t: torch.Tensor, dtype) -> np.ndarray:
-    return t.detach().cpu().numpy().view(dtype)
+    # a copy on every device: on the CPU `.cpu()` would return the live
+    # tensor, which the next in-place update changes under the caller
+    return t.detach().to("cpu", copy=True).numpy().view(dtype)
 
 
 def state_to_numpy(state: FlowSuiteState,
                    dstate: Optional[FlowDictState] = None
                    ) -> List[np.ndarray]:
-    """The port's state -> numpy leaves in the reference's order and
-    dtypes (the FlowDictState table last, when given)."""
+    """The port's state -> numpy copies of its leaves in the reference's
+    order and dtypes (the FlowDictState table last, when given)."""
     out = [_to_numpy(_get(state, path), dt) for path, dt in SUITE_LEAVES]
     if dstate is not None:
         out.append(_to_numpy(dstate.table, np.uint32))
     return out
+
+
+def leaf_specs(state: FlowSuiteState) -> List[Tuple[tuple, np.dtype]]:
+    """(shape, reference dtype) of each FlowSuiteState leaf, in the
+    reference's order, without copying the state off its device."""
+    return [(tuple(_get(state, path).shape), np.dtype(dt))
+            for path, dt in SUITE_LEAVES]
 

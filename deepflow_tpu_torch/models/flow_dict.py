@@ -146,6 +146,69 @@ def stage_wire(wire, flat: np.ndarray) -> None:
         off += plane.size
 
 
+def mirror_news_np(wire, table: np.ndarray) -> None:
+    """Scatter one wire emission's NEWS keys into a host mirror of the
+    device table ((4, capacity) uint32, the table's lane-word layout:
+    proto<<24 in row 3). The dict stager feeds it at stage time, so
+    degraded mode can gather the keys of staged hits (`unpack_wire_np`).
+    An index evicted and reused by a later staged group shows its new
+    tenant to an older hit absorbed after degradation: a bounded
+    approximation confined to the host fallback, itself a sample."""
+    u = np.uint32
+    for kind, plane, n in wire:
+        if kind != "news":
+            continue
+        idx = plane[0, :n].astype(np.int64)
+        table[0, idx] = plane[1, :n]
+        table[1, idx] = plane[2, :n]
+        table[2, idx] = plane[3, :n]
+        table[3, idx] = plane[4, :n] << u(24)
+
+
+def unpack_wire_np(flat: np.ndarray, sig: Tuple[Tuple[str, int], ...],
+                   table: np.ndarray):
+    """Host twin of `make_wire_update`: one staged flat buffer back into
+    per-plane column dicts trimmed to each plane's n valid records, the
+    hits' keys gathered from the host mirror `table` as `update_hits`
+    gathers them from the device table. Returns [(cols, n)] in emission
+    order."""
+    u = np.uint32
+    out = []
+    off = len(sig)
+    for i, (kind, w) in enumerate(sig):
+        n = int(flat[i])
+        r = _KIND_ROWS[kind]
+        plane = flat[off:off + r * w].reshape(r, w)
+        off += r * w
+        if kind == "news":
+            cols = {
+                "ip_src": plane[1, :n],
+                "ip_dst": plane[2, :n],
+                "port_src": plane[3, :n] >> u(16),
+                "port_dst": plane[3, :n] & u(0xFFFF),
+                "proto": plane[4, :n] & u(0xFF),
+                "packet_tx": plane[5, :n],
+                "packet_rx": np.zeros(n, u),
+            }
+        else:
+            # a-lanes then the b-lane spill: valid records at [0, n)
+            idx = np.concatenate([plane[0], plane[1]])[:n].astype(np.int64)
+            pkts = np.concatenate([plane[2] & u(0xFFFF),
+                                   plane[2] >> u(16)])[:n]
+            rows = table[:, idx]
+            cols = {
+                "ip_src": rows[0],
+                "ip_dst": rows[1],
+                "port_src": rows[2] >> u(16),
+                "port_dst": rows[2] & u(0xFFFF),
+                "proto": rows[3] >> u(24),
+                "packet_tx": pkts,
+                "packet_rx": np.zeros(n, u),
+            }
+        out.append((cols, n))
+    return out
+
+
 def make_wire_update(cfg: FlowSuiteConfig, sig: Tuple[Tuple[str, int], ...]):
     """fn(state, dstate, flat) -> (state, dstate, rows) applying every
     plane of one staged int32 buffer in emission order. Each plane's n

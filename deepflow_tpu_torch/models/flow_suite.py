@@ -219,6 +219,24 @@ def unpack_lanes(lanes: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     }
 
 
+def unpack_lanes_np(plane: np.ndarray, n: int) -> Dict[str, np.ndarray]:
+    """Host twin of `unpack_lanes` over one (4, C) uint32 staged plane,
+    trimmed to its n valid rows: what degraded mode hands the host
+    sketch when a staged lane group must be absorbed without the
+    device. Same packet split as the device unpack (tx carries the
+    capped sum, rx is zero)."""
+    u = np.uint32
+    return {
+        "ip_src": plane[0, :n],
+        "ip_dst": plane[1, :n],
+        "port_src": plane[2, :n] >> u(16),
+        "port_dst": plane[2, :n] & u(0xFFFF),
+        "proto": plane[3, :n] >> u(24),
+        "packet_tx": plane[3, :n] & u(0xFFFFFF),
+        "packet_rx": np.zeros(n, u),
+    }
+
+
 def _lanes_of(plane: torch.Tensor) -> Dict[str, torch.Tensor]:
     return dict(zip(SKETCH_LANE_NAMES, plane))
 

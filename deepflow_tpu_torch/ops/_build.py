@@ -32,6 +32,13 @@ _fns: Dict[Tuple[str, str], object] = {}    # held ctypes functions
 build_log: List[str] = []      # nvcc's stderr per source (ptxas report)
 
 
+class KernelError(Exception):
+    """A hand kernel could not be built, loaded or launched. Not a
+    `RuntimeError` on purpose: code that contains device errors (the
+    exporter's rollback ladder catches `RuntimeError`) lets it through,
+    so a broken kernel is never worked around."""
+
+
 def nvcc_path() -> str:
     """The toolkit's nvcc: PATH first, then PyTorch's idea of CUDA_HOME."""
     found = shutil.which("nvcc")
@@ -40,7 +47,7 @@ def nvcc_path() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+    raise KernelError("nvcc not found: the CUDA toolkit is needed to build "
                        "the deepflow_tpu_torch kernels")
 
 
@@ -75,7 +82,7 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
         os.replace(tmp, out)
         built[name] = out
     if errors:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+        raise KernelError("kernel build failed:\n" + "\n".join(errors))
     return built
 
 
@@ -98,7 +105,7 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         return lib
     lib = load_all().get(name)
     if lib is None:
-        raise RuntimeError(f"no kernel library {name!r} in {CSRC_DIR}")
+        raise KernelError(f"no kernel library {name!r} in {CSRC_DIR}")
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int
@@ -116,9 +123,9 @@ def function(name: str, fn: str, signatures: Dict[str, Sequence]):
 
 
 def check(err: int, what: str) -> None:
-    """Raise when a C entry point reports a CUDA error."""
+    """Raise KernelError when a C entry point reports a CUDA error."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise KernelError(f"{what}: CUDA error {err} at launch")
 
 
 def stream_handle(device) -> int:

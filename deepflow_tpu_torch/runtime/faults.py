@@ -1,0 +1,171 @@
+"""Deterministic, seeded fault injection for the exporter's data path.
+
+Named sites ask `should_fire(site)` at the spot where a real fault would
+land; tests and `chip_smoke.py` arm them with a fixed seed so every run
+replays the same schedule. The sites this package fires:
+
+- ``tpu.device_error`` -- raise a device-classified `RuntimeError` where
+  the exporter dispatches to the device (the name is the reference's);
+- ``checkpoint.torn``  -- tear a snapshot file mid-write;
+- ``exporter.process`` -- raise inside `QueueWorkerExporter.process`.
+
+The registry is off by default and every call site guards on
+`default_faults().enabled` (one attribute load on the hot path). Arming
+a site sets the flag; disarming the last one clears it.
+
+Arming is programmatic (`arm()`) or by a spec string::
+
+    tpu.device_error:count=1,after=2;checkpoint.torn:count=1;seed=7
+
+Each clause is ``site:key=value,...``; a bare ``seed=N`` clause seeds
+the registry. Keys: ``count`` (fire the first N hits), ``p`` (fire with
+probability p per hit, seeded), ``for_s`` (fire only within S seconds of
+arming), ``after`` (skip the first N hits), ``match`` (only hits whose
+key contains this substring).
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from typing import Dict, List, Optional
+
+__all__ = ["FaultSite", "FaultRegistry", "InjectedFault", "default_faults",
+           "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
+           "FAULT_EXPORTER_PROCESS"]
+
+FAULT_DEVICE_ERROR = "tpu.device_error"
+FAULT_CHECKPOINT_TORN = "checkpoint.torn"
+FAULT_EXPORTER_PROCESS = "exporter.process"
+
+
+class InjectedFault(RuntimeError):
+    """The raised error: a RuntimeError, as CUDA errors and failed
+    kernel launches are, so handlers classify it like a real one."""
+
+
+class FaultSite:
+    """One armed site's schedule; every decision is local and seeded."""
+
+    __slots__ = ("name", "count", "p", "until", "after", "match", "hits",
+                 "fired", "_rng")
+
+    def __init__(self, name: str, count: Optional[int] = None,
+                 p: Optional[float] = None, for_s: Optional[float] = None,
+                 after: int = 0, match: Optional[str] = None,
+                 rng: Optional[random.Random] = None,
+                 clock=time.monotonic) -> None:
+        self.name = name
+        self.count = count
+        self.p = p
+        self.until = None if for_s is None else clock() + float(for_s)
+        self.after = int(after)
+        self.match = match
+        self.hits = 0
+        self.fired = 0
+        self._rng = rng or random.Random(0)
+
+    def decide(self, key: str, now: float) -> bool:
+        # match filters before hit accounting: `after`/`count` count
+        # matched hits only
+        if self.match is not None and self.match not in key:
+            return False
+        self.hits += 1
+        if self.hits <= self.after:
+            return False
+        if self.until is not None and now > self.until:
+            return False
+        if self.count is not None and self.fired >= self.count:
+            return False
+        if self.p is not None and self._rng.random() >= self.p:
+            return False
+        self.fired += 1
+        return True
+
+
+class FaultRegistry:
+    """Named sites -> armed schedules; `enabled` is the hot-path gate."""
+
+    def __init__(self, seed: int = 0, clock=time.monotonic) -> None:
+        self.enabled = False
+        self._sites: Dict[str, FaultSite] = {}
+        self._lock = threading.Lock()
+        self._seed = seed
+        self._clock = clock
+
+    def arm(self, site: str, **kw) -> FaultSite:
+        """Arm one site (kw: count / p / for_s / after / match). Its RNG
+        derives from (registry seed, site name), so a seed replays the
+        same schedule whatever order sites were armed in."""
+        rng = random.Random(f"{self._seed}:{site}")
+        fs = FaultSite(site, rng=rng, clock=self._clock, **kw)
+        with self._lock:
+            self._sites[site] = fs
+            self.enabled = True
+        return fs
+
+    def disarm(self, site: Optional[str] = None) -> None:
+        """Disarm one site (or all); clears `enabled` when none remain."""
+        with self._lock:
+            if site is None:
+                self._sites.clear()
+            else:
+                self._sites.pop(site, None)
+            self.enabled = bool(self._sites)
+
+    def arm_spec(self, spec: str) -> List[str]:
+        """Arm from a spec string (module docstring); returns the armed
+        site names. A malformed clause raises ValueError."""
+        armed: List[str] = []
+        clauses = [c.strip() for c in spec.split(";") if c.strip()]
+        for c in clauses:              # the seed applies registry-wide
+            if c.startswith("seed="):
+                self._seed = int(c[len("seed="):])
+        for c in clauses:
+            if c.startswith("seed="):
+                continue
+            if ":" not in c:
+                raise ValueError(f"fault clause {c!r}: expected site:k=v,...")
+            site, _, body = c.partition(":")
+            kw: dict = {}
+            for pair in filter(None, (p.strip() for p in body.split(","))):
+                if "=" not in pair:
+                    raise ValueError(f"fault clause {c!r}: bad pair {pair!r}")
+                k, _, v = pair.partition("=")
+                if k in ("count", "after"):
+                    kw[k] = int(v)
+                elif k in ("p", "for_s"):
+                    kw[k] = float(v)
+                elif k == "match":
+                    kw[k] = v
+                else:
+                    raise ValueError(f"fault clause {c!r}: unknown key {k!r}")
+            self.arm(site.strip(), **kw)
+            armed.append(site.strip())
+        return armed
+
+    # -- fire decisions (hot path: callers check `.enabled` first) ---------
+    def should_fire(self, site: str, key: str = "") -> bool:
+        with self._lock:
+            fs = self._sites.get(site)
+            if fs is None:
+                return False
+            return fs.decide(key, self._clock())
+
+    def maybe_raise(self, site: str, key: str = "") -> None:
+        if self.should_fire(site, key):
+            raise InjectedFault(f"injected fault at {site} ({key})")
+
+
+_default: Optional[FaultRegistry] = None
+_default_lock = threading.Lock()
+
+
+def default_faults() -> FaultRegistry:
+    """The process fault switchboard, made on first use."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = FaultRegistry()
+        return _default

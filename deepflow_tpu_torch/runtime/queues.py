@@ -1,0 +1,94 @@
+"""A fixed-size overwrite queue with drop accounting.
+
+Between pipeline stages records move through bounded rings that
+overwrite the oldest entry instead of blocking the producer; the loss is
+deliberate and counted (`overwritten`). A lock + condvar ring with the
+batch `gets` contract the exporter's worker relies on.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, List, Optional, Sequence
+
+
+class OverwriteQueue:
+    """Bounded ring; puts never block, overwriting the oldest on overflow."""
+
+    def __init__(self, name: str, capacity: int) -> None:
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self.name = name
+        self.capacity = capacity
+        self._buf: List[Any] = [None] * capacity
+        self._head = 0          # next slot to read
+        self._size = 0
+        self._ready = threading.Condition(threading.Lock())
+        self._closed = False
+        self.in_count = 0
+        self.out_count = 0
+        self.overwritten = 0
+        self.closed_dropped = 0   # puts after close(): counted, not raised
+
+    def __len__(self) -> int:
+        with self._ready:
+            return self._size
+
+    def put(self, item: Any) -> None:
+        self.puts((item,))
+
+    def puts(self, items: Sequence[Any]) -> None:
+        """Append a batch, overwriting the oldest entries when full. A
+        closed queue counts the batch as `closed_dropped` instead of
+        raising: producers race the close during shutdown."""
+        with self._ready:
+            if self._closed:
+                self.closed_dropped += len(items)
+                return
+            for item in items:
+                tail = (self._head + self._size) % self.capacity
+                if self._size == self.capacity:
+                    self._head = (self._head + 1) % self.capacity
+                    self.overwritten += 1
+                else:
+                    self._size += 1
+                self._buf[tail] = item
+            self.in_count += len(items)
+            if items:
+                self._ready.notify_all()
+
+    def gets(self, max_items: int,
+             timeout: Optional[float] = None) -> List[Any]:
+        """Take up to max_items; block until one is there, the timeout
+        passes, or the queue closes. [] only on timeout or closed and
+        drained."""
+        with self._ready:
+            if self._size == 0 and not self._closed:
+                self._ready.wait(timeout)
+            n = min(self._size, max_items)
+            out = []
+            for _ in range(n):
+                out.append(self._buf[self._head])
+                self._buf[self._head] = None
+                self._head = (self._head + 1) % self.capacity
+            self._size -= n
+            self.out_count += n
+        return out
+
+    def close(self) -> None:
+        """Wake all readers; later puts are counted drops, gets drain
+        what is left and then return []."""
+        with self._ready:
+            self._closed = True
+            self._ready.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def counters(self) -> dict:
+        with self._ready:
+            return {"in": self.in_count, "out": self.out_count,
+                    "overwritten": self.overwritten,
+                    "closed_dropped": self.closed_dropped,
+                    "pending": self._size}

@@ -1,102 +1,451 @@
-"""A lean single-device sketch exporter over the port's flow suite.
+"""The tpu_sketch exporter: decoded l4 chunks -> device sketch state ->
+window outputs, as the ingester runs it.
 
-`TpuSketchExporter.process(cols)` takes decoded l4 column dicts, batches
-them at `batch_rows` and applies each batch on the device:
+`TpuSketchExporter` is a `QueueWorkerExporter`: `put()` queues decoded
+chunks, its worker thread calls `process(chunks)`, and the window thread
+(`start()`) closes a window every `window_seconds`. Data paths:
 
-- wire="dict" (default): the valid rows are packed by `FlowDictPacker`
-  (news + hits planes, hits flushed every batch), staged into one flat
-  buffer (`stage_wire`), copied to the device in one transfer and applied
-  by the `make_wire_update` program of that buffer's signature;
-- wire="lanes": each batch is packed into a slot of a coalesced buffer
-  (`pack_lanes_into`); every `coalesce_batches` slots cross in one
-  transfer and `make_coalesced_update` applies them in order.
+- inline (`prefetch_depth=0`): chunks are cut into TensorBatches and
+  applied on the calling thread, one staged buffer per dispatch (dict
+  wire: packer output through `flow_dict.make_wire_update`; lanes wire:
+  `coalesce_batches` slots through `flow_suite.make_coalesced_update`).
+  It is the bit-identity reference of the other paths.
+- feed (`prefetch_depth>0`, `zero_copy=True`): the producer stages
+  decoded chunks straight into pinned buffers (`LaneStager`,
+  `DictWireStager`), and a supervised feed thread (`DeviceFeed`) copies
+  and dispatches each group while the producer stages the next, with up
+  to `prefetch_depth` groups in flight behind fences. The reference's
+  TensorBatch feed (`zero_copy=False` with a feed) is not ported.
 
-`flush_window()` ships what is still buffered, closes the window with
-`flow_suite.flush` and returns its `FlowWindowOutput`. The JAX package's
-exporter adds threads, a device feed, the snapshot bus, checkpoints,
-degraded mode, the anomaly plane and audit around the same step; those
-are not part of this exporter.
+Device contract (CUDA). All device work of the exporter runs on its own
+compute stream, entered by every thread that dispatches (the kernels
+launch on the calling thread's current stream). Host-to-device copies
+of pinned staging buffers run on a copy stream; the compute stream
+waits on an event recorded after each copy, and the copied tensor is
+`record_stream`-ed onto the compute stream so the allocator cannot hand
+its memory out early. A group's fence is a `torch.cuda.Event` recorded
+on the compute stream after its program; a staging buffer is recycled
+only after its fence retired. Between fences the feed path makes no
+device-to-host copy and no synchronization: the programs read each
+plane's valid count from the staged buffer on the device. On a CPU
+device everything runs synchronously and fences are None.
+
+Window flush (after a drain barrier): the pre-flush state is published
+to the `SnapshotBus` -- to disk every `checkpoint_every`-th dirty window
+when there is a `checkpoint_dir`, to subscribers on every dirty window
+-- and then `flow_suite.flush` reads the window out and starts a fresh
+state.
+
+Device errors (a `RuntimeError` from a dispatch or a fence: a CUDA
+error surfacing there, an injected `tpu.device_error`): the state is
+updated IN PLACE, so a failed program may leave it half-written. The
+ladder therefore never keeps it: it rolls back into fresh tensors built
+from the newest compatible snapshot (or a fresh init), and after
+`degrade_after` consecutive errors degrades the lane until a per-window
+probe finds the device healthy. Degraded on a CPU device, a host-numpy
+sketch absorbs the rows at reduced rate, as the reference's host
+fallback does; degraded on a CUDA device, the rows are shed and counted
+lost: work meant for the card never moves to the CPU. Every loss is
+counted (`lost_rows`, `lost_windows`, `shed_rows`). A sticky CUDA error
+(an illegal address) leaves the process's CUDA context unusable; no
+in-process restore mends that.
+
+A kernel that cannot be built, loaded or launched raises `KernelError`,
+which is no device error: it is never rolled back or degraded around.
+The inline path raises it at once; on the feed thread it is kept, the
+groups still queued are shed, and the producer's next `process`,
+`flush_window` or `checkpoint_now` raises it.
+
+Not ported here (ROADMAP): the pod and multihost branches, audit, the
+anomaly hook, tracer/profiler attribution, the autotuner, the store
+writers with the top-K reverse map, and the staged four-program update.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import heapq
+import logging
+import threading
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deepflow_tpu_torch.batch.batcher import (SKETCH_L4_SCHEMA, Batcher,
                                               TensorBatch)
+from deepflow_tpu_torch.batch.staging import (DictWireStager, LaneStager,
+                                              PackPool)
 from deepflow_tpu_torch.models import flow_dict, flow_suite
+from deepflow_tpu_torch.ops._build import KernelError
+from deepflow_tpu_torch.runtime.exporters import QueueWorkerExporter
+from deepflow_tpu_torch.runtime.faults import (FAULT_DEVICE_ERROR,
+                                               default_faults)
+from deepflow_tpu_torch.runtime.feed import DeviceFeed, InFlight
+from deepflow_tpu_torch.runtime.snapbus import SnapshotBus
+from deepflow_tpu_torch.runtime.supervisor import default_supervisor
+from deepflow_tpu_torch.utils.u32 import fold_columns_np
+
+_LOG = logging.getLogger(__name__)
 
 
-class TpuSketchExporter:
-    """Decoded l4 columns -> device sketch state -> window outputs."""
+class _HostSketch:
+    """Host-numpy fallback sketch: the degraded lane of a CPU device.
+
+    A reduced-rate approximation of the flow suite: rows are
+    stride-subsampled (1/stride admitted, counts scaled back up), heavy
+    hitters accumulate in a bounded exact dict, distinct clients in a
+    capped exact set, entropies over modulo-bucketed histograms. flush()
+    returns a FlowWindowOutput (CPU tensors) so readers see one shape."""
+
+    DICT_CAP = 1 << 16
+    CLIENTS_CAP = 1 << 16
+
+    def __init__(self, cfg: flow_suite.FlowSuiteConfig,
+                 stride: int = 4) -> None:
+        self.cfg = cfg
+        self.stride = max(1, stride)
+        self.rows = 0
+        self._counts: Dict[int, int] = {}
+        self._clients: set = set()
+        self._buckets = 1 << cfg.entropy_log2_buckets
+        self._ent = np.zeros((len(flow_suite.ENTROPY_FEATURES),
+                              self._buckets), np.int64)
+
+    def update(self, cols: Dict[str, np.ndarray]) -> int:
+        """Absorb one chunk at 1/stride rate; returns rows admitted."""
+        n = len(next(iter(cols.values()))) if cols else 0
+        if n == 0:
+            return 0
+        self.rows += n
+        sl = slice(None, None, self.stride)
+        sub = {k: np.asarray(v)[sl] for k, v in cols.items()}
+        keys = fold_columns_np([sub["ip_src"], sub["ip_dst"],
+                                sub["port_src"], sub["port_dst"],
+                                sub["proto"]])
+        uniq, cnt = np.unique(keys, return_counts=True)
+        counts = self._counts
+        for k, c in zip(uniq.tolist(), cnt.tolist()):
+            counts[k] = counts.get(k, 0) + c * self.stride
+        if len(counts) > self.DICT_CAP:
+            # keep the heavy half: the top-K readout only needs heads
+            self._counts = dict(heapq.nlargest(
+                self.DICT_CAP // 2, counts.items(), key=lambda kv: kv[1]))
+        if len(self._clients) < self.CLIENTS_CAP:
+            self._clients.update(sub["ip_src"].tolist())
+        pkts = np.minimum(sub["packet_tx"].astype(np.int64)
+                          + sub["packet_rx"].astype(np.int64), 0xFFFF)
+        for i, f in enumerate(flow_suite.ENTROPY_FEATURES):
+            # float64 weight sums are exact at these magnitudes (< 2^53)
+            self._ent[i] += np.bincount(
+                np.asarray(sub[f]).astype(np.uint32)
+                % np.uint32(self._buckets),
+                weights=pkts, minlength=self._buckets).astype(np.int64)
+        return len(keys)
+
+    def flush(self, cfg: flow_suite.FlowSuiteConfig
+              ) -> flow_suite.FlowWindowOutput:
+        """Window readout in FlowWindowOutput shape, then reset."""
+        k = cfg.top_k
+        top = heapq.nlargest(k, self._counts.items(), key=lambda kv: kv[1])
+        keys = np.zeros(k, np.uint32)
+        counts = np.zeros(k, np.int32)
+        for i, (key, c) in enumerate(top):
+            keys[i] = key & 0xFFFFFFFF
+            counts[i] = min(c, np.iinfo(np.int32).max)
+        h = self._ent.astype(np.float64)
+        total = h.sum(axis=1, keepdims=True)
+        p = h / np.maximum(total, 1.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            xlogx = np.where(p > 0, p * np.log(p), 0.0)
+        ent = np.where(total[:, 0] > 0,
+                       -xlogx.sum(axis=1) / np.log(self._buckets), 0.0)
+        out = flow_suite.FlowWindowOutput(
+            topk_keys=torch.from_numpy(keys.view(np.int32)),
+            topk_counts=torch.from_numpy(counts),
+            service_cardinality=torch.tensor([float(len(self._clients))],
+                                             dtype=torch.float32),
+            entropies=torch.from_numpy(ent.astype(np.float32)),
+            rows=torch.tensor(self.rows, dtype=torch.int32))
+        self.rows = 0
+        self._counts = {}
+        self._clients = set()
+        self._ent[:] = 0
+        return out
+
+
+class TpuSketchExporter(QueueWorkerExporter):
+    """Exporter contract (start/close/is_export_data/put) over the flow
+    suite on one device."""
+
+    _PROGRAM_CACHE_CAP = 128
 
     def __init__(self, cfg: Optional[flow_suite.FlowSuiteConfig] = None,
-                 batch_rows: int = 1 << 15, wire: str = "dict",
-                 coalesce_batches: int = 1, device="cuda") -> None:
+                 batch_rows: int = 1 << 15,
+                 window_seconds: float = 1.0,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1,
+                 wire: str = "dict",
+                 prefetch_depth: int = 0,
+                 coalesce_batches: int = 1,
+                 zero_copy: bool = True,
+                 pack_workers: int = 0,
+                 device="cuda") -> None:
+        super().__init__("tpu_sketch", ["l4_flow_log"], n_workers=1,
+                         batch=64)
         if wire not in ("dict", "lanes"):
             raise ValueError(f"wire must be 'dict' or 'lanes', got {wire!r}")
+        if prefetch_depth > 0 and not zero_copy:
+            raise ValueError("zero_copy=False with prefetch_depth > 0 (the "
+                             "TensorBatch feed) is not ported; the feed "
+                             "stages through LaneStager / DictWireStager")
         self.device = flow_suite.check_device(device)
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
         self.cfg = cfg or flow_suite.FlowSuiteConfig()
         self.wire = wire
         self.batch_rows = int(batch_rows)
-        self.state = flow_suite.init(self.cfg, self.device)
-        self.batcher = Batcher(SKETCH_L4_SCHEMA, self.batch_rows)
-        self._programs: Dict = {}
-        self.coalesce_batches = max(1, int(coalesce_batches))
+        self.window_seconds = window_seconds
+        with self._on_stream():
+            self.state = flow_suite.init(self.cfg, self.device)
+        # the snapshot bus: disk-backed with a checkpoint_dir (restart
+        # replay and the rollback read it back), in-process otherwise;
+        # `checkpointer` is None when nothing is durable
+        self._snapbus = SnapshotBus(checkpoint_dir)
+        self.checkpointer = self._snapbus \
+            if checkpoint_dir is not None else None
+        self.checkpoint_every = max(1, checkpoint_every)
+        self.windows = 0
+        self._rows_at_flush = 0
+        if self.checkpointer is not None:
+            with self._on_stream():
+                restored = self.checkpointer.restore(self.state)
+            if restored is not None:
+                self.state = restored
+                # resume the step counter past the existing snapshots
+                self.windows = self.checkpointer.latest_step() or 0
+                # the restored accumulation is uncounted live data: dirty
+                self._rows_at_flush = -1
+        # dict wire: a flow's 5-tuple crosses once (news), repeats cross
+        # as hits against the device key table. The table is not
+        # checkpointed: after a restore a fresh packer re-announces
+        # flows as news. Pairs-packed hits planes need an even batch.
         self._dict_packer = None
         self._dict_state = None
         if wire == "dict":
-            # pairs-packed hits planes hold two records per slot, so the
-            # hits batch is even
-            self._dict_packer = flow_dict.FlowDictPacker(
-                capacity=max(2 * self.batch_rows, 1 << 17),
-                hits_batch=max(2, self.batch_rows & ~1))
-            self._dict_state = flow_dict.init_dict(
-                self._dict_packer.capacity, self.device)
-        else:
-            self._flat = np.zeros(flow_suite.coalesced_lanes_words(
-                self.coalesce_batches, self.batch_rows), np.uint32)
-            self._slots = 0
+            self._packer_capacity = max(2 * self.batch_rows, 1 << 17)
+            self._packer_hits_batch = max(2, self.batch_rows & ~1)
+            self._dict_packer = self._new_packer()
+            with self._on_stream():
+                self._dict_state = flow_dict.init_dict(
+                    self._packer_capacity, self.device)
         self.rows_in = 0
-        self.windows = 0
+        self.last_output: Optional[flow_suite.FlowWindowOutput] = None
+        self._window_thread = None
+        self._window_stop = threading.Event()
+        self._state_lock = threading.Lock()
+        self.h2d_bytes = 0
+        self.h2d_transfers = 0
+        self.dispatches = 0
+        # -- degraded mode (fault domain: the device) ------------------
+        self._faults = default_faults()
+        self.degraded = False
+        self.device_errors = 0     # device-classified raises
+        self.recoveries = 0        # degraded -> device restorations
+        self.lost_windows = 0      # window accumulations rolled back
+        self.lost_rows = 0         # rows in groups that died on device
+        self.host_rows = 0         # rows absorbed by the host fallback
+        self.shed_rows = 0         # rows refused (and counted lost)
+        self._consecutive_errors = 0
+        self.degrade_after = 2
+        # the host fallback runs for a CPU device only: degraded on the
+        # card, rows are shed rather than computed on the CPU
+        self._host_fallback = not cuda
+        self.host_stride = 4       # host fallback subsample
+        self._host: Optional[_HostSketch] = None
+        self._window_lost_counted = False
+        self._kernel_error: Optional[KernelError] = None
+        # -- overlapped device feed ------------------------------------
+        # Between feed.drain() barriers the feed thread is the only
+        # writer of state/_dict_state/_host; _state_lock serializes
+        # producers against the window flush (feed.py).
+        self.prefetch_depth = max(0, int(prefetch_depth))
+        self.coalesce_batches = max(1, int(coalesce_batches))
+        self._feed: Optional[DeviceFeed] = None
+        self._programs: Dict[Any, Any] = {}
+        self.zero_copy = self.prefetch_depth > 0
+        self._stager = None
+        self._pack_pool = None
+        self.batcher = None
+        if self.zero_copy:
+            if pack_workers > 0:
+                self._pack_pool = PackPool(pack_workers)
+            cap = self.prefetch_depth + 2      # free buffers per size
+            if wire == "dict":
+                # the stager owns the packer (it packs at its own batch
+                # cuts to keep the inline partition)
+                self._stager = DictWireStager(
+                    self.batch_rows, packer_factory=self._new_packer,
+                    group_batches=self.coalesce_batches,
+                    pool=self._pack_pool, pool_cap=cap, pinned=cuda)
+                self._dict_packer = None
+            else:
+                self._stager = LaneStager(
+                    self.batch_rows, group_batches=self.coalesce_batches,
+                    pool=self._pack_pool, pool_cap=cap, pinned=cuda)
+            self._feed = DeviceFeed(
+                "tpu-sketch-feed",
+                self._feed_process_dict_staged if wire == "dict"
+                else self._feed_process_staged,
+                # groups are coalesced at the stager
+                depth=self.prefetch_depth, coalesce=1,
+                on_fence_error=self._feed_fence_error,
+                on_restart=self._feed_crash_restart)
+        else:
+            self.batcher = Batcher(SKETCH_L4_SCHEMA, self.batch_rows)
+            if wire == "lanes":
+                # inline lanes: one pageable buffer of coalesce slots
+                self._flat = np.zeros(flow_suite.coalesced_lanes_words(
+                    self.coalesce_batches, self.batch_rows), np.uint32)
+                self._slots = 0
 
-    # -- ingest ----------------------------------------------------------
+    def _new_packer(self) -> flow_dict.FlowDictPacker:
+        return flow_dict.FlowDictPacker(capacity=self._packer_capacity,
+                                        hits_batch=self._packer_hits_batch)
 
-    def process(self, cols: Dict[str, np.ndarray]) -> None:
-        """One decoded chunk (column name -> numpy array)."""
-        schema_cols = SKETCH_L4_SCHEMA.coerce(cols)
-        for tb in self.batcher.put(schema_cols):
-            self._run_batch(tb)
-        self.rows_in += len(next(iter(schema_cols.values())))
+    def _on_stream(self):
+        """Enter the exporter's compute stream on the calling thread
+        (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
-    def _to_device(self, flat: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(flat.view(np.int32)).to(self.device)
+    # -- exporter lifecycle --------------------------------------------------
+    def start(self) -> None:
+        super().start()
+        # deadman off: the loop blocks a whole window between beats
+        self._window_thread = default_supervisor().spawn(
+            "tpu-sketch-window", self._window_loop, deadman_s=None)
 
-    def _program(self, key, build):
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = build()
-        return prog
+    def close(self) -> None:
+        self._window_stop.set()
+        if self._window_thread is not None:
+            self._window_thread.stop()
+            self._window_thread.join(timeout=5)
+        super().close()
+        try:
+            self.flush_window()  # the final window (drains the feed first)
+        finally:
+            if self._feed is not None:
+                self._feed.close()
+            if self._pack_pool is not None:
+                # after the feed: in-flight groups may wait on pool packs
+                self._pack_pool.close()
 
-    def _run_batch(self, tb: TensorBatch) -> None:
-        if self._dict_packer is not None:
+    # -- data path -----------------------------------------------------------
+    def process(self, chunks: List[Any]) -> None:
+        """Queue worker: decoded (stream, idx, cols, batch_id) chunks ->
+        static batches -> device. Holds _state_lock across the batcher
+        or stager and the state: the window flush takes the same lock."""
+        for _stream, _idx, cols, *_rest in chunks:
+            schema_cols = self.coerce_to_schema(cols, SKETCH_L4_SCHEMA)
+            with self._state_lock:
+                self._raise_kernel_error()
+                if self._stager is not None:
+                    # the stager is private state guarded by this lock;
+                    # a full feed queue is back-pressure, not deadlock
+                    for sg in self._stager.put(schema_cols):
+                        self._feed.put(sg)
+                else:
+                    for tb in self.batcher.put(schema_cols):
+                        self._submit_batch_locked(tb)
+                # counted once handed to the device path: a processed
+                # watermark (every flush drains the feed first)
+                self.rows_in += len(next(iter(schema_cols.values())))
+
+    def _submit_batch_locked(self, tb: TensorBatch) -> None:
+        """One TensorBatch through the inline path."""
+        with self._on_stream():
+            self._run_batch_locked(tb)
+
+    def _raise_kernel_error(self) -> None:
+        """A kernel failed to build or launch: every later call raises."""
+        if self._kernel_error is not None:
+            raise self._kernel_error
+
+    def _to_device(self, flat: np.ndarray, pinned: bool) -> torch.Tensor:
+        """One staged uint32 buffer -> an int32 device tensor. A pinned
+        buffer is copied asynchronously on the copy stream, which the
+        compute stream then waits on; a pageable one synchronously."""
+        self.h2d_bytes += flat.nbytes
+        self.h2d_transfers += 1
+        host = torch.from_numpy(flat.view(np.int32))
+        if self._stream is None:
+            return host.clone()
+        if not pinned:
+            return host.to(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dev = host.to(self.device, non_blocking=True)
+            copied = self._copy_stream.record_event()
+        self._stream.wait_event(copied)
+        dev.record_stream(self._stream)
+        return dev
+
+    def _fence(self):
+        """A fence after the work just dispatched (None on the CPU)."""
+        return None if self._stream is None else self._stream.record_event()
+
+    def _dispatch_begin(self) -> None:
+        """Fault injection at every device dispatch."""
+        if self._faults.enabled:   # chaos: simulated device loss
+            self._faults.maybe_raise(FAULT_DEVICE_ERROR, key=self.wire)
+
+    def _apply_wire(self, flat_d: torch.Tensor, sig) -> None:
+        prog = self._program(
+            ("dict", sig), lambda: flow_dict.make_wire_update(self.cfg, sig))
+        self.state, self._dict_state, _ = prog(self.state, self._dict_state,
+                                               flat_d)
+        self.dispatches += 1
+
+    def _apply_lanes(self, flat_d: torch.Tensor, k: int, c: int) -> None:
+        prog = self._program(
+            ("lanes", k, c),
+            lambda: flow_suite.make_coalesced_update(self.cfg, k, c))
+        self.state, _ = prog(self.state, flat_d)
+        self.dispatches += 1
+
+    def _run_batch_locked(self, tb: TensorBatch) -> None:
+        """Inline path, on the compute stream."""
+        if self.degraded:
+            self._host_batch_locked(tb)
+            return
+        if self._dict_packer is None:
+            self._stage_lane_slot_locked(tb)
+            return
+        try:
+            self._dispatch_begin()
             mask = tb.mask()
             cols = {k: v[mask] for k, v in tb.columns.items()}
             wire = self._dict_packer.pack(cols) + self._dict_packer.flush()
-            self.batcher.recycle(tb)
             if not wire:
                 return
             sig = flow_dict.wire_signature(wire)
             flat = np.empty(flow_dict.wire_words(sig), np.uint32)
             flow_dict.stage_wire(wire, flat)
-            prog = self._program(
-                ("dict", sig), lambda: flow_dict.make_wire_update(self.cfg, sig))
-            self.state, self._dict_state, _ = prog(
-                self.state, self._dict_state, self._to_device(flat))
-            return
+            self._apply_wire(self._to_device(flat, pinned=False), sig)
+        except KernelError as e:
+            self._kernel_error = e
+            raise
+        except RuntimeError:
+            # a CUDA error or an injected fault; shape bugs (ValueError,
+            # TypeError) reach the worker's counter
+            self._on_device_error_locked(int(tb.valid))
+
+    def _stage_lane_slot_locked(self, tb: TensorBatch) -> None:
+        """Inline lanes: pack one batch into the next slot; every
+        `coalesce_batches` slots cross in one transfer."""
         C = self.batch_rows
         k = self._slots
         flow_suite.pack_lanes_into(tb.columns,
@@ -105,34 +454,407 @@ class TpuSketchExporter:
         self.batcher.recycle(tb)
         self._slots += 1
         if self._slots == self.coalesce_batches:
-            self._ship_lanes()
+            self._ship_lanes_locked()
 
-    def _ship_lanes(self) -> None:
-        """Apply the filled prefix of the coalesced lane buffer."""
-        k = self._slots
+    def _ship_lanes_locked(self) -> None:
+        """Apply the filled prefix of the inline lane buffer (on the
+        host when degraded)."""
+        k, self._slots = self._slots, 0
         if k == 0:
             return
         C = self.batch_rows
-        prog = self._program(
-            ("lanes", k), lambda: flow_suite.make_coalesced_update(
-                self.cfg, k, C))
         flat = self._flat[:flow_suite.coalesced_lanes_words(k, C)]
-        self.state, _ = prog(self.state, self._to_device(flat))
-        self._slots = 0
+        rows = int(sum(flat[i * flow_suite.slot_words(C)] for i in range(k)))
+        if self.degraded:
+            if not self._shed_locked(rows):
+                self._absorb_lane_slots(flat, k, C)
+            return
+        try:
+            self._dispatch_begin()
+            self._apply_lanes(self._to_device(flat, pinned=False), k, C)
+        except KernelError as e:
+            self._kernel_error = e
+            raise
+        except RuntimeError:
+            self._on_device_error_locked(rows)
 
-    # -- windows ---------------------------------------------------------
+    def _count_lost_locked(self, rows: int) -> None:
+        """Rows that will reach no window output; the window's
+        accumulation is counted lost once."""
+        self.lost_rows += rows
+        if not self._window_lost_counted:
+            self.lost_windows += 1
+            self._window_lost_counted = True
 
-    def drain(self) -> None:
-        """Apply every buffered row to the device state (a padded last
-        batch, unshipped lane slots) without closing the window."""
-        for tb in self.batcher.flush():
-            self._run_batch(tb)
-        if self._dict_packer is None:
-            self._ship_lanes()
+    def _shed_locked(self, rows: int) -> bool:
+        """True when the rows are refused and counted lost instead of
+        going to the host fallback: after a kernel error, and degraded
+        on a CUDA device."""
+        if self._kernel_error is None and self._host_fallback:
+            return False
+        self.shed_rows += rows
+        self._count_lost_locked(rows)
+        return True
 
-    def flush_window(self) -> flow_suite.FlowWindowOutput:
-        """Apply every buffered row, then close the window."""
-        self.drain()
-        self.windows += 1
-        self.state, out = flow_suite.flush(self.state, self.cfg)
+    def _on_device_error_locked(self, rows: int) -> None:
+        """A group died on the device: roll the state back into fresh
+        tensors (newest snapshot, else a fresh init) and, after
+        repeated failures, degrade the lane."""
+        self.device_errors += 1
+        self._consecutive_errors += 1
+        self._count_lost_locked(rows)
+        _LOG.exception("tpu_sketch device error #%d (consecutive %d)",
+                       self.device_errors, self._consecutive_errors)
+        try:
+            self._restore_device_state_locked()
+        except Exception:
+            # the device cannot even hold a fresh state: degrade now
+            self._consecutive_errors = self.degrade_after
+        if self._consecutive_errors >= self.degrade_after:
+            self.degraded = True
+            if self._host_fallback:
+                _LOG.warning("tpu_sketch degraded: host-numpy fallback at "
+                             "1/%d rate", self.host_stride)
+            else:
+                _LOG.warning("tpu_sketch degraded: rows shed, counted lost, "
+                             "until a window's probe recovers the device")
+
+    def _restore_device_state_locked(self) -> None:
+        """Rebuild the device state in fresh tensors: the newest
+        compatible snapshot if there is one, else a fresh init. The dict
+        wire's packer and device table restart empty: flows re-announce
+        as news."""
+        with self._on_stream():
+            fresh = flow_suite.init(self.cfg, self.device)
+            restored = None
+            if self.checkpointer is not None:
+                restored = self.checkpointer.restore(fresh)
+            if restored is not None:
+                _LOG.warning("tpu_sketch state restored from snapshot step "
+                             "%d (current window %d)",
+                             self.checkpointer.last_restored_step,
+                             self.windows)
+            self.state = restored if restored is not None else fresh
+            if self.wire == "dict":
+                if self._stager is not None:
+                    # new packer generation: in-flight groups of the old
+                    # one are dropped as counted loss at dispatch; the
+                    # open group's packed rows are counted here
+                    self.lost_rows += self._stager.reset_packer()
+                else:
+                    self._dict_packer = self._new_packer()
+                self._dict_state = flow_dict.init_dict(
+                    self._packer_capacity, self.device)
+
+    def _host_batch_locked(self, tb: TensorBatch) -> None:
+        if self._shed_locked(int(tb.valid)):
+            return
+        mask = tb.mask()
+        self._host_update({k: v[mask] for k, v in tb.columns.items()})
+
+    def _host_update(self, cols: Dict[str, np.ndarray]) -> None:
+        if self._host is None:
+            self._host = _HostSketch(self.cfg, stride=self.host_stride)
+        self.host_rows += self._host.update(cols)
+
+    def _absorb_lane_slots(self, flat: np.ndarray, k: int, C: int) -> None:
+        """The host fallback reads staged lane slots through the unpack
+        twin: the lanes are the batch by now."""
+        s = flow_suite.slot_words(C)
+        for i in range(k):
+            n = int(flat[i * s])
+            if n:
+                self._host_update(flow_suite.unpack_lanes_np(
+                    flow_suite.slot_plane(flat, i, C), n))
+
+    def _probe_device_locked(self) -> bool:
+        """Degraded-mode recovery probe (once per window): a small
+        device round trip; healthy -> restore the state and hand the
+        lane back to the device. The host window was already flushed,
+        so its tallies are dropped, not merged."""
+        try:
+            if self._faults.enabled:
+                self._faults.maybe_raise(FAULT_DEVICE_ERROR, key="probe")
+            with self._on_stream():
+                probe = torch.ones(8, dtype=torch.int32, device=self.device)
+                if int(probe.sum()) != 8:
+                    return False
+            self._restore_device_state_locked()
+        except Exception:
+            return False
+        self.degraded = False
+        self._consecutive_errors = 0
+        self.recoveries += 1
+        self._host = None
+        return True
+
+    # -- overlapped feed: everything below runs on the FEED THREAD -----------
+    # It never takes _state_lock: between drain barriers the feed thread
+    # is the only writer of the state (feed.py).
+
+    def _feed_process(self, group, absorb, dispatch) -> Optional[InFlight]:
+        """Shared shell for one group: the degraded absorb (host
+        fallback or shed), or dispatch on the compute stream with the
+        device-error rollback counting the whole group."""
+        if self.degraded or self._kernel_error is not None:
+            for item, _ in group:
+                absorb(item)
+            return None
+        rows = sum(int(item.valid) for item, _ in group)
+        try:
+            with self._on_stream():
+                return dispatch(group, rows)
+        except KernelError as e:
+            # no rollback, no fallback: kept for the producer to raise
+            self._kernel_error = e
+            self._shed_locked(rows)
+            return None
+        except RuntimeError:
+            self._on_device_error_locked(rows)
+            return None
+
+    def _feed_process_staged(self, group) -> Optional[InFlight]:
+        """Zero-copy lanes: items are pre-staged groups; this thread
+        waits for their packs, copies and dispatches."""
+        return self._feed_process(group, self._absorb_staged_host,
+                                  self._dispatch_staged)
+
+    def _dispatch_staged(self, group, rows: int) -> Optional[InFlight]:
+        self._dispatch_begin()
+        fence = None
+        for sg, _ in group:        # coalesce=1: normally exactly one
+            # a host barrier for the sharded pack (not a device sync): a
+            # poisoned group raises StagingPackError, which crashes the
+            # feed thread into the supervisor on purpose
+            sg.wait_ready(timeout=30.0)
+            self._apply_lanes(self._to_device(sg.flat, pinned=True),
+                              sg.k, sg.capacity)
+            fence = sg.fence = self._fence()
+        groups = [sg for sg, _ in group]
+        return InFlight(fence, rows,
+                        lambda: [self._stager.recycle(sg) for sg in groups])
+
+    def _absorb_staged_host(self, sg) -> None:
+        """Degraded mode reached a staged lane group: shed, or the host
+        fallback reads its slots through the unpack twin."""
+        sg.wait_ready(timeout=30.0)
+        if not self._shed_locked(int(sg.valid)):
+            self._absorb_lane_slots(sg.flat, sg.k, sg.capacity)
+        self._stager.recycle(sg)
+
+    def _feed_process_dict_staged(self, group) -> Optional[InFlight]:
+        """Zero-copy dict wire: items are staged wire groups (packed at
+        put() time on the producer). A group staged before a device
+        restore (a stale epoch) references a dead table generation and
+        is dropped as counted loss."""
+        return self._feed_process(group, self._absorb_dict_staged_host,
+                                  self._dispatch_dict_staged)
+
+    def _drop_stale(self, sg) -> bool:
+        """Count and recycle a group of a dead packer generation."""
+        if sg.epoch == self._stager.epoch:
+            return False
+        self._stager.epoch_drops += 1
+        self.lost_rows += int(sg.valid)
+        self._stager.recycle(sg)
+        return True
+
+    def _dispatch_dict_staged(self, group,
+                              rows: int) -> Optional[InFlight]:
+        self._dispatch_begin()
+        fence = None
+        live = []
+        for sg, _ in group:        # coalesce=1: normally exactly one
+            sg.wait_ready(timeout=30.0)
+            if self._drop_stale(sg):
+                continue
+            self._apply_wire(self._to_device(sg.flat, pinned=True), sg.sig)
+            fence = sg.fence = self._fence()
+            live.append(sg)
+        if not live:
+            return None            # every group a counted stale drop
+        return InFlight(fence, sum(int(sg.valid) for sg in live),
+                        lambda: [self._stager.recycle(sg) for sg in live])
+
+    def _absorb_dict_staged_host(self, sg) -> None:
+        """Degraded mode reached a staged wire group: shed, or the host
+        fallback walks the unpack twin (news carry their keys; hits
+        gather them from the stager's host mirror of the device table)."""
+        sg.wait_ready(timeout=30.0)
+        if self._drop_stale(sg):
+            return
+        if not self._shed_locked(int(sg.valid)):
+            for cols, n in flow_dict.unpack_wire_np(sg.flat, sg.sig,
+                                                    self._stager.mirror):
+                if n:
+                    self._host_update(cols)
+        self._stager.recycle(sg)
+
+    def _program(self, key, build):
+        """Signature -> program cache, bounded: a pathological stream
+        degrades to rebuilding, not to unbounded growth."""
+        prog = self._programs.get(key)
+        if prog is None:
+            if len(self._programs) >= self._PROGRAM_CACHE_CAP:
+                self._programs.clear()
+            prog = self._programs[key] = build()
+        return prog
+
+    def _feed_fence_error(self, exc: BaseException, rows: int) -> None:
+        """An asynchronous device error at a fence: the failed group and
+        every younger one arrive as one loss, through the same ladder
+        as a synchronous dispatch error."""
+        if isinstance(exc, RuntimeError):
+            self._on_device_error_locked(rows)
+            return
+        self._count_lost_locked(rows)
+        try:
+            self._restore_device_state_locked()
+        except Exception:
+            self._consecutive_errors = self.degrade_after
+            self.degraded = True
+
+    def _feed_crash_restart(self, rows: int) -> None:
+        """The supervisor restarted the crashed feed thread: the
+        window's rows are counted lost and the state restored (a crash
+        mid-program may have left it half-written)."""
+        self._count_lost_locked(rows)
+        if self.degraded:
+            return
+        try:
+            self._restore_device_state_locked()
+        except Exception:
+            self._consecutive_errors = self.degrade_after
+            self.degraded = True
+
+    def pending_extra(self) -> int:
+        """Items the prefetch window still owes the device; a host's
+        `Exporters.pending()` adds this to the queue length."""
+        return 0 if self._feed is None else self._feed.pending()
+
+    @property
+    def snapshot_bus(self) -> SnapshotBus:
+        """The snapshot bus readers subscribe to (in-process only
+        without a checkpoint_dir)."""
+        return self._snapbus
+
+    def checkpoint_now(self) -> bool:
+        """Shutdown hook: persist the current accumulation whatever the
+        cadence. No-op while degraded (the host sketch is no device
+        state) or when the feed does not settle."""
+        with self._state_lock:
+            if self.checkpointer is None or self.degraded:
+                return False
+            if self._feed is not None \
+                    and not self._feed.drain(timeout=10.0):
+                _LOG.error("feed drain timed out; shutdown checkpoint "
+                           "skipped")
+                return False
+            self._raise_kernel_error()
+            with self._on_stream():
+                self._snapbus.publish(self.state, self.windows,
+                                      tags={"final": True})
+            return True
+
+    # -- windows -------------------------------------------------------------
+    def flush_window(self, now: Optional[float] = None) -> Optional[
+            flow_suite.FlowWindowOutput]:
+        """Ship what is buffered, wait for the feed, publish the window
+        and read it out. None when no output was made (an idle degraded
+        window, or a readout that died on the device)."""
+        now = time.time() if now is None else now
+        with self._state_lock:
+            if self._stager is not None:
+                # the open staging prefix ships as it is
+                for sg in self._stager.flush():
+                    self._feed.put(sg)
+                if not self._feed.drain(timeout=60.0):
+                    # the feed thread never takes _state_lock, so
+                    # waiting under it is safe
+                    _LOG.error("feed drain timed out; window flushed "
+                               "against a possibly advancing state")
+            else:
+                for tb in self.batcher.flush():
+                    self._submit_batch_locked(tb)
+                if self._dict_packer is None:
+                    with self._on_stream():
+                        self._ship_lanes_locked()
+            self._raise_kernel_error()
+            self.windows += 1
+            with self._on_stream():
+                if self.degraded:
+                    out = None if self._host is None \
+                        else self._host.flush(self.cfg)
+                    self._rows_at_flush = self.rows_in
+                    self._probe_device_locked()
+                else:
+                    out = self._publish_and_flush_locked(now)
+            # the lost-window guard resets at the true window boundary
+            self._window_lost_counted = False
+        if out is None:
+            return None
+        if self._stream is not None:
+            # hand the readout to the caller's stream: its work on the
+            # outputs waits for the flush, and the allocator keeps their
+            # memory until that work is done
+            caller = torch.cuda.current_stream(self.device)
+            caller.wait_stream(self._stream)
+            for t in out:
+                if t.is_cuda:
+                    t.record_stream(caller)
+        self.last_output = out
         return out
+
+    def _publish_and_flush_locked(self, now: float):
+        # publish the PRE-flush state (the window's accumulation; a
+        # restore replays it at least once): to disk on the cadence when
+        # the window is dirty, to subscribers on every dirty window,
+        # and not at all otherwise
+        dirty = self.rows_in != self._rows_at_flush
+        want_disk = (self.checkpointer is not None and dirty
+                     and self.windows % self.checkpoint_every == 0)
+        if want_disk or (dirty and self._snapbus.has_subscribers()):
+            self._snapbus.publish(
+                self.state, self.windows, wall_time=now,
+                tags={"lossy": self._window_lost_counted},
+                to_disk=want_disk)
+        self._rows_at_flush = self.rows_in
+        try:
+            self.state, out = flow_suite.flush(self.state, self.cfg)
+        except RuntimeError:
+            # the readout itself died on the device: the same ladder
+            self._on_device_error_locked(0)
+            return None
+        return out
+
+    def flush(self) -> None:
+        """The ingester's flush hook. This exporter has no store writers
+        (they are not ported), so there is nothing to write out."""
+
+    def _window_loop(self) -> None:
+        while not self._window_stop.wait(self.window_seconds):
+            self.flush_window()
+
+    def counters(self) -> dict:
+        c = super().counters()
+        c.update({"rows_in": self.rows_in, "windows": self.windows,
+                  "h2d_bytes": self.h2d_bytes,
+                  "h2d_transfers": self.h2d_transfers,
+                  "dispatches": self.dispatches,
+                  "batches": (self._stager.staged_batches
+                              if self._stager is not None
+                              else self.batcher.emitted_batches),
+                  "degraded": 1 if self.degraded else 0,
+                  "device_errors": self.device_errors,
+                  "recoveries": self.recoveries,
+                  "lost_windows": self.lost_windows,
+                  "lost_rows": self.lost_rows,
+                  "host_rows": self.host_rows,
+                  "shed_rows": self.shed_rows})
+        if self._feed is not None:
+            c.update(self._feed.counters())
+        if self._stager is not None:
+            c["zero_copy"] = 1
+            c.update(self._stager.counters())
+        c.update(self._snapbus.counters())
+        return c

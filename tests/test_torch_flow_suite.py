@@ -283,7 +283,7 @@ def test_exporter_lanes_windows_match_jax(coalesce):
     jupd = jax.jit(lambda s, l, m: jfs.update_packed(s, l, m, jcfg))
     for chunks in _exporter_chunks(21):
         for cols in chunks:
-            exp.process(cols)
+            exp.process([("l4_flow_log", 0, cols, -1)])
         allc = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
         total = len(allc["ip_src"])
         for s in range(0, total, B):
@@ -308,7 +308,7 @@ def test_exporter_dict_windows_match_jax():
     jpack = jfd.FlowDictPacker(capacity=1 << 17, hits_batch=B)
     for chunks in _exporter_chunks(22):
         for cols in chunks:
-            exp.process(cols)
+            exp.process([("l4_flow_log", 0, cols, -1)])
         allc = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
         total = len(allc["ip_src"])
         for s in range(0, total, B):

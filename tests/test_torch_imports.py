@@ -39,7 +39,9 @@ def _imports(path: Path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "flow_suite.py", "flow_dict.py",
-            "cuda_hist.py", "cuda_sketch.py", "convert.py"} <= names
+            "cuda_hist.py", "cuda_sketch.py", "convert.py", "supervisor.py",
+            "faults.py", "queues.py", "exporters.py", "feed.py",
+            "staging.py", "snapbus.py", "tpu_sketch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -68,6 +70,39 @@ def _run_smoke(cwd, env):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           env=env, capture_output=True, text=True,
                           timeout=120)
+
+
+def _port_callables():
+    import importlib
+    import inspect
+    import pkgutil
+
+    import deepflow_tpu_torch
+    for m in pkgutil.walk_packages(deepflow_tpu_torch.__path__,
+                                   "deepflow_tpu_torch."):
+        mod = importlib.import_module(m.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isclass(obj):
+                obj = obj.__init__
+            if callable(obj):
+                try:
+                    params = inspect.signature(obj).parameters
+                except (TypeError, ValueError):
+                    continue
+                default = params["device"].default \
+                    if "device" in params else inspect.Parameter.empty
+                if default is not inspect.Parameter.empty:
+                    yield f"{mod.__name__}.{name}", default
+
+
+def test_every_entry_point_defaults_to_cuda():
+    found = dict(_port_callables())
+    assert "deepflow_tpu_torch.runtime.tpu_sketch.TpuSketchExporter" in found
+    assert "deepflow_tpu_torch.convert.state_from_numpy" in found
+    bad = {k: v for k, v in found.items() if v != "cuda"}
+    assert not bad, bad
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
