@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the deepflow_tpu_torch l4 sketch step on one CUDA card.
 
-    python3 chip_smoke.py [--seed S] [--window-records N]
+    python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
 Phases (any failure raises: the exit code is non-zero and no result line
 is printed):
@@ -55,7 +55,27 @@ is printed):
    copy activities the trace recorded by direction. While ingesting,
    the feed paths must make no stream or device sync (a host read of
    device data, `.item()` or `.cpu()`, syncs the stream after its copy),
-   one event sync per fence, and no recorded device-to-host copy.
+   one event sync per fence, and no recorded device-to-host copy;
+7. the detection lanes (the anomaly plane at AnomalyConfig() and the
+   shadow auditor at 1/64) over a DDoS ramp on the reference generator's
+   schedule (12 baseline windows, 3 ramp windows to an attack share of
+   0.9 at 2x rate, 5 sustained at 3x, 8 recovery; 2^18 records per 1x
+   window, benign rows from phase 3's Zipf pool, attack rows spoofed
+   over a /12 onto one victim): (a) the dict feed with both lanes on,
+   (b) the same with both off, (c) the dict inline path with both on.
+   The first entropy_ddos alert must come at most 2 windows after the
+   onset with z[0] > 0 and z[1] < 0; rows_seen == rows_in ==
+   table_offers; no feed or scoring error and no alert shed; (a) and (b)
+   leaf-equal sketch state at every window close, (a) and (c) equal
+   anomaly state (integer leaves exact, float leaves rtol 1e-5, the PCA
+   projector atol 1e-5); the audit closes every window and never alarms
+   over the baseline. Then the window step timed alone, one profiled
+   window with the lanes on and off (the phase-6 ingest rule asserted
+   with them on; launches per dict group and the flush's stream syncs
+   reported), the ladder with the lanes on (every device error reaches
+   the plane's device_lost, the shed window closes unscored), and a
+   small ramp through the plane on the card and on the CPU, its state
+   compared at every window close.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -154,10 +174,10 @@ def _torch_ops(torch, prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(torch, fn, names):
+def device_ms(torch, fn, names=None):
     """Mean device time per call of fn, summed over the kernels whose
-    names contain one of `names` (torch.profiler); None if the profiler
-    saw none of them."""
+    names contain one of `names` (every device event with None;
+    torch.profiler); None if the profiler saw none of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -166,7 +186,7 @@ def device_ms(torch, fn, names):
             fn()
         torch.cuda.synchronize()
     us = sum(t for k, t in _device_events(torch, prof)
-             if any(n in k for n in names))
+             if names is None or any(n in k for n in names))
     return us / ITERS / 1e3 if us > 0 else None
 
 
@@ -389,10 +409,9 @@ def check_kernels(torch, rng, dev):
 
 # -- phase 3: the slice ------------------------------------------------------
 
-def make_windows(rng, windows: int, records: int, pool: int = 1 << 17):
-    """Column dicts of l4 records drawn by Zipf(1.1) from `pool` distinct
-    in-range 5-tuples (rank past the pool clips to its last tuple)."""
-    base = {
+def flow_pool(rng, pool: int = 1 << 17):
+    """`pool` distinct in-range 5-tuples."""
+    return {
         "ip_src": (0x0A000000 + rng.permutation(pool)).astype(np.uint32),
         "ip_dst": (0xAC100000 + rng.integers(0, 1 << 16, pool)).astype(
             np.uint32),
@@ -401,14 +420,24 @@ def make_windows(rng, windows: int, records: int, pool: int = 1 << 17):
                                          5432, 53], np.uint32), pool),
         "proto": np.where(rng.random(pool) < 0.9, 6, 17).astype(np.uint32),
     }
-    out = []
-    for _ in range(windows):
-        pick = (rng.zipf(1.1, records) - 1).clip(max=pool - 1)
-        cols = {k: v[pick] for k, v in base.items()}
-        cols["packet_tx"] = rng.integers(1, 64, records).astype(np.uint32)
-        cols["packet_rx"] = rng.integers(1, 64, records).astype(np.uint32)
-        out.append(cols)
-    return out
+
+
+def draw(rng, base, records: int):
+    """One window of l4 records drawn by Zipf(1.1) from a flow pool (rank
+    past the pool clips to its last tuple)."""
+    pool = len(base["ip_src"])
+    pick = (rng.zipf(1.1, records) - 1).clip(max=pool - 1)
+    cols = {k: v[pick] for k, v in base.items()}
+    cols["packet_tx"] = rng.integers(1, 64, records).astype(np.uint32)
+    cols["packet_rx"] = rng.integers(1, 64, records).astype(np.uint32)
+    return cols
+
+
+def make_windows(rng, windows: int, records: int, pool: int = 1 << 17):
+    """Column dicts of l4 records drawn by Zipf(1.1) from `pool` distinct
+    in-range 5-tuples."""
+    base = flow_pool(rng, pool)
+    return [draw(rng, base, records) for _ in range(windows)]
 
 
 def exact_topk(cols, k: int) -> set:
@@ -852,7 +881,7 @@ def run_ingester_paths(torch, dev, windows, card, tmp, lanes_inline_snaps):
     return runs
 
 
-def walk_ladder(torch, dev, rng, tmp):
+def walk_ladder(torch, dev, rng, tmp, lanes=False):
     """Phase 6.4: the dict feed path with tpu.device_error armed. Window
     A is clean and checkpointed; in window B the first two dispatches
     fail (a rollback from A's snapshot into fresh tensors, then degraded
@@ -860,11 +889,15 @@ def walk_ladder(torch, dev, rng, tmp):
     nothing on the CPU); B's flush probes and recovers. Conservation
     over A and B is exact; window C holds A's rows once more, the
     restored snapshot replayed (the reference's at-least-once
-    restore)."""
+    restore). With `lanes` (phase 7) the anomaly plane and the auditor
+    ride along: every device error reaches the plane's `device_lost`
+    (counted), and the shed window B closes unscored, counted."""
     from deepflow_tpu_torch.runtime.faults import default_faults
 
     a, b1, b2, c = make_windows(rng, 4, 1 << 18)
-    exp = make_exporter(dev, INGESTER_RUNS[0][1], os.path.join(tmp, "ladder"))
+    knobs = dict(INGESTER_RUNS[0][1], **(DETECTION_KNOBS if lanes else {}))
+    exp = make_exporter(dev, knobs, os.path.join(
+        tmp, "ladder_lanes" if lanes else "ladder"))
     faults = default_faults()
     try:
         feed_chunks(exp, a, CHUNK)
@@ -898,6 +931,19 @@ def walk_ladder(torch, dev, rng, tmp):
         summary = {k: exp.counters()[k] for k in (
             "device_errors", "recoveries", "lost_windows", "lost_rows",
             "shed_rows", "host_rows", "restores", "dict_epoch_drops")}
+        if lanes:
+            plane = exp.anomaly.counters()
+            summary["anomaly"] = {k: plane[k] for k in (
+                "windows", "windows_unscored", "score_errors", "feed_errors",
+                "rows_seen", "table_offers")}
+            summary["audit_windows"] = exp._audit.windows
+            if (plane["feed_errors"] != exp.device_errors
+                    or plane["windows"] != exp.windows or exp.windows != 3
+                    or plane["windows_unscored"] != 1
+                    or plane["score_errors"]
+                    or plane["rows_seen"] != exp.rows_in
+                    or exp._audit.windows != exp.windows):
+                raise AssertionError(f"ladder with the lanes on: {summary}")
     finally:
         faults.disarm()
         exp.close()
@@ -972,16 +1018,17 @@ def trace_session(torch, prof, wall_s):
             "cudaLaunchKernel", "cudaMemcpyAsync")}}
 
 
-def profile_ingester_paths(torch, dev, windows, tmp, card):
-    """Phase 6.5: per run, one warm-up window, then one window under
-    torch.profiler in two sessions: its ingest (every chunk in; the feed
-    drained, or on the inline path a device synchronize) and its flush
-    (publish, readout), each bracketed by two `mark` calls."""
+def profile_ingester_paths(torch, dev, windows, tmp, card,
+                           runs=INGESTER_RUNS):
+    """Phase 6.5 (and 7): per run, one warm-up window, then one window
+    under torch.profiler in two sessions: its ingest (every chunk in; the
+    feed drained, or on the inline path a device synchronize) and its
+    flush (publish, readout), each bracketed by two `mark` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
-    for name, knobs, via_put, _ in INGESTER_RUNS:
+    for name, knobs, via_put, _ in runs:
         exp = make_exporter(dev, knobs, os.path.join(tmp, "prof_" + name))
         try:
             if via_put:
@@ -1048,10 +1095,291 @@ def profile_ingester_paths(torch, dev, windows, tmp, card):
     return out
 
 
+# -- phase 7: the detection lanes --------------------------------------------
+
+# the reference's DDoS ramp (replay/generator.py DDOS_RAMP_PHASES):
+# (phase, windows, attack share, rate multiple); a ramp phase's share
+# rises to its value across its windows
+RAMP_PHASES = (("baseline", 12, 0.0, 1), ("ramp", 3, 0.9, 2),
+               ("sustained", 5, 0.9, 3), ("recovery", 8, 0.0, 1))
+ONSET = 12                 # the first window with attack rows
+VICTIM_IP, VICTIM_PORT = 0xAC10BEEF, 80
+# the ingester's detection defaults: the plane at AnomalyConfig() and the
+# shadow auditor at 1/64
+DETECTION_KNOBS = {"anomaly": True, "audit_rate": 1.0 / 64}
+
+
+def ramp_windows(rng, records: int, pool: int = 1 << 17):
+    """The DDoS ramp at `records` per 1x window: benign rows drawn by
+    Zipf(1.1) from one flow pool; attack rows at each window's tail,
+    sources spoofed uniformly over a /12, one victim IP and port, TCP,
+    96 packets each (the reference generator's volumetric flood).
+    Returns [(phase, cols)]."""
+    base = flow_pool(rng, pool)
+    out = []
+    for name, n_win, share, rate in RAMP_PHASES:
+        for i in range(n_win):
+            n = records * rate
+            frac = share * (i + 1) / n_win if name == "ramp" else share
+            cols = draw(rng, base, n)
+            k = int(n * frac)
+            if k:
+                tail = slice(n - k, n)
+                cols["ip_src"][tail] = 0x0B000000 + rng.integers(
+                    0, 1 << 20, k).astype(np.uint32)
+                cols["ip_dst"][tail] = VICTIM_IP
+                cols["port_src"][tail] = rng.integers(
+                    1024, 1 << 16, k).astype(np.uint32)
+                cols["port_dst"][tail] = VICTIM_PORT
+                cols["proto"][tail] = 6
+                cols["packet_tx"][tail] = 96
+                cols["packet_rx"][tail] = 0
+            out.append((name, cols))
+    return out
+
+
+def compare_planes(a_states, b_states, a_name, b_name):
+    """Anomaly states at every window close: integer leaves exact, float
+    leaves within rtol 1e-5 (atol 1e-6), the PCA basis by its projector
+    within atol 1e-5."""
+    from deepflow_tpu_torch import convert
+    if len(a_states) != len(b_states) or not a_states:
+        raise AssertionError(f"{a_name}: {len(a_states)} windows, {b_name}: "
+                             f"{len(b_states)}")
+    for w, (a, b) in enumerate(zip(a_states, b_states)):
+        for (path, _), x, y in zip(convert.ANOMALY_LEAVES, a, b):
+            if path == "pca.w":
+                ok = np.allclose(x.astype(np.float64) @ x.T,
+                                 y.astype(np.float64) @ y.T, rtol=0,
+                                 atol=1e-5)
+            elif x.dtype == np.float32:
+                ok = np.allclose(x, y, rtol=1e-5, atol=1e-6)
+            else:
+                ok = x.dtype == y.dtype and np.array_equal(x, y)
+            if not ok:
+                raise AssertionError(f"window {w}: anomaly {path} differs "
+                                     f"between {a_name} and {b_name}")
+
+
+def run_detection(torch, dev, name, knobs, via_put, ramp, tmp):
+    """One exporter over the whole ramp, its launch counts set to 0 just
+    before and read just after. Per window: the sketch state published
+    at the close, the plane's state, its entropy_ddos alerts, the
+    audit's snapshot and the alarm. Records/s count ingest and flush,
+    each window closed by a device synchronize, not the reads between
+    windows."""
+    from deepflow_tpu_torch import convert
+    counters = launch_counters()
+    exp = make_exporter(dev, knobs, os.path.join(tmp, name))
+    snaps = bus_snapshots(exp)
+    plane, audit = exp.anomaly, exp._audit
+    r = {"snaps": snaps, "states": [], "alerts": [], "audit": [],
+         "close_ms": [], "z_first": None, "alarm_baseline": 0}
+    if plane is not None:
+        close = plane.close_window
+
+        def timed_close(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return close(*a, **k)
+            finally:
+                r["close_ms"].append((time.perf_counter() - t0) * 1e3)
+        plane.close_window = timed_close
+    try:
+        if via_put:
+            exp.start()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        busy = 0.0
+        for w, (_phase, cols) in enumerate(ramp):
+            t0 = time.perf_counter()
+            ingest_window(exp, cols, via_put)
+            r["last_out"] = exp.flush_window(now=1000.0 + w)
+            torch.cuda.synchronize()
+            busy += time.perf_counter() - t0
+            if plane is not None:
+                r["states"].append(convert.anomaly_to_numpy(plane.state))
+                r["alerts"].append(plane.alerts_total[0])
+                if r["z_first"] is None and plane.alerts_total[0]:
+                    r["z_first"] = (w, plane.bus.latest().leaves[2].tolist())
+            if audit is not None:
+                r["audit"].append(dict(audit.last_window))
+                if w < ONSET and exp.audit_alarm:
+                    r["alarm_baseline"] += 1
+        r["launches"] = {k: c.launches for k, c in counters.items()}
+        r["counters"] = exp.counters()
+        r["plane"] = None if plane is None else plane.counters()
+        r["audit_counters"] = None if audit is None else audit.counters()
+    finally:
+        exp.close()
+    records = sum(len(c["ip_src"]) for _, c in ramp)
+    r.update(seconds=busy, records_per_s=records / busy)
+    c = r["counters"]
+    if c["rows_in"] != records or c["lost_rows"] or c["device_errors"]:
+        raise AssertionError(f"{name}: counters {c}")
+    for k in ("fused_news_hists", "fused_lane_hists"):
+        if r["launches"][k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    return r
+
+
+def check_lanes(name, r, records):
+    """Conservation, no loss on the detection lane, the audit closed
+    every window, and no audit alarm over the baseline."""
+    p, c = r["plane"], r["counters"]
+    if not p["rows_seen"] == c["rows_in"] == p["table_offers"] == records:
+        raise AssertionError(f"{name}: rows_seen {p['rows_seen']}, rows_in "
+                             f"{c['rows_in']}, table_offers "
+                             f"{p['table_offers']}, records {records}")
+    if p["feed_errors"] or p["score_errors"] or p["alerts_shed"] \
+            or p["windows_unscored"] or p["windows"] != c["windows"]:
+        raise AssertionError(f"{name}: anomaly counters {p}")
+    if r["audit_counters"]["windows"] != c["windows"] \
+            or r["alarm_baseline"]:
+        raise AssertionError(f"{name}: audit {r['audit_counters']}, alarm "
+                             f"in {r['alarm_baseline']} baseline windows")
+
+
+def check_small_detection(torch, dev, rng):
+    """A small ramp through the dict inline exporter with the plane on,
+    on the card and on the CPU (plain versions): the plane's state at
+    every window close within compare_planes' tolerances, the same
+    alerts."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
+
+    cfg = FlowSuiteConfig(cms_log2_width=12, ring_size=256, hll_groups=64,
+                          hll_precision=8, entropy_log2_buckets=10)
+    ramp = ramp_windows(rng, 4096, pool=3000)
+    exps = [TpuSketchExporter(cfg=cfg, batch_rows=4096, wire="dict",
+                              anomaly=True, device=d) for d in (dev, "cpu")]
+    states, alerts = ([], []), ([], [])
+    try:
+        for w, (_phase, cols) in enumerate(ramp):
+            for i, exp in enumerate(exps):
+                feed_chunks(exp, cols, len(cols["ip_src"]))
+                exp.flush_window(now=1000.0 + w)
+                torch.cuda.synchronize()
+                states[i].append(convert.anomaly_to_numpy(exp.anomaly.state))
+                alerts[i].append(list(exp.anomaly.alerts_total))
+    finally:
+        for exp in exps:
+            exp.close()
+    compare_planes(states[0], states[1], "the card", "the CPU")
+    if alerts[0] != alerts[1] or not alerts[0][-1][0]:
+        raise AssertionError(f"small ramp alerts: card {alerts[0][-1]}, "
+                             f"CPU {alerts[1][-1]}")
+    return alerts[0][-1]
+
+
+def check_detection(torch, dev, rng, args, card, tmp):
+    """Phase 7: the ingester's detection lanes on the dict feed."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.anomaly import AnomalyConfig, detectors
+
+    t0 = time.perf_counter()
+    ramp = ramp_windows(rng, args.ramp_records)
+    records = sum(len(c["ip_src"]) for _, c in ramp)
+    log(f"  ramp: {len(ramp)} windows, {records} records "
+        f"({time.perf_counter() - t0:.1f} s to draw)")
+    feed = INGESTER_RUNS[0][1]
+    runs = {}
+    for name, knobs, via_put in (
+            ("a_dict_feed_lanes_on", dict(feed, **DETECTION_KNOBS), True),
+            ("b_dict_feed_lanes_off", feed, True),
+            ("c_dict_inline_lanes_on", dict(wire="dict", **DETECTION_KNOBS),
+             False)):
+        runs[name] = r = run_detection(torch, dev, name, knobs, via_put,
+                                       ramp, tmp)
+        log(f"  {name}: {r['records_per_s']:.0f} records/s ({r['seconds']:.3f}"
+            f" s for {records} records) on {card}; launches {r['launches']}")
+    a, b, c = runs.values()
+    compare_snaps(a["snaps"], b["snaps"], None, "(a) lanes on",
+                  "(b) lanes off")
+    compare_planes(a["states"], c["states"], "(a) dict feed",
+                   "(c) dict inline")
+    for name in ("a_dict_feed_lanes_on", "c_dict_inline_lanes_on"):
+        check_lanes(name, runs[name], records)
+    first, z = a["z_first"] or (None, None)
+    if first is None or not ONSET <= first <= ONSET + 2 \
+            or not (z[0] > 0 and z[1] < 0):
+        raise AssertionError(f"entropy_ddos first alert at window {first} "
+                             f"(onset {ONSET}), z {z}")
+    ratio = a["records_per_s"] / b["records_per_s"]
+    log(f"  sketch state bit-equal on all nine leaves at all {len(ramp)} "
+        "window closes, lanes on and off; anomaly state (a) = (c) at every "
+        "close; first entropy_ddos alert at window "
+        f"{first} (onset {ONSET}), z {np.round(z, 3).tolist()}; "
+        f"rows_seen == rows_in == table_offers == {records}")
+    log(f"  records/s on {card}: lanes on {a['records_per_s']:.0f}, off "
+        f"{b['records_per_s']:.0f}, ratio {ratio:.3f}")
+    cm = a["close_ms"]
+    log(f"  close_window host time: median {np.median(cm):.3f} ms, max "
+        f"{max(cm):.3f} ms over {len(cm)} windows")
+    audit = [(w, s.get("cms_rel_error"), s.get("topk_recall"))
+             for w, s in enumerate(a["audit"])]
+    log("  audit per window (window, cms_rel_error, topk_recall): "
+        + ", ".join(f"({w}, {e if e is None else f'{e:.3g}'}, {t})"
+                    for w, e, t in audit))
+
+    # the window step alone, on the last window's output of (a)
+    acfg = AnomalyConfig()
+    st = convert.anomaly_from_numpy(a["states"][-1], device=dev)
+    out = a["last_out"]
+
+    def step():
+        detectors.window_step(st, out.entropies, out.topk_counts,
+                              out.service_cardinality, out.rows, acfg)
+    step_ms = time_ms(torch, step)
+    step_dev = device_ms(torch, step)
+    log(f"  window step: {step_ms:.3f} ms per call, "
+        + ("device time not measured" if step_dev is None
+           else f"{step_dev:.4f} ms on the device") + f" on {card}")
+
+    # one profiled window, lanes on and off: ingest syncs (the phase-6
+    # rule, asserted inside), launches per group and the flush's syncs
+    prof = profile_ingester_paths(
+        torch, dev, [ramp[0][1], ramp[1][1]], tmp, card, runs=(
+            ("dict_feed_lanes_on", dict(feed, **DETECTION_KNOBS), True, ()),
+            ("dict_feed_lanes_off", feed, True, ())))
+    on, off = prof["dict_feed_lanes_on"], prof["dict_feed_lanes_off"]
+    groups = max(on["fences"], 1)
+    extra = (on["ingest"]["runtime_calls"]["cudaLaunchKernel"]
+             - off["ingest"]["runtime_calls"]["cudaLaunchKernel"]) / groups
+    syncs = {k: p["flush"]["runtime_calls"]["cudaStreamSynchronize"]
+             for k, p in (("on", on), ("off", off))}
+    log(f"  plane: {extra:.1f} extra kernel launches per dict group "
+        f"({groups} groups); a flush's stream syncs: lanes on "
+        f"{syncs['on']}, off {syncs['off']}")
+
+    ladder = walk_ladder(torch, dev, rng, tmp, lanes=True)
+    small = check_small_detection(torch, dev, rng)
+    log(f"  small ramp: plane state on the card = on the CPU at every "
+        f"window close; alerts {small}")
+    return {
+        "records": records, "windows": len(ramp),
+        "records_per_s": {k: r["records_per_s"] for k, r in runs.items()},
+        "lanes_on_off_ratio": ratio,
+        "launches": {k: r["launches"] for k, r in runs.items()},
+        "first_alert_window": first, "z_at_first_alert": z,
+        "alerts_total": a["plane"]["alerts_total"],
+        "anomaly_counters": a["plane"], "audit_counters": a["audit_counters"],
+        "audit_per_window": audit,
+        "close_window_ms": {"median": float(np.median(cm)),
+                            "max": float(max(cm))},
+        "window_step_ms": step_ms, "window_step_device_ms": step_dev,
+        "extra_launches_per_group": extra, "flush_stream_syncs": syncs,
+        "profile": prof, "ladder": ladder, "small_ramp_alerts": small,
+        "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--window-records", type=int, default=1 << 20)
+    ap.add_argument("--ramp-records", type=int, default=1 << 18)
     args = ap.parse_args()
 
     import torch
@@ -1097,10 +1425,14 @@ def main() -> int:
         ladder = walk_ladder(torch, dev, rng, tmp)
         ingester_profiles = profile_ingester_paths(torch, dev, windows, tmp,
                                                    card)
+        log("phase 7: the detection lanes")
+        detection = check_detection(torch, dev, rng, args, card, tmp)
 
     totals = {}
-    for p in list(paths.values()) + list(ingester.values()):
-        for k, v in p["launches"].items():
+    for launches in [p["launches"] for p in paths.values()] \
+            + [p["launches"] for p in ingester.values()] \
+            + list(detection["launches"].values()):
+        for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
         entry["launches"] = totals[entry["name"].split("[")[0]]
@@ -1112,6 +1444,7 @@ def main() -> int:
                "launches": p["launches"], "counters": p["counters"],
                "profile": ingester_profiles[name]}
         for name, p in ingester.items()}, "ladder": ladder,
+        "detection": detection,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,8 @@ import torch
 from deepflow_tpu_torch.models import flow_suite
 from deepflow_tpu_torch.models.flow_dict import FlowDictState
 from deepflow_tpu_torch.models.flow_suite import FlowSuiteState
-from deepflow_tpu_torch.ops import cms, entropy, hll, topk
+from deepflow_tpu_torch.ops import (cms, entropy, hll, matrix_profile, pca,
+                                    topk)
 
 # FlowSuiteState leaves, depth first, with the reference's dtypes
 SUITE_LEAVES: Tuple[Tuple[str, type], ...] = (
@@ -30,6 +31,16 @@ SUITE_LEAVES: Tuple[Tuple[str, type], ...] = (
     ("rows_seen", np.int32), ("batches_seen", np.int32),
 )
 DICT_LEAVES: Tuple[Tuple[str, type], ...] = (("table", np.uint32),)
+# AnomalyState leaves, depth first, with the reference's dtypes
+ANOMALY_LEAVES: Tuple[Tuple[str, type], ...] = (
+    ("keys", np.uint32), ("born", np.int32), ("last_window", np.int32),
+    ("offers", np.int32), ("evictions", np.int32), ("window", np.int32),
+    ("ent_mean", np.float32), ("ent_var", np.float32),
+    ("pca.mean", np.float32), ("pca.var", np.float32),
+    ("pca.w", np.float32), ("pca.step", np.int32),
+    ("res_mean", np.float32), ("res_var", np.float32),
+    ("mp.ring", np.float32), ("mp.count", np.int32),
+)
 
 
 def _get(obj, path: str):
@@ -52,9 +63,11 @@ def _to_torch(arr: np.ndarray, dtype, device) -> torch.Tensor:
     if arr.dtype != np.dtype(dtype):
         raise ValueError(f"leaf dtype {arr.dtype}, expected {np.dtype(dtype)}")
     # a C-ordered copy that keeps 0-d leaves 0-d (np.ascontiguousarray
-    # would make them 1-d)
-    return torch.from_numpy(arr.astype(arr.dtype, order="C").view(np.int32)
-                            ).to(device)
+    # would make them 1-d); uint32 is held as int32 bits
+    arr = arr.astype(arr.dtype, order="C")
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(arr).to(device)
 
 
 def state_from_numpy(suite, dict_state=None, device="cuda"
@@ -100,3 +113,26 @@ def leaf_specs(state: FlowSuiteState) -> List[Tuple[tuple, np.dtype]]:
     return [(tuple(_get(state, path).shape), np.dtype(dt))
             for path, dt in SUITE_LEAVES]
 
+
+def anomaly_from_numpy(state, device="cuda"):
+    """The reference's AnomalyState with numpy leaves (or its flat leaf
+    list) -> fresh tensors of this port's AnomalyState on `device`."""
+    # imported here: the anomaly package's alerts module imports this one
+    from deepflow_tpu_torch.anomaly import detectors
+
+    device = flow_suite.check_device(device)
+    t = [_to_torch(a, dt, device)
+         for a, (_, dt) in zip(_leaves(state, ANOMALY_LEAVES),
+                               ANOMALY_LEAVES)]
+    return detectors.AnomalyState(
+        keys=t[0], born=t[1], last_window=t[2], offers=t[3],
+        evictions=t[4], window=t[5], ent_mean=t[6], ent_var=t[7],
+        pca=pca.PCAState(mean=t[8], var=t[9], w=t[10], step=t[11]),
+        res_mean=t[12], res_var=t[13],
+        mp=matrix_profile.MPState(ring=t[14], count=t[15]))
+
+
+def anomaly_to_numpy(state) -> List[np.ndarray]:
+    """The port's AnomalyState -> numpy copies of its leaves in the
+    reference's order and dtypes (0-d leaves stay 0-d)."""
+    return [_to_numpy(_get(state, path), dt) for path, dt in ANOMALY_LEAVES]

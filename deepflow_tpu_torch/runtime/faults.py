@@ -7,7 +7,9 @@ replays the same schedule. The sites this package fires:
 - ``tpu.device_error`` -- raise a device-classified `RuntimeError` where
   the exporter dispatches to the device (the name is the reference's);
 - ``checkpoint.torn``  -- tear a snapshot file mid-write;
-- ``exporter.process`` -- raise inside `QueueWorkerExporter.process`.
+- ``exporter.process`` -- raise inside `QueueWorkerExporter.process`;
+- ``anomaly.score``    -- raise where the anomaly plane scores a window
+  (the window closes unscored, counted).
 
 The registry is off by default and every call site guards on
 `default_faults().enabled` (one attribute load on the hot path). Arming
@@ -33,11 +35,12 @@ from typing import Dict, List, Optional
 
 __all__ = ["FaultSite", "FaultRegistry", "InjectedFault", "default_faults",
            "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
-           "FAULT_EXPORTER_PROCESS"]
+           "FAULT_EXPORTER_PROCESS", "FAULT_ANOMALY_SCORE"]
 
 FAULT_DEVICE_ERROR = "tpu.device_error"
 FAULT_CHECKPOINT_TORN = "checkpoint.torn"
 FAULT_EXPORTER_PROCESS = "exporter.process"
+FAULT_ANOMALY_SCORE = "anomaly.score"
 
 
 class InjectedFault(RuntimeError):

@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from deepflow_tpu_torch import convert
+from deepflow_tpu_torch.models.flow_suite import FlowSuiteState
 from deepflow_tpu_torch.runtime.faults import (FAULT_CHECKPOINT_TORN,
                                                default_faults)
 
@@ -124,9 +125,14 @@ class SnapshotBus:
                 wall_time: Optional[float] = None,
                 tags: Optional[Dict[str, Any]] = None,
                 to_disk: bool = True) -> SketchSnapshot:
-        """Copy `state` (a port FlowSuiteState) to host numpy and fan the
-        snapshot out; `to_disk=False` skips the file."""
-        leaves = tuple(convert.state_to_numpy(state))
+        """Copy `state` to host numpy and fan the snapshot out: a port
+        FlowSuiteState goes through `convert.state_to_numpy`, any other
+        state is taken as its list of host leaves (the anomaly plane's
+        AlertSnapshot). `to_disk=False` skips the file."""
+        if isinstance(state, FlowSuiteState):
+            leaves = tuple(convert.state_to_numpy(state))
+        else:
+            leaves = tuple(np.array(a) for a in state)
         with self._lock:
             self._seq += 1
             seq = self._seq

@@ -56,9 +56,24 @@ The inline path raises it at once; on the feed thread it is kept, the
 groups still queued are shed, and the producer's next `process`,
 `flush_window` or `checkpoint_now` raises it.
 
-Not ported here (ROADMAP): the pod and multihost branches, audit, the
-anomaly hook, tracer/profiler attribution, the autotuner, the store
-writers with the top-K reverse map, and the staged four-program update.
+Detection and accuracy lanes. With `anomaly` (an `AnomalyConfig`, or
+True for its defaults) an `AnomalyPlane` runs beside the sketch lane:
+every applied group also offers its flow keys to the plane's active-flow
+table (on the compute stream, before the group's fence), and every
+window close runs one window step, whose alerts are published on the
+plane's `anomaly` snapshot bus after the state lock is released. With
+`audit_rate` > 0 a `ShadowAuditor` keeps an exact, key-sampled shadow of
+the stream on the host and compares it with each window's output. Both
+read one host copy of the window output, made once per flush. Neither
+touches the sketch state, which is bit-identical with them on or off.
+The dict wire's inline path applies a whole staged group and then feeds
+it, as the feed path does, so hits gather their keys from the table
+after the group (the reference's inline path feeds plane by plane).
+
+Not ported here (ROADMAP): the pod and multihost branches, the tracer
+gauges of the plane and the auditor, tracer/profiler attribution, the
+autotuner, the store writers with the top-K reverse map, and the staged
+four-program update.
 """
 
 from __future__ import annotations
@@ -73,12 +88,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from deepflow_tpu_torch.anomaly import AnomalyConfig, AnomalyPlane
 from deepflow_tpu_torch.batch.batcher import (SKETCH_L4_SCHEMA, Batcher,
                                               TensorBatch)
 from deepflow_tpu_torch.batch.staging import (DictWireStager, LaneStager,
                                               PackPool)
 from deepflow_tpu_torch.models import flow_dict, flow_suite
 from deepflow_tpu_torch.ops._build import KernelError
+from deepflow_tpu_torch.runtime.audit import ShadowAuditor
 from deepflow_tpu_torch.runtime.exporters import QueueWorkerExporter
 from deepflow_tpu_torch.runtime.faults import (FAULT_DEVICE_ERROR,
                                                default_faults)
@@ -175,6 +192,20 @@ class _HostSketch:
         return out
 
 
+def _host_output(out: flow_suite.FlowWindowOutput
+                 ) -> flow_suite.FlowWindowOutput:
+    """A host copy of a window output in ONE device-to-host copy: every
+    leaf's 32-bit words packed into one int32 tensor, copied, and cut
+    back into CPU tensors of the leaves' dtypes and shapes."""
+    words = torch.cat([t.reshape(-1).view(torch.int32) for t in out]).cpu()
+    leaves, off = [], 0
+    for t in out:
+        n = t.numel()
+        leaves.append(words[off:off + n].view(t.dtype).reshape(t.shape))
+        off += n
+    return flow_suite.FlowWindowOutput(*leaves)
+
+
 class TpuSketchExporter(QueueWorkerExporter):
     """Exporter contract (start/close/is_export_data/put) over the flow
     suite on one device."""
@@ -191,6 +222,9 @@ class TpuSketchExporter(QueueWorkerExporter):
                  coalesce_batches: int = 1,
                  zero_copy: bool = True,
                  pack_workers: int = 0,
+                 audit_rate: float = 0.0,
+                 anomaly=None,
+                 anomaly_dir: Optional[str] = None,
                  device="cuda") -> None:
         super().__init__("tpu_sketch", ["l4_flow_log"], n_workers=1,
                          batch=64)
@@ -310,6 +344,18 @@ class TpuSketchExporter(QueueWorkerExporter):
                 self._flat = np.zeros(flow_suite.coalesced_lanes_words(
                     self.coalesce_batches, self.batch_rows), np.uint32)
                 self._slots = 0
+        # -- accuracy observatory: host-only exact shadow, 0 disables ----
+        self.audit_rate = max(0.0, float(audit_rate))
+        self._audit = ShadowAuditor(self.cfg, rate=self.audit_rate) \
+            if self.audit_rate > 0 else None
+        # -- anomaly plane: its own device state beside the sketch state -
+        self._anomaly = None
+        if anomaly:
+            acfg = anomaly if isinstance(anomaly, AnomalyConfig) \
+                else AnomalyConfig()
+            with self._on_stream():
+                self._anomaly = AnomalyPlane(acfg, directory=anomaly_dir,
+                                             device=self.device)
 
     def _new_packer(self) -> flow_dict.FlowDictPacker:
         return flow_dict.FlowDictPacker(capacity=self._packer_capacity,
@@ -363,7 +409,15 @@ class TpuSketchExporter(QueueWorkerExporter):
                         self._submit_batch_locked(tb)
                 # counted once handed to the device path: a processed
                 # watermark (every flush drains the feed first)
-                self.rows_in += len(next(iter(schema_cols.values())))
+                rows = len(next(iter(schema_cols.values())))
+                self.rows_in += rows
+                # the lanes' mirrors move at the same boundary, so
+                # anomaly.rows_seen == rows_in and the audit window is
+                # the sketch window
+                if self._anomaly is not None:
+                    self._anomaly.observe_rows(rows)
+                if self._audit is not None:
+                    self._audit.absorb(schema_cols)
 
     def _submit_batch_locked(self, tb: TensorBatch) -> None:
         """One TensorBatch through the inline path."""
@@ -408,6 +462,8 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.state, self._dict_state, _ = prog(self.state, self._dict_state,
                                                flat_d)
         self.dispatches += 1
+        if self._anomaly is not None:
+            self._anomaly.feed_dict_flat(self._dict_state.table, flat_d, sig)
 
     def _apply_lanes(self, flat_d: torch.Tensor, k: int, c: int) -> None:
         prog = self._program(
@@ -415,6 +471,8 @@ class TpuSketchExporter(QueueWorkerExporter):
             lambda: flow_suite.make_coalesced_update(self.cfg, k, c))
         self.state, _ = prog(self.state, flat_d)
         self.dispatches += 1
+        if self._anomaly is not None:
+            self._anomaly.feed_flat(flat_d, k, c)
 
     def _run_batch_locked(self, tb: TensorBatch) -> None:
         """Inline path, on the compute stream."""
@@ -518,6 +576,10 @@ class TpuSketchExporter(QueueWorkerExporter):
             else:
                 _LOG.warning("tpu_sketch degraded: rows shed, counted lost, "
                              "until a window's probe recovers the device")
+        if self._anomaly is not None:
+            # the plane's tensors may sit on the same failed work
+            with self._on_stream():
+                self._anomaly.device_lost()
 
     def _restore_device_state_locked(self) -> None:
         """Rebuild the device state in fresh tensors: the newest
@@ -781,6 +843,7 @@ class TpuSketchExporter(QueueWorkerExporter):
                         self._ship_lanes_locked()
             self._raise_kernel_error()
             self.windows += 1
+            was_degraded = self.degraded
             with self._on_stream():
                 if self.degraded:
                     out = None if self._host is None \
@@ -789,8 +852,11 @@ class TpuSketchExporter(QueueWorkerExporter):
                     self._probe_device_locked()
                 else:
                     out = self._publish_and_flush_locked(now)
+                self._close_lanes_locked(out, now, was_degraded)
             # the lost-window guard resets at the true window boundary
             self._window_lost_counted = False
+        if self._anomaly is not None:
+            self._anomaly.publish_pending()     # emissions: no lock held
         if out is None:
             return None
         if self._stream is not None:
@@ -827,6 +893,25 @@ class TpuSketchExporter(QueueWorkerExporter):
             return None
         return out
 
+    def _close_lanes_locked(self, out, now: float, degraded: bool) -> None:
+        """Close the window on the detection and accuracy lanes. The
+        plane scores the device output (None: the window closes
+        unscored); the auditor, and an alert's top contributors, read one
+        host copy of it. The plane closes first, so the audit sees its
+        verdict."""
+        if self._anomaly is None and self._audit is None:
+            return
+        host_out = None if out is None else _host_output(out)
+        lossy = self._window_lost_counted
+        if self._anomaly is not None:
+            self._anomaly.close_window(out, now=now, lossy=lossy,
+                                       degraded=degraded, host_out=host_out)
+        if self._audit is not None:
+            self._audit.close_window(
+                host_out, degraded=degraded, lossy=lossy,
+                detection=None if self._anomaly is None
+                else self._anomaly.last_entropy_verdict)
+
     def flush(self) -> None:
         """The ingester's flush hook. This exporter has no store writers
         (they are not ported), so there is nothing to write out."""
@@ -834,6 +919,16 @@ class TpuSketchExporter(QueueWorkerExporter):
     def _window_loop(self) -> None:
         while not self._window_stop.wait(self.window_seconds):
             self.flush_window()
+
+    @property
+    def anomaly(self) -> Optional[AnomalyPlane]:
+        """The anomaly plane, or None when it is off."""
+        return self._anomaly
+
+    @property
+    def audit_alarm(self) -> bool:
+        """True while the shadow auditor's accuracy alarm is tripped."""
+        return self._audit is not None and self._audit.alarm
 
     def counters(self) -> dict:
         c = super().counters()
@@ -857,4 +952,12 @@ class TpuSketchExporter(QueueWorkerExporter):
             c["zero_copy"] = 1
             c.update(self._stager.counters())
         c.update(self._snapbus.counters())
+        if self._audit is not None:
+            c["audit_alarm"] = 1 if self._audit.alarm else 0
+            c["audit_windows"] = self._audit.windows
+        if self._anomaly is not None:
+            # beside rows_in: the detection lane's conservation in one read
+            c["anomaly_rows_seen"] = self._anomaly.rows_seen
+            c["anomaly_alerts"] = sum(self._anomaly.alerts_total)
+            c["anomaly_windows_unscored"] = self._anomaly.windows_unscored
         return c

@@ -41,7 +41,11 @@ def test_port_files_found():
     assert {"chip_smoke.py", "flow_suite.py", "flow_dict.py",
             "cuda_hist.py", "cuda_sketch.py", "convert.py", "supervisor.py",
             "faults.py", "queues.py", "exporters.py", "feed.py",
-            "staging.py", "snapbus.py", "tpu_sketch.py"} <= names
+            "staging.py", "snapbus.py", "tpu_sketch.py", "pca.py",
+            "matrix_profile.py", "detectors.py", "alerts.py",
+            "audit.py"} <= names
+    assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
+        in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -101,6 +105,11 @@ def test_every_entry_point_defaults_to_cuda():
     found = dict(_port_callables())
     assert "deepflow_tpu_torch.runtime.tpu_sketch.TpuSketchExporter" in found
     assert "deepflow_tpu_torch.convert.state_from_numpy" in found
+    assert {"deepflow_tpu_torch.anomaly.alerts.AnomalyPlane",
+            "deepflow_tpu_torch.anomaly.detectors.init",
+            "deepflow_tpu_torch.ops.pca.init",
+            "deepflow_tpu_torch.ops.matrix_profile.init",
+            "deepflow_tpu_torch.convert.anomaly_from_numpy"} <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad
 
