@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the deepflow_tpu_torch l4 sketch step on one CUDA card.
+"""Drive the deepflow_tpu_torch l4 sketch step and L7 RED lane on one
+CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -11,8 +12,10 @@ is printed):
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, bit-exact, with padded batches and saturating
    weights, on uniform and on Zipf(1.1) inputs: hist_add at the
-   Count-Min (mask only) and entropy (weights and mask) shapes and on
-   one row of 2^19 bins (the wide path), the lane kernel at C=32768,
+   Count-Min (mask only) and entropy (weights and mask) shapes, on
+   one row of 2^19 bins (the wide path), and at the RED lane's shapes
+   (2^14 lanes, mask only, into one row of 2^19 bins: the DDSketch, and
+   of 1024 bins: requests, errors), the lane kernel at C=32768,
    the news kernel at C=8192; kernel, plain and library times per call
    from CUDA events after a warm-up (median of 5 runs of 20 calls),
    device times from torch.profiler; then, checked but not timed, hist on
@@ -39,10 +42,14 @@ is printed):
    dict wire with the overlapped feed (depth 2) and zero-copy staging,
    fed through put() and the exporter's worker thread; the lanes wire
    with the feed (K=4); the inline dict path; each with a checkpoint
-   directory. Every leaf equal at every window close (dict feed = inline
+   directory and a Store for its writers. Every leaf equal at every
+   window close (dict feed = inline
    dict, lanes feed = phase 3's inline lanes, the wire-free leaves
    across wires), recall >= 0.99, no staging buffer back before its
-   fence, and a fresh exporter restores the last snapshot leaf-equal.
+   fence, the topk_flows and window_signals rows read back from the
+   segment files equal to every window output (each resolved 5-tuple
+   folding to its flow key), and a fresh exporter restores the last
+   snapshot leaf-equal.
    The feed runs' free staging buffers must be page-locked. Then the
    device-error ladder with `tpu.device_error` armed: rollback from a
    snapshot, then (no host fallback runs for a CUDA device) the rows
@@ -75,10 +82,24 @@ is printed):
    reported), the ladder with the lanes on (every device error reaches
    the plane's device_lost, the shed window closes unscored), and a
    small ramp through the plane on the card and on the CPU, its state
-   compared at every window close.
+   compared at every window close;
+8. the L7 RED lane (AppSuiteConfig(): 1024 groups x 512 buckets, alpha
+   0.02; batch_rows 2^14) with a Store: 4 windows of 2^20 l7 request
+   records (server endpoints by Zipf(1.1) from a pool of 4096, rrt_us
+   log-normal with median 2,000 us and sigma 1.2 with 1% zeros, HTTP and
+   enum status codes) through put() and the worker thread. Per window:
+   requests and errors per group equal to an exact GROUP BY, every
+   group's sketch adding up to its requests, p50/p95/p99 within alpha
+   (plus the midpoint table's rounding) of the value of rank ceil(q*n)
+   for every group with >= 1000 requests, the app_red rows read back
+   from the segment files equal to the output; 3 hist launches and one host-to-device copy per batch. Then
+   one window under torch.profiler (ingest and flush apart), and a small
+   stream with u32 edges and every bucket boundary on the card and on
+   the CPU, every leaf and output equal.
 
-The last two lines of standard output are the kernels' JSON record and
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+Each phase prints its time. The last two lines of standard output are
+the kernels' JSON record and {"ok": true, "device": {...}}. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -102,6 +123,9 @@ ALU_OPS_PER_S = 67e12
 FUSED_OPS_PER_RECORD = 150
 # per (row, lane) item of hist: clamp, weight, address, add
 HIST_OPS_PER_ITEM = 4
+# the card's memory access granule: a scatter-add moves the sectors that
+# hold a bin it changes, not the whole state
+SECTOR_BYTES = 32
 WARMUP, ITERS, REPEATS = 3, 20, 5
 
 
@@ -142,6 +166,16 @@ def bound(nbytes: int, ops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def touched_bytes(*deltas) -> int:
+    """Bytes of state a scatter-add must read and write: each 32-byte
+    sector holding a bin that it changed, once each way. `deltas` are
+    what the plain version added into zero states on this run's inputs,
+    so the data decides the count, not the state's width."""
+    return 2 * SECTOR_BYTES * sum(
+        int((d.reshape(-1, SECTOR_BYTES // 4) != 0).any(1).sum())
+        for d in deltas)
 
 
 def _device_events(torch, prof):
@@ -194,9 +228,16 @@ def device_ms(torch, fn, names=None):
 
 C_LANE, C_NEWS = 1 << 15, 1 << 13      # the lane and news kernels' batches
 HIST_C = 1 << 15                       # lanes per hist call (batch_rows)
-# (label, log2 width, rows, weight planes or None for mask-only lanes)
-HIST_SHAPES = (("cms", 17, 4, None), ("entropy", 12, 4, 2),
-               ("wide", 19, 1, 2))
+RED_C = 1 << 14                        # the RED exporter's batch_rows
+# (label, log2 width, rows, weight planes or None for mask-only lanes,
+# lanes, recorded as a kernel row): the sketch exporter's Count-Min and
+# entropy shapes, one wide row, and the RED lane's DDSketch row (1024
+# groups x 512 buckets) and service rows (requests, errors)
+HIST_SHAPES = (("cms", 17, 4, None, HIST_C, True),
+               ("entropy", 12, 4, 2, HIST_C, True),
+               ("wide", 19, 1, 2, HIST_C, False),
+               ("ddsketch", 19, 1, None, RED_C, True),
+               ("red_service", 10, 1, None, RED_C, True))
 
 
 def zipf_ranks(rng, size, pool):
@@ -316,10 +357,11 @@ def check_kernels(torch, rng, dev):
                         "library_ms": lib_ms, "device_ms": d_ms})
 
     hist_names = ("hist_smem_kernel", "hist_global_kernel")
-    for label, lw, d, planes in HIST_SHAPES:
+    for label, lw, d, planes, lanes, recorded in HIST_SHAPES:
         width = 1 << lw
         for skew in (False, True):
-            idx, w, mask = hist_inputs(torch, rng, dev, lw, d, planes, skew)
+            idx, w, mask = hist_inputs(torch, rng, dev, lw, d, planes, skew,
+                                       C=lanes)
             acc = check_hist(torch, rng, cuda_hist, idx, width, w, mask,
                              planes, label + ("/zipf" if skew else ""))
             args = (idx, width, w, mask, planes or 2)
@@ -335,10 +377,13 @@ def check_kernels(torch, rng, dev):
             wl = (wl * mask.to(torch.int32)).expand(d, -1).reshape(-1)
             lib = acc.view(-1)
             lib_ms = time_ms(torch, lambda: lib.index_add_(0, flat, wl))
+            delta = torch.zeros(d, width, dtype=torch.int32, device=dev)
+            cuda_hist.hist_add_plain(delta, *args)
             nbytes = (idx.numel() * 4 + mask.numel()
-                      + (0 if w is None else w.numel() * 4) + 2 * d * width * 4)
+                      + (0 if w is None else w.numel() * 4)
+                      + touched_bytes(delta))
             b = bound(nbytes, HIST_OPS_PER_ITEM * idx.numel())
-            if label != "wide" and not skew:
+            if recorded and not skew:
                 p_acc = acc.clone()
                 record(f"hist[{label}]", "deepflow_tpu_torch/csrc/hist.cu",
                        "deepflow_tpu/ops/pallas_hist.py:90", 0.0, k_ms,
@@ -371,8 +416,9 @@ def check_kernels(torch, rng, dev):
             d_ms = device_ms(torch, lambda: cuda_fn(plane, n_d, kc, ke,
                                                     *seeds),
                              ("fused_hists_kernel",))
-            state_bytes = (4 << 17) * 4 + (4 << 12) * 4
-            b = bound(plane.numel() * 4 + 4 + 2 * state_bytes,
+            dc, de = torch.zeros_like(kc), torch.zeros_like(ke)
+            plain_fn(plane, n_d, dc, de, *seeds)
+            b = bound(plane.numel() * 4 + 4 + touched_bytes(dc, de),
                       n * FUSED_OPS_PER_RECORD)
             if not skew:
                 pc, pe = kc.clone(), ke.clone()
@@ -761,15 +807,76 @@ def staging_buffers(exp):
         b for bufs in free.values() for b in bufs]
 
 
-def make_exporter(dev, knobs, checkpoint_dir):
+def make_exporter(dev, knobs, checkpoint_dir, store_dir=None):
     """An exporter at the ingester's sizes: FlowSuiteConfig(), 2^15-row
-    batches, a checkpoint directory; windows are closed by the caller."""
+    batches, a checkpoint directory and, with `store_dir`, a Store for its
+    writers; windows are closed by the caller."""
     from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
     from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
+    from deepflow_tpu_torch.store.db import Store
     return TpuSketchExporter(cfg=FlowSuiteConfig(), batch_rows=1 << 15,
                              window_seconds=3600,
                              checkpoint_dir=checkpoint_dir, device=dev,
-                             **knobs)
+                             store=None if store_dir is None
+                             else Store(store_dir), **knobs)
+
+
+def read_table(root, db, table):
+    """Every segment of a store table, read with numpy in write order
+    (the segment sequence), columns concatenated."""
+    tdir = os.path.join(root, db, table)
+    segs = []
+    for part in os.listdir(tdir):
+        if part.startswith("p"):
+            segs += [(int(f[4:-4]), os.path.join(tdir, part, f))
+                     for f in os.listdir(os.path.join(tdir, part))
+                     if f.startswith("seg-") and f.endswith(".npz")]
+    cols = {}
+    for _, path in sorted(segs):
+        with np.load(path) as z:
+            for k in z.files:
+                cols.setdefault(k, []).append(z[k])
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def check_sketch_rows(store_dir, outs, nows):
+    """Phase 6: the writers' topk_flows and window_signals rows, read back
+    from the segment files, equal to each window's output; every
+    resolved 5-tuple folds back to its flow key. Returns the row count
+    and the resolved share."""
+    from deepflow_tpu_torch.utils.u32 import fold_columns_np
+    topk = read_table(store_dir, "tpu_sketch", "topk_flows")
+    win = read_table(store_dir, "tpu_sketch", "window_signals")
+    rows = 0
+    for out, now in zip(outs, nows):
+        keys = out.topk_keys.cpu().numpy().view(np.uint32)
+        counts = out.topk_counts.cpu().numpy()
+        live = counts > 0
+        sel = topk["timestamp"] == int(now)
+        if not (np.array_equal(topk["flow_key"][sel], keys[live])
+                and np.array_equal(topk["count"][sel],
+                                   counts[live].astype(np.uint32))
+                and np.array_equal(topk["rank"][sel],
+                                   np.arange(live.sum(), dtype=np.uint32))):
+            raise AssertionError(f"topk_flows rows of window {now} differ "
+                                 "from its output")
+        w = np.nonzero(win["timestamp"] == int(now))[0]
+        ent = out.entropies.cpu().numpy()
+        card = out.service_cardinality.cpu().numpy()
+        if len(w) != 1 or win["rows"][w[0]] != int(out.rows) \
+                or win["distinct_clients"][w[0]] != np.uint32(card.sum()) \
+                or not np.array_equal(
+                    [win[f"entropy_{f}"][w[0]] for f in
+                     ("ip_src", "ip_dst", "port_src", "port_dst")], ent):
+            raise AssertionError(f"window_signals row of window {now} "
+                                 "differs from its output")
+        rows += int(sel.sum())
+    resolved = topk["proto"] > 0
+    names = ("ip_src", "ip_dst", "port_src", "port_dst", "proto")
+    if not np.array_equal(fold_columns_np([topk[k][resolved] for k in names]),
+                          topk["flow_key"][resolved]):
+        raise AssertionError("a resolved 5-tuple does not fold to its key")
+    return {"topk_rows": rows, "resolved_share": float(resolved.mean())}
 
 
 def ingest_window(exp, cols, via_put):
@@ -803,8 +910,10 @@ def run_ingester_paths(torch, dev, windows, card, tmp, lanes_inline_snaps):
     records = sum(len(w["ip_src"]) for w in windows)
     runs = {}
     for name, knobs, via_put, wants in INGESTER_RUNS:
-        exp = make_exporter(dev, knobs, os.path.join(tmp, name))
+        store_dir = os.path.join(tmp, "store_" + name)
+        exp = make_exporter(dev, knobs, os.path.join(tmp, name), store_dir)
         snaps, outs = bus_snapshots(exp), []
+        nows = [1000.0 + w for w in range(len(windows))]
         try:
             if via_put:
                 exp.start()
@@ -812,15 +921,16 @@ def run_ingester_paths(torch, dev, windows, card, tmp, lanes_inline_snaps):
             for c in counters.values():
                 c.launches = 0
             t0 = time.perf_counter()
-            for cols in windows:
+            for cols, now in zip(windows, nows):
                 ingest_window(exp, cols, via_put)
-                outs.append(exp.flush_window())
+                outs.append(exp.flush_window(now=now))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = {k: c.launches for k, c in counters.items()}
         finally:
             exp.close()
         c = exp.counters()
+        c.update(check_sketch_rows(store_dir, outs, nows))
         for k in wants:
             if launches[k] <= 0:
                 raise AssertionError(f"{name}: kernel {k} never launched")
@@ -850,7 +960,8 @@ def run_ingester_paths(torch, dev, windows, card, tmp, lanes_inline_snaps):
         keep = ("dispatches", "h2d_transfers", "batches", "feed_groups",
                 "feed_fences", "staged_groups", "staging_pool_hits",
                 "staging_recycled", "staging_recycle_refused",
-                "staging_free_pinned", "saves")
+                "staging_free_pinned", "saves", "topk_rows",
+                "resolved_share")
         runs[name] = {"snaps": snaps, "seconds": dt, "recall": recalls,
                       "records_per_s": records / dt, "launches": launches,
                       "counters": {k: c[k] for k in keep if k in c}}
@@ -1029,7 +1140,8 @@ def profile_ingester_paths(torch, dev, windows, tmp, card,
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
     for name, knobs, via_put, _ in runs:
-        exp = make_exporter(dev, knobs, os.path.join(tmp, "prof_" + name))
+        exp = make_exporter(dev, knobs, os.path.join(tmp, "prof_" + name),
+                            os.path.join(tmp, "prof_store_" + name))
         try:
             if via_put:
                 exp.start()
@@ -1375,6 +1487,300 @@ def check_detection(torch, dev, rng, args, card, tmp):
         "card": card}
 
 
+# -- phase 8: the L7 RED lane -------------------------------------------------
+
+RED_ENDPOINTS = 4096       # server (ip_dst, port_dst, protocol) pool
+RED_WINDOWS = 4
+RED_RECORDS = 1 << 20      # l7 request records per window
+RED_CHUNK = 1 << 16        # records per decoded chunk
+# HTTP 200 / 3xx / 404 / 500 and enum-style codes 0-10 (0 ok)
+RED_CODES = np.array([200, 301, 304, 404, 500] + list(range(11)), np.uint32)
+RED_P = np.array([0.55, 0.05, 0.05, 0.05, 0.05, 0.15] + [0.01] * 10)
+RED_QUANTILE_BAR = 1000    # groups with this many requests have quantiles
+#                            checked against np.quantile
+
+
+def red_pool(rng):
+    """RED_ENDPOINTS distinct server endpoints and their Zipf(1.1)
+    probabilities, truncated to the pool."""
+    pool = {"ip_dst": (0xAC100000 + rng.permutation(1 << 16)[
+                :RED_ENDPOINTS]).astype(np.uint32),
+            "port_dst": rng.choice(np.array([80, 443, 8080, 3306, 6379,
+                                             9092, 5432, 53], np.uint32),
+                                   RED_ENDPOINTS),
+            "protocol": np.where(rng.random(RED_ENDPOINTS) < 0.9, 6,
+                                 17).astype(np.uint32)}
+    p = 1.0 / np.arange(1, RED_ENDPOINTS + 1) ** 1.1
+    return pool, p / p.sum()
+
+
+def red_window(rng, pool, p, records):
+    """One window of l7 request records: endpoints by Zipf(1.1), rrt_us
+    log-normal (median 2,000 us, sigma 1.2) rounded with 1% zeros, and
+    the status mix."""
+    pick = rng.choice(RED_ENDPOINTS, records, p=p)
+    cols = {k: v[pick] for k, v in pool.items()}
+    rrt = np.round(rng.lognormal(np.log(2000.0), 1.2, records))
+    rrt[rng.random(records) < 0.01] = 0
+    cols["rrt_us"] = rrt.astype(np.uint32)
+    cols["status"] = rng.choice(RED_CODES, records, p=RED_P)
+    return cols
+
+
+def red_truth(cols, cfg):
+    """Exact numpy GROUP BY service group: requests, errors, and the
+    latencies of each group, sorted by group."""
+    from deepflow_tpu_torch.utils.u32 import fold_columns_np
+    group = (fold_columns_np([cols["ip_dst"], cols["port_dst"],
+                              cols["protocol"]])
+             % np.uint32(cfg.groups)).astype(np.int64)
+    st = cols["status"]
+    err = (st >= 400) | ((st > 0) & (st < 100))
+    order = np.argsort(group, kind="stable")
+    return {"requests": np.bincount(group, minlength=cfg.groups),
+            "errors": np.bincount(group[err], minlength=cfg.groups),
+            "rrt_sorted": cols["rrt_us"][order],
+            "edges": np.searchsorted(group[order],
+                                     np.arange(cfg.groups + 1))}
+
+
+def red_quantile_limit(cfg):
+    """The sketch's relative error bound: alpha for an estimate at the
+    exact log-space midpoint of the value's bucket, plus how far the
+    midpoint table (the reference's float32 arithmetic) lies from it."""
+    from deepflow_tpu_torch.ops import ddsketch
+    dd = cfg.dd
+    g = ddsketch.gamma(dd)
+    exact = dd.min_value * 2 * g ** np.arange(dd.buckets) / (g + 1)
+    off = np.abs(ddsketch.midpoints(dd).astype(np.float64) / exact - 1).max()
+    return dd.alpha + (1 + dd.alpha) * float(off)
+
+
+def check_red_window(out, truth, cfg, rows, now):
+    """One window: counts equal the GROUP BY, every group's sketch (hist
+    and zeros) adds up to its requests, quantiles of every group with
+    RED_QUANTILE_BAR requests within red_quantile_limit of the value of
+    rank ceil(q*n) (np.quantile's "inverted_cdf", the value the sketch
+    estimates), and the app_red rows of the window equal its output.
+    np.quantile's default linear interpolation is reported beside it: in
+    a sparse tail (p99 of a few thousand values) the two order statistics
+    it interpolates between lie ~10% apart. Returns the worst relative
+    errors and the groups checked."""
+    from deepflow_tpu_torch.runtime.app_red import quantile_column
+    reqs = out.requests.cpu().numpy()
+    errs = out.errors.cpu().numpy()
+    qs = out.rrt_quantiles.cpu().numpy()
+    if not (np.array_equal(reqs, truth["requests"].astype(np.float32))
+            and np.array_equal(errs, truth["errors"].astype(np.float32))):
+        raise AssertionError(f"RED window {now}: counts differ from the "
+                             "exact GROUP BY")
+    sketched = (out.rrt_hist.cpu().numpy().sum(1, dtype=np.float64)
+                + out.rrt_zeros.cpu().numpy())
+    if not np.array_equal(sketched, truth["requests"]):
+        raise AssertionError(f"RED window {now}: the sketch holds "
+                             f"{int(sketched.sum())} values for "
+                             f"{int(truth['requests'].sum())} requests")
+    worst, linear, checked = 0.0, 0.0, 0
+    for g in np.nonzero(truth["requests"] >= RED_QUANTILE_BAR)[0]:
+        vals = truth["rrt_sorted"][truth["edges"][g]:truth["edges"][g + 1]]
+        exact = np.quantile(vals, cfg.quantiles, method="inverted_cdf")
+        worst = max(worst, float((np.abs(qs[:, g] - exact) / exact).max()))
+        interp = np.quantile(vals, cfg.quantiles)
+        linear = max(linear, float((np.abs(qs[:, g] - interp)
+                                    / interp).max()))
+        checked += 1
+    if checked == 0 or worst > red_quantile_limit(cfg):
+        raise AssertionError(f"RED window {now}: quantile relative error "
+                             f"{worst} over {checked} groups")
+    sel = rows["timestamp"] == int(now)
+    active = np.nonzero(reqs > 0)[0]
+    ok = (np.array_equal(rows["service_group"][sel], active)
+          and np.array_equal(rows["requests"][sel], reqs[active])
+          and np.array_equal(rows["errors"][sel], errs[active])
+          and all(np.array_equal(rows[quantile_column(q)][sel], qs[i, active])
+                  for i, q in enumerate(cfg.quantiles)))
+    if not ok:
+        raise AssertionError(f"RED window {now}: app_red rows differ from "
+                             "the window output")
+    return worst, linear, checked
+
+
+def red_ingest(exp, cols):
+    """One window's records through put() and the worker thread, waiting
+    until every chunk is processed."""
+    total = len(cols["rrt_us"])
+    want = exp.processed + -(-total // RED_CHUNK)
+    for s in range(0, total, RED_CHUNK):
+        exp.put("l7_flow_log", 0,
+                {k: v[s:s + RED_CHUNK] for k, v in cols.items()})
+    deadline = time.monotonic() + 300
+    while exp.processed + exp.process_errors < want:
+        if time.monotonic() > deadline:
+            raise AssertionError("the RED exporter's worker did not drain")
+        time.sleep(0.0005)
+    if exp.process_errors:
+        raise AssertionError(f"RED process() raised {exp.process_errors} "
+                             "times")
+
+
+def check_red_small(torch, dev, rng):
+    """A small stream through the RED exporter on the card and on the
+    CPU (plain versions), with u32 edges (rrt_us and status at 2^31 and
+    2^32-1) and the integers next to every bucket boundary: every state
+    leaf before each flush and every output field equal."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.models.app_suite import AppSuiteConfig
+    from deepflow_tpu_torch.ops import ddsketch
+    from deepflow_tpu_torch.runtime.app_red import AppRedExporter
+
+    cfg = AppSuiteConfig(groups=64)
+    b = ddsketch.boundaries(cfg.dd)
+    boundary = np.unique(np.concatenate([np.floor(b), np.ceil(b)]))
+    edges = np.array([0, 1, 2, 2**31, 2**31 + 1, 2**32 - 1], np.uint64)
+    pool, p = red_pool(rng)
+    exps = [AppRedExporter(cfg=cfg, batch_rows=4096, device=d)
+            for d in (dev, "cpu")]
+    try:
+        for w in range(2):
+            cols = red_window(rng, pool, p, 10000)
+            extra = np.concatenate([boundary, edges]).astype(np.uint32)
+            cols["rrt_us"][:len(extra)] = extra
+            cols["status"][:4] = [2**31, 2**32 - 1, 2**31 - 1, 99]
+            for exp in exps:
+                for s in range(0, 10000, 3000):
+                    exp.process([("l7_flow_log", 0, {
+                        k: v[s:s + 3000] for k, v in cols.items()}, -1)])
+            torch.cuda.synchronize()
+            leaves = [convert.app_to_numpy(e.state) for e in exps]
+            for (path, _), a, c in zip(convert.APP_LEAVES, *leaves):
+                if not np.array_equal(a, c):
+                    raise AssertionError(f"RED small stream: {path} on the "
+                                         "card differs from the CPU")
+            og, oc = (e.flush_window(now=10.0 + w) for e in exps)
+            for name in og._fields:
+                if not np.array_equal(getattr(og, name).cpu().numpy(),
+                                      getattr(oc, name).numpy()):
+                    raise AssertionError(f"RED small stream: output {name} "
+                                         "on the card differs from the CPU")
+    finally:
+        for e in exps:
+            e.close()
+    return len(boundary)
+
+
+def check_red(torch, dev, rng, card, tmp):
+    """Phase 8: the RED lane at AppSuiteConfig() and batch_rows 2^14,
+    through put() and the worker thread with a Store."""
+    from deepflow_tpu_torch.models.app_suite import AppSuiteConfig
+    from deepflow_tpu_torch.ops import cuda_hist
+    from deepflow_tpu_torch.runtime.app_red import (APP_RED_DB,
+                                                    AppRedExporter)
+    from deepflow_tpu_torch.store.db import Store
+
+    cfg = AppSuiteConfig()
+    t0 = time.perf_counter()
+    pool, p = red_pool(rng)
+    windows = [red_window(rng, pool, p, RED_RECORDS)
+               for _ in range(RED_WINDOWS)]
+    truths = [red_truth(c, cfg) for c in windows]
+    records = sum(len(c["rrt_us"]) for c in windows)
+    log(f"  {RED_WINDOWS} windows of {len(windows[0]['rrt_us'])} l7 records "
+        f"({time.perf_counter() - t0:.1f} s to draw)")
+    store_dir = os.path.join(tmp, "store_red")
+    exp = AppRedExporter(store=Store(store_dir), cfg=cfg, batch_rows=RED_C,
+                         window_seconds=3600, device=dev)
+    nows = [2000.0 + w for w in range(RED_WINDOWS)]
+    outs = []
+    try:
+        exp.start()
+        torch.cuda.synchronize()
+        cuda_hist.hist_add_cuda.launches = 0
+        t0 = time.perf_counter()
+        for cols, now in zip(windows, nows):
+            red_ingest(exp, cols)
+            outs.append(exp.flush_window(now=now))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = cuda_hist.hist_add_cuda.launches
+        c = exp.counters()
+        prof = profile_red_window(torch, dev, exp, windows[0])
+    finally:
+        exp.close()
+    batches = c["batches"]
+    if launches != 3 * batches or c["h2d_transfers"] != batches:
+        raise AssertionError(f"RED: {launches} hist launches and "
+                             f"{c['h2d_transfers']} copies for {batches} "
+                             "batches, not 3 and 1 per batch")
+    if c["rows_in"] != records or c["d2h_transfers"] != RED_WINDOWS:
+        raise AssertionError(f"RED counters {c}")
+    rows = read_table(store_dir, APP_RED_DB, "app_red")
+    worst = [check_red_window(out, truth, cfg, rows, now)
+             for out, truth, now in zip(outs, truths, nows)]
+    log(f"  RED: {records / dt:.0f} records/s ({dt:.3f} s for {records} "
+        f"records, put() to the last flush) on {card}; {batches} batches, "
+        f"{launches} hist launches; per window: counts = exact GROUP BY, "
+        f"quantile relative error (worst against rank ceil(q*n), against "
+        f"linear interpolation, groups checked) {worst}, asserted <= "
+        f"{red_quantile_limit(cfg)!r} (alpha plus the midpoint table's "
+        f"rounding; every reading also within 3 alpha = "
+        f"{3 * cfg.dd_alpha:.2f}); hist + zeros = requests per group; "
+        f"app_red rows = window outputs")
+    n_boundary = check_red_small(torch, dev, rng)
+    log(f"  RED small stream: the card = the CPU on every leaf and output "
+        f"({n_boundary} boundary integers and the u32 edges)")
+    return {"records": records, "seconds": dt,
+            "records_per_s": records / dt, "batches": batches,
+            "launches": {"hist": launches, "fused_lane_hists": 0,
+                         "fused_news_hists": 0},
+            "quantile_error_worst_and_groups": worst, "counters": c,
+            "profile": prof, "small_boundary_values": n_boundary,
+            "card": card}
+
+
+def profile_red_window(torch, dev, exp, cols):
+    """One more window under torch.profiler, its ingest (every chunk
+    processed, then a device synchronize) and its flush in two sessions
+    bracketed by `mark` calls: busy share, kernel launches and copies per
+    batch, the flush's copies and syncs."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    before = exp.counters()
+    with profile(activities=acts) as prof_ingest:
+        mark(torch, dev)
+        t0 = time.perf_counter()
+        red_ingest(exp, cols)
+        torch.cuda.synchronize()
+        t_ingest = time.perf_counter() - t0
+        mark(torch, dev)
+    batches = exp.counters()["batches"] - before["batches"]
+    with profile(activities=acts) as prof_flush:
+        mark(torch, dev)
+        t0 = time.perf_counter()
+        exp.flush_window(now=3000.0)
+        torch.cuda.synchronize()
+        t_flush = time.perf_counter() - t0
+        mark(torch, dev)
+    ingest = trace_session(torch, prof_ingest, t_ingest)
+    flush = trace_session(torch, prof_flush, t_flush)
+    calls = ingest["runtime_calls"]
+    out = {"ingest": ingest, "flush": flush, "batches": batches,
+           "launches_per_batch": calls["cudaLaunchKernel"] / max(batches, 1),
+           "h2d_copies_per_batch": ingest["h2d_copies"] / max(batches, 1)}
+    log(f"  RED profiled window: ingest {ingest['wall_ms']:.1f} ms, device "
+        f"busy {100 * ingest['device_busy_share']:.1f}%, {batches} batches, "
+        f"{out['launches_per_batch']:.1f} kernel launches and "
+        f"{out['h2d_copies_per_batch']:.2f} h2d copies "
+        f"({ingest['h2d_pinned']} pinned, {ingest['h2d_pageable']} pageable, "
+        f"{calls['cudaMemcpyAsync']} cudaMemcpyAsync) per window, "
+        f"d2h {ingest['d2h_copy_activities']}; syncs "
+        + ", ".join(f"{k} {calls[k]}" for k in SYNC_CALLS)
+        + f"; flush {flush['wall_ms']:.1f} ms, d2h copies "
+        f"{flush['d2h_copy_activities']}, runtime copy calls "
+        f"{flush['memcpy_calls']}, syncs "
+        + ", ".join(f"{k} {flush['runtime_calls'][k]}" for k in SYNC_CALLS))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1394,44 +1800,62 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    phase_s = {}
+    t_run = t0 = time.perf_counter()
+
+    def phase_done(n):
+        nonlocal t0
+        phase_s[n] = time.perf_counter() - t0
+        log(f"phase {n}: {phase_s[n]:.1f} s")
+        t0 = time.perf_counter()
+
     _build.load_all(verbose=True)
-    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     for entry in _build.build_log:
         for line in entry.splitlines():
             if "registers" in line or line.endswith(".cu:") \
                     or "spill" in line:
                 log("  " + line.strip())
 
+    phase_done(1)
     rng = np.random.default_rng(args.seed)
     log("phase 2: kernels against their plain versions (bit-exact)")
     kernels, extra = check_kernels(torch, rng, dev)
+    phase_done(2)
 
     log("phase 3: the slice at the exporter defaults")
     paths, runners, windows = check_slice(torch, dev, rng, args, card)
+    phase_done(3)
 
     log("phase 4: small stream on the card against the CPU")
     check_small_against_cpu(torch, dev, rng)
-    log("phase 4: ok")
+    phase_done(4)
 
     log("phase 5: one window of each path under torch.profiler")
     profiles = profile_paths(torch, runners, windows[:1])
     update_kernels = profile_full_row_update(torch, dev, rng)
+    phase_done(5)
 
-    log("phase 6: the exporter as the ingester runs it")
+    log("phase 6: the exporter as the ingester runs it, with its writers")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ingester = run_ingester_paths(torch, dev, windows, card, tmp,
                                       paths["lanes_exporter_k4"]["snaps"])
         ladder = walk_ladder(torch, dev, rng, tmp)
         ingester_profiles = profile_ingester_paths(torch, dev, windows, tmp,
                                                    card)
+        phase_done(6)
         log("phase 7: the detection lanes")
         detection = check_detection(torch, dev, rng, args, card, tmp)
+        phase_done(7)
+        log("phase 8: the L7 RED lane")
+        red = check_red(torch, dev, rng, card, tmp)
+        phase_done(8)
+    log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+        f", {time.perf_counter() - t_run:.1f} s in all")
 
     totals = {}
     for launches in [p["launches"] for p in paths.values()] \
             + [p["launches"] for p in ingester.values()] \
-            + list(detection["launches"].values()):
+            + list(detection["launches"].values()) + [red["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -1444,7 +1868,7 @@ def main() -> int:
                "launches": p["launches"], "counters": p["counters"],
                "profile": ingester_profiles[name]}
         for name, p in ingester.items()}, "ladder": ladder,
-        "detection": detection,
+        "detection": detection, "red": red, "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,9 @@ JAX package's FlowSuiteState (and FlowDictState) with numpy leaves, as
 `jax.device_get` returns them, or the flat leaf list in the reference's
 order, and builds the port's state on a device. `state_to_numpy` goes
 back to that flat list, in the reference's leaf order and dtypes
-(uint32 leaves come back as uint32, int32 as int32).
+(uint32 leaves come back as uint32, int32 as int32). The anomaly plane's
+and the AppSuite's states move the same way; the AppSuite's float32
+leaves hold counts, which the port keeps as int32.
 """
 
 from __future__ import annotations
@@ -16,11 +18,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from deepflow_tpu_torch.models import flow_suite
+from deepflow_tpu_torch.models import app_suite, flow_suite
 from deepflow_tpu_torch.models.flow_dict import FlowDictState
 from deepflow_tpu_torch.models.flow_suite import FlowSuiteState
-from deepflow_tpu_torch.ops import (cms, entropy, hll, matrix_profile, pca,
-                                    topk)
+from deepflow_tpu_torch.ops import (cms, ddsketch, entropy, hll,
+                                    matrix_profile, pca, topk)
 
 # FlowSuiteState leaves, depth first, with the reference's dtypes
 SUITE_LEAVES: Tuple[Tuple[str, type], ...] = (
@@ -40,6 +42,11 @@ ANOMALY_LEAVES: Tuple[Tuple[str, type], ...] = (
     ("pca.w", np.float32), ("pca.step", np.int32),
     ("res_mean", np.float32), ("res_var", np.float32),
     ("mp.ring", np.float32), ("mp.count", np.int32),
+)
+# AppSuiteState leaves, depth first, with the reference's dtypes
+APP_LEAVES: Tuple[Tuple[str, type], ...] = (
+    ("requests", np.float32), ("errors", np.float32),
+    ("rrt.hist", np.float32), ("rrt.zeros", np.float32),
 )
 
 
@@ -136,3 +143,34 @@ def anomaly_to_numpy(state) -> List[np.ndarray]:
     """The port's AnomalyState -> numpy copies of its leaves in the
     reference's order and dtypes (0-d leaves stay 0-d)."""
     return [_to_numpy(_get(state, path), dt) for path, dt in ANOMALY_LEAVES]
+
+
+def _counts_to_torch(arr: np.ndarray, device) -> torch.Tensor:
+    """A float32 leaf of whole counts -> an int32 tensor of them."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.float32:
+        raise ValueError(f"leaf dtype {arr.dtype}, expected float32")
+    if not (np.all(arr >= 0) and np.all(arr <= np.iinfo(np.int32).max)
+            and np.array_equal(arr, np.floor(arr))):
+        raise ValueError("AppSuite leaf holds values that are not int32 "
+                         "counts")
+    return torch.from_numpy(arr.astype(np.int32)).to(device)
+
+
+def app_from_numpy(state, device="cuda") -> app_suite.AppSuiteState:
+    """The reference's AppSuiteState with numpy leaves (or its flat leaf
+    list) -> fresh int32 tensors of this port's AppSuiteState on
+    `device`."""
+    device = flow_suite.check_device(device)
+    t = [_counts_to_torch(a, device) for a in _leaves(state, APP_LEAVES)]
+    return app_suite.AppSuiteState(
+        requests=t[0], errors=t[1],
+        rrt=ddsketch.DDSketchState(hist=t[2], zeros=t[3]))
+
+
+def app_to_numpy(state: app_suite.AppSuiteState) -> List[np.ndarray]:
+    """The port's AppSuiteState -> float32 numpy leaves in the
+    reference's order."""
+    return [_get(state, path).detach().to("cpu", torch.float32,
+                                          copy=True).numpy()
+            for path, _ in APP_LEAVES]

@@ -70,10 +70,18 @@ The dict wire's inline path applies a whole staged group and then feeds
 it, as the feed path does, so hits gather their keys from the table
 after the group (the reference's inline path feeds plane by plane).
 
+Store writers. With a `store`, every window output (the degraded host
+window's too) is written as rows of `tpu_sketch.topk_flows` (one per
+live top-K entry, its 5-tuple resolved through a sampled host-side
+reverse map of flow keys, 0 where the key was never sampled) and one row
+of `tpu_sketch.window_signals`, through `StoreWriter`s that `flush()`
+drains. The writers read the same host copy of the window output as the
+detection lanes: one device-to-host copy per window when any of them is
+on, none otherwise.
+
 Not ported here (ROADMAP): the pod and multihost branches, the tracer
 gauges of the plane and the auditor, tracer/profiler attribution, the
-autotuner, the store writers with the top-K reverse map, and the staged
-four-program update.
+autotuner, and the staged four-program update.
 """
 
 from __future__ import annotations
@@ -102,9 +110,46 @@ from deepflow_tpu_torch.runtime.faults import (FAULT_DEVICE_ERROR,
 from deepflow_tpu_torch.runtime.feed import DeviceFeed, InFlight
 from deepflow_tpu_torch.runtime.snapbus import SnapshotBus
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
+from deepflow_tpu_torch.store.db import Store
+from deepflow_tpu_torch.store.table import AggKind, ColumnSpec, TableSchema
+from deepflow_tpu_torch.store.writer import StoreWriter
 from deepflow_tpu_torch.utils.u32 import fold_columns_np
 
 _LOG = logging.getLogger(__name__)
+
+SKETCH_DB = "tpu_sketch"
+
+TOPK_TABLE = TableSchema(
+    name="topk_flows",
+    columns=(
+        ColumnSpec("timestamp", np.dtype(np.uint32), AggKind.KEY),
+        ColumnSpec("rank", np.dtype(np.uint32), AggKind.KEY),
+        ColumnSpec("flow_key", np.dtype(np.uint32), AggKind.KEY),
+        ColumnSpec("count", np.dtype(np.uint32), AggKind.MAX),
+        # the 5-tuple behind the key, resolved on the host through the
+        # sampled reverse map (0 where the key was never sampled)
+        ColumnSpec("ip_src", np.dtype(np.uint32), AggKind.MAX),
+        ColumnSpec("ip_dst", np.dtype(np.uint32), AggKind.MAX),
+        ColumnSpec("port_src", np.dtype(np.uint32), AggKind.MAX),
+        ColumnSpec("port_dst", np.dtype(np.uint32), AggKind.MAX),
+        ColumnSpec("proto", np.dtype(np.uint32), AggKind.MAX),
+    ),
+)
+
+WINDOW_TABLE = TableSchema(
+    name="window_signals",
+    columns=(
+        ColumnSpec("timestamp", np.dtype(np.uint32), AggKind.KEY),
+        ColumnSpec("rows", np.dtype(np.uint32), AggKind.SUM),
+        ColumnSpec("entropy_ip_src", np.dtype(np.float32), AggKind.MAX),
+        ColumnSpec("entropy_ip_dst", np.dtype(np.float32), AggKind.MAX),
+        ColumnSpec("entropy_port_src", np.dtype(np.float32), AggKind.MAX),
+        ColumnSpec("entropy_port_dst", np.dtype(np.float32), AggKind.MAX),
+        ColumnSpec("distinct_clients", np.dtype(np.uint32), AggKind.MAX),
+    ),
+)
+
+_TUPLE_NAMES = ("ip_src", "ip_dst", "port_src", "port_dst", "proto")
 
 
 class _HostSketch:
@@ -211,6 +256,9 @@ class TpuSketchExporter(QueueWorkerExporter):
     suite on one device."""
 
     _PROGRAM_CACHE_CAP = 128
+    # distinct sampled flow keys the reverse map keeps: well above the
+    # ring size, so standing heavy hitters stay resolvable across windows
+    _KEY_TUPLES_CAP = 1 << 18
 
     def __init__(self, cfg: Optional[flow_suite.FlowSuiteConfig] = None,
                  batch_rows: int = 1 << 15,
@@ -225,6 +273,7 @@ class TpuSketchExporter(QueueWorkerExporter):
                  audit_rate: float = 0.0,
                  anomaly=None,
                  anomaly_dir: Optional[str] = None,
+                 store: Optional[Store] = None,
                  device="cuda") -> None:
         super().__init__("tpu_sketch", ["l4_flow_log"], n_workers=1,
                          batch=64)
@@ -262,6 +311,16 @@ class TpuSketchExporter(QueueWorkerExporter):
                 self.windows = self.checkpointer.latest_step() or 0
                 # the restored accumulation is uncounted live data: dirty
                 self._rows_at_flush = -1
+        self.topk_writer = self.window_writer = None
+        if store is not None:
+            self.topk_writer = StoreWriter(
+                store.create_table(SKETCH_DB, TOPK_TABLE),
+                batch_rows=4096, flush_interval=5.0)
+            self.window_writer = StoreWriter(
+                store.create_table(SKETCH_DB, WINDOW_TABLE),
+                batch_rows=1024, flush_interval=5.0)
+        # flow key -> 5-tuple, sampled from the stream for the writers
+        self._key_tuples: Dict[int, tuple] = {}
         # dict wire: a flow's 5-tuple crosses once (news), repeats cross
         # as hits against the device key table. The table is not
         # checkpointed: after a restore a fresh packer re-announces
@@ -369,7 +428,13 @@ class TpuSketchExporter(QueueWorkerExporter):
         return torch.cuda.stream(self._stream)
 
     # -- exporter lifecycle --------------------------------------------------
+    def _writers(self) -> List[StoreWriter]:
+        return [w for w in (self.topk_writer, self.window_writer)
+                if w is not None]
+
     def start(self) -> None:
+        for w in self._writers():
+            w.start()
         super().start()
         # deadman off: the loop blocks a whole window between beats
         self._window_thread = default_supervisor().spawn(
@@ -389,6 +454,8 @@ class TpuSketchExporter(QueueWorkerExporter):
             if self._pack_pool is not None:
                 # after the feed: in-flight groups may wait on pool packs
                 self._pack_pool.close()
+            for w in self._writers():
+                w.close()
 
     # -- data path -----------------------------------------------------------
     def process(self, chunks: List[Any]) -> None:
@@ -397,6 +464,10 @@ class TpuSketchExporter(QueueWorkerExporter):
         or stager and the state: the window flush takes the same lock."""
         for _stream, _idx, cols, *_rest in chunks:
             schema_cols = self.coerce_to_schema(cols, SKETCH_L4_SCHEMA)
+            if self._stager is not None:
+                # the staged words carry no tuple columns: the reverse map
+                # samples the decoded chunk, outside the lock
+                self._record_key_tuples(schema_cols)
             with self._state_lock:
                 self._raise_kernel_error()
                 if self._stager is not None:
@@ -479,6 +550,7 @@ class TpuSketchExporter(QueueWorkerExporter):
         if self.degraded:
             self._host_batch_locked(tb)
             return
+        self._record_key_tuples(tb.columns)
         if self._dict_packer is None:
             self._stage_lane_slot_locked(tb)
             return
@@ -852,13 +924,21 @@ class TpuSketchExporter(QueueWorkerExporter):
                     self._probe_device_locked()
                 else:
                     out = self._publish_and_flush_locked(now)
-                self._close_lanes_locked(out, now, was_degraded)
+                # one host copy of the output, shared by every reader
+                host_out = None
+                if out is not None and (self._anomaly is not None
+                                        or self._audit is not None
+                                        or self.topk_writer is not None):
+                    host_out = _host_output(out)
+                self._close_lanes_locked(out, host_out, now, was_degraded)
             # the lost-window guard resets at the true window boundary
             self._window_lost_counted = False
         if self._anomaly is not None:
             self._anomaly.publish_pending()     # emissions: no lock held
         if out is None:
             return None
+        if self.topk_writer is not None:
+            self._write_output(host_out, int(now))
         if self._stream is not None:
             # hand the readout to the caller's stream: its work on the
             # outputs waits for the flush, and the allocator keeps their
@@ -893,15 +973,15 @@ class TpuSketchExporter(QueueWorkerExporter):
             return None
         return out
 
-    def _close_lanes_locked(self, out, now: float, degraded: bool) -> None:
+    def _close_lanes_locked(self, out, host_out, now: float,
+                            degraded: bool) -> None:
         """Close the window on the detection and accuracy lanes. The
         plane scores the device output (None: the window closes
-        unscored); the auditor, and an alert's top contributors, read one
-        host copy of it. The plane closes first, so the audit sees its
+        unscored); the auditor, and an alert's top contributors, read its
+        host copy. The plane closes first, so the audit sees its
         verdict."""
         if self._anomaly is None and self._audit is None:
             return
-        host_out = None if out is None else _host_output(out)
         lossy = self._window_lost_counted
         if self._anomaly is not None:
             self._anomaly.close_window(out, now=now, lossy=lossy,
@@ -912,9 +992,61 @@ class TpuSketchExporter(QueueWorkerExporter):
                 detection=None if self._anomaly is None
                 else self._anomaly.last_entropy_verdict)
 
+    def _record_key_tuples(self, cols: Dict[str, np.ndarray]) -> None:
+        """The sampled host-side flow key -> 5-tuple map that resolves the
+        top-K rows (only with a store: nothing else reads it). Heavy
+        hitters recur, so a 1/16 stride sample resolves them with near
+        certainty. A key seen again moves to the newest end, and the
+        oldest keys go at the cap."""
+        if self.topk_writer is None:
+            return
+        sample = [np.asarray(cols[k][::16]) for k in _TUPLE_NAMES]
+        keys = fold_columns_np(sample)
+        tuples = np.stack([c.astype(np.uint32) for c in sample], axis=1)
+        kt = self._key_tuples
+        for key, tup in zip(keys.tolist(), tuples.tolist()):
+            kt.pop(key, None)
+            kt[key] = tup
+        while len(kt) > self._KEY_TUPLES_CAP:
+            kt.pop(next(iter(kt)))
+
+    def _write_output(self, out: flow_suite.FlowWindowOutput,
+                      second: int) -> None:
+        """One window's rows into the writers, from its host copy."""
+        keys = out.topk_keys.numpy().view(np.uint32)
+        counts = out.topk_counts.numpy()
+        live = counts > 0
+        k = int(live.sum())
+        if k:
+            rows = {
+                "timestamp": np.full(k, second, np.uint32),
+                "rank": np.arange(k, dtype=np.uint32),
+                "flow_key": keys[live],
+                "count": counts[live].astype(np.uint32),
+            }
+            tuples = np.zeros((k, len(_TUPLE_NAMES)), np.uint32)
+            for i, key in enumerate(keys[live].tolist()):
+                t = self._key_tuples.get(key)
+                if t is not None:
+                    tuples[i] = t
+            for j, name in enumerate(_TUPLE_NAMES):
+                rows[name] = tuples[:, j]
+            self.topk_writer.put(rows)
+        ent = out.entropies.numpy().astype(np.float32)
+        card = out.service_cardinality.numpy()
+        self.window_writer.put({
+            "timestamp": np.asarray([second], np.uint32),
+            "rows": np.asarray([int(out.rows)], np.uint32),
+            "entropy_ip_src": ent[0:1], "entropy_ip_dst": ent[1:2],
+            "entropy_port_src": ent[2:3], "entropy_port_dst": ent[3:4],
+            "distinct_clients": np.asarray([card.sum()], np.uint32),
+        })
+
     def flush(self) -> None:
-        """The ingester's flush hook. This exporter has no store writers
-        (they are not ported), so there is nothing to write out."""
+        """Drain pending sketch-output rows to disk (the ingester's flush
+        hook)."""
+        for w in self._writers():
+            w.flush()
 
     def _window_loop(self) -> None:
         while not self._window_stop.wait(self.window_seconds):

@@ -43,7 +43,8 @@ def test_port_files_found():
             "faults.py", "queues.py", "exporters.py", "feed.py",
             "staging.py", "snapbus.py", "tpu_sketch.py", "pca.py",
             "matrix_profile.py", "detectors.py", "alerts.py",
-            "audit.py"} <= names
+            "audit.py", "ddsketch.py", "app_suite.py", "app_red.py",
+            "table.py", "db.py", "writer.py"} <= names
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
         in PORT_FILES
 
@@ -109,7 +110,11 @@ def test_every_entry_point_defaults_to_cuda():
             "deepflow_tpu_torch.anomaly.detectors.init",
             "deepflow_tpu_torch.ops.pca.init",
             "deepflow_tpu_torch.ops.matrix_profile.init",
-            "deepflow_tpu_torch.convert.anomaly_from_numpy"} <= set(found)
+            "deepflow_tpu_torch.convert.anomaly_from_numpy",
+            "deepflow_tpu_torch.runtime.app_red.AppRedExporter",
+            "deepflow_tpu_torch.models.app_suite.init",
+            "deepflow_tpu_torch.ops.ddsketch.init",
+            "deepflow_tpu_torch.convert.app_from_numpy"} <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad
 
