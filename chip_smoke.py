@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the deepflow_tpu_torch l4 sketch step and L7 RED lane on one
-CUDA card.
+"""Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane and sharded
+suites on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -15,7 +15,10 @@ is printed):
    Count-Min (mask only) and entropy (weights and mask) shapes, on
    one row of 2^19 bins (the wide path), and at the RED lane's shapes
    (2^14 lanes, mask only, into one row of 2^19 bins: the DDSketch, and
-   of 1024 bins: requests, errors), the lane kernel at C=32768,
+   of 1024 bins: requests, errors), at phase 9's per-shard shapes (2^14
+   lanes: Count-Min, entropy, and the metrics suite's 2 entropy rows of
+   2^10 bins with weights over the whole u32 range read as int32, past
+   65535 and past 2^31), the lane kernel at C=32768,
    the news kernel at C=8192; kernel, plain and library times per call
    from CUDA events after a warm-up (median of 5 runs of 20 calls),
    device times from torch.profiler; then, checked but not timed, hist on
@@ -82,7 +85,11 @@ is printed):
    reported), the ladder with the lanes on (every device error reaches
    the plane's device_lost, the shed window closes unscored), and a
    small ramp through the plane on the card and on the CPU, its state
-   compared at every window close;
+   compared at every window close, entropy_ddos and pca_residual alerts
+   equal at every window, mp_discord alerts equal wherever a device's
+   float32 score cannot reach across the threshold (its distance from
+   the float64 score of the same ring is smaller than that score's
+   distance from the threshold; those windows are printed);
 8. the L7 RED lane (AppSuiteConfig(): 1024 groups x 512 buckets, alpha
    0.02; batch_rows 2^14) with a Store: 4 windows of 2^20 l7 request
    records (server endpoints by Zipf(1.1) from a pool of 4096, rrt_us
@@ -95,11 +102,37 @@ is printed):
    from the segment files equal to the output; 3 hist launches and one host-to-device copy per batch. Then
    one window under torch.profiler (ingest and flush apart), and a small
    stream with u32 edges and every bucket boundary on the card and on
-   the CPU, every leaf and output equal.
+   the CPU, every leaf and output equal;
+9. the multi-device suites on a mesh of 4 shards that share the card
+   (parallel/mesh.py), global batches of 2^16 rows (2^14 per shard):
+   (a) ShardedFlowSuite at FlowSuiteConfig() over phase 3's two windows
+   through its four forms (columns, the full-row plane, the lanes plane,
+   the dict wire from FlowDictPacker with a replicated table of 2^20
+   entries): at each window close the merged CMS, HLL, entropy and rows
+   equal flow_suite.update on one device, recall >= 0.99, the table
+   replicas identical, hist launched and the fused kernels not; (b)
+   ShardedAppSuite at AppSuiteConfig() over two windows of phase 8's l7
+   records: every window output field equal to AppSuite on one device;
+   (c) ShardedMetricsSuite at MetricsSuiteConfig() over phase 7's DDoS
+   ramp, one flow_metrics Document per l4 row (`metric_documents`): 4
+   shards on the card against 4 shards on the CPU (histograms exact,
+   entropies within 2e-6 relative, alarms equal, z within rtol 1e-5,
+   PCA projector and matrix-profile scores within rtol 1e-4) and against
+   1 shard on the card (the reference's 8-against-1 tolerances), the
+   basis and rings bit-identical across the 4 shards at every window;
+   then the same three meshes at an EWMA rate of 0.3 and 8-window
+   subsequences over 20 windows of 2^17 Documents with signal levels
+   spread over orders of magnitude and a destination concentration step
+   at window 12: the alarm fires there and not before, and every
+   matrix-profile score from window 15 on is nonzero. Then one window
+   of each suite under torch.profiler, ingest and flush apart: launches
+   per global batch, busy share, a flush's syncs.
 
-Each phase prints its time. The last two lines of standard output are
-the kernels' JSON record and {"ok": true, "device": {...}}. Exits
-non-zero without a CUDA device.
+Each phase prints its time. `--one-generator` draws phase 2's rows for
+phase 9's shapes from the generator phases 2-8 share instead of their
+own, so phases 3-8 run on another draw of their data. The last two
+lines of standard output are the kernels' JSON record and {"ok": true,
+"device": {...}}. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -229,15 +262,24 @@ def device_ms(torch, fn, names=None):
 C_LANE, C_NEWS = 1 << 15, 1 << 13      # the lane and news kernels' batches
 HIST_C = 1 << 15                       # lanes per hist call (batch_rows)
 RED_C = 1 << 14                        # the RED exporter's batch_rows
+SHARD_C = 1 << 14                      # phase 9's rows per shard
 # (label, log2 width, rows, weight planes or None for mask-only lanes,
-# lanes, recorded as a kernel row): the sketch exporter's Count-Min and
-# entropy shapes, one wide row, and the RED lane's DDSketch row (1024
-# groups x 512 buckets) and service rows (requests, errors)
-HIST_SHAPES = (("cms", 17, 4, None, HIST_C, True),
-               ("entropy", 12, 4, 2, HIST_C, True),
-               ("wide", 19, 1, 2, HIST_C, False),
-               ("ddsketch", 19, 1, None, RED_C, True),
-               ("red_service", 10, 1, None, RED_C, True))
+# lanes, recorded as a kernel row, weights over the whole int32 range):
+# the sketch exporter's Count-Min and entropy shapes, one wide row, the
+# RED lane's DDSketch row (1024 groups x 512 buckets) and service rows
+# (requests, errors), and phase 9's per-shard Count-Min and entropy
+# shapes and the metrics suite's entropy row (packet sums wrap as u32 and
+# are read as int32, so weights run past 65535 and past 2^31)
+HIST_SHAPES = (("cms", 17, 4, None, HIST_C, True, False),
+               ("entropy", 12, 4, 2, HIST_C, True, False),
+               ("wide", 19, 1, 2, HIST_C, False, False),
+               ("ddsketch", 19, 1, None, RED_C, True, False),
+               ("red_service", 10, 1, None, RED_C, True, False))
+# phase 9's rows draw from phase 9's own generator, so that the phases
+# before it see the data they saw before phase 9 was added
+SHARD_HIST_SHAPES = (("cms_shard", 17, 4, None, SHARD_C, True, False),
+                     ("entropy_shard", 12, 4, 2, SHARD_C, True, False),
+                     ("metrics_entropy", 10, 2, 2, SHARD_C, True, True))
 
 
 def zipf_ranks(rng, size, pool):
@@ -245,10 +287,13 @@ def zipf_ranks(rng, size, pool):
     return (rng.zipf(1.1, size) - 1).clip(max=pool - 1)
 
 
-def hist_inputs(torch, rng, dev, lw, d, planes, skew, C=HIST_C, pad=777):
+def hist_inputs(torch, rng, dev, lw, d, planes, skew, C=HIST_C, pad=777,
+                signed=False):
     """idx [d, C] (uniform, or Zipf(1.1) over a permuted bin order with
     out-of-range indices on both sides), a mask of the first C - pad lanes
-    and, with `planes`, weights that saturate at 256**planes - 1."""
+    and, with `planes`, weights that saturate at 256**planes - 1 (with
+    `signed`, u32 values over the whole range as int32 bits, half of them
+    negative)."""
     width = 1 << lw
     if skew:
         idx = np.stack([rng.permutation(width)[zipf_ranks(rng, C, width)]
@@ -256,8 +301,14 @@ def hist_inputs(torch, rng, dev, lw, d, planes, skew, C=HIST_C, pad=777):
     else:
         idx = rng.integers(-3, width + 3, (d, C)).astype(np.int32)
     mask = torch.arange(C, device=dev) < C - pad
-    w = None if planes is None else torch.from_numpy(
-        rng.integers(0, 1 << 24, C).astype(np.int32)).to(dev)
+    if planes is None:
+        w = None
+    elif signed:
+        w = torch.from_numpy(rng.integers(0, 1 << 32, C, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+    else:
+        w = torch.from_numpy(
+            rng.integers(0, 1 << 24, C).astype(np.int32)).to(dev)
     return torch.from_numpy(idx).to(dev), w, mask
 
 
@@ -336,7 +387,7 @@ def check_fused(torch, rng, cuda_sketch, label, plane, n_d, seeds,
     return base_c.clone(), base_e.clone()
 
 
-def check_kernels(torch, rng, dev):
+def check_kernels(torch, rng, dev, rng9):
     from deepflow_tpu_torch.ops import cuda_hist, cuda_sketch, hashing
 
     results, extra = [], []
@@ -357,12 +408,14 @@ def check_kernels(torch, rng, dev):
                         "library_ms": lib_ms, "device_ms": d_ms})
 
     hist_names = ("hist_smem_kernel", "hist_global_kernel")
-    for label, lw, d, planes, lanes, recorded in HIST_SHAPES:
+    for (label, lw, d, planes, lanes, recorded, signed), r in \
+            [(x, rng) for x in HIST_SHAPES] \
+            + [(x, rng9) for x in SHARD_HIST_SHAPES]:
         width = 1 << lw
         for skew in (False, True):
-            idx, w, mask = hist_inputs(torch, rng, dev, lw, d, planes, skew,
-                                       C=lanes)
-            acc = check_hist(torch, rng, cuda_hist, idx, width, w, mask,
+            idx, w, mask = hist_inputs(torch, r, dev, lw, d, planes, skew,
+                                       C=lanes, signed=signed)
+            acc = check_hist(torch, r, cuda_hist, idx, width, w, mask,
                              planes, label + ("/zipf" if skew else ""))
             args = (idx, width, w, mask, planes or 2)
             k_ms = time_ms(torch, lambda: cuda_hist.hist_add_cuda(acc, *args))
@@ -1129,6 +1182,25 @@ def trace_session(torch, prof, wall_s):
             "cudaLaunchKernel", "cudaMemcpyAsync")}}
 
 
+def profile_window(torch, dev, ingest, flush):
+    """One window in two profiler sessions, its ingest and its flush,
+    each ended by a device synchronize and bracketed by `mark` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    sessions = []
+    for fn in (ingest, flush):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            mark(torch, dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mark(torch, dev)
+        sessions.append(trace_session(torch, prof, wall))
+    return sessions
+
+
 def profile_ingester_paths(torch, dev, windows, tmp, card,
                            runs=INGESTER_RUNS):
     """Phase 6.5 (and 7): per run, one warm-up window, then one window
@@ -1219,6 +1291,7 @@ VICTIM_IP, VICTIM_PORT = 0xAC10BEEF, 80
 # the ingester's detection defaults: the plane at AnomalyConfig() and the
 # shadow auditor at 1/64
 DETECTION_KNOBS = {"anomaly": True, "audit_rate": 1.0 / 64}
+DETECTORS_ORDER = ("entropy_ddos", "pca_residual", "mp_discord")
 
 
 def ramp_windows(rng, records: int, pool: int = 1 << 17):
@@ -1367,7 +1440,7 @@ def check_small_detection(torch, dev, rng):
     ramp = ramp_windows(rng, 4096, pool=3000)
     exps = [TpuSketchExporter(cfg=cfg, batch_rows=4096, wire="dict",
                               anomaly=True, device=d) for d in (dev, "cpu")]
-    states, alerts = ([], []), ([], [])
+    states, alerts, scores = ([], []), ([], []), ([], [])
     try:
         for w, (_phase, cols) in enumerate(ramp):
             for i, exp in enumerate(exps):
@@ -1376,14 +1449,59 @@ def check_small_detection(torch, dev, rng):
                 torch.cuda.synchronize()
                 states[i].append(convert.anomaly_to_numpy(exp.anomaly.state))
                 alerts[i].append(list(exp.anomaly.alerts_total))
+                scores[i].append(list(exp.anomaly.last_scores))
     finally:
         for exp in exps:
             exp.close()
     compare_planes(states[0], states[1], "the card", "the CPU")
-    if alerts[0] != alerts[1] or not alerts[0][-1][0]:
-        raise AssertionError(f"small ramp alerts: card {alerts[0][-1]}, "
-                             f"CPU {alerts[1][-1]}")
-    return alerts[0][-1]
+    acfg = exps[0].anomaly.cfg
+    thr = np.array(acfg.thresholds)
+    fired = [np.diff(np.array([[0] * len(thr)] + a), axis=0) > 0
+             for a in alerts]
+    sc = [np.array(x, np.float64) for x in scores]
+    differ = fired[0] != fired[1]
+    # mp_discord prices z-normalized distances of near-constant golden
+    # series (the ramp's row count is constant outside the attack): a
+    # difference of near-equal float32 products. Its alert may differ
+    # only where a device's float32 score lies as far from the float64
+    # score of its own ring as that lies from the threshold.
+    d = DETECTORS_ORDER.index("mp_discord")
+    edges = []
+    for w in range(acfg.warmup_windows, len(ramp)):
+        s64 = [mp_score_f64(torch, states[i][w], acfg.mp_m) for i in (0, 1)]
+        err = max(abs(sc[i][w, d] - s64[i]) for i in (0, 1))
+        gap = min(abs(x - thr[d]) for x in s64)
+        if gap <= err or differ[w, d]:
+            edges.append({
+                "window": w, "score_card": float(sc[0][w, d]),
+                "score_cpu": float(sc[1][w, d]), "f64_card": s64[0],
+                "f64_cpu": s64[1], "threshold": float(thr[d]),
+                "rounding_crosses": bool(gap <= err)})
+    bad = [e for e in edges if not e["rounding_crosses"]]
+    other = np.delete(differ, d, axis=1)
+    if bad or other.any() or not alerts[0][-1][0]:
+        raise AssertionError(
+            f"small ramp alerts per window (totals of {DETECTORS_ORDER}): "
+            f"card {alerts[0]}, CPU {alerts[1]}; mp_discord windows near "
+            f"the threshold or differing: {edges}")
+    rel = np.abs(sc[0] - sc[1]) / np.maximum(np.abs(sc[1]), 1e-12)
+    return {"alerts_card": alerts[0][-1], "alerts_cpu": alerts[1][-1],
+            "mp_discord_edges": edges,
+            "score_rel_diff_max": dict(zip(DETECTORS_ORDER,
+                                           rel.max(axis=0).tolist()))}
+
+
+def mp_score_f64(torch, leaves, m):
+    """The mp_discord score of a window, recomputed in float64 from the
+    plane state's ring after that window (`window_step` scores the ring
+    it keeps on a busy window)."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.ops import matrix_profile
+    paths = [p for p, _ in convert.ANOMALY_LEAVES]
+    st = matrix_profile.MPState(
+        ring=torch.from_numpy(leaves[paths.index("mp.ring")]).double(),
+        count=torch.from_numpy(leaves[paths.index("mp.count")]))
+    return float(matrix_profile.latest_score(st, m).max())
 
 
 def check_detection(torch, dev, rng, args, card, tmp):
@@ -1469,7 +1587,13 @@ def check_detection(torch, dev, rng, args, card, tmp):
     ladder = walk_ladder(torch, dev, rng, tmp, lanes=True)
     small = check_small_detection(torch, dev, rng)
     log(f"  small ramp: plane state on the card = on the CPU at every "
-        f"window close; alerts {small}")
+        f"window close; alerts card {small['alerts_card']}, CPU "
+        f"{small['alerts_cpu']}: entropy_ddos and pca_residual equal at "
+        f"every window, mp_discord wherever float32 rounding cannot cross "
+        f"its threshold; mp_discord windows near it (float32 scores, "
+        f"float64 scores of each device's ring) {small['mp_discord_edges']}"
+        f"; largest relative score difference card vs CPU "
+        f"{small['score_rel_diff_max']}")
     return {
         "records": records, "windows": len(ramp),
         "records_per_s": {k: r["records_per_s"] for k, r in runs.items()},
@@ -1738,30 +1862,14 @@ def check_red(torch, dev, rng, card, tmp):
 
 
 def profile_red_window(torch, dev, exp, cols):
-    """One more window under torch.profiler, its ingest (every chunk
-    processed, then a device synchronize) and its flush in two sessions
-    bracketed by `mark` calls: busy share, kernel launches and copies per
-    batch, the flush's copies and syncs."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    """One more window under torch.profiler (`profile_window`), its
+    ingest (every chunk processed) and its flush: busy share, kernel
+    launches and copies per batch, the flush's copies and syncs."""
     before = exp.counters()
-    with profile(activities=acts) as prof_ingest:
-        mark(torch, dev)
-        t0 = time.perf_counter()
-        red_ingest(exp, cols)
-        torch.cuda.synchronize()
-        t_ingest = time.perf_counter() - t0
-        mark(torch, dev)
+    ingest, flush = profile_window(
+        torch, dev, lambda: red_ingest(exp, cols),
+        lambda: exp.flush_window(now=3000.0))
     batches = exp.counters()["batches"] - before["batches"]
-    with profile(activities=acts) as prof_flush:
-        mark(torch, dev)
-        t0 = time.perf_counter()
-        exp.flush_window(now=3000.0)
-        torch.cuda.synchronize()
-        t_flush = time.perf_counter() - t0
-        mark(torch, dev)
-    ingest = trace_session(torch, prof_ingest, t_ingest)
-    flush = trace_session(torch, prof_flush, t_flush)
     calls = ingest["runtime_calls"]
     out = {"ingest": ingest, "flush": flush, "batches": batches,
            "launches_per_batch": calls["cudaLaunchKernel"] / max(batches, 1),
@@ -1781,11 +1889,487 @@ def profile_red_window(torch, dev, exp, cols):
     return out
 
 
+# -- phase 9: the multi-device suites ----------------------------------------
+
+SHARDS = 4                 # single-process shards sharing the card
+SHARD_BATCH = SHARDS * SHARD_C   # global batch
+DICT_CAP = 1 << 20         # the sharded suite's default dict capacity
+FLOW_KEYS = ("ip_src", "ip_dst", "port_src", "port_dst", "proto",
+             "packet_tx", "packet_rx")
+# entropies of equal histograms, card against CPU: float32 sums of 1024
+# p log p terms in the two devices' orders (a few ulps)
+ENT_CARD_CPU = 2e-6
+
+
+def global_batches(cols, batch=SHARD_BATCH):
+    """(batch columns, mask, valid rows) of `batch` rows each, the last
+    one zero-padded."""
+    total = len(next(iter(cols.values())))
+    for s in range(0, total, batch):
+        n = min(total, s + batch) - s
+        part = {}
+        for k, v in cols.items():
+            buf = np.zeros(batch, v.dtype)
+            buf[:n] = v[s:s + n]
+            part[k] = buf
+        yield part, np.arange(batch) < n, n
+
+
+def to_card(torch, dev, cols):
+    return {k: torch.from_numpy(np.ascontiguousarray(v).view(np.int32)).to(
+        dev) for k, v in cols.items()}
+
+
+def full_row_plane(cols):
+    """The (17, B) SKETCH_L4_SCHEMA plane of a batch (absent columns 0)."""
+    from deepflow_tpu_torch.batch.batcher import SKETCH_L4_SCHEMA
+    n = len(cols["ip_src"])
+    return np.stack([cols[name].astype(np.uint32) if name in cols
+                     else np.zeros(n, np.uint32)
+                     for name, _ in SKETCH_L4_SCHEMA.columns])
+
+
+def zero_launches():
+    for c in launch_counters().values():
+        c.launches = 0
+
+
+def read_launches(name, wants=("hist",), never=()):
+    launches = {k: c.launches for k, c in launch_counters().items()}
+    for k in wants:
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    for k in never:
+        if launches[k]:
+            raise AssertionError(f"{name}: kernel {k} launched "
+                                 f"{launches[k]} times")
+    return launches
+
+
+def report_profile(name, ingest, flush, batches, card):
+    calls = ingest["runtime_calls"]
+    per = calls["cudaLaunchKernel"] / max(batches, 1)
+    log(f"  {name} profiled window on {card}: ingest {ingest['wall_ms']:.1f}"
+        f" ms, device busy {100 * ingest['device_busy_share']:.1f}%, "
+        f"{batches} global batches, {per:.1f} kernel launches per global "
+        f"batch, h2d {ingest['h2d_copies']} copies; syncs "
+        + ", ".join(f"{k} {calls[k]}" for k in SYNC_CALLS)
+        + f"; flush {flush['wall_ms']:.1f} ms, {flush['kernels']} kernels, "
+        f"d2h {flush['d2h_copy_activities']}, syncs "
+        + ", ".join(f"{k} {flush['runtime_calls'][k]}" for k in SYNC_CALLS))
+    return {"ingest": ingest, "flush": flush, "global_batches": batches,
+            "launches_per_global_batch": per}
+
+
+def check_sharded_flow(torch, dev, windows, card):
+    """Phase 9a: ShardedFlowSuite at FlowSuiteConfig() on a 4-shard mesh,
+    through its four forms, against flow_suite.update on one device."""
+    from deepflow_tpu_torch.models import flow_dict, flow_suite
+    from deepflow_tpu_torch.parallel import ShardedFlowSuite, make_mesh
+    from deepflow_tpu_torch.parallel import sharded
+
+    cfg = flow_suite.FlowSuiteConfig()
+    mesh = make_mesh(SHARDS, device=dev)
+    ref, state = [], flow_suite.init(cfg, dev)
+    for cols in windows:
+        for part, mask, _ in global_batches(cols):
+            state = flow_suite.update(
+                state, to_card(torch, dev, {k: part[k] for k in FLOW_KEYS}),
+                torch.from_numpy(mask).to(dev), cfg)
+        ref.append(snapshot(state))
+        state, _ = flow_suite.flush(state, cfg)
+
+    def run(form):
+        suite = ShardedFlowSuite(cfg, mesh)
+        st = suite.init()
+        tables = packer = None
+        if form == "dict":
+            tables = suite.init_dict(DICT_CAP)
+            packer = flow_dict.FlowDictPacker(capacity=DICT_CAP,
+                                              hits_batch=SHARD_BATCH)
+        snaps, outs = [], []
+        for cols in windows:
+            for part, mask, n in global_batches(
+                    {k: cols[k] for k in FLOW_KEYS}):
+                if form == "cols":
+                    st = suite.update(st, *suite.put_batch(part, mask))
+                elif form == "plane":
+                    st = suite.update_plane(st, *suite.put_plane(
+                        full_row_plane(part), mask))
+                elif form == "lanes":
+                    lanes = flow_suite.pack_lanes(part)
+                    st = suite.update_lanes(st, suite.put_lanes(np.stack(
+                        [lanes[k] for k in flow_suite.SKETCH_LANE_NAMES])), n)
+                else:
+                    for kind, plane, m in packer.pack(
+                            {k: v[:n] for k, v in part.items()}) \
+                            + packer.flush():
+                        if kind == "news":
+                            st, tables = suite.update_news(st, tables, plane,
+                                                           m)
+                        else:
+                            st = suite.update_hits(st, tables, plane, m)
+            snaps.append(snapshot(sharded._merge_axis0(st)))
+            if tables is not None and not all(
+                    torch.equal(t.table, tables[0].table) for t in tables):
+                raise AssertionError("dict table replicas differ")
+            st, out = suite.flush(st)
+            outs.append(out)
+        return snaps, outs
+
+    forms, launches = {}, {}
+    for form in ("cols", "plane", "lanes", "dict"):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        snaps, outs = run(form)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        # the sharded path counts on hist: the fused kernels never run
+        launches[form] = read_launches(
+            f"sharded {form}", never=("fused_lane_hists", "fused_news_hists"))
+        compare_snaps(ref, snaps, WIRE_FREE_LEAVES, "one device",
+                      f"sharded {form}")
+        recalls = []
+        for w, out in enumerate(outs):
+            check_output(torch, out, cfg)
+            if int(out.rows) != len(windows[w]["ip_src"]):
+                raise AssertionError(f"sharded {form}: rows {int(out.rows)}")
+            got = set(out.topk_keys.cpu().numpy().view(np.uint32).tolist())
+            recalls.append(len(got & exact_topk(windows[w], cfg.top_k))
+                           / cfg.top_k)
+        if min(recalls) < 0.99:
+            raise AssertionError(f"sharded {form}: recall {recalls}")
+        records = sum(len(w["ip_src"]) for w in windows)
+        forms[form] = {"seconds": dt, "records_per_s": records / dt,
+                       "recall": recalls, "launches": launches[form]}
+        log(f"  ShardedFlowSuite {form}: {records / dt:.0f} records/s on "
+            f"{card}; merged CMS, HLL, entropy, rows = one device at both "
+            f"window closes; recall {recalls}; launches {launches[form]}")
+
+    suite = ShardedFlowSuite(cfg, mesh)
+    box = {"st": suite.init()}
+    batches = list(global_batches({k: windows[0][k] for k in FLOW_KEYS}))
+
+    def ingest():
+        for part, mask, _ in batches:
+            box["st"] = suite.update(box["st"], *suite.put_batch(part, mask))
+
+    prof = report_profile("ShardedFlowSuite (cols)", *profile_window(
+        torch, dev, ingest, lambda: suite.flush(box["st"])), len(batches),
+        card)
+    return {"forms": forms, "profile": prof}
+
+
+def check_sharded_app(torch, dev, rng, card):
+    """Phase 9b: ShardedAppSuite at AppSuiteConfig() on phase 8's l7
+    records against AppSuite on one device: every output field equal."""
+    from deepflow_tpu_torch.models import app_suite
+    from deepflow_tpu_torch.parallel import ShardedAppSuite, make_mesh
+
+    cfg = app_suite.AppSuiteConfig()
+    pool, p = red_pool(rng)
+    windows = [red_window(rng, pool, p, RED_RECORDS) for _ in range(2)]
+    single, wants = app_suite.init(cfg, dev), []
+    for cols in windows:
+        for part, mask, _ in global_batches(cols):
+            single = app_suite.update(single, to_card(torch, dev, part),
+                                      torch.from_numpy(mask).to(dev), cfg)
+        single, want = app_suite.flush(single, cfg)
+        wants.append(want)
+    suite = ShardedAppSuite(cfg, make_mesh(SHARDS, device=dev))
+    st = suite.init()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    for w, (cols, want) in enumerate(zip(windows, wants)):
+        for part, mask, _ in global_batches(cols):
+            st = suite.update(st, *suite.put_batch(part, mask))
+        st, out = suite.flush(st)
+        for name in out._fields:
+            if not torch.equal(getattr(out, name), getattr(want, name)):
+                raise AssertionError(f"ShardedAppSuite window {w}: {name} "
+                                     "differs from one device")
+        if int(out.requests.sum()) != len(cols["rrt_us"]):
+            raise AssertionError("ShardedAppSuite: requests lost")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(
+        "sharded app", never=("fused_lane_hists", "fused_news_hists"))
+    log(f"  ShardedAppSuite: window outputs = one device, every field, both "
+        f"windows; {dt:.3f} s for the sharded run on {card}; launches "
+        f"{launches}")
+    box = {"st": suite.init()}
+    batches = list(global_batches(windows[0]))
+
+    def ingest():
+        for part, mask, _ in batches:
+            box["st"] = suite.update(box["st"], *suite.put_batch(part, mask))
+
+    prof = report_profile("ShardedAppSuite", *profile_window(
+        torch, dev, ingest, lambda: suite.flush(box["st"])), len(batches),
+        card)
+    return {"seconds": dt, "launches": launches, "profile": prof}
+
+
+def metric_documents(rng, cols):
+    """flow_metrics Documents, one per l4 row of phase 7's ramp: ip =
+    ip_dst and server_port = port_dst; packet_tx and packet_rx from the
+    row; the per-window reading of the reference generator's
+    `golden_traffic` taken per row: new_flow 1, closed_flow = close_type
+    > 0 (0: the ramp's rows carry no close_type, as the exporter's schema
+    coerce leaves them), syn = packet_rx == 0 (every spoofed row); the
+    signals an l4 row lacks drawn from seeded log-normals: bytes = packets
+    x a packet size (median 600 B, sigma 0.6, within [40, 1500]), synack
+    (median 1), retransmissions (median 0.2), rtt_sum (median 20,000 us)
+    and rtt_count (median 3), rounded to u32."""
+    n = len(cols["ip_src"])
+
+    def ln(median, sigma):
+        return np.round(rng.lognormal(np.log(median), sigma, n)).astype(
+            np.uint32)
+
+    size = np.clip(rng.lognormal(np.log(600.0), 0.6, (2, n)), 40, 1500)
+    return {
+        "ip": cols["ip_dst"], "server_port": cols["port_dst"],
+        "packet_tx": cols["packet_tx"], "packet_rx": cols["packet_rx"],
+        "byte_tx": (cols["packet_tx"] * size[0]).astype(np.uint32),
+        "byte_rx": (cols["packet_rx"] * size[1]).astype(np.uint32),
+        "new_flow": np.ones(n, np.uint32),
+        "closed_flow": (cols.get("close_type", np.zeros(n, np.uint32))
+                        > 0).astype(np.uint32),
+        "syn": (cols["packet_rx"] == 0).astype(np.uint32),
+        "synack": ln(1.0, 1.0), "retrans_tx": ln(0.2, 1.0),
+        "retrans_rx": ln(0.2, 1.0), "rtt_sum": ln(20000.0, 1.0),
+        "rtt_count": ln(3.0, 0.5)}
+
+
+def projector(w):
+    w = w.detach().cpu().numpy().astype(np.float64)
+    return w @ w.T
+
+
+def metric_suites(torch, dev, cfg):
+    """The three meshes phase 9c compares: 4 shards on the card, 1 shard
+    on the card, 4 shards on the CPU."""
+    from deepflow_tpu_torch.parallel import ShardedMetricsSuite, make_mesh
+    return {"card4": ShardedMetricsSuite(cfg, make_mesh(SHARDS, device=dev)),
+            "card1": ShardedMetricsSuite(cfg, make_mesh(1, device=dev)),
+            "cpu4": ShardedMetricsSuite(cfg, make_mesh(SHARDS,
+                                                       device="cpu"))}
+
+
+def run_metric_windows(torch, runs, windows, label):
+    """Each window's Documents through every suite of `runs`, then its
+    flush against the last batch; at every window close the 4 card shards
+    equal the 4 CPU shards (histograms exact, entropies rtol ENT_CARD_CPU,
+    alarms equal, z rtol 1e-5, projector and mp_scores rtol 1e-4) and the
+    1 card shard (histograms and entropies exact, z rtol 1e-5, projector,
+    anomaly and mp scores rtol 1e-4), the basis and the rings
+    bit-identical across the 4 card shards. Launches are counted on the
+    4 card shards' updates and flushes only."""
+    states = {k: s.init() for k, s in runs.items()}
+    seconds = dict.fromkeys(runs, 0.0)
+    launches = {}
+    alarms, zmax, mp = [], [], []
+    for w, docs in enumerate(windows):
+        batches = list(global_batches(docs))
+        outs, hists = {}, {}
+        for name, suite in runs.items():
+            torch.cuda.synchronize()
+            zero_launches()
+            t1 = time.perf_counter()
+            st = states[name]
+            for part, mask, _ in batches:
+                st = suite.update(st, *suite.put_batch(part, mask))
+            hists[name] = sum(s.ent.hist.cpu().to(torch.int64) for s in st)
+            last, mask, _ = batches[-1]
+            states[name], outs[name] = suite.flush(
+                st, *suite.put_batch(last, mask))
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t1
+            if name == "card4":
+                for k, v in read_launches(
+                        f"{label} metrics", never=("fused_lane_hists",
+                                                   "fused_news_hists")
+                        ).items():
+                    launches[k] = launches.get(k, 0) + v
+        c4, c1, cpu = outs["card4"], outs["card1"], outs["cpu4"]
+        ws = [s.pca.w for s in states["card4"]]
+        checks = {
+            "hist card = cpu": torch.equal(hists["card4"], hists["cpu4"]),
+            "hist 4 = 1": torch.equal(hists["card4"], hists["card1"]),
+            "entropies 4 = 1": torch.equal(c4.entropies, c1.entropies),
+            "alarm 4 = 1 = cpu": bool(c4.ddos_alarm) == bool(c1.ddos_alarm)
+            == bool(cpu.ddos_alarm),
+            "basis bit-identical across shards": all(
+                torch.equal(x, ws[0]) for x in ws),
+            "rings identical across shards": all(
+                torch.equal(s.mp.ring, states["card4"][0].mp.ring)
+                for s in states["card4"]),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"{label} metrics window {w}: {bad}")
+        close = (
+            ("entropies card vs cpu", c4.entropies, cpu.entropies,
+             dict(rtol=ENT_CARD_CPU, atol=0)),
+            ("z card vs cpu", c4.z_scores, cpu.z_scores,
+             dict(rtol=1e-5, atol=1e-5)),
+            ("mp card vs cpu", c4.mp_scores, cpu.mp_scores,
+             dict(rtol=1e-4, atol=1e-5)),
+            ("z 4 vs 1", c4.z_scores, c1.z_scores, dict(rtol=1e-5, atol=0)),
+            ("anomaly 4 vs 1", c4.anomaly_scores, c1.anomaly_scores,
+             dict(rtol=1e-4, atol=1e-5)),
+            ("mp 4 vs 1", c4.mp_scores, c1.mp_scores,
+             dict(rtol=1e-4, atol=1e-5)))
+        for what, a, b, tol in close:
+            np.testing.assert_allclose(
+                a.cpu().numpy(), b.cpu().numpy(),
+                err_msg=f"{label} window {w}: {what}", **tol)
+        for other in ("cpu4", "card1"):
+            np.testing.assert_allclose(
+                projector(ws[0]), projector(states[other][0].pca.w),
+                rtol=1e-4, atol=1e-5,
+                err_msg=f"{label} window {w}: projector card4 vs {other}")
+        alarms.append(bool(c4.ddos_alarm))
+        zmax.append(float(c4.z_scores.abs().max()))
+        mp.append(c4.mp_scores.cpu().numpy())
+    return {"alarms": alarms, "max_abs_z": zmax, "mp_scores": mp,
+            "seconds": seconds, "launches": launches}
+
+
+def level_documents(rng, n, level, victim):
+    """n flow_metrics Documents: ip over 3000 addresses, server_port over
+    five services, each golden signal uniform below its `level`; with
+    `victim` every Document targets one (ip, port). The signals keep
+    their levels under attack: a window sum held nearly constant (the
+    ramp's 90-99 packets a flow) makes the discord a difference of
+    near-equal float32 products, which the card and the CPU round apart."""
+    from deepflow_tpu_torch.models.metrics_suite import GOLDEN_SIGNALS
+    cols = {"ip": rng.integers(0, 3000, n).astype(np.uint32),
+            "server_port": rng.choice([53, 80, 443, 3306, 8080], n).astype(
+                np.uint32)}
+    for s in GOLDEN_SIGNALS:
+        cols[s] = rng.integers(0, level[s], n).astype(np.uint32)
+    if victim:
+        cols["ip"][:] = VICTIM_IP
+        cols["server_port"][:] = VICTIM_PORT
+    return cols
+
+
+# the warm pass: an EWMA that settles within the 10 windows before the
+# alarm may fire and 8-window subsequences, scored from window 15 on
+WARM_CFG = dict(ewma_alpha=0.3, mp_length=32, mp_m=8)
+WARM_WINDOWS, WARM_STEP, WARM_RECORDS = 20, 12, 1 << 17
+
+
+def check_sharded_metrics(torch, dev, rng, args, card):
+    """Phase 9c: ShardedMetricsSuite at MetricsSuiteConfig() over phase
+    7's DDoS ramp, then at WARM_CFG over WARM_WINDOWS windows of
+    Documents with a destination concentration step at WARM_STEP, where
+    the alarm branch and the matrix profile's scores run: 4 shards on
+    the card against 4 shards on the CPU and 1 shard on the card."""
+    from deepflow_tpu_torch.models.metrics_suite import (GOLDEN_SIGNALS,
+                                                         MetricsSuiteConfig)
+
+    cfg = MetricsSuiteConfig()
+    t0 = time.perf_counter()
+    ramp = ramp_windows(rng, args.ramp_records)
+    docs = (metric_documents(rng, cols) for _phase, cols in ramp)
+    log(f"  ramp: {len(ramp)} windows ({time.perf_counter() - t0:.1f} s to "
+        "draw)")
+    runs = metric_suites(torch, dev, cfg)
+    r = run_metric_windows(torch, runs, docs, "ramp")
+    alarms, zmax = r["alarms"], r["max_abs_z"]
+    first_alarm = alarms.index(True) if any(alarms) else None
+    records = sum(len(c["ip_src"]) for _, c in ramp)
+    log(f"  ShardedMetricsSuite over the ramp ({records} Documents, "
+        f"{len(ramp)} windows): every window close as run_metric_windows "
+        f"asserts; first ddos_alarm at window {first_alarm} (onset {ONSET});"
+        f" alarms at {[w for w, a in enumerate(alarms) if a]}; max |z| "
+        f"{max(zmax):.3f} at window {int(np.argmax(zmax))} (threshold "
+        f"{cfg.z_threshold}); mp_scores nonzero in "
+        f"{sum(bool(m.any()) for m in r['mp_scores'])} windows; seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items())
+        + f"; launches (4 shards) {r['launches']}")
+
+    wcfg = MetricsSuiteConfig(**WARM_CFG)
+    warm_docs = []
+    for w in range(WARM_WINDOWS):
+        # window sums spread over orders of magnitude: the discord of a
+        # near-constant series is ill-conditioned in float32
+        level = {s: int(10 ** rng.uniform(0.5, 4.5)) for s in GOLDEN_SIGNALS}
+        warm_docs.append(level_documents(rng, WARM_RECORDS, level,
+                                         w >= WARM_STEP))
+    warm = run_metric_windows(torch, metric_suites(torch, dev, wcfg),
+                              warm_docs, "warm")
+    scored = warm["mp_scores"][2 * wcfg.mp_m - 1:]
+    if warm["alarms"][:WARM_STEP] != [False] * WARM_STEP \
+            or not warm["alarms"][WARM_STEP]:
+        raise AssertionError(f"warm metrics: alarms {warm['alarms']}, "
+                             f"the step at window {WARM_STEP}")
+    if not all((m > 0).all() for m in scored):
+        raise AssertionError(f"warm metrics: mp_scores {scored}")
+    log(f"  ShardedMetricsSuite warm pass ({WARM_WINDOWS} windows of "
+        f"{WARM_RECORDS} Documents, {WARM_CFG}): alarms at "
+        f"{[w for w, a in enumerate(warm['alarms']) if a]} (step at "
+        f"{WARM_STEP}), max |z| {max(warm['max_abs_z']):.3f}; mp_scores "
+        f"of all {len(GOLDEN_SIGNALS)} signals > 0 at windows "
+        f"{2 * wcfg.mp_m - 1}..{WARM_WINDOWS - 1} (range "
+        f"{min(float(m.min()) for m in scored):.4f}.."
+        f"{max(float(m.max()) for m in scored):.4f}), card4 = cpu4 = card1 "
+        f"at every close; launches (4 shards) {warm['launches']}")
+
+    suite = runs["card4"]
+    batches = list(global_batches(metric_documents(rng, ramp[0][1])))
+    box = {"st": suite.init()}
+
+    def ingest():
+        for part, mask, _ in batches:
+            box["st"] = suite.update(box["st"], *suite.put_batch(part, mask))
+
+    last, mask, _ = batches[-1]
+    last_d = suite.put_batch(last, mask)     # copied before the session
+
+    def flush():
+        suite.flush(box["st"], *last_d)
+
+    prof = report_profile("ShardedMetricsSuite", *profile_window(
+        torch, dev, ingest, flush), len(batches), card)
+    launches = dict(r["launches"])
+    for k, v in warm["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return {"records": records, "windows": len(ramp),
+            "first_alarm_window": first_alarm, "alarms": alarms,
+            "max_abs_z": zmax, "seconds": r["seconds"],
+            "warm": {"alarms": warm["alarms"],
+                     "max_abs_z": warm["max_abs_z"],
+                     "mp_scores": [m.tolist() for m in warm["mp_scores"]],
+                     "seconds": warm["seconds"],
+                     "launches": warm["launches"]},
+            "launches": launches, "profile": prof}
+
+
+def check_sharded(torch, dev, rng, args, windows, card):
+    """Phase 9: the three sharded suites on a 4-shard mesh of the card."""
+    flow = check_sharded_flow(torch, dev, windows, card)
+    app = check_sharded_app(torch, dev, rng, card)
+    metrics = check_sharded_metrics(torch, dev, rng, args, card)
+    launches = [f["launches"] for f in flow["forms"].values()] \
+        + [app["launches"], metrics["launches"]]
+    return {"flow": flow, "app": app, "metrics": metrics,
+            "launches": launches, "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--window-records", type=int, default=1 << 20)
     ap.add_argument("--ramp-records", type=int, default=1 << 18)
+    ap.add_argument("--one-generator", action="store_true",
+                    help="draw phase 2's rows for phase 9's shapes from "
+                    "the generator phases 2-8 share")
     args = ap.parse_args()
 
     import torch
@@ -1818,8 +2402,10 @@ def main() -> int:
 
     phase_done(1)
     rng = np.random.default_rng(args.seed)
+    rng9 = np.random.default_rng((args.seed, 9))
     log("phase 2: kernels against their plain versions (bit-exact)")
-    kernels, extra = check_kernels(torch, rng, dev)
+    kernels, extra = check_kernels(torch, rng, dev,
+                                   rng if args.one_generator else rng9)
     phase_done(2)
 
     log("phase 3: the slice at the exporter defaults")
@@ -1849,13 +2435,17 @@ def main() -> int:
         log("phase 8: the L7 RED lane")
         red = check_red(torch, dev, rng, card, tmp)
         phase_done(8)
+    log("phase 9: the multi-device suites (4 shards on one card)")
+    shard = check_sharded(torch, dev, rng9, args, windows, card)
+    phase_done(9)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
     totals = {}
     for launches in [p["launches"] for p in paths.values()] \
             + [p["launches"] for p in ingester.values()] \
-            + list(detection["launches"].values()) + [red["launches"]]:
+            + list(detection["launches"].values()) + [red["launches"]] \
+            + shard["launches"]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -1868,7 +2458,8 @@ def main() -> int:
                "launches": p["launches"], "counters": p["counters"],
                "profile": ingester_profiles[name]}
         for name, p in ingester.items()}, "ladder": ladder,
-        "detection": detection, "red": red, "phase_seconds": phase_s,
+        "detection": detection, "red": red, "sharded": shard,
+        "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))
     print(json.dumps({"kernels": kernels}))

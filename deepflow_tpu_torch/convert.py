@@ -6,9 +6,12 @@ JAX package's FlowSuiteState (and FlowDictState) with numpy leaves, as
 `jax.device_get` returns them, or the flat leaf list in the reference's
 order, and builds the port's state on a device. `state_to_numpy` goes
 back to that flat list, in the reference's leaf order and dtypes
-(uint32 leaves come back as uint32, int32 as int32). The anomaly plane's
-and the AppSuite's states move the same way; the AppSuite's float32
-leaves hold counts, which the port keeps as int32.
+(uint32 leaves come back as uint32, int32 as int32). The anomaly plane's,
+the AppSuite's and the metrics suite's states move the same way; the
+AppSuite's float32 leaves hold counts, which the port keeps as int32.
+A sharded suite's per-shard list moves as the reference's stacked state,
+every leaf with a leading device axis (`sharded_to_numpy`,
+`sharded_from_numpy`).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from deepflow_tpu_torch.models import app_suite, flow_suite
+from deepflow_tpu_torch.models import app_suite, flow_suite, metrics_suite
 from deepflow_tpu_torch.models.flow_dict import FlowDictState
 from deepflow_tpu_torch.models.flow_suite import FlowSuiteState
 from deepflow_tpu_torch.ops import (cms, ddsketch, entropy, hll,
@@ -47,6 +50,17 @@ ANOMALY_LEAVES: Tuple[Tuple[str, type], ...] = (
 APP_LEAVES: Tuple[Tuple[str, type], ...] = (
     ("requests", np.float32), ("errors", np.float32),
     ("rrt.hist", np.float32), ("rrt.zeros", np.float32),
+)
+
+# MetricsSuiteState leaves, depth first, with the reference's dtypes
+METRICS_LEAVES: Tuple[Tuple[str, type], ...] = (
+    ("ent.hist", np.int32), ("ent.seeds", np.uint32),
+    ("ent_mean", np.float32), ("ent_var", np.float32),
+    ("windows", np.int32),
+    ("pca.mean", np.float32), ("pca.var", np.float32),
+    ("pca.w", np.float32), ("pca.step", np.int32),
+    ("win_sum", np.float32),
+    ("mp.ring", np.float32), ("mp.count", np.int32),
 )
 
 
@@ -174,3 +188,68 @@ def app_to_numpy(state: app_suite.AppSuiteState) -> List[np.ndarray]:
     return [_get(state, path).detach().to("cpu", torch.float32,
                                           copy=True).numpy()
             for path, _ in APP_LEAVES]
+
+
+def metrics_from_numpy(state, device="cuda") -> metrics_suite.MetricsSuiteState:
+    """The reference's MetricsSuiteState with numpy leaves (or its flat
+    leaf list) -> fresh tensors of this port's state on `device`."""
+    device = flow_suite.check_device(device)
+    t = [_to_torch(a, dt, device)
+         for a, (_, dt) in zip(_leaves(state, METRICS_LEAVES),
+                               METRICS_LEAVES)]
+    return metrics_suite.MetricsSuiteState(
+        ent=entropy.EntropyState(hist=t[0], seeds=t[1]),
+        ent_mean=t[2], ent_var=t[3], windows=t[4],
+        pca=pca.PCAState(mean=t[5], var=t[6], w=t[7], step=t[8]),
+        win_sum=t[9],
+        mp=matrix_profile.MPState(ring=t[10], count=t[11]))
+
+
+def metrics_to_numpy(state: metrics_suite.MetricsSuiteState
+                     ) -> List[np.ndarray]:
+    """The port's MetricsSuiteState -> numpy copies of its leaves in the
+    reference's order and dtypes."""
+    return [_to_numpy(_get(state, path), dt) for path, dt in METRICS_LEAVES]
+
+
+def _dict_to_numpy(dstate: FlowDictState) -> List[np.ndarray]:
+    return [_to_numpy(dstate.table, np.uint32)]
+
+
+def _dict_from_numpy(leaves, device) -> FlowDictState:
+    (table,) = _leaves(leaves, DICT_LEAVES)
+    return FlowDictState(table=_to_torch(table, np.uint32,
+                                         flow_suite.check_device(device)))
+
+
+# kind -> (state type, leaf spec, to numpy, from numpy on a device)
+_SHARDED = {
+    "flow": (FlowSuiteState, SUITE_LEAVES, state_to_numpy,
+             lambda leaves, dev: state_from_numpy(leaves, device=dev)[0]),
+    "dict": (FlowDictState, DICT_LEAVES, _dict_to_numpy, _dict_from_numpy),
+    "app": (app_suite.AppSuiteState, APP_LEAVES, app_to_numpy,
+            app_from_numpy),
+    "metrics": (metrics_suite.MetricsSuiteState, METRICS_LEAVES,
+                metrics_to_numpy, metrics_from_numpy),
+}
+
+
+def sharded_to_numpy(states) -> List[np.ndarray]:
+    """A sharded suite's per-shard states (or dict table replicas) -> the
+    reference's stacked leaves: each leaf's per-shard copies stacked on a
+    leading device axis, in the reference's order and dtypes."""
+    to_numpy = next(v[2] for v in _SHARDED.values()
+                    if isinstance(states[0], v[0]))
+    return [np.stack(ls) for ls in zip(*map(to_numpy, states))]
+
+
+def sharded_from_numpy(stacked, kind: str, devices) -> list:
+    """The reference's stacked sharded state (a state with numpy leaves
+    or its flat leaf list; `kind` one of "flow", "dict", "app",
+    "metrics") -> one fresh state per shard, shard d on devices[d]."""
+    _, spec, _, from_numpy = _SHARDED[kind]
+    leaves = _leaves(stacked, spec)
+    if any(a.shape[0] != len(devices) for a in leaves):
+        raise ValueError(f"leading axis is not {len(devices)} shards")
+    return [from_numpy([a[d] for a in leaves], dev)
+            for d, dev in enumerate(devices)]

@@ -18,7 +18,7 @@ port's own copies.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +49,8 @@ def init_dict(capacity: int = 1 << 20, device="cuda") -> FlowDictState:
 
 
 def update_news(state: FlowSuiteState, dstate: FlowDictState,
-                plane: torch.Tensor, n, cfg: FlowSuiteConfig
+                plane: torch.Tensor, n, cfg: FlowSuiteConfig,
+                count_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[FlowSuiteState, FlowDictState]:
     """Apply one (6, C) int32 news plane: write its valid rows' keys into
     the table (IN PLACE) and count the records themselves (a news row is
@@ -63,7 +64,13 @@ def update_news(state: FlowSuiteState, dstate: FlowDictState,
     selecting the writing rows on the host would sync. So every row that
     writes nothing writes the same value to the same column as the last
     writing row does (or, when no row writes, a column's own value back),
-    which leaves the table as the writing rows alone would."""
+    which leaves the table as the writing rows alone would.
+
+    `count_mask` (the sharded path) narrows which rows this caller counts
+    while every valid row is still written: news planes go to every
+    replica of the table, but each record is counted by one shard. The
+    fused news kernel counts exactly the valid rows, so it runs only
+    without a `count_mask`."""
     C = plane.shape[1]
     dev = plane.device
     table = dstate.table
@@ -85,13 +92,15 @@ def update_news(state: FlowSuiteState, dstate: FlowDictState,
     table[:, safe] = vals
     lanes = {"ip_src": plane[1], "ip_dst": plane[2], "ports": plane[3],
              "proto_pkts": as_u32(proto_word) | as_u32(plane[5])}
-    fused = flow_suite.use_fused_hists(cfg, dev)
+    fused = count_mask is None and flow_suite.use_fused_hists(cfg, dev)
     if fused:
         cuda_sketch.fused_news_hists(
             plane, n, state.sketch.counts, state.ent.hist,
             state.sketch.seeds, state.ent.seeds)
-    state = flow_suite.update(state, flow_suite.unpack_lanes(lanes), mask,
-                              cfg, hists_done=fused)
+    if count_mask is None:
+        count_mask = mask
+    state = flow_suite.update(state, flow_suite.unpack_lanes(lanes),
+                              count_mask, cfg, hists_done=fused)
     return state, FlowDictState(table=table)
 
 
@@ -106,19 +115,24 @@ def unpack_hits(plane: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def update_hits(state: FlowSuiteState, dstate: FlowDictState,
-                plane: torch.Tensor, n,
-                cfg: FlowSuiteConfig) -> FlowSuiteState:
+                plane: torch.Tensor, n, cfg: FlowSuiteConfig,
+                mask: Optional[torch.Tensor] = None) -> FlowSuiteState:
     """Apply one (3, H) hits plane (2H records): gather each record's key
     words from the table (indices clamped, as XLA's gather does) and
-    advance the sketches as the packed-lane path would."""
+    advance the sketches as the packed-lane path would. `mask` (the
+    sharded path, where the plane is a shard of a larger one and n counts
+    the whole) replaces the arange < n validity and turns the fused lane
+    kernel off."""
     idx, pkts = unpack_hits(plane)
     dev = plane.device
-    mask = flow_suite._valid(n, 2 * plane.shape[1], dev)
+    fused = mask is None and flow_suite.use_fused_hists(cfg, dev)
+    if mask is None:
+        mask = flow_suite._valid(n, 2 * plane.shape[1], dev)
     idx = torch.clamp(idx, max=dstate.table.shape[1] - 1)
     rows = dstate.table[:, idx]                       # (4, 2H) gather
     lane_plane = torch.stack([rows[0], rows[1], rows[2],
                               to_bits(as_u32(rows[3]) | pkts)])
-    if flow_suite.use_fused_hists(cfg, dev):
+    if fused:
         return flow_suite.update_lanes_fused(state, lane_plane, n, cfg)
     return flow_suite.update_packed(state, flow_suite._lanes_of(lane_plane),
                                     mask, cfg)

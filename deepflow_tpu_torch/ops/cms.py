@@ -1,8 +1,8 @@
 """Count-Min sketch: `[depth, width]` int32 counts, power-of-two width.
 
-`update` adds IN PLACE into `state.counts` and returns a state holding
-the same tensor (the JAX package donates the old state instead). The
-conservative update is not ported yet and raises.
+`update` and `update_conservative` change `state.counts` IN PLACE and
+return a state holding the same tensor (the JAX package donates the old
+state instead).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from deepflow_tpu_torch.ops import hashing, mxu_hist
+from deepflow_tpu_torch.utils.u32 import as_u32
 
 
 class CMSState(NamedTuple):
@@ -70,9 +71,40 @@ def query(state: CMSState, keys: torch.Tensor) -> torch.Tensor:
     return est.min(dim=0).values
 
 
-def update_conservative(state: CMSState, keys, weights=None, mask=None):
-    raise NotImplementedError(
-        "conservative Count-Min update is not ported to deepflow_tpu_torch yet")
+def update_conservative(state: CMSState, keys: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        mask: Optional[torch.Tensor] = None) -> CMSState:
+    """Conservative update, in place: bucket <- max(bucket, est + w_total)
+    for every row, where w_total is a key's summed weight in the batch.
+
+    Keys are sorted (u32 values), duplicate weights are summed onto each
+    key's first lane, and one scatter-max per row applies est + w_total.
+    A duplicate or masked-out lane carries w_total 0, so its target is
+    the key's own estimate: a no-op for max. Bucket indices are in range
+    by construction, so the reference's `mode="drop"` drops nothing."""
+    d, w = state.counts.shape
+    n = keys.shape[0]
+    dt = state.counts.dtype
+    dev = keys.device
+    if weights is None:
+        weights = torch.ones(n, dtype=dt, device=dev)
+    else:
+        weights = weights.to(dt)
+    if mask is not None:
+        weights = weights * mask.to(dt)
+    sk, order = torch.sort(as_u32(keys), stable=True)
+    sw = weights[order]
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = sk[1:] != sk[:-1]
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    totals = torch.zeros(n, dtype=dt, device=dev).index_add_(0, seg, sw)
+    w_total = totals[seg] * first.to(dt)
+    target = query(state, sk) + w_total
+    idx = hashing.multi_bucket(sk, state.seeds, log2_width(state))
+    flat = idx.to(torch.int64) + torch.arange(d, device=dev)[:, None] * w
+    state.counts.view(-1).scatter_reduce_(
+        0, flat.reshape(-1), target.expand(d, n).reshape(-1), reduce="amax")
+    return state
 
 
 def merge(a: CMSState, b: CMSState) -> CMSState:
@@ -82,3 +114,9 @@ def merge(a: CMSState, b: CMSState) -> CMSState:
 
 def reset(state: CMSState) -> CMSState:
     return state._replace(counts=torch.zeros_like(state.counts))
+
+
+def decay(state: CMSState, shift: int = 1) -> CMSState:
+    """Counts >> shift (arithmetic, as int32), into a new tensor: cheap
+    sliding-window forgetting."""
+    return state._replace(counts=state.counts >> shift)

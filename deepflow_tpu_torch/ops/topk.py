@@ -83,6 +83,12 @@ def _dedup_sorted(k: torch.Tensor, c: torch.Tensor):
     return k, c
 
 
+def _not_sentinel(keys: torch.Tensor) -> torch.Tensor:
+    """[n] int32 1 where the key (u32 bits or values) is live, 0 at
+    SENTINEL."""
+    return (as_u32(keys) != SENTINEL).to(torch.int32)
+
+
 def _stable_top(c: torch.Tensor, k: int):
     """lax.top_k: the k largest, descending, lower index first on ties."""
     order = torch.sort(c, descending=True, stable=True).indices[:k]

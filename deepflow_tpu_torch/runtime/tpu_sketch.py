@@ -79,9 +79,14 @@ drains. The writers read the same host copy of the window output as the
 detection lanes: one device-to-host copy per window when any of them is
 on, none otherwise.
 
+`staged=True` is accepted for the reference's signature, with its
+warnings: it forces the lanes wire and the inline path (no feed). The
+reference's staged update exists only for its tunneled TPU runtime; in
+eager torch it is `update`, so the inline lanes path computes it.
+
 Not ported here (ROADMAP): the pod and multihost branches, the tracer
-gauges of the plane and the auditor, tracer/profiler attribution, the
-autotuner, and the staged four-program update.
+gauges of the plane and the auditor, tracer/profiler attribution and the
+autotuner.
 """
 
 from __future__ import annotations
@@ -274,11 +279,21 @@ class TpuSketchExporter(QueueWorkerExporter):
                  anomaly=None,
                  anomaly_dir: Optional[str] = None,
                  store: Optional[Store] = None,
+                 staged: bool = False,
                  device="cuda") -> None:
         super().__init__("tpu_sketch", ["l4_flow_log"], n_workers=1,
                          batch=64)
         if wire not in ("dict", "lanes"):
             raise ValueError(f"wire must be 'dict' or 'lanes', got {wire!r}")
+        if staged:
+            if wire == "dict":
+                _LOG.warning("staged=True forces the packed lane; "
+                             "wire='dict' ignored")
+            wire = "lanes"
+            if prefetch_depth:
+                _LOG.warning("staged=True has no coalesced feed; prefetch "
+                             "disabled")
+                prefetch_depth = 0
         if prefetch_depth > 0 and not zero_copy:
             raise ValueError("zero_copy=False with prefetch_depth > 0 (the "
                              "TensorBatch feed) is not ported; the feed "

@@ -15,7 +15,9 @@
 - the exporter hook on `ddos_ramp` (4096 rows a window): the port's dict
   feed, dict inline and lanes feed against the JAX exporter's feed path
   of the same wire. First alert window and alerts_total equal, scores
-  and z per window within rtol 1e-4 (atol 1e-4);
+  and z per window within rtol 1e-4 (atol 1e-4); the port's inline dict
+  path against the JAX inline path: every integer leaf of the plane's
+  state equal at every window close;
 - the sketch state bit-identical with the plane on and off, every wire;
 - the fault, device-error, feed-error and restart cases that need no
   tracer and no pod; the JAX serving stack reading the port's anomaly
@@ -457,6 +459,48 @@ def test_exporter_matches_jax_feed_path_on_ddos_ramp(wire, knobs):
             (j["offers"], j["evictions"], j["active"], j["new"]), w
     a = got[_first_alert(got)]
     assert a["z"][0] > 0 and a["z"][1] < 0
+
+
+def _ramp_plane_ints(exp, to_numpy):
+    """Every integer leaf of the plane's state at every window close of
+    ddos_ramp(seed=7)."""
+    ints = [i for i, (_, dt) in enumerate(convert.ANOMALY_LEAVES)
+            if np.dtype(dt).kind in "iu"]
+    out = []
+    for w, _phase, cols in ddos_ramp(seed=7,
+                                     rows_per_window=RAMP_ROWS).windows():
+        exp.process([("l4_flow_log", 0, cols, -1)])
+        exp.flush_window(now=1000.0 + w)
+        leaves = to_numpy(exp.anomaly.state)
+        out.append([leaves[i] for i in ints])
+    return out
+
+
+def test_inline_dict_plane_matches_jax_inline_path():
+    """The port's inline dict path feeds the plane once per staged group
+    (after the group's news and hits), the reference's inline path once
+    per plane: every integer leaf of the plane's state is equal at every
+    window close of the ramp."""
+    kw = dict(batch_rows=RAMP_ROWS, window_seconds=3600, wire="dict")
+    jexp = jts.TpuSketchExporter(store=None, cfg=jfs.FlowSuiteConfig(),
+                                 anomaly=JCfg(), **kw)
+    try:
+        assert jexp.prefetch_depth == 0
+        want = _ramp_plane_ints(jexp, _jleaves)
+    finally:
+        jexp.close()
+    exp = TpuSketchExporter(cfg=flow_suite.FlowSuiteConfig(),
+                            anomaly=AnomalyConfig(), device="cpu", **kw)
+    try:
+        assert exp.prefetch_depth == 0
+        got = _ramp_plane_ints(exp, convert.anomaly_to_numpy)
+    finally:
+        exp.close()
+    assert len(got) == len(want) == 28
+    for w, (g, j) in enumerate(zip(got, want)):
+        assert len(g) == len(j) == 8
+        for a, b in zip(g, j):
+            np.testing.assert_array_equal(a, b, err_msg=f"window {w}")
 
 
 @pytest.mark.parametrize("wire,knobs", [

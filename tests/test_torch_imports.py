@@ -44,8 +44,11 @@ def test_port_files_found():
             "staging.py", "snapbus.py", "tpu_sketch.py", "pca.py",
             "matrix_profile.py", "detectors.py", "alerts.py",
             "audit.py", "ddsketch.py", "app_suite.py", "app_red.py",
-            "table.py", "db.py", "writer.py"} <= names
+            "table.py", "db.py", "writer.py", "metrics_suite.py", "mesh.py",
+            "sharded.py"} <= names
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
+        in PORT_FILES
+    assert (REPO / "deepflow_tpu_torch" / "parallel" / "__init__.py") \
         in PORT_FILES
 
 
@@ -114,7 +117,10 @@ def test_every_entry_point_defaults_to_cuda():
             "deepflow_tpu_torch.runtime.app_red.AppRedExporter",
             "deepflow_tpu_torch.models.app_suite.init",
             "deepflow_tpu_torch.ops.ddsketch.init",
-            "deepflow_tpu_torch.convert.app_from_numpy"} <= set(found)
+            "deepflow_tpu_torch.convert.app_from_numpy",
+            "deepflow_tpu_torch.models.metrics_suite.init",
+            "deepflow_tpu_torch.convert.metrics_from_numpy",
+            "deepflow_tpu_torch.parallel.mesh.make_mesh"} <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad
 

@@ -75,8 +75,11 @@ def test_cms_merge_reset_and_conservative():
     np.testing.assert_array_equal(cms.merge(ta, tb).counts.numpy(),
                                   np.asarray(jcms.merge(ja, jb).counts))
     assert int(cms.reset(ta).counts.abs().sum()) == 0
-    with pytest.raises(NotImplementedError):
-        cms.update_conservative(ta, _t(k1))
+    # conservative update on the merged state (test_torch_conservative.py
+    # holds it against the reference in depth)
+    jc = jcms.update_conservative(jcms.merge(ja, jb), jnp.asarray(k1))
+    tc = cms.update_conservative(cms.merge(ta, tb), _t(k1))
+    np.testing.assert_array_equal(tc.counts.numpy(), np.asarray(jc.counts))
 
 
 # -- entropy ----------------------------------------------------------------
