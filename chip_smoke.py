@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane and sharded
-suites on one CUDA card.
+"""Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
+suites and flow_metrics store lane on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -21,7 +21,8 @@ is printed):
    65535 and past 2^31), the lane kernel at C=32768,
    the news kernel at C=8192; kernel, plain and library times per call
    from CUDA events after a warm-up (median of 5 runs of 20 calls),
-   device times from torch.profiler; then, checked but not timed, hist on
+   device times of the kernel and of the library call from
+   torch.profiler; then, checked but not timed, hist on
    its widest block-private row (2^15 bins) and the lane kernel with
    entropy rows of 2^13 bins (its widest shared copy) and 2^16 bins (too
    wide for one, added straight into the state);
@@ -126,7 +127,31 @@ is printed):
    at window 12: the alarm fires there and not before, and every
    matrix-profile score from window 15 on is nonzero. Then one window
    of each suite under torch.profiler, ingest and flush apart: launches
-   per global batch, busy share, a flush's syncs.
+   per global batch, busy share, a flush's syncs;
+10. the flow_metrics pipeline's store lane and the rollup GROUP BY on
+   the card: 16,384 distinct vtap_flow_port tag tuples (ip over 4096
+   addresses, server_port by Zipf(1.1) over 1024, vtap_id over 64,
+   l3_epc_id with -1) reporting each second for 120 s from an hour
+   boundary ahead of the wall clock (1,966,080 rows of the 66-column
+   METRICS_TABLE, meters from phase 9's signals and seeded log-normals,
+   some near 0xFFFFFFFF): (a) every row through
+   FlowMetricsPipeline.put() in chunks of 2^14 with 2 unmarshallers, in
+   4 waves with the writer flushed after each (4 segments), the rollup
+   ticker running, then one advance() past both minutes: the
+   base table holds every row sent, records = rows sent and no decode
+   error, the 1m tier scanned back equals a plain numpy GROUP BY
+   (np.unique over the 17 keys, reduceat, clipped to u32) row for row, a
+   second advance() and a fresh RollupManager on the same root emit
+   nothing; the build's steps timed apart; (b) group_reduce over the
+   minute buckets without tag_code (keys within u32, l3_epc_id signed)
+   at 2^16, 2^18, 2^20 rows and all of them, by the host and the device
+   path on the card and on the CPU, every array identical, with wall
+   and device times of both card paths, and the sync contract (one
+   stream sync on the host path, two on the device path); (c) compact()
+   of the base and the tier, scans unchanged, then a torn segment that
+   scan skips and counts and compact quarantines; (d) one rollup build
+   (a 120 s tier's backfill) under torch.profiler: launches, copies,
+   one stream sync.
 
 Each phase prints its time. `--one-generator` draws phase 2's rows for
 phase 9's shapes from the generator phases 2-8 share instead of their
@@ -143,6 +168,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -392,20 +418,26 @@ def check_kernels(torch, rng, dev, rng9):
 
     results, extra = [], []
 
-    def record(name, source, replaces, err, k_ms, p_ms, b, lib_ms, d_ms):
+    def us(ms):
+        return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+    def record(name, source, replaces, err, k_ms, p_ms, b, lib_ms, d_ms,
+               lib_d_ms=None):
         b_ms, b_by = b
         log(f"  {name}: kernel {k_ms * 1e3:.2f} us per call ("
             + ("device time not measured" if d_ms is None
                else f"{d_ms * 1e3:.2f} us on the device")
             + f"), plain {p_ms * 1e3:.2f} us,"
             f" bound {b_ms * 1e3:.3f} us ({b_by})"
-            + ("" if lib_ms is None else f", library {lib_ms * 1e3:.2f} us")
+            + ("" if lib_ms is None else f", library {lib_ms * 1e3:.2f} us"
+               f" per call ({us(lib_d_ms)} on the device)")
             + f", max_abs_err {err}")
         results.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": 0,
                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms, "device_ms": d_ms})
+                        "library_ms": lib_ms, "device_ms": d_ms,
+                        "library_device_ms": lib_d_ms})
 
     hist_names = ("hist_smem_kernel", "hist_global_kernel")
     for (label, lw, d, planes, lanes, recorded, signed), r in \
@@ -430,6 +462,7 @@ def check_kernels(torch, rng, dev, rng9):
             wl = (wl * mask.to(torch.int32)).expand(d, -1).reshape(-1)
             lib = acc.view(-1)
             lib_ms = time_ms(torch, lambda: lib.index_add_(0, flat, wl))
+            lib_d_ms = device_ms(torch, lambda: lib.index_add_(0, flat, wl))
             delta = torch.zeros(d, width, dtype=torch.int32, device=dev)
             cuda_hist.hist_add_plain(delta, *args)
             nbytes = (idx.numel() * 4 + mask.numel()
@@ -441,17 +474,19 @@ def check_kernels(torch, rng, dev, rng9):
                 record(f"hist[{label}]", "deepflow_tpu_torch/csrc/hist.cu",
                        "deepflow_tpu/ops/pallas_hist.py:90", 0.0, k_ms,
                        time_ms(torch, lambda: cuda_hist.hist_add_plain(
-                           p_acc, *args)), b, lib_ms, d_ms)
+                           p_acc, *args)), b, lib_ms, d_ms, lib_d_ms)
             else:
                 log(f"  hist_add[{label}{'/zipf' if skew else ''}]: kernel "
                     f"{k_ms * 1e3:.2f} us per call, "
                     + ("device not measured" if d_ms is None
                        else f"{d_ms * 1e3:.2f} us on the device")
                     + f", bound {b[0] * 1e3:.3f} us, library "
-                    f"{lib_ms * 1e3:.2f} us, bit-equal")
+                    f"{lib_ms * 1e3:.2f} us per call ({us(lib_d_ms)} on the "
+                    "device), bit-equal")
                 extra.append({"name": f"hist[{label}]", "zipf": skew,
                               "ms": k_ms, "device_ms": d_ms,
-                              "bound_ms": b[0], "library_ms": lib_ms})
+                              "bound_ms": b[0], "library_ms": lib_ms,
+                              "library_device_ms": lib_d_ms})
 
     seeds = (hashing.make_seeds(4, 0xDEC0DE, device=dev),
              hashing.make_seeds(4, 0xDEC0DE ^ 0xE27, device=dev))
@@ -2362,6 +2397,482 @@ def check_sharded(torch, dev, rng, args, windows, card):
             "launches": launches, "card": card}
 
 
+# -- phase 10: the store's read half, the rollup GROUP BY, flow_metrics ------
+
+FM_TUPLES = 16_384        # distinct vtap_flow_port tag tuples
+FM_SECONDS = 120          # one report per tuple per second: two minutes
+FM_CHUNK = 1 << 14        # rows per decoded chunk put into the pipeline
+FM_INTERVAL = 60
+FM_WAVES = 4              # the writer flushed after each 30 s of reports
+GROUPBY_SIZES = (1 << 16, 1 << 18, 1 << 20)   # then every row of both minutes
+GROUPBY_REPEATS = 3
+
+
+def fm_tuples(rng, n=None):
+    """`n` distinct tag tuples of vtap_flow_port (every KEY column but
+    timestamp and tag_code): ip over 4096 addresses, server_port by
+    Zipf(1.1) over 1024 ports, vtap_id over 64, l3_epc_id over -1..62,
+    the rest small enums and hashes."""
+    from deepflow_tpu_torch.pipelines.schemas import METRICS_TABLE
+    n = FM_TUPLES if n is None else n
+    keys = [c for c in METRICS_TABLE.columns if c.agg.value == "key"
+            and c.name not in ("timestamp", "tag_code")]
+    ports = rng.permutation(np.arange(1, 65536))[:1024].astype(np.uint32)
+    hosts = (0x0A000000 + rng.permutation(1 << 20)[:4096]).astype(np.uint32)
+    m = 4 * n
+    gens = {
+        "ip": lambda: hosts[rng.integers(0, 4096, m)],
+        "server_port": lambda: ports[zipf_ranks(rng, m, 1024)],
+        "vtap_id": lambda: rng.integers(1, 65, m),
+        "l3_epc_id": lambda: rng.integers(-1, 63, m),
+        "protocol": lambda: np.where(rng.random(m) < 0.85, 6, 17),
+        "direction": lambda: rng.integers(0, 2, m),
+        "tap_side": lambda: rng.integers(0, 4, m),
+        "tap_type": lambda: rng.integers(0, 3, m),
+        "tap_port": lambda: rng.integers(0, 16, m),
+        "l7_protocol": lambda: rng.choice(np.array([0, 20, 21, 40, 80]), m),
+        "gprocess_id": lambda: rng.integers(0, 256, m),
+        "signal_source": lambda: rng.integers(0, 2, m),
+        "pod_id": lambda: rng.integers(0, 512, m),
+        "app_service_hash": lambda: rng.integers(0, 1 << 32, m,
+                                                 dtype=np.uint64),
+        "endpoint_hash": lambda: rng.integers(0, 1 << 32, m,
+                                              dtype=np.uint64),
+    }
+    draws = {c.name: gens[c.name]().astype(c.dtype) for c in keys}
+    packed = np.stack([draws[c.name].astype(np.int64) for c in keys], axis=1)
+    _, first = np.unique(packed, axis=0, return_index=True)
+    if len(first) < n:
+        raise AssertionError(f"{len(first)} distinct tuples drawn, need {n}")
+    pick = np.sort(rng.permutation(first)[:n])
+    return {c.name: draws[c.name][pick] for c in keys}
+
+
+def fm_rows(rng, t0, tuples, seconds=FM_SECONDS):
+    """Every tuple reports once a second from t0 (in a fresh order each
+    second): the METRIC_SCHEMA columns of seconds x tuples rows. The
+    meters are phase 9's `metric_documents` signals (packets from
+    seeded log-normals on the tuple's destination), the other meters
+    seeded log-normals (medians 1-1000 by kind, sigma 1.5); 1 tuple in
+    512 carries a byte_tx, rtt_sum and rtt_max near 0xFFFFFFFF, so their
+    60 s sums saturate the u32 clip."""
+    from deepflow_tpu_torch.pipelines.tag_code import (FLOW_METER,
+                                                       VTAP_FLOW_PORT)
+    n_t = len(tuples["ip"])
+    order = np.concatenate([rng.permutation(n_t) for _ in range(seconds)])
+    n = len(order)
+    cols = {"timestamp": (t0 + np.repeat(np.arange(seconds), n_t))
+            .astype(np.uint32),
+            "tag_code": np.full(n, int(VTAP_FLOW_PORT), np.uint64)}
+    for k, v in tuples.items():
+        cols[k] = v[order]
+    pk = np.round(rng.lognormal(np.log(20.0), 1.2, (2, n))).astype(np.uint32)
+    l4 = {"ip_src": cols["ip"], "ip_dst": cols["ip"],
+          "port_dst": cols["server_port"],
+          "packet_tx": pk[0], "packet_rx": pk[1]}
+    docs = metric_documents(rng, l4)
+    for name in FLOW_METER:
+        if name in docs:
+            cols[name] = docs[name].astype(np.uint32)
+        else:
+            median = 1000.0 if name.endswith(("_sum", "_max")) else 3.0
+            cols[name] = np.round(rng.lognormal(np.log(median), 1.5, n)
+                                  ).clip(max=0xFFFFFFFF).astype(np.uint32)
+    hot = (order % 512) == 7
+    for name in ("byte_tx", "rtt_sum", "rtt_max"):
+        cols[name][hot] = np.uint32(0xFFFFFFFF) - rng.integers(
+            0, 1 << 16, int(hot.sum())).astype(np.uint32)
+    return cols
+
+
+def numpy_rollup(cols, interval=FM_INTERVAL):
+    """The 1m tier by plain numpy: np.unique over the 17 keys (the time
+    bucket among them) as int64 rows, np.add.reduceat for the sums and
+    np.maximum.reduceat for the maxes over the rows sorted by group,
+    clipped to u32."""
+    from deepflow_tpu_torch.pipelines.schemas import METRICS_TABLE
+    keys = [c.name for c in METRICS_TABLE.columns if c.agg.value == "key"]
+    bucket = cols["timestamp"] // np.uint32(interval) * np.uint32(interval)
+    packed = np.stack([(bucket if k == "timestamp" else cols[k])
+                       .astype(np.int64) for k in keys], axis=1)
+    uniq, inv = np.unique(packed, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    order = np.argsort(inv, kind="stable")
+    starts = np.searchsorted(inv[order], np.arange(len(uniq)))
+    out = {}
+    for c in METRICS_TABLE.columns:
+        if c.agg.value == "key":
+            out[c.name] = uniq[:, keys.index(c.name)].astype(c.dtype)
+            continue
+        v = cols[c.name].astype(np.int64)[order]
+        red = (np.maximum if c.agg.value == "max" else np.add).reduceat(
+            v, starts)
+        out[c.name] = red.clip(0, 0xFFFFFFFF).astype(c.dtype)
+    return out
+
+
+def assert_tables_equal(want, got, what):
+    if list(want) != list(got):
+        raise AssertionError(f"{what}: columns {list(got)} != {list(want)}")
+    for k in want:
+        if want[k].dtype != got[k].dtype or not np.array_equal(want[k],
+                                                                 got[k]):
+            raise AssertionError(f"{what}: column {k} differs")
+
+
+class ChunkCounter:
+    """The pipeline's exporter seat: counts the rows handed on."""
+
+    def __init__(self):
+        self.rows = 0
+        self._lock = threading.Lock()
+
+    def put(self, stream, index, cols):
+        with self._lock:
+            self.rows += len(cols["timestamp"])
+
+
+def run_pipeline(torch, dev, root, cols, t0):
+    """(a): every row through FlowMetricsPipeline.put in chunks, two
+    unmarshallers, the writer flushed after each of FM_WAVES waves (one
+    segment each); records/s from the first put to the last segment on
+    disk. Then the rollup build by advance()."""
+    from deepflow_tpu_torch.pipelines.flow_metrics import (
+        FLOW_METRICS_DB, FlowMetricsPipeline)
+    from deepflow_tpu_torch.store.db import Store
+    n = len(cols["timestamp"])
+    sink = ChunkCounter()
+    pipe = FlowMetricsPipeline(Store(root), exporters=sink,
+                               n_unmarshallers=2, rollup_intervals=(60,),
+                               rollup_period=1.0, device=dev)
+    pipe.start()
+    try:
+        base = pipe.rollups.base
+        deadline = time.monotonic() + 300
+
+        def wait(done, what):
+            while not done():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"pipeline stalled {what}: "
+                                         f"{pipe.counters()}")
+                time.sleep(0.005)
+
+        t = time.perf_counter()
+        wave = n // FM_WAVES
+        for lo in range(0, n, wave):
+            hi = min(lo + wave, n)
+            for i in range(lo, hi, FM_CHUNK):
+                j = min(i + FM_CHUNK, hi)
+                pipe.put({k: v[i:j] for k, v in cols.items()})
+            wait(lambda: pipe.counters()["records"]
+                 + pipe.counters()["decode_errors"] >= hi, "in the queues")
+            pipe.flush()
+            # the writer's own thread may still be writing what it took
+            wait(lambda: base.rows_written >= pipe.counters()["records"],
+                 "in the writer")
+        ingest_s = time.perf_counter() - t
+        c = pipe.counters()
+        if c["records"] != n or c["decode_errors"] or sink.rows != n \
+                or base.row_count() != n:
+            raise AssertionError(f"pipeline: sent {n}, records "
+                                 f"{c['records']}, decode_errors "
+                                 f"{c['decode_errors']}, exporter {sink.rows}"
+                                 f", stored {base.row_count()}")
+        now = t0 + FM_SECONDS + pipe.rollups.allowance
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        emitted = pipe.rollups.advance(now)
+        build_s = time.perf_counter() - t
+        again = pipe.rollups.advance(now)
+    finally:
+        pipe.close()
+    return pipe, {"rows": n, "ingest_s": ingest_s,
+                  "records_per_s": n / ingest_s, "build_s": build_s,
+                  "emitted": emitted, "second_advance": again,
+                  "segments": base.counters()["segments_written"],
+                  "disk_bytes": base.disk_bytes(), "counters": c,
+                  "now": now, "db": FLOW_METRICS_DB}
+
+
+def build_split(torch, dev, mgr, lo, hi, tmp):
+    """One 1m build's steps timed apart, each device step closed by a
+    synchronize: scan, the host lexsort (group ids), the value block (u32
+    words stacked on the host), the host-to-device copy (and the widening
+    to int64 on the device), the segment reduce, the device-to-host copy,
+    the append (into a scratch table). Returns the times and the rows it
+    built."""
+    from deepflow_tpu_torch.store import rollup
+    from deepflow_tpu_torch.store.db import Store
+    s = {}
+    t = time.perf_counter()
+    cols = mgr.base.scan(time_range=(lo, hi))
+    s["scan"] = time.perf_counter() - t
+    key_names, aggs = mgr.rollup_plan()
+    work = mgr.bucketed(cols, FM_INTERVAL)
+    t = time.perf_counter()
+    packed = np.stack([np.ascontiguousarray(work[k]).astype(np.int64)
+                       for k in key_names], axis=1)
+    uniq, inverse = rollup._unique_rows(packed)
+    s["host_lexsort"] = time.perf_counter() - t
+    t = time.perf_counter()
+    order = rollup._kind_order(list(aggs), aggs)
+    runs = rollup._value_runs(work, order)
+    s["value_block"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    seg = rollup._to_device(inverse, dev)
+    data = rollup._value_block(runs, len(inverse), dev)
+    torch.cuda.synchronize()
+    s["h2d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    red = rollup._segment_reduce(seg, None, data, [aggs[k] for k in order],
+                                 len(uniq))
+    torch.cuda.synchronize()
+    s["device_reduce"] = time.perf_counter() - t
+    t = time.perf_counter()
+    host = red.cpu().numpy()
+    s["d2h"] = time.perf_counter() - t
+    reduced = {k: uniq[:, j] for j, k in enumerate(key_names)}
+    reduced.update({k: host[:, i] for i, k in enumerate(order)})
+    out = mgr.clipped({c.name: reduced[c.name].astype(c.dtype)
+                       if c.name in key_names else reduced[c.name]
+                       for c in mgr.base.schema.columns})
+    scratch = Store(os.path.join(tmp, "split")).create_table(
+        "db", mgr.targets[0][1].schema)
+    t = time.perf_counter()
+    scratch.append(out)
+    s["append"] = time.perf_counter() - t
+    s["value_block_bytes"] = int(sum(b.nbytes for _, b in runs))
+    return s, out
+
+
+def profile_call(torch, dev, fn, attempts=3):
+    """fn() in one torch.profiler session bracketed by `mark` calls and
+    closed by a synchronize (trace_session). A session whose trace holds
+    no kernel at all (the profiler sometimes records no device activity
+    for a short session) is run again, up to `attempts` times; the
+    count is returned. Pageable host-to-device copies are sometimes
+    missing from a trace that has its kernels: `h2d_copies` says
+    whether they were recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mark(torch, dev)
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            mark(torch, dev)
+        r = trace_session(torch, prof, wall)
+        if r["kernels"]:
+            break
+    r["attempts"] = attempt
+    cuda = torch.autograd.DeviceType.CUDA
+    r["device_ms"] = _union_us([(e.time_range.start, e.time_range.end)
+                                for e in prof.events()
+                                if e.device_type == cuda]) / 1e3
+    r["kernel_ms"] = sum(e.time_range.end - e.time_range.start
+                         for e in prof.events() if e.device_type == cuda
+                         and not e.name.startswith(("Memcpy", "Memset"))
+                         ) / 1e3
+    return r
+
+
+def compare_groupby(torch, dev, cols, card):
+    """(b): group_reduce over the minute buckets without tag_code (every
+    key within u32, l3_epc_id signed) on the card by the host path and
+    the device path and on the CPU by both, array for array; wall time
+    (median of GROUPBY_REPEATS) and a profiled call of each card path."""
+    from deepflow_tpu_torch.pipelines.schemas import METRICS_TABLE
+    from deepflow_tpu_torch.store.rollup import AUTO_DEVICE_ROWS, group_reduce
+    keys = [c.name for c in METRICS_TABLE.columns
+            if c.agg.value == "key" and c.name != "tag_code"]
+    aggs = {c.name: c.agg.value for c in METRICS_TABLE.columns
+            if c.agg.value != "key"}
+    work = dict(cols)
+    work["timestamp"] = cols["timestamp"] // np.uint32(FM_INTERVAL) \
+        * np.uint32(FM_INTERVAL)
+    rows = []
+    n_all = len(cols["timestamp"])
+    for n in GROUPBY_SIZES + (n_all,):
+        part = {k: work[k][:n] for k in keys + list(aggs)}
+        outs = {}
+        for where, method in (("card", "host"), ("card", "device"),
+                              ("cpu", "host"), ("cpu", "device")):
+            outs[where, method] = group_reduce(
+                part, keys, aggs, method=method,
+                device=dev if where == "card" else "cpu")
+        ref = outs["card", "host"]
+        for k, o in outs.items():
+            assert_tables_equal(ref, o, f"group_reduce n={n} {k}")
+        row = {"rows": n, "groups": len(ref["timestamp"])}
+        for method in ("host", "device"):
+            walls = []
+            for _ in range(GROUPBY_REPEATS):
+                t = time.perf_counter()
+                group_reduce(part, keys, aggs, method=method, device=dev)
+                walls.append(time.perf_counter() - t)
+            prof = profile_call(torch, dev, lambda: group_reduce(
+                part, keys, aggs, method=method, device=dev))
+            row[method] = {
+                "wall_ms": float(np.median(walls)) * 1e3,
+                "device_ms": prof["device_ms"],
+                "kernel_ms": prof["kernel_ms"], "kernels": prof["kernels"],
+                "h2d_ms": prof["h2d_ms"] if prof["h2d_copies"] else None,
+                "profile_attempts": prof["attempts"],
+                "syncs": {k: prof["runtime_calls"][k] for k in SYNC_CALLS},
+                "d2h": prof["d2h_copy_activities"]}
+        # the sync contract: the host path's one copy back, the device
+        # path's group count and copy back; the device sync is the
+        # profiler session's own
+        for method, want in (("host", 1), ("device", 2)):
+            if row[method]["syncs"] != {"cudaStreamSynchronize": want,
+                                        "cudaEventSynchronize": 0,
+                                        "cudaDeviceSynchronize": 1}:
+                raise AssertionError(f"group_reduce {method} n={n}: syncs "
+                                     f"{row[method]['syncs']}")
+        faster = "device" if row["device"]["wall_ms"] < row["host"][
+            "wall_ms"] else "host"
+        row["faster"] = faster
+        row["auto_takes"] = "device" if n >= AUTO_DEVICE_ROWS else "host"
+        def dev_line(r):
+            h2d = "not recorded" if r["h2d_ms"] is None \
+                else f"{r['h2d_ms']:.2f} ms"
+            return (f"{r['wall_ms']:.2f} ms wall ({r['kernel_ms']:.3f} ms "
+                    f"of {r['kernels']} kernels on the device, host-to-"
+                    f"device copies {h2d})")
+
+        log(f"  group_reduce {n} rows -> {row['groups']} groups on {card}: "
+            f"host path {dev_line(row['host'])}, device path "
+            f"{dev_line(row['device'])}; faster: {faster}, auto takes "
+            f"{row['auto_takes']}; card = cpu, host = device")
+        rows.append(row)
+    return rows
+
+
+def check_compaction(torch, base, tier):
+    """(c): compact the base and the tier and scan them unchanged; then a
+    torn segment in the base: scan serves around it and counts it,
+    compact quarantines it."""
+    res = {}
+    for t in (base, tier):
+        before = t.scan()
+        n0 = len(t._segment_files(t.partitions()))
+        removed = t.compact(max_segment_bytes=1 << 30, min_segments=2)
+        n1 = len(t._segment_files(t.partitions()))
+        assert_tables_equal(before, t.scan(), f"{t.schema.name} compacted")
+        t.compact(max_segment_bytes=1 << 30, min_segments=2)  # drop sources
+        assert_tables_equal(before, t.scan(), f"{t.schema.name} swept")
+        res[t.schema.name] = {"segments_before": n0, "removed": removed,
+                              "segments_after": n1}
+        if removed == 0 and n0 > 1:
+            raise AssertionError(f"{t.schema.name}: nothing compacted")
+    rows = base.row_count()
+    pdir = os.path.join(base.root, f"p{base.partitions()[0]:012d}")
+    src = sorted(f for f in os.listdir(pdir) if f.endswith(".npz"))[0]
+    with open(os.path.join(pdir, src), "rb") as f:
+        head = f.read(1 << 16)
+    with open(os.path.join(pdir, "seg-99999999.npz"), "wb") as f:
+        f.write(head)                               # a torn write
+    skipped = base.segments_skipped_corrupt
+    if base.row_count() != rows or len(base.scan(["timestamp"])[
+            "timestamp"]) != rows:
+        raise AssertionError("a torn segment changed the rows scanned")
+    if base.segments_skipped_corrupt - skipped != 2:
+        raise AssertionError("the torn segment was not counted")
+    quarantined = base.segments_quarantined
+    base.compact(max_segment_bytes=1 << 30, min_segments=2)
+    if base.segments_quarantined - quarantined != 1 or not os.path.exists(
+            os.path.join(pdir, "seg-99999999.npz.bad")):
+        raise AssertionError("compact did not quarantine the torn segment")
+    if base.row_count() != rows:
+        raise AssertionError("rows changed by the quarantine")
+    res["torn"] = {"skipped": 2, "quarantined": 1}
+    log(f"  compaction: {res}")
+    return res
+
+
+def check_flow_metrics(torch, dev, rng, card):
+    """Phase 10: the flow_metrics pipeline's store lane, the rollup
+    GROUP BY on the card, the store's read half."""
+    from deepflow_tpu_torch.pipelines.schemas import METRICS_TABLE
+    from deepflow_tpu_torch.store.db import Store
+    from deepflow_tpu_torch.store.rollup import RollupManager
+    t0 = (int(time.time()) // 3600 + 2) * 3600     # ahead: the ticker waits
+    t = time.perf_counter()
+    cols = fm_rows(rng, t0, fm_tuples(rng))
+    gen_s = time.perf_counter() - t
+    n = len(cols["timestamp"])
+    log(f"  {n} rows ({FM_TUPLES} tuples x {FM_SECONDS} s, "
+        f"{sum(v.nbytes for v in cols.values()) / 1e6:.1f} MB) made in "
+        f"{gen_s:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fm_") as tmp:
+        root = os.path.join(tmp, "store")
+        pipe, run = run_pipeline(torch, dev, root, cols, t0)
+        db = run["db"]
+        if run["emitted"] != {60: 2 * FM_TUPLES} \
+                or run["second_advance"] != {60: 0}:
+            raise AssertionError(f"advance emitted {run['emitted']}, then "
+                                 f"{run['second_advance']}")
+        store = Store(root)
+        tier = store.table(db, METRICS_TABLE.name + ".1m")
+        t = time.perf_counter()
+        want = numpy_rollup(cols)
+        ref_s = time.perf_counter() - t
+        assert_tables_equal(want, tier.scan(), "1m tier vs numpy GROUP BY")
+        fresh = RollupManager(store, db, METRICS_TABLE, intervals=(60,),
+                              device=dev)
+        if fresh._built_until[60] != t0 + FM_SECONDS \
+                or fresh.advance(run["now"]) != {60: 0}:
+            raise AssertionError("a fresh manager did not recover the "
+                                 "watermark")
+        log(f"  pipeline: {n} rows, {run['records_per_s']:.0f} records/s "
+            f"from put() to segments on disk ({run['segments']} segments, "
+            f"{run['disk_bytes'] / 1e6:.1f} MB); rollup build "
+            f"{run['build_s'] * 1e3:.1f} ms for {2 * FM_TUPLES} 1m rows; "
+            f"numpy reference {ref_s:.1f} s; 1m tier = numpy")
+        split, out = build_split(torch, dev, fresh, t0, t0 + FM_SECONDS, tmp)
+        assert_tables_equal(want, out, "build split vs numpy")
+        log("  build split (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()
+            if k != "value_block_bytes")
+            + f"; value block {split['value_block_bytes'] / 1e6:.1f} MB")
+        groupby = compare_groupby(torch, dev, cols, card)
+        compaction = check_compaction(torch, store.table(db,
+                                                         METRICS_TABLE.name),
+                                      tier)
+        # (d): a 2-minute tier's backfill, one build through advance(),
+        # and one device GROUP BY, each under torch.profiler
+        fresh.add_interval(120)
+        build_prof = profile_call(torch, dev, lambda: fresh.advance(
+            run["now"]))
+        if len(store.table(db, METRICS_TABLE.name + ".120s")
+               .scan(["timestamp"])["timestamp"]) != FM_TUPLES:
+            raise AssertionError("the 120 s tier did not build")
+        if build_prof["runtime_calls"]["cudaStreamSynchronize"] != 1:
+            raise AssertionError(f"a rollup build synced "
+                                 f"{build_prof['runtime_calls']}")
+        log(f"  profiled build (120 s tier) on {card}: "
+            f"{build_prof['wall_ms']:.1f} ms wall, device busy "
+            f"{100 * build_prof['device_busy_share']:.2f}%, "
+            f"{build_prof['kernels']} kernels, h2d "
+            f"{build_prof['h2d_copies']} copies {build_prof['h2d_ms']:.2f} "
+            f"ms, d2h {build_prof['d2h_copy_activities']}, syncs "
+            + ", ".join(f"{k} {build_prof['runtime_calls'][k]}"
+                        for k in SYNC_CALLS))
+        full = groupby[-1]["device"]
+        log(f"  device GROUP BY at {groupby[-1]['rows']} rows: "
+            f"{full['kernels']} kernel launches, syncs {full['syncs']}, "
+            f"{full['d2h']} device-to-host copies")
+    return {"rows": n, "tuples": FM_TUPLES, "seconds": FM_SECONDS,
+            "pipeline": {k: v for k, v in run.items() if k != "db"},
+            "numpy_reference_s": ref_s, "build_split_s": split,
+            "groupby": groupby, "compaction": compaction,
+            "build_profile": build_prof, "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2403,6 +2914,7 @@ def main() -> int:
     phase_done(1)
     rng = np.random.default_rng(args.seed)
     rng9 = np.random.default_rng((args.seed, 9))
+    rng10 = np.random.default_rng((args.seed, 10))
     log("phase 2: kernels against their plain versions (bit-exact)")
     kernels, extra = check_kernels(torch, rng, dev,
                                    rng if args.one_generator else rng9)
@@ -2438,6 +2950,9 @@ def main() -> int:
     log("phase 9: the multi-device suites (4 shards on one card)")
     shard = check_sharded(torch, dev, rng9, args, windows, card)
     phase_done(9)
+    log("phase 10: the flow_metrics store lane and the rollup GROUP BY")
+    flow_metrics = check_flow_metrics(torch, dev, rng10, card)
+    phase_done(10)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -2459,6 +2974,7 @@ def main() -> int:
                "profile": ingester_profiles[name]}
         for name, p in ingester.items()}, "ladder": ladder,
         "detection": detection, "red": red, "sharded": shard,
+        "flow_metrics": flow_metrics,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

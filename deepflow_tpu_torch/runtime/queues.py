@@ -1,4 +1,4 @@
-"""A fixed-size overwrite queue with drop accounting.
+"""Fixed-size overwrite queues with drop accounting.
 
 Between pipeline stages records move through bounded rings that
 overwrite the oldest entry instead of blocking the producer; the loss is
@@ -92,3 +92,38 @@ class OverwriteQueue:
                     "overwritten": self.overwritten,
                     "closed_dropped": self.closed_dropped,
                     "pending": self._size}
+
+
+class MultiQueue:
+    """N OverwriteQueues addressed by a key (reference: FixedMultiQueue):
+    a key always lands on one queue, so one source's stream stays
+    ordered within a single consumer."""
+
+    def __init__(self, name: str, n_queues: int, capacity: int) -> None:
+        self.name = name
+        self.queues = [OverwriteQueue(f"{name}.{i}", capacity)
+                       for i in range(n_queues)]
+
+    def __len__(self) -> int:
+        return sum(len(q) for q in self.queues)
+
+    def put(self, key: int, item: Any) -> None:
+        self.queues[key % len(self.queues)].put(item)
+
+    def puts(self, key: int, items: Sequence[Any]) -> None:
+        self.queues[key % len(self.queues)].puts(items)
+
+    def gets(self, queue_index: int, max_items: int,
+             timeout: Optional[float] = None) -> List[Any]:
+        return self.queues[queue_index].gets(max_items, timeout)
+
+    def close(self) -> None:
+        for q in self.queues:
+            q.close()
+
+    def counters(self) -> dict:
+        agg: dict = {}
+        for q in self.queues:
+            for k, v in q.counters().items():
+                agg[k] = agg.get(k, 0) + v
+        return agg

@@ -98,12 +98,20 @@ class Supervisor:
     # -- spawning ----------------------------------------------------------
     def spawn(self, name: str, target: Callable[[], None],
               restart: bool = True,
-              deadman_s: Optional[float] = -1.0) -> ThreadHandle:
+              deadman_s: Optional[float] = -1.0,
+              beat_period_s: Optional[float] = None) -> ThreadHandle:
         """Run `target` (a long-running loop) on a supervised daemon
         thread. deadman_s: -1 inherits the supervisor default; None or 0
         disables the watchdog for this worker (a loop that legitimately
-        blocks longer between beats, like the window timer)."""
+        blocks longer between beats, like the window timer).
+        beat_period_s: the worker's own beat cadence (one beat per loop
+        iteration); a cadence at or past half the watchdog window
+        disables the watchdog for this worker, which would otherwise
+        read stale between two healthy beats."""
         dm = self.deadman_s if deadman_s == -1.0 else (deadman_s or None)
+        if beat_period_s is not None and dm is not None \
+                and beat_period_s >= dm / 2:
+            dm = None
         h = ThreadHandle(name, restart, dm, self._clock)
         t = threading.Thread(target=self._run, args=(h, target),
                              name=name, daemon=True)

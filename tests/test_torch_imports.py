@@ -45,10 +45,14 @@ def test_port_files_found():
             "matrix_profile.py", "detectors.py", "alerts.py",
             "audit.py", "ddsketch.py", "app_suite.py", "app_red.py",
             "table.py", "db.py", "writer.py", "metrics_suite.py", "mesh.py",
-            "sharded.py"} <= names
+            "sharded.py", "rollup.py", "migrate.py", "monitor.py",
+            "schema.py", "tag_code.py", "schemas.py",
+            "flow_metrics.py"} <= names
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
         in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "parallel" / "__init__.py") \
+        in PORT_FILES
+    assert (REPO / "deepflow_tpu_torch" / "pipelines" / "__init__.py") \
         in PORT_FILES
 
 
@@ -120,7 +124,12 @@ def test_every_entry_point_defaults_to_cuda():
             "deepflow_tpu_torch.convert.app_from_numpy",
             "deepflow_tpu_torch.models.metrics_suite.init",
             "deepflow_tpu_torch.convert.metrics_from_numpy",
-            "deepflow_tpu_torch.parallel.mesh.make_mesh"} <= set(found)
+            "deepflow_tpu_torch.parallel.mesh.make_mesh",
+            "deepflow_tpu_torch.store.rollup.group_reduce",
+            "deepflow_tpu_torch.store.rollup.group_reduce_device",
+            "deepflow_tpu_torch.store.rollup.RollupManager",
+            "deepflow_tpu_torch.pipelines.flow_metrics.FlowMetricsPipeline"
+            } <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad
 
