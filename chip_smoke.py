@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
-suites and flow_metrics store lane on one CUDA card.
+suites, flow_metrics store lane and pod on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -18,7 +18,8 @@ is printed):
    of 1024 bins: requests, errors), at phase 9's per-shard shapes (2^14
    lanes: Count-Min, entropy, and the metrics suite's 2 entropy rows of
    2^10 bins with weights over the whole u32 range read as int32, past
-   65535 and past 2^31), the lane kernel at C=32768,
+   65535 and past 2^31), at phase 11's per-shard pod shapes (2^13
+   lanes: Count-Min, entropy), the lane kernel at C=32768,
    the news kernel at C=8192; kernel, plain and library times per call
    from CUDA events after a warm-up (median of 5 runs of 20 calls),
    device times of the kernel and of the library call from
@@ -151,7 +152,35 @@ is printed):
    of the base and the tier, scans unchanged, then a torn segment that
    scan skips and counts and compact quarantines; (d) one rollup build
    (a 120 s tier's backfill) under torch.profiler: launches, copies,
-   one stream sync.
+   one stream sync;
+11. the pod fault domains and the cross-host pod at FlowSuiteConfig():
+   (a) TpuSketchExporter(pod_shards=4, batch_rows 2^15: 2^13 rows a
+   shard) through put() over phase 3's two windows: at each window close
+   every leaf of the pod's merged bus snapshot and every output field
+   equal to the sharded suite's lanes form on 4 shards over the same
+   planes, recall >= 0.99, the pod-wide ledger closed (sent = delivered
+   + host + lost + pending), 2 hist launches per shard batch and no
+   fused one; ingest, flush and last_merge_s per window, then a profiled
+   window, and, reported only, the sharded suite's lanes form on one
+   thread (chip_pod_probe.py compares the pod's dispatch designs); (b)
+   the fault ladder on a 4-shard PodFlowSuite with injected faults only:
+   a device error
+   rolled back from the shard's snapshot, two more degrading the shard
+   (its rows shed and counted lost, no host sketch, no host output), the
+   probe's recovery, a merge.stall straggler excluded at the deadline and
+   merged late next epoch (ingest never blocks), a kill with rejoin by
+   snapshot, the ledger closed after every step; (c) the exporter's
+   pod_hosts=2, pod_shards=2 branch (batch_rows 2^16, every shard slice
+   at least 2^13 rows: 2 hist launches per shard batch) over the
+   simulated DCN on window 0: rows, entropies, the top-8 and every
+   shared key's count equal to (a)'s 4-shard merge; then marker loss,
+   partition with heal and host loss with rejoin on a coordinator, the
+   ledger closed after each; (d) two processes of this script
+   (`--dcn-worker`, loading the libraries phase 1 built), one host of 2
+   shards each on this card, joined over gloo at tcp://127.0.0.1:<free
+   port>: each one's merged epoch (output and every bus leaf) equal to
+   (c)'s; a child that fails or outlives 120 s fails the phase and is
+   killed.
 
 Each phase prints its time. `--one-generator` draws phase 2's rows for
 phase 9's shapes from the generator phases 2-8 share instead of their
@@ -163,6 +192,7 @@ lines of standard output are the kernels' JSON record and {"ok": true,
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -306,6 +336,12 @@ HIST_SHAPES = (("cms", 17, 4, None, HIST_C, True, False),
 SHARD_HIST_SHAPES = (("cms_shard", 17, 4, None, SHARD_C, True, False),
                      ("entropy_shard", 12, 4, 2, SHARD_C, True, False),
                      ("metrics_entropy", 10, 2, 2, SHARD_C, True, True))
+# phase 11's pod shards: batch_rows 2^15 over 4 shards, 2^13 lanes each
+# (mxu_hist.MIN_LANES, so every shard batch takes hist), from phase 11's
+# own generator
+POD_C = 1 << 13
+POD_HIST_SHAPES = (("cms_pod", 17, 4, None, POD_C, True, False),
+                   ("entropy_pod", 12, 4, 2, POD_C, True, False))
 
 
 def zipf_ranks(rng, size, pool):
@@ -413,7 +449,7 @@ def check_fused(torch, rng, cuda_sketch, label, plane, n_d, seeds,
     return base_c.clone(), base_e.clone()
 
 
-def check_kernels(torch, rng, dev, rng9):
+def check_kernels(torch, rng, dev, rng9, rng11):
     from deepflow_tpu_torch.ops import cuda_hist, cuda_sketch, hashing
 
     results, extra = [], []
@@ -442,7 +478,8 @@ def check_kernels(torch, rng, dev, rng9):
     hist_names = ("hist_smem_kernel", "hist_global_kernel")
     for (label, lw, d, planes, lanes, recorded, signed), r in \
             [(x, rng) for x in HIST_SHAPES] \
-            + [(x, rng9) for x in SHARD_HIST_SHAPES]:
+            + [(x, rng9) for x in SHARD_HIST_SHAPES] \
+            + [(x, rng11) for x in POD_HIST_SHAPES]:
         width = 1 << lw
         for skew in (False, True):
             idx, w, mask = hist_inputs(torch, r, dev, lw, d, planes, skew,
@@ -2873,6 +2910,543 @@ def check_flow_metrics(torch, dev, rng, card):
             "build_profile": build_prof, "card": card}
 
 
+# -- phase 11: the pod fault domains and the cross-host pod ------------------
+
+POD_SHARDS = 4
+POD_BATCH = 1 << 15        # the exporter's batch_rows: 2^13 rows per shard
+HOSTPOD_BATCH = 1 << 16    # the cross-host pod's batch_rows: ~2^14 per shard
+DCN_TIMEOUT_S = 120        # the two gloo processes of 11(d), start to end
+
+
+def lane_planes(cols, batch):
+    """(plane, valid) of each `batch`-row slice of a window, packed as the
+    exporter packs a TensorBatch (the last one zero-padded)."""
+    from deepflow_tpu_torch.models import flow_suite
+    for part, _, n in global_batches({k: cols[k] for k in FLOW_KEYS}, batch):
+        lanes = flow_suite.pack_lanes(part)
+        yield np.stack([lanes[k] for k in flow_suite.SKETCH_LANE_NAMES]), n
+
+
+def conserve(c, label):
+    """The pod-wide ledger of one counters() snapshot."""
+    got = (c["pod_rows_delivered"] + c["pod_rows_host"] + c["pod_rows_lost"]
+           + c["pod_rows_pending"])
+    if c["pod_rows_sent"] != got:
+        raise AssertionError(f"{label}: sent {c['pod_rows_sent']} != "
+                             f"delivered + host + lost + pending {got}")
+    return c
+
+
+def recall(out, cols, k):
+    got = set(out.topk_keys.cpu().numpy().view(np.uint32).tolist())
+    return len(got & exact_topk(cols, k)) / k
+
+
+def check_pod_exporter(torch, dev, windows, card):
+    """Phase 11a: TpuSketchExporter(pod_shards=4) through put() against
+    the sharded suite's lanes form on 4 shards over the same planes."""
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.parallel import ShardedFlowSuite, make_mesh
+    from deepflow_tpu_torch.parallel import sharded
+    from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
+
+    cfg = FlowSuiteConfig()
+    suite = ShardedFlowSuite(cfg, make_mesh(POD_SHARDS, device=dev))
+    st, want_snaps, want_outs, batches = suite.init(), [], [], 0
+    all_planes = [list(lane_planes(cols, POD_BATCH)) for cols in windows]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for planes in all_planes:
+        for plane, n in planes:
+            st = suite.update_lanes(st, suite.put_lanes(plane), n)
+            batches += 1
+        want_snaps.append(snapshot(sharded.rescore_ring(
+            sharded._merge_axis0(st))))
+        st, out = suite.flush(st)
+        want_outs.append(out)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    exp = TpuSketchExporter(cfg=cfg, batch_rows=POD_BATCH,
+                            window_seconds=3600, pod_shards=POD_SHARDS,
+                            pod_merge_deadline_s=60.0, device=dev)
+    snaps, outs, merge_s = bus_snapshots(exp), [], []
+    ingest_s, flush_s = [], []
+    records = sum(len(w["ip_src"]) for w in windows)
+    try:
+        exp.start()
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        for w, cols in enumerate(windows):
+            ti = time.perf_counter()
+            ingest_window(exp, cols, via_put=True)
+            if not exp.pod.drain(120):
+                raise AssertionError("pod exporter: shards did not drain")
+            tf = time.perf_counter()
+            outs.append(exp.flush_window(now=2000.0 + w))
+            merge_s.append(exp.pod.last_merge_s)
+            ingest_s.append(tf - ti)
+            flush_s.append(time.perf_counter() - tf)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches(
+            "pod exporter", never=("fused_lane_hists", "fused_news_hists"))
+        if not exp.pod.drain(60):
+            raise AssertionError("pod exporter: shards did not drain")
+        c = conserve(exp.counters(), "pod exporter")
+        if c["pod_rows_delivered"] != records or c["rows_in"] != records:
+            raise AssertionError(f"pod exporter: delivered "
+                                 f"{c['pod_rows_delivered']} of {records}")
+        shard_batches = POD_SHARDS * batches
+        if launches["hist"] != 2 * shard_batches:
+            raise AssertionError(f"pod exporter: {launches['hist']} hist "
+                                 f"launches for {shard_batches} shard "
+                                 "batches, not 2 per shard batch")
+        compare_snaps(want_snaps, snaps, None, "sharded lanes", "pod")
+        recalls = []
+        for w, (out, want) in enumerate(zip(outs, want_outs)):
+            check_output(torch, out, cfg)
+            if not all(torch.equal(a, b) for a, b in zip(out, want)):
+                raise AssertionError(f"pod exporter: window {w} output "
+                                     "differs from the sharded suite's")
+            recalls.append(recall(out, windows[w], cfg.top_k))
+        if min(recalls) < 0.99:
+            raise AssertionError(f"pod exporter: recall {recalls}")
+
+        def ingest():
+            ingest_window(exp, windows[0], via_put=True)
+            exp.pod.drain(60)
+
+        prof = report_profile("pod exporter (4 shards)", *profile_window(
+            torch, dev, ingest, lambda: exp.flush_window(now=2100.0)),
+            batches // len(windows), card)
+    finally:
+        exp.close()
+    conserve(exp.counters(), "pod exporter closed")
+    log(f"  pod exporter (4 shards): {records / dt:.0f} records/s on {card}; "
+        f"every leaf = the sharded suite's at both window closes; recall "
+        f"{recalls}; ingest {[round(x, 3) for x in ingest_s]} s, flush "
+        f"{[round(x * 1e3, 1) for x in flush_s]} ms, last_merge_s "
+        f"{[round(x * 1e3, 1) for x in merge_s]} ms per window; "
+        f"{launches['hist'] / batches:.1f} hist launches per global batch; "
+        f"launches {launches}; the sharded suite's lanes form on one thread "
+        f"over the same planes: {records / sharded_s:.0f} records/s")
+    return {"records_per_s": records / dt, "seconds": dt, "recall": recalls,
+            "ingest_s": ingest_s, "flush_s": flush_s,
+            "last_merge_s": merge_s, "launches": launches,
+            "hist_per_global_batch": launches["hist"] / batches,
+            "sharded_lanes_records_per_s": records / sharded_s,
+            "profile": prof, "outs": outs}
+
+
+def walk_pod_ladder(torch, dev, windows):
+    """Phase 11b: injected faults only, on a 4-shard PodFlowSuite on the
+    card: rollback, degrade (rows shed, counted), probe recovery,
+    straggler exclusion with its late merge, kill with rejoin."""
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.parallel import PodFlowSuite
+    from deepflow_tpu_torch.runtime.faults import default_faults
+
+    faults = default_faults()
+    planes = itertools.cycle([p for w in windows
+                              for p in lane_planes(w, POD_BATCH)])
+    pod = PodFlowSuite(FlowSuiteConfig(), n_shards=POD_SHARDS,
+                       merge_deadline_s=30.0, snapshot_batches=2,
+                       degrade_after=2, device=dev)
+    b = POD_BATCH // POD_SHARDS
+    steps = {}
+
+    def feed(k):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            plane, n = next(planes)
+            pod.put_lanes(plane.copy(), n)
+        return time.perf_counter() - t0
+
+    def settle():
+        if not pod.drain(60):
+            raise AssertionError("pod ladder: shards did not drain")
+
+    def step(name, res, **want):
+        c = conserve(pod.counters(), f"pod ladder {name}")
+        for k, v in want.items():
+            got = getattr(res, k)
+            if got != v:
+                raise AssertionError(f"pod ladder {name}: {k} {got} != {v}")
+        steps[name] = {k: c[k] for k in (
+            "pod_rows_sent", "pod_rows_delivered", "pod_rows_host",
+            "pod_rows_lost", "pod_rows_shed", "pod_rows_pending",
+            "pod_device_errors", "pod_merge_missed", "pod_late_merges",
+            "pod_rejoins")}
+        log(f"  pod ladder {name}: {steps[name]}")
+        return c
+
+    def status(i):
+        return pod.shard_status()[i]
+
+    torch.cuda.synchronize()
+    zero_launches()
+    try:
+        faults.arm("shard.device_error", count=1, match="shard1:update")
+        feed(6)
+        settle()
+        c = step("rollback", pod.close_epoch(),
+                 participated=list(range(POD_SHARDS)), lossy=True)
+        if c["pod_device_errors"] != 1 or status(1)["status"] != "active" \
+                or not 0 < c["pod_rows_lost"] <= 3 * b:
+            raise AssertionError(f"pod ladder rollback: {status(1)}")
+        faults.arm("shard.device_error", count=2, match="shard1:update")
+        feed(6)
+        settle()
+        if status(1)["status"] != "degraded":
+            raise AssertionError(f"pod ladder: shard 1 {status(1)}")
+        shed0 = pod.counters()["pod_rows_shed"]
+        feed(2)
+        settle()
+        # the probe runs on the shard's worker right after it posts its
+        # contribution: whether the close still reads shard 1 degraded
+        # depends on the clock, so `degraded` is not asserted here
+        c = step("degrade", pod.close_epoch(), lossy=True, host_outputs=[])
+        if c["pod_rows_host"] or c["pod_rows_shed"] - shed0 < 2 * b \
+                or pod._shards[1]._host is not None:
+            raise AssertionError("pod ladder: a degraded shard on the card "
+                                 "must shed its rows, counted, and run "
+                                 "nothing on the CPU")
+        faults.disarm("shard.device_error")
+        feed(2)
+        settle()
+        step("probe recovery", pod.close_epoch(), degraded=[],
+             participated=list(range(POD_SHARDS)))
+        if status(1)["recoveries"] != 1:
+            raise AssertionError(f"pod ladder: {status(1)}")
+        faults.arm("merge.stall", count=1, delay_s=1.5, match="shard2:")
+        feed(4)
+        settle()
+        c = step("straggler", pod.close_epoch(deadline_s=0.3), missed=[2],
+                 lossy=True)
+        took = feed(4)
+        if took > 0.5:
+            raise AssertionError(f"pod ladder: ingest blocked {took:.3f} s "
+                                 "behind a straggler")
+        time.sleep(1.6)
+        settle()
+        c = step("late merge", pod.close_epoch(), missed=[], lossy=True)
+        if c["pod_late_merges"] < 1:
+            raise AssertionError("pod ladder: no late merge")
+        faults.disarm("merge.stall")
+        feed(6)
+        settle()
+        pod.kill(3)
+        took = feed(2)
+        if took > 0.5:
+            raise AssertionError(f"pod ladder: ingest blocked {took:.3f} s "
+                                 "behind a lost shard")
+        c = step("kill", pod.close_epoch(), lost=[3], lossy=True)
+        if c["pod_rejoins"] != 1:
+            raise AssertionError("pod ladder: shard 3 did not rejoin")
+        step("rejoin by snapshot", pod.close_epoch(), lossy=True)
+        feed(2)
+        settle()
+        step("after rejoin", pod.close_epoch(), lossy=False,
+             participated=list(range(POD_SHARDS)))
+    finally:
+        faults.disarm()
+        pod.close()
+    torch.cuda.synchronize()
+    launches = read_launches("pod ladder")
+    c = conserve(pod.counters(), "pod ladder closed")
+    if c["pod_rows_pending"]:
+        raise AssertionError(f"pod ladder: {c['pod_rows_pending']} rows "
+                             "pending after close")
+    return {"steps": steps, "launches": launches}
+
+
+def leaf_hashes(leaves):
+    import hashlib
+    return [hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+            for a in leaves]
+
+
+def out_record(out):
+    """A window output as plain lists (exact: float32 values round-trip
+    through JSON)."""
+    return {"keys": out.topk_keys.cpu().numpy().view(np.uint32).tolist(),
+            "counts": out.topk_counts.cpu().tolist(),
+            "card": out.service_cardinality.cpu().tolist(),
+            "ent": out.entropies.cpu().tolist(), "rows": int(out.rows)}
+
+
+def check_hostpod(torch, dev, windows, flat_out):
+    """Phase 11c: the cross-host pod over the simulated DCN. The
+    exporter's pod_hosts=2, pod_shards=2 branch on window 0 against
+    11a's 4-shard merge of the same rows (the reference's
+    test_hostpod_merge_matches_single_pod contract), then marker loss,
+    partition with heal and host loss with rejoin on a coordinator."""
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.parallel import HostPodCoordinator
+    from deepflow_tpu_torch.parallel.multihost import route_hosts
+    from deepflow_tpu_torch.runtime.faults import default_faults
+    from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
+
+    cfg = FlowSuiteConfig()
+    planes = list(lane_planes(windows[0], HOSTPOD_BATCH))
+    for plane, n in planes:
+        per_host = np.bincount(route_hosts(plane, n, 2), minlength=2)
+        if per_host.min() < 2 * 8192:
+            raise AssertionError(f"cross-host pod: a host slice of "
+                                 f"{per_host.min()} rows leaves a shard "
+                                 "under mxu_hist.MIN_LANES")
+    exp = TpuSketchExporter(cfg=cfg, batch_rows=HOSTPOD_BATCH,
+                            window_seconds=3600, pod_shards=2, pod_hosts=2,
+                            dcn_transport="sim", pod_merge_deadline_s=60.0,
+                            dcn_marker_deadline_s=60.0, device=dev)
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        feed_chunks(exp, windows[0], CHUNK)
+        out = exp.flush_window(now=3000.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches(
+            "cross-host pod", never=("fused_lane_hists", "fused_news_hists"))
+        shard_batches = 2 * 2 * len(planes)
+        if launches["hist"] != 2 * shard_batches:
+            raise AssertionError(f"cross-host pod: {launches['hist']} hist "
+                                 f"launches for {shard_batches} shard "
+                                 "batches, not 2 per shard batch")
+        check_output(torch, out, cfg)
+        tags = exp.snapshot_bus.latest().tags
+        if tags["pod_hosts_participated"] != 2 or tags["pod_hosts_missing"] \
+                or tags["lossy"] or int(out.rows) != len(windows[0]["ip_src"]):
+            raise AssertionError(f"cross-host pod: tags {tags}")
+        ref = {"out": out_record(out),
+               "bus": leaf_hashes(exp.snapshot_bus.latest().leaves)}
+    finally:
+        exp.close()
+    c = conserve(exp.counters(), "cross-host pod closed")
+    if c["pod_rows_pending"] or c["pod_rows_delivered"] != c["pod_rows_sent"]:
+        raise AssertionError(f"cross-host pod: {c}")
+    # the flat 4-shard merge's contract: rows, entropies, the top-K head,
+    # and every key both rings hold priced at the same merged count
+    flat = out_record(flat_out)
+    h = ref["out"]
+    if h["rows"] != flat["rows"] or h["keys"][:8] != flat["keys"][:8] \
+            or h["counts"][:8] != flat["counts"][:8] \
+            or not np.allclose(h["ent"], flat["ent"], rtol=0, atol=1e-5):
+        raise AssertionError("cross-host pod: merge differs from the 4-shard "
+                             "pod's")
+    priced = dict(zip(flat["keys"], flat["counts"]))
+    if any(priced.get(k, n) != n for k, n in zip(h["keys"], h["counts"])):
+        raise AssertionError("cross-host pod: a key priced differently")
+    log(f"  cross-host pod (2 hosts x 2 shards, simulated DCN): "
+        f"{len(windows[0]['ip_src']) / dt:.0f} records/s; rows, entropies and "
+        f"top-8 = the 4-shard pod's; launches {launches}")
+
+    faults = default_faults()
+    fplanes = itertools.cycle(list(lane_planes(windows[1], HOSTPOD_BATCH)))
+    co = HostPodCoordinator(cfg, n_hosts=2, shards_per_host=2,
+                            transport="sim", device=dev)
+    steps = {}
+
+    def put(k):
+        for _ in range(k):
+            plane, n = next(fplanes)
+            co.put_lanes(plane.copy(), n)
+        if not co.drain(60):
+            raise AssertionError("cross-host pod: hosts did not drain")
+
+    def step(name, res, **want):
+        c = conserve(co.counters(), f"cross-host {name}")
+        for k, v in want.items():
+            if getattr(res, k) != v:
+                raise AssertionError(f"cross-host {name}: {k} "
+                                     f"{getattr(res, k)} != {v}")
+        steps[name] = {k: c[k] for k in (
+            "pod_rows_sent", "pod_rows_delivered", "pod_rows_lost",
+            "pod_rows_pending", "pod_hosts_missed", "pod_host_late_merges",
+            "pod_host_rejoins", "dcn_markers_lost", "dcn_partitions",
+            "dcn_heals")}
+        log(f"  cross-host {name}: {steps[name]}")
+        return c
+
+    zero_launches()
+    try:
+        put(2)
+        step("warm", co.close_epoch(), missed=[])
+        faults.arm("dcn.marker_loss", count=1, match="host1")
+        put(2)
+        c = step("marker loss", co.close_epoch(deadline_s=0.6), missed=[1],
+                 lossy=True)
+        if c["dcn_markers_lost"] != 1 or c["pod_rows_pending"] == 0:
+            raise AssertionError("cross-host: the marker loss was not counted")
+        step("marker recovered", co.close_epoch(), missed=[])
+        faults.disarm()
+        faults.arm("dcn.partition", count=1, match="host1")
+        put(2)
+        c = step("partition", co.close_epoch(deadline_s=0.6), missed=[1],
+                 lossy=True)
+        if c["dcn_links_down"] != 1 or c["dcn_held_messages"] < 1:
+            raise AssertionError("cross-host: the partition held nothing")
+        co.transport.heal(1)
+        c = step("healed", co.close_epoch(), missed=[])
+        if c["pod_host_late_merges"] < 1:
+            raise AssertionError("cross-host: no late merge after the heal")
+        faults.disarm()
+        put(2)
+        if co.snapshot_host(1) <= 0:
+            raise AssertionError("cross-host: host 1 closed no rows")
+        faults.arm("host.lost", count=1, match="host1")
+        res = co.close_epoch(deadline_s=0.6)
+        if not res.lossy or not (res.missed == [1] or res.lost == [1]):
+            raise AssertionError(f"cross-host host loss: {res}")
+        step("host lost", res)
+        step("host rejoined", co.close_epoch(), lost=[1])
+    finally:
+        faults.disarm()
+        co.close()
+    torch.cuda.synchronize()
+    fault_launches = read_launches("cross-host faults")
+    c = step("closed", None)
+    if c["pod_rows_pending"] or c["pod_host_rejoins"] != 1 \
+            or c["pod_rows_delivered"] + c["pod_rows_lost"] \
+            != c["pod_rows_sent"] or c["pod_host_late_merges"] < 2:
+        raise AssertionError(f"cross-host closed: {c}")
+    return {"records_per_s": len(windows[0]["ip_src"]) / dt,
+            "launches": launches, "fault_launches": fault_launches,
+            "steps": steps}, ref
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def check_dcn_processes(torch, dev, window, ref, tmp):
+    """Phase 11d: two processes of this script (`--dcn-worker`), one host
+    of 2 shards each on this card, joined over gloo at
+    tcp://127.0.0.1:<free port>; each one's merged epoch must equal 11c's
+    fault-free merge of the same rows. A child that fails or outlives
+    DCN_TIMEOUT_S fails the phase and is killed on the way out."""
+    path = os.path.join(tmp, "dcn_planes.npy")
+    np.save(path, np.stack([p for p, _ in lane_planes(window,
+                                                      HOSTPOD_BATCH)]))
+    coord = f"127.0.0.1:{free_port()}"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK"))}
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dcn-worker", coord,
+         str(pid), path, str(dev)], cwd=cwd, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    results = []
+    deadline = time.monotonic() + DCN_TIMEOUT_S
+    try:
+        for pid, p in enumerate(procs):
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                raise AssertionError(f"dcn worker {pid} exit {p.returncode}:"
+                                     f"\n{err[-4000:]}")
+            line = [x for x in out.splitlines() if x.startswith("RESULT ")]
+            if not line:
+                raise AssertionError(f"dcn worker {pid}: no result\n{out}")
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    launches = {}
+    for r in results:
+        if r["out"] != ref["out"] or r["bus"] != ref["bus"]:
+            raise AssertionError(f"dcn worker {r['pid']}: merged epoch "
+                                 "differs from the simulated DCN's")
+        if r["sent"] != r["delivered"] or r["pending"] \
+                or r["participated"] != [0, 1]:
+            raise AssertionError(f"dcn worker {r['pid']}: {r}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if sum(r["sent"] for r in results) != len(window["ip_src"]):
+        raise AssertionError("dcn workers: rows sent do not add up")
+    log(f"  two processes over gloo (TorchDcnTransport): both merged epochs "
+        f"= the simulated DCN's, leaf for leaf; {wall:.1f} s wall for both "
+        f"(start-up included), in-process "
+        f"{[round(r['seconds'], 3) for r in results]} s; launches {launches}")
+    return {"wall_s": wall, "worker_seconds": [r["seconds"] for r in results],
+            "exchange_s": [r["merge_s"] for r in results],
+            "launches": launches}
+
+
+def dcn_worker(coord, pid, path, device):
+    """One host of phase 11d, in a child process on `device` (the
+    parent's): load the kernels that the parent built, join the gloo
+    group, feed this host's rows of the planes, close one collective
+    epoch and print it."""
+    import torch
+    import torch.distributed as dist
+
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.ops import _build
+    from deepflow_tpu_torch.parallel import (HostPodCoordinator,
+                                             TorchDcnTransport,
+                                             init_distributed)
+    from deepflow_tpu_torch.parallel.multihost import route_hosts
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        return 2
+    pid = int(pid)
+    if cuda:
+        _build.load_built()
+    init_distributed(coord, 2, pid, timeout_s=60)
+    co = HostPodCoordinator(FlowSuiteConfig(), n_hosts=2, shards_per_host=2,
+                            transport="torch", merge_deadline_s=60.0,
+                            device=dev)
+    assert isinstance(co.transport, TorchDcnTransport)
+    zero_launches()
+    t0 = time.perf_counter()
+    for plane in np.load(path):
+        n = plane.shape[1]
+        mine = np.ascontiguousarray(plane[:, route_hosts(plane, n, 2) == pid])
+        co.put_lanes(mine, mine.shape[1])
+    if not co.drain(60):
+        raise AssertionError("dcn worker: shards did not drain")
+    res = co.close_epoch()
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches("dcn worker", wants=("hist",) if cuda else ())
+    c = conserve(co.counters(), "dcn worker")
+    rec = {"pid": pid, "out": out_record(res.out),
+           "bus": leaf_hashes(co.bus.latest().leaves),
+           "participated": res.participated, "sent": c["pod_rows_sent"],
+           "delivered": c["pod_rows_delivered"],
+           "pending": c["pod_rows_pending"], "seconds": dt,
+           "merge_s": c["pod_merge_epoch_s"], "launches": launches}
+    co.close(final_epoch=False)
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(rec), flush=True)
+    return 0
+
+
+def check_pod(torch, dev, windows, card, tmp):
+    a = check_pod_exporter(torch, dev, windows, card)
+    b = walk_pod_ladder(torch, dev, windows)
+    c, ref = check_hostpod(torch, dev, windows, a.pop("outs")[0])
+    d = check_dcn_processes(torch, dev, windows[0], ref, tmp)
+    return {"pod_exporter": a, "ladder": b, "hostpod": c, "dcn": d,
+            "launches": [a["launches"], b["launches"], c["launches"],
+                         c["fault_launches"], d["launches"]]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2881,7 +3455,10 @@ def main() -> int:
     ap.add_argument("--one-generator", action="store_true",
                     help="draw phase 2's rows for phase 9's shapes from "
                     "the generator phases 2-8 share")
+    ap.add_argument("--dcn-worker", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dcn_worker:
+        return dcn_worker(*args.dcn_worker)
 
     import torch
     if not torch.cuda.is_available():
@@ -2915,9 +3492,11 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     rng9 = np.random.default_rng((args.seed, 9))
     rng10 = np.random.default_rng((args.seed, 10))
+    rng11 = np.random.default_rng((args.seed, 11))
     log("phase 2: kernels against their plain versions (bit-exact)")
     kernels, extra = check_kernels(torch, rng, dev,
-                                   rng if args.one_generator else rng9)
+                                   rng if args.one_generator else rng9,
+                                   rng11)
     phase_done(2)
 
     log("phase 3: the slice at the exporter defaults")
@@ -2953,6 +3532,10 @@ def main() -> int:
     log("phase 10: the flow_metrics store lane and the rollup GROUP BY")
     flow_metrics = check_flow_metrics(torch, dev, rng10, card)
     phase_done(10)
+    log("phase 11: the pod fault domains and the cross-host pod")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
+        pod = check_pod(torch, dev, windows, card, tmp)
+    phase_done(11)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -2960,7 +3543,7 @@ def main() -> int:
     for launches in [p["launches"] for p in paths.values()] \
             + [p["launches"] for p in ingester.values()] \
             + list(detection["launches"].values()) + [red["launches"]] \
-            + shard["launches"]:
+            + shard["launches"] + pod["launches"]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -2974,7 +3557,7 @@ def main() -> int:
                "profile": ingester_profiles[name]}
         for name, p in ingester.items()}, "ladder": ladder,
         "detection": detection, "red": red, "sharded": shard,
-        "flow_metrics": flow_metrics,
+        "flow_metrics": flow_metrics, "pod": pod,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

@@ -95,6 +95,20 @@ def load_all(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
         return dict(_libs)
 
 
+def load_built() -> Dict[str, ctypes.CDLL]:
+    """Load the libraries an earlier build in this checkout left under
+    BUILD_DIR, without running nvcc (a child process of a run that built
+    them: no two processes race to build); raise if one is missing."""
+    with _lock:
+        if not _libs:
+            for src in sources():
+                path = BUILD_DIR / f"lib{src.stem}.so"
+                if not path.exists():
+                    raise KernelError(f"{path} is not built")
+                _libs[src.stem] = ctypes.CDLL(str(path))
+        return dict(_libs)
+
+
 def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded lib<name>.so, building every kernel on the first call.
     `signatures` maps each C entry point to its argtypes (c_void_p for

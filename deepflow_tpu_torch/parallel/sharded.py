@@ -140,6 +140,59 @@ def rescore_ring(merged: FlowSuiteState) -> FlowSuiteState:
         ring=merged.ring._replace(counts=live * (est + 1) - 1))
 
 
+def merge_flush(states: Sequence[FlowSuiteState], cfg: FlowSuiteConfig
+                ) -> Tuple[FlowSuiteState, FlowSuiteState, FlowWindowOutput]:
+    """The merged flush of per-shard partial states, on the first one's
+    device: (merged pre-flush state with its ring rescored, fresh state,
+    window output). The sharded suite, the pod and the cross-host pod
+    all close their windows through it."""
+    merged = rescore_ring(_merge_axis0(states))
+    fresh, out = flow_suite.flush(merged, cfg)
+    return merged, fresh, out
+
+
+# -- one shard's block of a batch --------------------------------------------
+# The mesh body for one shard, shared by ShardedFlowSuite (every shard in
+# turn) and the pod (one shard per worker), so the two update each shard
+# with the same code.
+
+def update_lanes_shard(state: FlowSuiteState, plane: torch.Tensor, off: int,
+                       n, cfg: FlowSuiteConfig) -> FlowSuiteState:
+    """A shard's (4, b) block of a lane plane starting at global column
+    `off`; n is the GLOBAL valid count, so row i is valid where
+    i + off < n. The unfused ops: the sharded identity rests on shared
+    code, not on the fused kernel's equality with them."""
+    b = plane.shape[1]
+    mask = (torch.arange(b, device=plane.device) + int(off)) < int(n)
+    return flow_suite.update_packed(state, flow_suite._lanes_of(plane),
+                                    mask, cfg)
+
+
+def update_news_shard(state: FlowSuiteState, dtable, plane: torch.Tensor,
+                      n, d: int, nd: int, cfg: FlowSuiteConfig):
+    """A whole (6, C) news plane on shard d of nd: every valid row is
+    written into this replica's table, and row i is counted here iff
+    i % nd == d. Returns (state, dtable)."""
+    rows = torch.arange(plane.shape[1], device=plane.device)
+    count = (rows < int(n)) & (rows % nd == d)
+    return flow_dict.update_news(state, dtable, plane, int(n), cfg,
+                                 count_mask=count)
+
+
+def update_hits_shard(state: FlowSuiteState, dtable, plane: torch.Tensor,
+                      off_pairs: int, n, nd: int,
+                      cfg: FlowSuiteConfig) -> FlowSuiteState:
+    """A shard's (3, hp) block of a hits plane of nd * hp pairs, starting
+    at pair `off_pairs`; n is the GLOBAL valid-record count. Its a-lanes
+    hold global positions [off, off + hp), its b-lanes the same offsets
+    past the global a-half."""
+    hp = plane.shape[1]
+    pos_a = torch.arange(hp, device=plane.device) + int(off_pairs)
+    gmask = torch.cat([pos_a, pos_a + hp * nd]) < int(n)
+    return flow_dict.update_hits(state, dtable, plane, int(n), cfg,
+                                 mask=gmask)
+
+
 def _host_output(out: FlowWindowOutput) -> FlowWindowOutput:
     return FlowWindowOutput(*[t.cpu() for t in out])
 
@@ -239,13 +292,8 @@ class ShardedFlowSuite(_ShardedSuiteBase):
     def update_lanes(self, state: list, plane: list, n) -> list:
         """Advance from a split lane plane; n is the GLOBAL valid count,
         so shard d's rows are valid where (arange(b) + d*b) < n."""
-        out = []
-        for d, (s, p) in enumerate(zip(state, plane)):
-            b = p.shape[1]
-            mask = (torch.arange(b, device=p.device) + d * b) < int(n)
-            out.append(flow_suite.update_packed(
-                s, flow_suite._lanes_of(p), mask, self.cfg))
-        return out
+        return [update_lanes_shard(s, p, d * p.shape[1], n, self.cfg)
+                for d, (s, p) in enumerate(zip(state, plane))]
 
     # -- the dictionary wire -------------------------------------------------
     # The key table is replicated, one own copy per shard. News planes go
@@ -262,14 +310,10 @@ class ShardedFlowSuite(_ShardedSuiteBase):
         """plane (6, C) to every replica; each record counted on one
         shard."""
         plane = _as_tensor(plane)
-        nd = self.n_devices
         states, tables = [], []
         for d, (s, t, dev) in enumerate(zip(state, dtable, self.devices)):
-            p = plane.to(dev)
-            rows = torch.arange(p.shape[1], device=dev)
-            count = (rows < int(n)) & (rows % nd == d)
-            s, t = flow_dict.update_news(s, t, p, int(n), self.cfg,
-                                         count_mask=count)
+            s, t = update_news_shard(s, t, plane.to(dev), n, d,
+                                     self.n_devices, self.cfg)
             states.append(s)
             tables.append(t)
         return states, tables
@@ -279,20 +323,13 @@ class ShardedFlowSuite(_ShardedSuiteBase):
         axis; n is the GLOBAL valid-record count. Shard d's a-lanes hold
         global positions [d*hp, (d+1)*hp), its b-lanes the same offsets
         past the global a-half (H = hp * n_devices)."""
-        nd = self.n_devices
-        out = []
-        for d, (s, t, p) in enumerate(zip(
-                state, dtable, _split(plane, self.devices, dim=1))):
-            hp = p.shape[1]
-            pos_a = torch.arange(hp, device=p.device) + d * hp
-            gmask = torch.cat([pos_a, pos_a + hp * nd]) < int(n)
-            out.append(flow_dict.update_hits(s, t, p, int(n), self.cfg,
-                                             mask=gmask))
-        return out
+        return [update_hits_shard(s, t, p, d * p.shape[1], n,
+                                  self.n_devices, self.cfg)
+                for d, (s, t, p) in enumerate(zip(
+                    state, dtable, _split(plane, self.devices, dim=1)))]
 
     def flush(self, state: list) -> Tuple[list, FlowWindowOutput]:
-        merged = rescore_ring(_merge_axis0(state))
-        fresh, out = flow_suite.flush(merged, self.cfg)
+        _merged, fresh, out = merge_flush(state, self.cfg)
         self._close_audit(out)
         return _replicate_init(fresh, self.devices), out
 

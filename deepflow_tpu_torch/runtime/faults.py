@@ -9,7 +9,15 @@ replays the same schedule. The sites this package fires:
 - ``checkpoint.torn``  -- tear a snapshot file mid-write;
 - ``exporter.process`` -- raise inside `QueueWorkerExporter.process`;
 - ``anomaly.score``    -- raise where the anomaly plane scores a window
-  (the window closes unscored, counted).
+  (the window closes unscored, counted);
+- ``shard.device_error`` -- raise where a pod shard dispatches (keys
+  ``shardN:update``, ``shardN:probe``);
+- ``merge.stall``      -- stall a pod shard between its epoch copy and
+  its post (``maybe_stall``, ``delay_s``);
+- ``shard.lost``       -- kill a pod shard's worker mid-epoch;
+- ``host.lost``        -- kill a cross-host pod's host holding a marker;
+- ``dcn.partition``    -- sever one host's simulated DCN link;
+- ``dcn.marker_loss``  -- lose one epoch marker in transit.
 
 The registry is off by default and every call site guards on
 `default_faults().enabled` (one attribute load on the hot path). Arming
@@ -22,8 +30,9 @@ Arming is programmatic (`arm()`) or by a spec string::
 Each clause is ``site:key=value,...``; a bare ``seed=N`` clause seeds
 the registry. Keys: ``count`` (fire the first N hits), ``p`` (fire with
 probability p per hit, seeded), ``for_s`` (fire only within S seconds of
-arming), ``after`` (skip the first N hits), ``match`` (only hits whose
-key contains this substring).
+arming), ``after`` (skip the first N hits), ``delay_s`` (how long
+``maybe_stall`` sleeps when it fires), ``match`` (only hits whose key
+contains this substring).
 """
 
 from __future__ import annotations
@@ -35,12 +44,21 @@ from typing import Dict, List, Optional
 
 __all__ = ["FaultSite", "FaultRegistry", "InjectedFault", "default_faults",
            "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
-           "FAULT_EXPORTER_PROCESS", "FAULT_ANOMALY_SCORE"]
+           "FAULT_EXPORTER_PROCESS", "FAULT_ANOMALY_SCORE",
+           "FAULT_SHARD_DEVICE_ERROR", "FAULT_MERGE_STALL",
+           "FAULT_SHARD_LOST", "FAULT_HOST_LOST", "FAULT_DCN_PARTITION",
+           "FAULT_DCN_MARKER_LOSS"]
 
 FAULT_DEVICE_ERROR = "tpu.device_error"
 FAULT_CHECKPOINT_TORN = "checkpoint.torn"
 FAULT_EXPORTER_PROCESS = "exporter.process"
 FAULT_ANOMALY_SCORE = "anomaly.score"
+FAULT_SHARD_DEVICE_ERROR = "shard.device_error"
+FAULT_MERGE_STALL = "merge.stall"
+FAULT_SHARD_LOST = "shard.lost"
+FAULT_HOST_LOST = "host.lost"
+FAULT_DCN_PARTITION = "dcn.partition"
+FAULT_DCN_MARKER_LOSS = "dcn.marker_loss"
 
 
 class InjectedFault(RuntimeError):
@@ -51,12 +69,13 @@ class InjectedFault(RuntimeError):
 class FaultSite:
     """One armed site's schedule; every decision is local and seeded."""
 
-    __slots__ = ("name", "count", "p", "until", "after", "match", "hits",
-                 "fired", "_rng")
+    __slots__ = ("name", "count", "p", "until", "after", "delay_s",
+                 "match", "hits", "fired", "_rng")
 
     def __init__(self, name: str, count: Optional[int] = None,
                  p: Optional[float] = None, for_s: Optional[float] = None,
-                 after: int = 0, match: Optional[str] = None,
+                 after: int = 0, delay_s: float = 0.05,
+                 match: Optional[str] = None,
                  rng: Optional[random.Random] = None,
                  clock=time.monotonic) -> None:
         self.name = name
@@ -64,6 +83,7 @@ class FaultSite:
         self.p = p
         self.until = None if for_s is None else clock() + float(for_s)
         self.after = int(after)
+        self.delay_s = float(delay_s)
         self.match = match
         self.hits = 0
         self.fired = 0
@@ -90,17 +110,20 @@ class FaultSite:
 class FaultRegistry:
     """Named sites -> armed schedules; `enabled` is the hot-path gate."""
 
-    def __init__(self, seed: int = 0, clock=time.monotonic) -> None:
+    def __init__(self, seed: int = 0, clock=time.monotonic,
+                 sleep=time.sleep) -> None:
         self.enabled = False
         self._sites: Dict[str, FaultSite] = {}
         self._lock = threading.Lock()
         self._seed = seed
         self._clock = clock
+        self._sleep = sleep
 
     def arm(self, site: str, **kw) -> FaultSite:
-        """Arm one site (kw: count / p / for_s / after / match). Its RNG
-        derives from (registry seed, site name), so a seed replays the
-        same schedule whatever order sites were armed in."""
+        """Arm one site (kw: count / p / for_s / after / delay_s /
+        match). Its RNG derives from (registry seed, site name), so a
+        seed replays the same schedule whatever order sites were armed
+        in."""
         rng = random.Random(f"{self._seed}:{site}")
         fs = FaultSite(site, rng=rng, clock=self._clock, **kw)
         with self._lock:
@@ -138,7 +161,7 @@ class FaultRegistry:
                 k, _, v = pair.partition("=")
                 if k in ("count", "after"):
                     kw[k] = int(v)
-                elif k in ("p", "for_s"):
+                elif k in ("p", "for_s", "delay_s"):
                     kw[k] = float(v)
                 elif k == "match":
                     kw[k] = v
@@ -159,6 +182,14 @@ class FaultRegistry:
     def maybe_raise(self, site: str, key: str = "") -> None:
         if self.should_fire(site, key):
             raise InjectedFault(f"injected fault at {site} ({key})")
+
+    def maybe_stall(self, site: str, key: str = "") -> None:
+        """Sleep the site's `delay_s` when it fires."""
+        if self.should_fire(site, key):
+            with self._lock:
+                fs = self._sites.get(site)
+                delay = fs.delay_s if fs is not None else 0.05
+            self._sleep(delay)
 
 
 _default: Optional[FaultRegistry] = None

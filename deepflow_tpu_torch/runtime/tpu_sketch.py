@@ -84,9 +84,24 @@ warnings: it forces the lanes wire and the inline path (no feed). The
 reference's staged update exists only for its tunneled TPU runtime; in
 eager torch it is `update`, so the inline lanes path computes it.
 
-Not ported here (ROADMAP): the pod and multihost branches, the tracer
-gauges of the plane and the auditor, tracer/profiler attribution and the
-autotuner.
+Pod lanes. `pod_shards >= 2` routes the lane through the epoch-merged
+pod (`parallel/pod.py`): one fault domain per shard with its own worker,
+stream and device-error ladder, shard i on the mesh's devices[i] (so the
+shards may share one card). `pod_hosts >= 2` stacks the cross-host pod
+on top (`parallel/multihost.py`): per-host pods, epoch markers over a
+DCN transport (`dcn_transport`: "sim", "torch" or "auto"), host deadline
+exclusion, kill and rejoin. Either forces the lanes wire and the inline
+path (the pod's shard workers own the overlap), packs each TensorBatch
+into a (4, batch_rows) lane plane for `put_lanes`, and makes each window
+flush one merge-epoch close: the merged output is the window's, the
+pod's merged bus is the exporter's `snapshot_bus`, the anomaly plane
+scores the merged output with the epoch's participation tags, and the
+auditor closes it with the epoch's `lossy`/`degraded` verdicts. There is
+no single device state, so there is no exporter checkpoint or restore in
+pod mode; the pod's counters join the exporter's.
+
+Not ported here (ROADMAP): the tracer gauges of the plane and the
+auditor, tracer/profiler attribution and the autotuner.
 """
 
 from __future__ import annotations
@@ -108,6 +123,9 @@ from deepflow_tpu_torch.batch.staging import (DictWireStager, LaneStager,
                                               PackPool)
 from deepflow_tpu_torch.models import flow_dict, flow_suite
 from deepflow_tpu_torch.ops._build import KernelError
+from deepflow_tpu_torch.parallel.multihost import (HostPodCoordinator,
+                                                   select_transport)
+from deepflow_tpu_torch.parallel.pod import PodFlowSuite
 from deepflow_tpu_torch.runtime.audit import ShadowAuditor
 from deepflow_tpu_torch.runtime.exporters import QueueWorkerExporter
 from deepflow_tpu_torch.runtime.faults import (FAULT_DEVICE_ERROR,
@@ -155,6 +173,9 @@ WINDOW_TABLE = TableSchema(
 )
 
 _TUPLE_NAMES = ("ip_src", "ip_dst", "port_src", "port_dst", "proto")
+# the epoch tags the anomaly plane reads as a window's participation
+_PARTICIPATION = ("pod_shards_participated", "pod_shards", "pod_missing",
+                  "pod_hosts_participated", "pod_hosts", "pod_hosts_missing")
 
 
 class _HostSketch:
@@ -275,6 +296,12 @@ class TpuSketchExporter(QueueWorkerExporter):
                  coalesce_batches: int = 1,
                  zero_copy: bool = True,
                  pack_workers: int = 0,
+                 pod_shards: int = 0,
+                 pod_merge_deadline_s: float = 5.0,
+                 pod_hosts: int = 0,
+                 dcn_marker_deadline_s: float = 5.0,
+                 dcn_transport: str = "auto",
+                 dcn_heal_after_s: float = 0.0,
                  audit_rate: float = 0.0,
                  anomaly=None,
                  anomaly_dir: Optional[str] = None,
@@ -285,6 +312,18 @@ class TpuSketchExporter(QueueWorkerExporter):
                          batch=64)
         if wire not in ("dict", "lanes"):
             raise ValueError(f"wire must be 'dict' or 'lanes', got {wire!r}")
+        pod_shards, pod_hosts = int(pod_shards), int(pod_hosts)
+        pod = pod_shards >= 2 or pod_hosts >= 2
+        if pod:
+            if wire == "dict":
+                _LOG.warning("pod mode runs the lanes wire; wire='dict' "
+                             "ignored")
+            if staged or prefetch_depth or pack_workers:
+                _LOG.info("pod mode: staged/prefetch/zero_copy/pack_workers "
+                          "forced off (the pod's shard workers own overlap)")
+            wire, staged = "lanes", False
+            prefetch_depth = pack_workers = 0
+            zero_copy = False
         if staged:
             if wire == "dict":
                 _LOG.warning("staged=True forces the packed lane; "
@@ -306,14 +345,43 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.wire = wire
         self.batch_rows = int(batch_rows)
         self.window_seconds = window_seconds
-        with self._on_stream():
-            self.state = flow_suite.init(self.cfg, self.device)
+        self._pod = None
+        if pod_hosts >= 2:
+            # no divisibility constraint: the coordinator re-packs each
+            # host's slice to a width its own shard count divides
+            self._pod = HostPodCoordinator(
+                self.cfg, n_hosts=pod_hosts,
+                shards_per_host=pod_shards or None,
+                transport=select_transport(
+                    dcn_transport, pod_hosts,
+                    heal_after_s=float(dcn_heal_after_s) or None),
+                dcn_marker_deadline_s=dcn_marker_deadline_s,
+                merge_deadline_s=pod_merge_deadline_s,
+                snapshot_dir=checkpoint_dir, device=self.device)
+        elif pod:
+            # fail before the pod spawns its workers, not at every batch
+            if self.batch_rows % pod_shards:
+                raise ValueError(
+                    f"batch_rows={self.batch_rows} not divisible by the "
+                    f"pod's {pod_shards} shard(s); every batch would be "
+                    "rejected at put_lanes")
+            self._pod = PodFlowSuite(
+                self.cfg, n_shards=pod_shards, wire="lanes",
+                merge_deadline_s=pod_merge_deadline_s,
+                snapshot_dir=checkpoint_dir, device=self.device)
+        self.state = None
+        if self._pod is None:
+            with self._on_stream():
+                self.state = flow_suite.init(self.cfg, self.device)
         # the snapshot bus: disk-backed with a checkpoint_dir (restart
         # replay and the rollback read it back), in-process otherwise;
-        # `checkpointer` is None when nothing is durable
-        self._snapbus = SnapshotBus(checkpoint_dir)
+        # `checkpointer` is None when nothing is durable. In pod mode it
+        # is the pod's merged bus, and the pod's per-shard snapshots are
+        # its own rollback scratch (never restored across a restart)
+        self._snapbus = self._pod.bus if self._pod is not None \
+            else SnapshotBus(checkpoint_dir)
         self.checkpointer = self._snapbus \
-            if checkpoint_dir is not None else None
+            if checkpoint_dir is not None and self._pod is None else None
         self.checkpoint_every = max(1, checkpoint_every)
         self.windows = 0
         self._rows_at_flush = 0
@@ -413,7 +481,7 @@ class TpuSketchExporter(QueueWorkerExporter):
                 on_restart=self._feed_crash_restart)
         else:
             self.batcher = Batcher(SKETCH_L4_SCHEMA, self.batch_rows)
-            if wire == "lanes":
+            if wire == "lanes" and self._pod is None:
                 # inline lanes: one pageable buffer of coalesce slots
                 self._flat = np.zeros(flow_suite.coalesced_lanes_words(
                     self.coalesce_batches, self.batch_rows), np.uint32)
@@ -463,7 +531,14 @@ class TpuSketchExporter(QueueWorkerExporter):
         super().close()
         try:
             self.flush_window()  # the final window (drains the feed first)
+            if self._pod is not None:
+                # one more (normally empty) epoch so late stragglers
+                # deliver before the workers stop
+                self._pod.close(final_epoch=True)
         finally:
+            if self._pod is not None:
+                # stops the pod's workers when a final epoch raised
+                self._pod.close(final_epoch=False)
             if self._feed is not None:
                 self._feed.close()
             if self._pack_pool is not None:
@@ -479,13 +554,19 @@ class TpuSketchExporter(QueueWorkerExporter):
         or stager and the state: the window flush takes the same lock."""
         for _stream, _idx, cols, *_rest in chunks:
             schema_cols = self.coerce_to_schema(cols, SKETCH_L4_SCHEMA)
-            if self._stager is not None:
-                # the staged words carry no tuple columns: the reverse map
-                # samples the decoded chunk, outside the lock
+            if self._stager is not None or self._pod is not None:
+                # the staged words and the pod's lane planes carry no tuple
+                # columns: the reverse map samples the decoded chunk,
+                # outside the lock
                 self._record_key_tuples(schema_cols)
             with self._state_lock:
                 self._raise_kernel_error()
-                if self._stager is not None:
+                if self._pod is not None:
+                    # put_lanes never blocks (a slow or LOST shard drops
+                    # counted on its own queue)
+                    for tb in self.batcher.put(schema_cols):
+                        self._pod_submit_locked(tb)
+                elif self._stager is not None:
                     # the stager is private state guarded by this lock;
                     # a full feed queue is back-pressure, not deadlock
                     for sg in self._stager.put(schema_cols):
@@ -504,6 +585,15 @@ class TpuSketchExporter(QueueWorkerExporter):
                     self._anomaly.observe_rows(rows)
                 if self._audit is not None:
                     self._audit.absorb(schema_cols)
+
+    def _pod_submit_locked(self, tb: TensorBatch) -> None:
+        """One TensorBatch onto the pod lane: pack the (4, batch_rows)
+        lane plane (a fresh buffer: the pod keeps views) and fan it across
+        the shard queues; the TensorBatch recycles at once."""
+        lanes = flow_suite.pack_lanes(tb.columns)
+        plane = np.stack([lanes[k] for k in flow_suite.SKETCH_LANE_NAMES])
+        self._pod.put_lanes(plane, int(tb.valid))
+        self.batcher.recycle(tb)
 
     def _submit_batch_locked(self, tb: TensorBatch) -> None:
         """One TensorBatch through the inline path."""
@@ -892,6 +982,7 @@ class TpuSketchExporter(QueueWorkerExporter):
         cadence. No-op while degraded (the host sketch is no device
         state) or when the feed does not settle."""
         with self._state_lock:
+            # pod mode has no single device state to park here
             if self.checkpointer is None or self.degraded:
                 return False
             if self._feed is not None \
@@ -912,6 +1003,15 @@ class TpuSketchExporter(QueueWorkerExporter):
         and read it out. None when no output was made (an idle degraded
         window, or a readout that died on the device)."""
         now = time.time() if now is None else now
+        if self._pod is not None:
+            out, host_out = self._flush_pod_window(now)
+            if out is None:
+                return None
+            if self.topk_writer is not None:
+                self._write_output(host_out, int(now))
+            self._hand_to_caller(out)
+            self.last_output = out
+            return out
         with self._state_lock:
             if self._stager is not None:
                 # the open staging prefix ships as it is
@@ -939,13 +1039,9 @@ class TpuSketchExporter(QueueWorkerExporter):
                     self._probe_device_locked()
                 else:
                     out = self._publish_and_flush_locked(now)
-                # one host copy of the output, shared by every reader
-                host_out = None
-                if out is not None and (self._anomaly is not None
-                                        or self._audit is not None
-                                        or self.topk_writer is not None):
-                    host_out = _host_output(out)
-                self._close_lanes_locked(out, host_out, now, was_degraded)
+                host_out = self._host_copy(out)
+                self._close_lanes_locked(out, host_out, now, was_degraded,
+                                         self._window_lost_counted)
             # the lost-window guard resets at the true window boundary
             self._window_lost_counted = False
         if self._anomaly is not None:
@@ -954,17 +1050,44 @@ class TpuSketchExporter(QueueWorkerExporter):
             return None
         if self.topk_writer is not None:
             self._write_output(host_out, int(now))
-        if self._stream is not None:
-            # hand the readout to the caller's stream: its work on the
-            # outputs waits for the flush, and the allocator keeps their
-            # memory until that work is done
-            caller = torch.cuda.current_stream(self.device)
-            caller.wait_stream(self._stream)
-            for t in out:
-                if t.is_cuda:
-                    t.record_stream(caller)
+        self._hand_to_caller(out)
         self.last_output = out
         return out
+
+    def _hand_to_caller(self, out: flow_suite.FlowWindowOutput) -> None:
+        """Hand a readout made on the compute stream to the caller's
+        stream: its work on the outputs waits for the flush, and the
+        allocator keeps their memory until that work is done."""
+        if self._stream is None:
+            return
+        caller = torch.cuda.current_stream(self.device)
+        caller.wait_stream(self._stream)
+        for t in out:
+            if t.is_cuda:
+                t.record_stream(caller)
+
+    def _flush_pod_window(self, now: float):
+        """Pod mode: a window flush IS a merge-epoch close, under the state
+        lock so the audit shadow and the epoch see the same rows. The
+        merged output lands on the compute stream, where the anomaly plane
+        scores it with the epoch's participation tags. Returns (output or
+        None, its host copy when a reader needs one)."""
+        with self._state_lock:
+            for tb in self.batcher.flush():
+                self._pod_submit_locked(tb)
+            self.windows += 1
+            with self._on_stream():
+                res = self._pod.close_epoch(now=now)
+                host_out = self._host_copy(res.out)
+                # an epoch that excluded a shard or counted loss closes the
+                # lanes lossy: the accuracy alarm never fires on shard loss
+                self._close_lanes_locked(
+                    res.out, host_out, now, bool(res.degraded), res.lossy,
+                    participation={k: res.tags[k] for k in _PARTICIPATION
+                                   if k in res.tags})
+        if self._anomaly is not None:
+            self._anomaly.publish_pending()     # emissions: no lock held
+        return res.out, host_out
 
     def _publish_and_flush_locked(self, now: float):
         # publish the PRE-flush state (the window's accumulation; a
@@ -988,19 +1111,28 @@ class TpuSketchExporter(QueueWorkerExporter):
             return None
         return out
 
+    def _host_copy(self, out):
+        """One host copy of a window output, shared by every reader (None
+        when no reader is on)."""
+        if out is None or (self._anomaly is None and self._audit is None
+                           and self.topk_writer is None):
+            return None
+        return _host_output(out)
+
     def _close_lanes_locked(self, out, host_out, now: float,
-                            degraded: bool) -> None:
+                            degraded: bool, lossy: bool,
+                            participation: Optional[dict] = None) -> None:
         """Close the window on the detection and accuracy lanes. The
         plane scores the device output (None: the window closes
-        unscored); the auditor, and an alert's top contributors, read its
-        host copy. The plane closes first, so the audit sees its
-        verdict."""
+        unscored) with the pod's participation tags, if any; the auditor,
+        and an alert's top contributors, read its host copy. The plane
+        closes first, so the audit sees its verdict."""
         if self._anomaly is None and self._audit is None:
             return
-        lossy = self._window_lost_counted
         if self._anomaly is not None:
             self._anomaly.close_window(out, now=now, lossy=lossy,
-                                       degraded=degraded, host_out=host_out)
+                                       degraded=degraded, host_out=host_out,
+                                       participation=participation)
         if self._audit is not None:
             self._audit.close_window(
                 host_out, degraded=degraded, lossy=lossy,
@@ -1068,6 +1200,12 @@ class TpuSketchExporter(QueueWorkerExporter):
             self.flush_window()
 
     @property
+    def pod(self):
+        """The pod fault-domain layer (a PodFlowSuite or a
+        HostPodCoordinator), or None on the single-device lane."""
+        return self._pod
+
+    @property
     def anomaly(self) -> Optional[AnomalyPlane]:
         """The anomaly plane, or None when it is off."""
         return self._anomaly
@@ -1095,6 +1233,10 @@ class TpuSketchExporter(QueueWorkerExporter):
                   "shed_rows": self.shed_rows})
         if self._feed is not None:
             c.update(self._feed.counters())
+        if self._pod is not None:
+            # shard states, epoch merges and the pod-wide conservation
+            # terms (sent = delivered + host + lost + pending)
+            c.update(self._pod.counters())
         if self._stager is not None:
             c["zero_copy"] = 1
             c.update(self._stager.counters())

@@ -1,6 +1,7 @@
-"""deepflow_tpu_torch and chip_smoke.py stand alone: no import of jax or of
-the deepflow_tpu package (host-only helpers are kept as the port's own
-copies), and chip_smoke.py refuses to report a result without a card."""
+"""deepflow_tpu_torch, chip_smoke.py and chip_pod_probe.py stand alone: no
+import of jax or of the deepflow_tpu package (host-only helpers are kept
+as the port's own copies), and chip_smoke.py refuses to report a result
+without a card."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "deepflow_tpu_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+    + [REPO / "chip_smoke.py", REPO / "chip_pod_probe.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -47,7 +48,7 @@ def test_port_files_found():
             "table.py", "db.py", "writer.py", "metrics_suite.py", "mesh.py",
             "sharded.py", "rollup.py", "migrate.py", "monitor.py",
             "schema.py", "tag_code.py", "schemas.py",
-            "flow_metrics.py"} <= names
+            "flow_metrics.py", "pod.py", "multihost.py"} <= names
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
         in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "parallel" / "__init__.py") \
@@ -128,7 +129,9 @@ def test_every_entry_point_defaults_to_cuda():
             "deepflow_tpu_torch.store.rollup.group_reduce",
             "deepflow_tpu_torch.store.rollup.group_reduce_device",
             "deepflow_tpu_torch.store.rollup.RollupManager",
-            "deepflow_tpu_torch.pipelines.flow_metrics.FlowMetricsPipeline"
+            "deepflow_tpu_torch.pipelines.flow_metrics.FlowMetricsPipeline",
+            "deepflow_tpu_torch.parallel.pod.PodFlowSuite",
+            "deepflow_tpu_torch.parallel.multihost.HostPodCoordinator"
             } <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad
