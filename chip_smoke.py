@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
-suites, flow_metrics store lane and pod on one CUDA card.
+suites, flow_metrics store lane, pod and global mesh on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -67,7 +67,14 @@ is printed):
    copy activities the trace recorded by direction. While ingesting,
    the feed paths must make no stream or device sync (a host read of
    device data, `.item()` or `.cpu()`, syncs the stream after its copy),
-   one event sync per fence, and no recorded device-to-host copy;
+   one event sync per fence, and no recorded device-to-host copy.
+   Then attribution: the dict feed's profiled window again with the
+   process tracer on (every group attributed): the tracer's stages must
+   hold kernel.h2d, kernel.dispatch, kernel.device and kernel.compile,
+   the occupancy profiler's tpu_device_busy_fraction must lie in (0, 1],
+   the gauge tpu_h2d_mb_s must be set, and the ingest's stream, event
+   and device syncs must equal the untraced window's (the sampled
+   medians printed beside the busy share);
 7. the detection lanes (the anomaly plane at AnomalyConfig() and the
    shadow auditor at 1/64) over a DDoS ramp on the reference generator's
    schedule (12 baseline windows, 3 ramp windows to an attack share of
@@ -84,8 +91,13 @@ is printed):
    over the baseline. Then the window step timed alone, one profiled
    window with the lanes on and off (the phase-6 ingest rule asserted
    with them on; launches per dict group and the flush's stream syncs
-   reported), the ladder with the lanes on (every device error reaches
-   the plane's device_lost, the shed window closes unscored), and a
+   reported), the lanes-on window again with the tracer on (the phase 6
+   attribution checks), the last ramp window of (a) traced (the gauges
+   tpu_h2d_mb_s, anomaly_score, anomaly_alerts_total,
+   anomaly_detect_latency_windows, anomaly_active_flows and every name
+   of AUDIT_GAUGES must be set), the ladder with the lanes on (every
+   device error reaches the plane's device_lost, the shed window closes
+   unscored), and a
    small ramp through the plane on the card and on the CPU, its state
    compared at every window close, entropy_ddos and pca_residual alerts
    equal at every window, mp_discord alerts equal wherever a device's
@@ -180,6 +192,26 @@ is printed):
    shards each on this card, joined over gloo at tcp://127.0.0.1:<free
    port>: each one's merged epoch (output and every bus leaf) equal to
    (c)'s; a child that fails or outlives 120 s fails the phase and is
+   killed;
+12. the global mesh across processes: two processes of this script
+   (`--mesh-worker`, loading the libraries phase 1 built), 2 shards each
+   on this card, joined over gloo at tcp://127.0.0.1:<free port> into one
+   `make_global_mesh` of 4 shards, each fed only its own half of every
+   global batch of 2^16 rows (`process_local_batch`, or its half of the
+   lane plane) of phase 9's rows: (a) ShardedFlowSuite at
+   FlowSuiteConfig(), columns and lanes forms, over phase 3's two
+   windows: at each window close every merged leaf and every output
+   field in both processes equal to phase 9's single-process 4-shard
+   suite, recall >= 0.99; (b) ShardedAppSuite over phase 9b's two
+   windows, every output field equal; (c) ShardedMetricsSuite at
+   MetricsSuiteConfig() over the first 16 windows of the ramp's
+   Documents: every shard's integer leaves equal to phase 9c's 4 card
+   shards at every window close, alarms equal, entropies within abs
+   1e-5, z within rtol 1e-5, each process's anomaly scores
+   (`local_shard`, its own rows) and the PCA projector within rtol 1e-4,
+   the matrix-profile sum within rel 1e-4; records/s per suite, the
+   collectives' wall per flush and the per-update gradient sum
+   reported. A child that fails or outlives 150 s fails the phase and is
    killed.
 
 Each phase prints its time. `--one-generator` draws phase 2's rows for
@@ -297,20 +329,24 @@ def _torch_ops(torch, prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(torch, fn, names=None):
+def device_ms(torch, fn, names=None, attempts=3):
     """Mean device time per call of fn, summed over the kernels whose
     names contain one of `names` (every device event with None;
-    torch.profiler); None if the profiler saw none of them."""
+    torch.profiler); a session in which the profiler recorded none of
+    them is repeated, up to `attempts` sessions; None if none did."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(ITERS):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(t for k, t in _device_events(torch, prof)
-             if names is None or any(n in k for n in names))
-    return us / ITERS / 1e3 if us > 0 else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(t for k, t in _device_events(torch, prof)
+                 if names is None or any(n in k for n in names))
+        if us > 0:
+            return us / ITERS / 1e3
+    return None
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -1274,11 +1310,13 @@ def profile_window(torch, dev, ingest, flush):
 
 
 def profile_ingester_paths(torch, dev, windows, tmp, card,
-                           runs=INGESTER_RUNS):
+                           runs=INGESTER_RUNS, attrib_every=None):
     """Phase 6.5 (and 7): per run, one warm-up window, then one window
     under torch.profiler in two sessions: its ingest (every chunk in; the
     feed drained, or on the inline path a device synchronize) and its
-    flush (publish, readout), each bracketed by two `mark` calls."""
+    flush (publish, readout), each bracketed by two `mark` calls.
+    `attrib_every` sets the exporters' attribution cadence (for a traced
+    run)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1286,6 +1324,8 @@ def profile_ingester_paths(torch, dev, windows, tmp, card,
     for name, knobs, via_put, _ in runs:
         exp = make_exporter(dev, knobs, os.path.join(tmp, "prof_" + name),
                             os.path.join(tmp, "prof_store_" + name))
+        if attrib_every is not None:
+            exp._attrib_every = attrib_every
         try:
             if via_put:
                 exp.start()
@@ -1349,6 +1389,66 @@ def profile_ingester_paths(torch, dev, windows, tmp, card,
                 raise AssertionError(f"{name}: the feed path synced or "
                                      f"copied outside its fences: {ingest}")
     return out
+
+
+# the traced windows attribute every group in detail (the exporter's
+# default is 1 in 16), so a short traced run holds warm programs'
+# dispatch and device times beside the first calls' compiles
+ATTRIB_EVERY = 1
+ATTRIB_STAGES = ("kernel.h2d", "kernel.dispatch", "kernel.device",
+                 "kernel.compile")
+
+
+def tracer_on():
+    """The process tracer, emptied and enabled, and the occupancy
+    profiler, emptied."""
+    from deepflow_tpu_torch.runtime.profiler import default_profiler
+    from deepflow_tpu_torch.runtime.tracing import default_tracer
+    tr, occ = default_tracer(), default_profiler()
+    tr.reset()
+    occ.reset()
+    tr.enable()
+    return tr, occ
+
+
+def traced_profile(torch, dev, windows, tmp, card, run, untraced):
+    """Phases 6 and 7, attribution: `run` profiled as
+    profile_ingester_paths profiles it, with the process tracer on. The
+    tracer's stages must hold the four kernel stages, the profiler's
+    busy share must lie in (0, 1], the gauge tpu_h2d_mb_s must be set,
+    and the profiled ingest must make as many stream, event and device
+    syncs as the same run's untraced window (`untraced`): the recorder
+    reads its events at the fences, never with a sync of its own."""
+    tr, occ = tracer_on()
+    try:
+        prof = profile_ingester_paths(torch, dev, windows, tmp, card,
+                                      runs=(run,),
+                                      attrib_every=ATTRIB_EVERY)[run[0]]
+        busy = occ.busy_fraction()
+    finally:
+        tr.disable()
+    lat, gauges = tr.latency(), tr.gauges()
+    missing = [k for k in ATTRIB_STAGES if k not in lat]
+    if missing or "tpu_h2d_mb_s" not in gauges or not 0 < busy <= 1:
+        raise AssertionError(f"{run[0]} traced: stages {sorted(lat)}, "
+                             f"gauges {sorted(gauges)}, busy {busy}")
+    syncs = {k: prof["ingest"]["runtime_calls"][k] for k in SYNC_CALLS}
+    want = {k: untraced["ingest"]["runtime_calls"][k] for k in SYNC_CALLS}
+    if syncs != want:
+        raise AssertionError(f"{run[0]}: ingest syncs with the tracer on "
+                             f"{syncs}, off {want}")
+    medians = {k: lat[k]["p50_ms"] for k in ATTRIB_STAGES}
+    log(f"  {run[0]} traced on {card}: sampled medians h2d "
+        f"{medians['kernel.h2d']:.4f} ms, dispatch "
+        f"{medians['kernel.dispatch']:.4f} ms, device "
+        f"{medians['kernel.device']:.4f} ms ({lat['kernel.device']['count']}"
+        f" warm calls, {lat['kernel.compile']['count']} first calls); "
+        f"profiler busy share {busy:.4f}; tpu_h2d_mb_s "
+        f"{gauges['tpu_h2d_mb_s']:.1f}; ingest syncs {syncs} = untraced; "
+        f"ingest {prof['ingest']['wall_ms']:.1f} ms (untraced "
+        f"{untraced['ingest']['wall_ms']:.1f} ms)")
+    return {"latency": lat, "gauges": gauges, "busy_fraction": busy,
+            "syncs": syncs, "profile": prof}
 
 
 # -- phase 7: the detection lanes --------------------------------------------
@@ -1418,13 +1518,16 @@ def compare_planes(a_states, b_states, a_name, b_name):
                                      f"between {a_name} and {b_name}")
 
 
-def run_detection(torch, dev, name, knobs, via_put, ramp, tmp):
+def run_detection(torch, dev, name, knobs, via_put, ramp, tmp,
+                  trace_last=False):
     """One exporter over the whole ramp, its launch counts set to 0 just
     before and read just after. Per window: the sketch state published
     at the close, the plane's state, its entropy_ddos alerts, the
     audit's snapshot and the alarm. Records/s count ingest and flush,
     each window closed by a device synchronize, not the reads between
-    windows."""
+    windows. With `trace_last` the process tracer is on for the last
+    window (attribution 1 group in ATTRIB_EVERY); its stages and gauges
+    are kept."""
     from deepflow_tpu_torch import convert
     counters = launch_counters()
     exp = make_exporter(dev, knobs, os.path.join(tmp, name))
@@ -1450,11 +1553,19 @@ def run_detection(torch, dev, name, knobs, via_put, ramp, tmp):
             c.launches = 0
         busy = 0.0
         for w, (_phase, cols) in enumerate(ramp):
+            traced = trace_last and w == len(ramp) - 1
+            if traced:
+                tr, _occ = tracer_on()
+                exp._attrib_every = ATTRIB_EVERY
             t0 = time.perf_counter()
             ingest_window(exp, cols, via_put)
             r["last_out"] = exp.flush_window(now=1000.0 + w)
             torch.cuda.synchronize()
             busy += time.perf_counter() - t0
+            if traced:
+                tr.disable()
+                r["traced"] = {"stages": sorted(tr.latency()),
+                               "gauges": tr.gauges()}
             if plane is not None:
                 r["states"].append(convert.anomaly_to_numpy(plane.state))
                 r["alerts"].append(plane.alerts_total[0])
@@ -1594,7 +1705,8 @@ def check_detection(torch, dev, rng, args, card, tmp):
             ("c_dict_inline_lanes_on", dict(wire="dict", **DETECTION_KNOBS),
              False)):
         runs[name] = r = run_detection(torch, dev, name, knobs, via_put,
-                                       ramp, tmp)
+                                       ramp, tmp,
+                                       trace_last=name.startswith("a_"))
         log(f"  {name}: {r['records_per_s']:.0f} records/s ({r['seconds']:.3f}"
             f" s for {records} records) on {card}; launches {r['launches']}")
     a, b, c = runs.values()
@@ -1647,6 +1759,22 @@ def check_detection(torch, dev, rng, args, card, tmp):
             ("dict_feed_lanes_on", dict(feed, **DETECTION_KNOBS), True, ()),
             ("dict_feed_lanes_off", feed, True, ())))
     on, off = prof["dict_feed_lanes_on"], prof["dict_feed_lanes_off"]
+    attribution = traced_profile(
+        torch, dev, [ramp[0][1], ramp[1][1]], tmp, card,
+        ("dict_feed_lanes_on_traced", dict(feed, **DETECTION_KNOBS), True,
+         ()), on)
+    from deepflow_tpu_torch.runtime.audit import AUDIT_GAUGES
+    traced = a["traced"]
+    want = ("tpu_h2d_mb_s", "anomaly_score", "anomaly_alerts_total",
+            "anomaly_detect_latency_windows", "anomaly_active_flows") \
+        + AUDIT_GAUGES
+    missing = [g for g in want if g not in traced["gauges"]]
+    if missing:
+        raise AssertionError(f"(a)'s traced last window lacks {missing}")
+    attribution["ramp_window"] = traced
+    log(f"  (a)'s last ramp window traced: stages {traced['stages']}; "
+        f"gauges " + ", ".join(f"{g} {traced['gauges'][g]:.4g}"
+                               for g in want))
     groups = max(on["fences"], 1)
     extra = (on["ingest"]["runtime_calls"]["cudaLaunchKernel"]
              - off["ingest"]["runtime_calls"]["cudaLaunchKernel"]) / groups
@@ -1679,8 +1807,8 @@ def check_detection(torch, dev, rng, args, card, tmp):
                             "max": float(max(cm))},
         "window_step_ms": step_ms, "window_step_device_ms": step_dev,
         "extra_launches_per_group": extra, "flush_stream_syncs": syncs,
-        "profile": prof, "ladder": ladder, "small_ramp_alerts": small,
-        "card": card}
+        "profile": prof, "attribution": attribution, "ladder": ladder,
+        "small_ramp_alerts": small, "card": card}
 
 
 # -- phase 8: the L7 RED lane -------------------------------------------------
@@ -2089,7 +2217,7 @@ def check_sharded_flow(torch, dev, windows, card):
             outs.append(out)
         return snaps, outs
 
-    forms, launches = {}, {}
+    forms, launches, mesh_ref = {}, {}, {}
     for form in ("cols", "plane", "lanes", "dict"):
         torch.cuda.synchronize()
         zero_launches()
@@ -2115,6 +2243,11 @@ def check_sharded_flow(torch, dev, windows, card):
         records = sum(len(w["ip_src"]) for w in windows)
         forms[form] = {"seconds": dt, "records_per_s": records / dt,
                        "recall": recalls, "launches": launches[form]}
+        if form in MESH_FORMS:
+            # phase 12's reference: every merged leaf and output field
+            mesh_ref[form] = [{"leaves": leaf_hashes(sn),
+                               "out": out_record(o)}
+                              for sn, o in zip(snaps, outs)]
         log(f"  ShardedFlowSuite {form}: {records / dt:.0f} records/s on "
             f"{card}; merged CMS, HLL, entropy, rows = one device at both "
             f"window closes; recall {recalls}; launches {launches[form]}")
@@ -2130,7 +2263,7 @@ def check_sharded_flow(torch, dev, windows, card):
     prof = report_profile("ShardedFlowSuite (cols)", *profile_window(
         torch, dev, ingest, lambda: suite.flush(box["st"])), len(batches),
         card)
-    return {"forms": forms, "profile": prof}
+    return {"forms": forms, "profile": prof, "mesh_ref": mesh_ref}
 
 
 def check_sharded_app(torch, dev, rng, card):
@@ -2151,6 +2284,7 @@ def check_sharded_app(torch, dev, rng, card):
         wants.append(want)
     suite = ShardedAppSuite(cfg, make_mesh(SHARDS, device=dev))
     st = suite.init()
+    outs = []
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
@@ -2158,6 +2292,7 @@ def check_sharded_app(torch, dev, rng, card):
         for part, mask, _ in global_batches(cols):
             st = suite.update(st, *suite.put_batch(part, mask))
         st, out = suite.flush(st)
+        outs.append(out)
         for name in out._fields:
             if not torch.equal(getattr(out, name), getattr(want, name)):
                 raise AssertionError(f"ShardedAppSuite window {w}: {name} "
@@ -2181,7 +2316,10 @@ def check_sharded_app(torch, dev, rng, card):
     prof = report_profile("ShardedAppSuite", *profile_window(
         torch, dev, ingest, lambda: suite.flush(box["st"])), len(batches),
         card)
-    return {"seconds": dt, "launches": launches, "profile": prof}
+    return {"seconds": dt, "launches": launches, "profile": prof,
+            "mesh_ref": {"windows": windows,
+                         "outs": [leaf_hashes([t.cpu().numpy() for t in o])
+                                  for o in outs]}}
 
 
 def metric_documents(rng, cols):
@@ -2231,7 +2369,7 @@ def metric_suites(torch, dev, cfg):
                                                        device="cpu"))}
 
 
-def run_metric_windows(torch, runs, windows, label):
+def run_metric_windows(torch, runs, windows, label, keep=0):
     """Each window's Documents through every suite of `runs`, then its
     flush against the last batch; at every window close the 4 card shards
     equal the 4 CPU shards (histograms exact, entropies rtol ENT_CARD_CPU,
@@ -2239,8 +2377,11 @@ def run_metric_windows(torch, runs, windows, label):
     1 card shard (histograms and entropies exact, z rtol 1e-5, projector,
     anomaly and mp scores rtol 1e-4), the basis and the rings
     bit-identical across the 4 card shards. Launches are counted on the
-    4 card shards' updates and flushes only."""
+    4 card shards' updates and flushes only. The first `keep` windows'
+    Documents and 4-card-shard results are kept for phase 12
+    (`metrics_record`)."""
     states = {k: s.init() for k, s in runs.items()}
+    kept = []
     seconds = dict.fromkeys(runs, 0.0)
     launches = {}
     alarms, zmax, mp = [], [], []
@@ -2255,6 +2396,8 @@ def run_metric_windows(torch, runs, windows, label):
             for part, mask, _ in batches:
                 st = suite.update(st, *suite.put_batch(part, mask))
             hists[name] = sum(s.ent.hist.cpu().to(torch.int64) for s in st)
+            if name == "card4" and w < keep:
+                kept.append({"docs": docs, "pre": metrics_int_hashes(st)})
             last, mask, _ = batches[-1]
             states[name], outs[name] = suite.flush(
                 st, *suite.put_batch(last, mask))
@@ -2307,8 +2450,28 @@ def run_metric_windows(torch, runs, windows, label):
         alarms.append(bool(c4.ddos_alarm))
         zmax.append(float(c4.z_scores.abs().max()))
         mp.append(c4.mp_scores.cpu().numpy())
+        if w < keep:
+            kept[-1].update(metrics_record(c4, ws[0]))
     return {"alarms": alarms, "max_abs_z": zmax, "mp_scores": mp,
-            "seconds": seconds, "launches": launches}
+            "seconds": seconds, "launches": launches, "kept": kept}
+
+
+def metrics_int_hashes(states):
+    """Per shard, the hashes of a metrics state's integer leaves."""
+    from deepflow_tpu_torch import convert
+    ints = [i for i, (_, dt) in enumerate(convert.METRICS_LEAVES)
+            if np.dtype(dt).kind != "f"]
+    return [leaf_hashes([convert.metrics_to_numpy(s)[i] for i in ints])
+            for s in states]
+
+
+def metrics_record(out, w):
+    """A metrics window output and the PCA projector, as host arrays."""
+    return {"entropies": out.entropies.cpu().numpy(),
+            "z": out.z_scores.cpu().numpy(),
+            "alarm": bool(out.ddos_alarm),
+            "scores": out.anomaly_scores.cpu().numpy(),
+            "mp": out.mp_scores.cpu().numpy(), "projector": projector(w)}
 
 
 def level_documents(rng, n, level, victim):
@@ -2352,7 +2515,7 @@ def check_sharded_metrics(torch, dev, rng, args, card):
     log(f"  ramp: {len(ramp)} windows ({time.perf_counter() - t0:.1f} s to "
         "draw)")
     runs = metric_suites(torch, dev, cfg)
-    r = run_metric_windows(torch, runs, docs, "ramp")
+    r = run_metric_windows(torch, runs, docs, "ramp", keep=MESH_WINDOWS)
     alarms, zmax = r["alarms"], r["max_abs_z"]
     first_alarm = alarms.index(True) if any(alarms) else None
     records = sum(len(c["ip_src"]) for _, c in ramp)
@@ -2420,7 +2583,7 @@ def check_sharded_metrics(torch, dev, rng, args, card):
                      "mp_scores": [m.tolist() for m in warm["mp_scores"]],
                      "seconds": warm["seconds"],
                      "launches": warm["launches"]},
-            "launches": launches, "profile": prof}
+            "launches": launches, "profile": prof, "mesh_ref": r["kept"]}
 
 
 def check_sharded(torch, dev, rng, args, windows, card):
@@ -2430,8 +2593,10 @@ def check_sharded(torch, dev, rng, args, windows, card):
     metrics = check_sharded_metrics(torch, dev, rng, args, card)
     launches = [f["launches"] for f in flow["forms"].values()] \
         + [app["launches"], metrics["launches"]]
+    mesh_ref = {"flow": flow.pop("mesh_ref"), "app": app.pop("mesh_ref"),
+                "metrics": metrics.pop("mesh_ref")}
     return {"flow": flow, "app": app, "metrics": metrics,
-            "launches": launches, "card": card}
+            "launches": launches, "card": card}, mesh_ref
 
 
 # -- phase 10: the store's read half, the rollup GROUP BY, flow_metrics ------
@@ -3446,6 +3611,356 @@ def check_pod(torch, dev, windows, card, tmp):
             "launches": [a["launches"], b["launches"], c["launches"],
                          c["fault_launches"], d["launches"]]}
 
+# -- phase 12: the global mesh across processes -------------------------------
+
+MESH_FORMS = ("cols", "lanes")   # phase 9a's forms whose batch splits by rows
+MESH_WINDOWS = 16          # the ramp windows the metrics suite runs (of 28)
+MESH_PROCS, MESH_LOCAL = 2, 2    # processes, shards each: phase 9's 4
+MESH_TIMEOUT_S = 150       # the two gloo processes of phase 12, start to end
+
+
+def save_mesh_inputs(tmp, windows, ref):
+    """Phase 9's rows (the flow windows' columns, the app windows, the
+    metrics Documents of the first MESH_WINDOWS ramp windows) in one
+    uncompressed npz the workers read."""
+    arrays = {}
+    for w, cols in enumerate(windows):
+        arrays.update({f"flow{w}_{k}": cols[k] for k in FLOW_KEYS})
+    for w, cols in enumerate(ref["app"]["windows"]):
+        arrays.update({f"app{w}_{k}": v for k, v in cols.items()})
+    for w, rec in enumerate(ref["metrics"]):
+        arrays.update({f"metrics{w}_{k}": v for k, v in rec["docs"].items()})
+    path = os.path.join(tmp, "mesh_inputs.npz")
+    np.savez(path, **arrays)
+    return path
+
+
+def npz_windows(z, prefix):
+    """The per-window column dicts of `prefix` in a save_mesh_inputs npz."""
+    out = {}
+    for key in z.files:
+        if key.startswith(prefix) and key[len(prefix)].isdigit():
+            w, col = key[len(prefix):].split("_", 1)
+            out.setdefault(int(w), {})[col] = z[key]
+    return [out[w] for w in sorted(out)]
+
+
+def mesh_worker(coord, pid, tmp, device):
+    """One process of phase 12, on `device` (the parent's): load the
+    kernels that the parent built, join the gloo group, form the global
+    mesh of MESH_PROCS x MESH_LOCAL shards, and run the three sharded
+    suites on this process's half of every global batch of phase 9's
+    rows; print the merged states' hashes, the outputs and the times,
+    and save the metrics outputs' arrays beside the inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from deepflow_tpu_torch.models import app_suite, flow_suite
+    from deepflow_tpu_torch.models.metrics_suite import MetricsSuiteConfig
+    from deepflow_tpu_torch.ops import _build
+    from deepflow_tpu_torch.parallel import (ShardedAppSuite,
+                                             ShardedFlowSuite,
+                                             ShardedMetricsSuite,
+                                             init_distributed, local_shard,
+                                             make_global_mesh,
+                                             process_local_batch, sharded)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        return 2
+    pid = int(pid)
+    if cuda:
+        _build.load_built()
+    init_distributed(coord, MESH_PROCS, pid, timeout_s=60)
+    mesh = make_global_mesh(n_local=MESH_LOCAL, device=dev)
+    if mesh.shape["data"] != MESH_PROCS * MESH_LOCAL \
+            or mesh.local_indices("data") != tuple(
+                range(pid * MESH_LOCAL, (pid + 1) * MESH_LOCAL)):
+        raise AssertionError(f"mesh worker {pid}: {mesh.shape}, local "
+                             f"{mesh.local_indices('data')}")
+    z = np.load(os.path.join(tmp, "mesh_inputs.npz"))
+    half = SHARD_BATCH // MESH_PROCS
+    sl = slice(pid * half, (pid + 1) * half)
+
+    def local(part):
+        return {k: v[sl] for k, v in part.items()}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    rec = {"pid": pid, "flow": {}}
+    arrays = {}
+    zero_launches()
+    # (a) the flow suite: columns through process_local_batch, lanes
+    # through put_lanes of this process's columns (the global count n)
+    cfg = flow_suite.FlowSuiteConfig()
+    for form in MESH_FORMS:
+        suite = ShardedFlowSuite(cfg, mesh)
+        st = suite.init()
+        wins, ingest_s, flush_s, coll = [], 0.0, 0.0, []
+        for cols in npz_windows(z, "flow"):
+            def ingest(st=st, cols=cols):
+                for part, mask, n in global_batches(cols):
+                    if form == "cols":
+                        st = suite.update(st, *process_local_batch(
+                            local(part), mask[sl], mesh))
+                    else:
+                        lanes = flow_suite.pack_lanes(local(part))
+                        st = suite.update_lanes(st, suite.put_lanes(np.stack(
+                            [lanes[k] for k in flow_suite.SKETCH_LANE_NAMES]
+                        )), n)
+                return st
+            st, dt = timed(ingest)
+            ingest_s += dt
+            merged = sharded._merge_axis0(st, suite._comm)
+            wins.append({"leaves": leaf_hashes(snapshot(merged))})
+            c0 = suite.collectives["seconds"]["flush"]
+            (st, out), dt = timed(lambda st=st: suite.flush(st))
+            flush_s += dt
+            coll.append(suite.collectives["seconds"]["flush"] - c0)
+            wins[-1]["out"] = out_record(out)
+        rec["flow"][form] = {"windows": wins, "ingest_s": ingest_s,
+                             "flush_s": flush_s, "collective_flush_s": coll}
+    # (b) the app suite
+    acfg = app_suite.AppSuiteConfig()
+    asuite = ShardedAppSuite(acfg, mesh)
+    ast = asuite.init()
+    app_outs, app_s = [], 0.0
+    for cols in npz_windows(z, "app"):
+        def run(ast=ast, cols=cols):
+            for part, mask, _ in global_batches(cols):
+                ast = asuite.update(ast, *process_local_batch(
+                    local(part), mask[sl], mesh))
+            return asuite.flush(ast)
+        (ast, out), dt = timed(run)
+        app_s += dt
+        app_outs.append(leaf_hashes([t.cpu().numpy() for t in out]))
+    rec["app"] = {"outs": app_outs, "seconds": app_s,
+                  "collectives": asuite.collectives}
+    # (c) the metrics suite over the first MESH_WINDOWS ramp windows
+    msuite = ShardedMetricsSuite(MetricsSuiteConfig(), mesh)
+    ms = msuite.init()
+    pre, alarms, metrics_s = [], [], 0.0
+    for w, docs in enumerate(npz_windows(z, "metrics")):
+        batches = list(global_batches(docs))
+
+        def ingest(ms=ms, batches=batches):
+            for part, mask, _ in batches:
+                ms = msuite.update(ms, *process_local_batch(
+                    local(part), mask[sl], mesh))
+            return ms
+        ms, dt = timed(ingest)
+        metrics_s += dt
+        pre.append(metrics_int_hashes(ms))
+        last, mask, _ = batches[-1]
+        last_d = process_local_batch(local(last), mask[sl], mesh)
+        (ms, out), dt = timed(lambda ms=ms: msuite.flush(ms, *last_d))
+        metrics_s += dt
+        got = metrics_record(out, ms[0].pca.w)
+        got["scores"] = local_shard(out.anomaly_scores)
+        alarms.append(got.pop("alarm"))
+        arrays.update({f"{k}{w}": v for k, v in got.items()})
+    rec["metrics"] = {"pre": pre, "alarms": alarms, "seconds": metrics_s,
+                      "collectives": msuite.collectives}
+    if cuda:
+        rec["profiles"] = profile_mesh_windows(
+            torch, dev, z, local, sl, mesh, cfg, MetricsSuiteConfig())
+    rec["launches"] = read_launches(
+        f"mesh worker {pid}", wants=("hist",) if cuda else (),
+        never=("fused_lane_hists", "fused_news_hists"))
+    np.savez(os.path.join(tmp, f"mesh_out{pid}.npz"), **arrays)
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(rec), flush=True)
+    return 0
+
+
+def profile_mesh_windows(torch, dev, z, local, sl, mesh, cfg, mcfg):
+    """In a mesh worker: one window of the flow suite's columns form and
+    the first ramp window of the metrics suite, each under
+    torch.profiler in two sessions (ingest, flush), as phase 9 profiles
+    them; both processes run the same collectives."""
+    from deepflow_tpu_torch.parallel import (ShardedFlowSuite,
+                                             ShardedMetricsSuite,
+                                             process_local_batch)
+    out = {}
+    for name, suite, docs in (
+            ("flow", ShardedFlowSuite(cfg, mesh), npz_windows(z, "flow")[0]),
+            ("metrics", ShardedMetricsSuite(mcfg, mesh),
+             npz_windows(z, "metrics")[0])):
+        batches = list(global_batches(docs))
+        box = {"st": suite.init()}
+
+        def ingest(suite=suite, batches=batches, box=box):
+            for part, mask, _ in batches:
+                box["st"] = suite.update(box["st"], *process_local_batch(
+                    local(part), mask[sl], mesh))
+        last, mask, _ = batches[-1]
+        extra = () if name == "flow" else process_local_batch(
+            local(last), mask[sl], mesh)
+        ingest_p, flush_p = profile_window(
+            torch, dev, ingest,
+            lambda suite=suite, box=box, extra=extra: suite.flush(
+                box["st"], *extra))
+        out[name] = {"ingest": ingest_p, "flush": flush_p,
+                     "global_batches": len(batches)}
+    return out
+
+
+def run_mesh_workers(dev, tmp):
+    """The MESH_PROCS workers on a free 127.0.0.1 port; a child that fails
+    or outlives MESH_TIMEOUT_S fails the phase and is killed on the way
+    out. Returns (their RESULT records, wall seconds)."""
+    coord = f"127.0.0.1:{free_port()}"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK"))}
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker", coord,
+         str(pid), tmp, str(dev)], cwd=cwd, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(MESH_PROCS)]
+    results = []
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for pid, p in enumerate(procs):
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                raise AssertionError(f"mesh worker {pid} exit "
+                                     f"{p.returncode}:\n{err[-4000:]}")
+            line = [x for x in out.splitlines() if x.startswith("RESULT ")]
+            if not line:
+                raise AssertionError(f"mesh worker {pid}: no result\n{out}")
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results, time.perf_counter() - t0
+
+
+def check_global_mesh(torch, dev, windows, ref, tmp, card):
+    """Phase 12: the three sharded suites over a global mesh of
+    MESH_PROCS processes x MESH_LOCAL shards on this card, against phase
+    9's single-process 4-shard runs on the same rows (`ref`): the flow
+    suite's merged leaves and outputs equal at every window close, in
+    both forms and both processes, recall >= 0.99; the app outputs
+    equal; the metrics suite's per-shard integer leaves equal at every
+    window close, alarms equal, entropies within abs 1e-5, z within rtol
+    1e-5, each process's anomaly scores (its own rows, `local_shard`)
+    and the PCA projector within rtol 1e-4, the matrix-profile sum
+    within rel 1e-4."""
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    save_mesh_inputs(tmp, windows, ref)
+    results, wall = run_mesh_workers(dev, tmp)
+    k = FlowSuiteConfig().top_k
+    records = sum(len(w["ip_src"]) for w in windows)
+    app_records = sum(len(c["rrt_us"]) for c in ref["app"]["windows"])
+    metric_records = sum(len(next(iter(m["docs"].values())))
+                         for m in ref["metrics"])
+    report, launches = {"wall_s": wall}, {}
+    for r in results:
+        pid = r["pid"]
+        for form in MESH_FORMS:
+            got = r["flow"][form]
+            if got["windows"] != ref["flow"][form]:
+                raise AssertionError(f"mesh worker {pid} {form}: merged "
+                                     "leaves or outputs differ from phase 9")
+            recalls = [len(set(wi["out"]["keys"]) & exact_topk(cols, k)) / k
+                       for wi, cols in zip(got["windows"], windows)]
+            if min(recalls) < 0.99:
+                raise AssertionError(f"mesh {form}: recall {recalls}")
+        if r["app"]["outs"] != ref["app"]["outs"]:
+            raise AssertionError(f"mesh worker {pid}: app outputs differ "
+                                 "from phase 9")
+        out = np.load(os.path.join(tmp, f"mesh_out{pid}.npz"))
+        for w, want in enumerate(ref["metrics"]):
+            if r["metrics"]["pre"][w] != \
+                    want["pre"][pid * MESH_LOCAL:(pid + 1) * MESH_LOCAL]:
+                raise AssertionError(f"mesh worker {pid} metrics window {w}:"
+                                     " integer leaves differ from phase 9")
+            if r["metrics"]["alarms"][w] != want["alarm"]:
+                raise AssertionError(f"mesh worker {pid} window {w}: alarm")
+            n = len(want["scores"]) // MESH_PROCS
+            for name, b, tol in (
+                    ("entropies", want["entropies"], dict(rtol=0, atol=1e-5)),
+                    ("z", want["z"], dict(rtol=1e-5, atol=1e-6)),
+                    ("scores", want["scores"][pid * n:(pid + 1) * n],
+                     dict(rtol=1e-4, atol=1e-5)),
+                    ("projector", want["projector"],
+                     dict(rtol=1e-4, atol=1e-5))):
+                np.testing.assert_allclose(
+                    out[f"{name}{w}"], b, err_msg=f"mesh worker {pid} "
+                    f"window {w}: {name}", **tol)
+            a, b = float(out[f"mp{w}"].sum()), float(want["mp"].sum())
+            if abs(a - b) > 1e-4 * abs(b) + 1e-6:
+                raise AssertionError(f"mesh worker {pid} window {w}: mp sum "
+                                     f"{a} against {b}")
+        for kname, v in r["launches"].items():
+            launches[kname] = launches.get(kname, 0) + v
+        m = r["metrics"]["collectives"]
+        report[pid] = {
+            "flow_records_per_s": {
+                f: records / (r["flow"][f]["ingest_s"]
+                              + r["flow"][f]["flush_s"])
+                for f in MESH_FORMS},
+            "flow_flush_ms": {f: 1e3 * r["flow"][f]["flush_s"] / len(windows)
+                              for f in MESH_FORMS},
+            "flow_collective_per_flush_ms": {
+                f: [1e3 * x for x in r["flow"][f]["collective_flush_s"]]
+                for f in MESH_FORMS},
+            "app_seconds": r["app"]["seconds"],
+            "app_records_per_s": app_records / r["app"]["seconds"],
+            "metrics_records_per_s": metric_records
+            / r["metrics"]["seconds"],
+            "app_collective_ms": 1e3 * r["app"]["collectives"]["seconds"][
+                "flush"],
+            "metrics_seconds": r["metrics"]["seconds"],
+            "metrics_update_collective_ms": 1e3 * m["seconds"]["update"]
+            / max(1, m["calls"]["update"]),
+            "metrics_updates": m["calls"]["update"],
+            "metrics_flush_collective_ms": 1e3 * m["seconds"]["flush"]
+            / max(1, m["calls"]["flush"]),
+        }
+        for name, pr in r.get("profiles", {}).items():
+            report[pid][f"{name}_profile"] = report_profile(
+                f"mesh worker {pid} {name} (one window)", pr["ingest"],
+                pr["flush"], pr["global_batches"], card)
+        p = report[pid]
+        log(f"  mesh worker {pid} on {card}: flow records/s "
+            + ", ".join(f"{f} {p['flow_records_per_s'][f]:.0f}"
+                        for f in MESH_FORMS)
+            + "; flow flush " + ", ".join(
+                f"{f} {p['flow_flush_ms'][f]:.2f} ms (collectives "
+                f"{np.round(p['flow_collective_per_flush_ms'][f], 2).tolist()}"
+                " ms)" for f in MESH_FORMS)
+            + f"; app {p['app_records_per_s']:.0f} records/s "
+            f"({p['app_seconds']:.3f} s; collective "
+            f"{p['app_collective_ms']:.2f} ms over {len(ref['app']['outs'])}"
+            f" flushes); metrics {p['metrics_records_per_s']:.0f} records/s "
+            f"({p['metrics_seconds']:.3f} s), per-update "
+            f"gradient sum {p['metrics_update_collective_ms']:.3f} ms over "
+            f"{p['metrics_updates']} updates, flush sums "
+            f"{p['metrics_flush_collective_ms']:.3f} ms per collective")
+    report["launches"] = launches
+    log(f"  the global mesh ({MESH_PROCS} processes x {MESH_LOCAL} shards "
+        f"over gloo): flow ({', '.join(MESH_FORMS)}) merged leaves and "
+        f"outputs = phase 9 at both window closes in both processes, app "
+        f"outputs = phase 9, metrics integer leaves = phase 9 and floats "
+        f"within tolerance over {len(ref['metrics'])} windows; {wall:.1f} s "
+        f"wall for both (start-up included); launches {launches}")
+    return report
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3456,9 +3971,12 @@ def main() -> int:
                     help="draw phase 2's rows for phase 9's shapes from "
                     "the generator phases 2-8 share")
     ap.add_argument("--dcn-worker", nargs=4, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-worker", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dcn_worker:
         return dcn_worker(*args.dcn_worker)
+    if args.mesh_worker:
+        return mesh_worker(*args.mesh_worker)
 
     import torch
     if not torch.cuda.is_available():
@@ -3519,6 +4037,10 @@ def main() -> int:
         ladder = walk_ladder(torch, dev, rng, tmp)
         ingester_profiles = profile_ingester_paths(torch, dev, windows, tmp,
                                                    card)
+        attribution = {"dict_feed": traced_profile(
+            torch, dev, windows, tmp, card,
+            ("dict_feed_traced",) + INGESTER_RUNS[0][1:],
+            ingester_profiles["dict_feed"])}
         phase_done(6)
         log("phase 7: the detection lanes")
         detection = check_detection(torch, dev, rng, args, card, tmp)
@@ -3527,7 +4049,7 @@ def main() -> int:
         red = check_red(torch, dev, rng, card, tmp)
         phase_done(8)
     log("phase 9: the multi-device suites (4 shards on one card)")
-    shard = check_sharded(torch, dev, rng9, args, windows, card)
+    shard, mesh_ref = check_sharded(torch, dev, rng9, args, windows, card)
     phase_done(9)
     log("phase 10: the flow_metrics store lane and the rollup GROUP BY")
     flow_metrics = check_flow_metrics(torch, dev, rng10, card)
@@ -3536,6 +4058,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
         pod = check_pod(torch, dev, windows, card, tmp)
     phase_done(11)
+    log("phase 12: the global mesh across processes")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh = check_global_mesh(torch, dev, windows, mesh_ref, tmp, card)
+    del mesh_ref
+    phase_done(12)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -3543,7 +4070,7 @@ def main() -> int:
     for launches in [p["launches"] for p in paths.values()] \
             + [p["launches"] for p in ingester.values()] \
             + list(detection["launches"].values()) + [red["launches"]] \
-            + shard["launches"] + pod["launches"]:
+            + shard["launches"] + pod["launches"] + [mesh["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -3556,8 +4083,9 @@ def main() -> int:
                "launches": p["launches"], "counters": p["counters"],
                "profile": ingester_profiles[name]}
         for name, p in ingester.items()}, "ladder": ladder,
-        "detection": detection, "red": red, "sharded": shard,
-        "flow_metrics": flow_metrics, "pod": pod,
+        "attribution": attribution, "detection": detection, "red": red,
+        "sharded": shard,
+        "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

@@ -19,6 +19,11 @@ Loss accounting: a window the scorer could not price is
 `alerts_shed`; a feed batch the table could not take is `feed_errors`
 (detection quality only: the rows are the sketch lane's ledger).
 `rows_seen` mirrors the exporter's `rows_in`.
+
+Every publish sets the tracer gauges `anomaly_score`,
+`anomaly_alerts_total`, `anomaly_detect_latency_windows` and
+`anomaly_active_flows` (when the process tracer is on); `stats=`
+registers the plane's counters as `anomaly`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from deepflow_tpu_torch.models import flow_suite
 from deepflow_tpu_torch.runtime.faults import (FAULT_ANOMALY_SCORE,
                                                default_faults)
 from deepflow_tpu_torch.runtime.snapbus import SnapshotBus
+from deepflow_tpu_torch.runtime.tracing import default_tracer
 
 __all__ = ["AlertRecord", "AlertSnapshot", "AnomalyPlane", "ALERT_COLUMNS",
            "ANOMALY_STREAM"]
@@ -128,13 +134,14 @@ class AnomalyPlane:
 
     def __init__(self, cfg: Optional[AnomalyConfig] = None,
                  directory: Optional[str] = None, keep_snapshots: int = 8,
-                 device="cuda") -> None:
+                 stats=None, device="cuda") -> None:
         self.cfg = cfg or AnomalyConfig()
         self.device = flow_suite.check_device(device)
         self.state = detectors.init(self.cfg, device=self.device)
         self.bus = SnapshotBus(directory, name="anomaly", keep=keep_snapshots)
         self._exporters = None
         self._faults = default_faults()
+        self._tracer = default_tracer()
         # -- ledgers (host ints) -------------------------------------------
         self.rows_seen = 0           # conservation mirror of rows_in
         self.windows = 0             # windows closed (scored or not)
@@ -160,6 +167,8 @@ class AnomalyPlane:
         # the last window's entropy_ddos verdict, for the shadow
         # auditor's detection audit
         self.last_entropy_verdict: Optional[Dict[str, Any]] = None
+        if stats is not None:
+            stats.register("anomaly", self.counters)
 
     # -- wiring --------------------------------------------------------------
     def attach_exporters(self, exporters) -> None:
@@ -342,9 +351,9 @@ class AnomalyPlane:
     # -- publish (NO lock held) ----------------------------------------------
     def publish_pending(self) -> None:
         """Fan the last closed window out: the anomaly bus (an fsynced
-        npz on alert windows, subscribers only otherwise) and the
-        exporter fan-out. Every failure is counted (`alerts_shed`), never
-        raised into the window thread."""
+        npz on alert windows, subscribers only otherwise), the exporter
+        fan-out and the tracer's gauges. Every failure is counted
+        (`alerts_shed`), never raised into the window thread."""
         pending = self._pending
         if pending is None:
             return
@@ -364,6 +373,18 @@ class AnomalyPlane:
             published = True
         if alerts and not published:
             self.alerts_shed += len(alerts)
+        self._emit_gauges()
+
+    def _emit_gauges(self) -> None:
+        tr = self._tracer
+        if not tr.enabled:
+            return
+        tr.gauge("anomaly_score", max(self.last_scores) if
+                 self.last_scores else 0.0)
+        tr.gauge("anomaly_alerts_total", float(sum(self.alerts_total)))
+        tr.gauge("anomaly_detect_latency_windows",
+                 float(self.last_latency_windows))
+        tr.gauge("anomaly_active_flows", float(self.active_flows))
 
     @staticmethod
     def _alert_cols(alerts: List[AlertRecord]) -> Dict[str, np.ndarray]:

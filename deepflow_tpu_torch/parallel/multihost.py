@@ -1,9 +1,20 @@
-"""The cross-host pod: host fault domains over a DCN transport.
+"""Multi-process scale-out: the global mesh and the cross-host pod.
 
-`HostPodCoordinator` stacks a HOST fault domain on top of the per-shard
-pod ladder (parallel/pod.py). Each host runs its own `PodFlowSuite`;
-epoch markers and per-host epoch contributions cross the data-center
-network (DCN) through a pluggable transport:
+The global mesh. Every process runs the same program and joins one
+`torch.distributed` process group (`init_distributed`);
+`make_global_mesh` forms one mesh over every shard of every process, in
+process order, each process feeding only its own rows through
+`process_local_batch`, and the sharded suites (parallel/sharded.py)
+merge their windows across processes with collectives, so every process
+reads the same merged window. `local_shard` reads this process's rows
+of a `data`-sharded output back. This is the horizontal ingester
+scale-out: a record's work stays on the process that received it, and
+only window state crosses between processes.
+
+The cross-host pod. `HostPodCoordinator` stacks a HOST fault domain on
+top of the per-shard pod ladder (parallel/pod.py). Each host runs its
+own `PodFlowSuite`; epoch markers and per-host epoch contributions cross
+the data-center network (DCN) through a pluggable transport:
 
 - `SimulatedDcnTransport`: in-process queues with seeded marker loss
   (`dcn.marker_loss`), partition and heal (`dcn.partition`), where the
@@ -32,10 +43,7 @@ Conservation, pod-wide, off one `counters()` snapshot::
     pod_rows_sent == pod_rows_delivered + pod_rows_host + pod_rows_lost
                      + pod_rows_pending
 
-Not ported here (ROADMAP): the multi-process global mesh
-(`make_global_mesh` with two axes, `process_local_batch`,
-`local_shard`), which needs a cross-process form of the sharded suites;
-and the reference's tracer gauges.
+Not ported here (ROADMAP): the pod's tracer gauges.
 """
 
 from __future__ import annotations
@@ -45,16 +53,19 @@ import logging
 import threading
 import time
 from datetime import timedelta
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from deepflow_tpu_torch.models import flow_suite
-from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+from deepflow_tpu_torch.models.flow_suite import (FlowSuiteConfig,
+                                                  check_device)
+from deepflow_tpu_torch.parallel.mesh import Mesh, _visible, make_mesh
 from deepflow_tpu_torch.parallel.pod import (ACTIVE, LOST, EpochResult,
                                              PodFlowSuite, _stream_ctx,
                                              merge_leaves)
+from deepflow_tpu_torch.parallel.sharded import _put_sharded
 from deepflow_tpu_torch.runtime.faults import (FAULT_DCN_MARKER_LOSS,
                                                FAULT_DCN_PARTITION,
                                                FAULT_HOST_LOST,
@@ -64,7 +75,8 @@ from deepflow_tpu_torch.runtime.supervisor import (ThreadHandle,
                                                    default_supervisor)
 from deepflow_tpu_torch.utils.u32 import fold_columns_np
 
-__all__ = ["init_distributed", "HostPodCoordinator", "SimulatedDcnTransport",
+__all__ = ["init_distributed", "make_global_mesh", "process_local_batch",
+           "local_shard", "HostPodCoordinator", "SimulatedDcnTransport",
            "TorchDcnTransport", "select_transport", "route_hosts"]
 
 _LOG = logging.getLogger(__name__)
@@ -79,6 +91,13 @@ def _world_size() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
 
 
 def init_distributed(coordinator: Optional[str] = None,
@@ -98,6 +117,67 @@ def init_distributed(coordinator: Optional[str] = None,
                             rank=int(process_id),
                             timeout=timedelta(seconds=timeout_s))
     return dist.get_world_size()
+
+
+def make_global_mesh(axes: Sequence[str] = ("data",),
+                     n_local: Optional[int] = None, device="cuda") -> Mesh:
+    """A mesh over every shard of every process of the process group
+    (`init_distributed`; one process alone without one). Each process
+    holds `n_local` shards (default: its visible devices of `device`'s
+    type), on its own devices; the processes' counts are exchanged with
+    one all-gather.
+
+    1-D (default): one `data` axis over every process's shards in
+    process order, made by `make_mesh`, as the reference does: the
+    batch-sharded suites' mesh. 2-D ("dcn_data", "data"): rows are the
+    processes, columns each process's shards (every process must hold
+    as many)."""
+    device = check_device(device)
+    visible = len(_visible(device))
+    mine = (int(n_local or visible), visible)
+    world, rank = _world_size(), _rank()
+    held = [mine]
+    if world > 1:
+        import torch.distributed as dist
+        got = [torch.zeros(2, dtype=torch.int64) for _ in range(world)]
+        dist.all_gather(got, torch.tensor(mine, dtype=torch.int64))
+        held = [tuple(int(v) for v in t.tolist()) for t in got]
+    if len(axes) not in (1, 2):
+        raise ValueError(f"axes must be 1-D or 2-D, got {axes!r}")
+    flat = make_mesh(sum(c for c, _ in held), axes[-1:], device,
+                     process_shards=held, process=rank)
+    if len(axes) == 1:
+        return flat
+    if len({c for c, _ in held}) != 1:
+        raise ValueError(f"a 2-D global mesh needs as many shards in every "
+                         f"process: {[c for c, _ in held]}")
+    shape = (world, held[0][0])
+    return Mesh(flat.devices.reshape(shape), axes,
+                flat.process_index.reshape(shape), rank)
+
+
+def process_local_batch(cols: Dict[str, Any], mask, mesh: Mesh,
+                        axis: str = "data") -> Tuple[list, list]:
+    """THIS process's rows of a global batch (global rows / processes, a
+    contiguous block of it), split over this process's shards of `axis`
+    in shard order: the per-shard (column dicts, masks) that `put_batch`
+    returns, valid inputs to the sharded suites over the same mesh. No
+    row crosses to another process."""
+    return _put_sharded(cols, mask, mesh.local_devices(axis))
+
+
+def local_shard(x) -> np.ndarray:
+    """This process's rows of a `data`-sharded output, as a host array.
+
+    A sequence of per-shard tensors (what `process_local_batch` and
+    `put_batch` return for one column) comes back concatenated in shard
+    order. One tensor is returned whole, once: a replicated output (a
+    merged window's scalars, on the first local shard's device) or an
+    output the suite already concatenated over this process's shards
+    (the metrics suite's `anomaly_scores`)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.concatenate([t.detach().cpu().numpy() for t in x])
 
 
 def route_hosts(plane: np.ndarray, n: int, n_hosts: int) -> np.ndarray:

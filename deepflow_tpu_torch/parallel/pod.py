@@ -74,7 +74,8 @@ the merge runs on the merge stream, and its output is handed to the
 caller's stream. A shard's slice is made contiguous and copied with a
 plain synchronous `.to(device)`.
 
-Not ported: the reference's tracer gauges (the port has no tracer).
+Not ported (ROADMAP): the reference's tracer gauges of the pod
+(`pod_shards_active`, `pod_merge_epoch_s`, `pod_merge_missed`).
 """
 
 from __future__ import annotations

@@ -21,6 +21,9 @@ is read back.
 A kernel that cannot be built or launched raises `KernelError`; it is
 kept, and every later `process` and `flush_window` raises it.
 
+With `stats=` the exporter's counters register with a `StatsRegistry`
+as `exporter.app_red`.
+
 Not ported here (ROADMAP): the Prometheus `le`-bucket surface
 (`prom_bucket_stride > 0`), which needs the store's tag dictionaries
 and the ext_metrics sample table.
@@ -41,6 +44,7 @@ from deepflow_tpu_torch.models import app_suite
 from deepflow_tpu_torch.models.flow_suite import check_device
 from deepflow_tpu_torch.ops._build import KernelError
 from deepflow_tpu_torch.runtime.exporters import QueueWorkerExporter
+from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
 from deepflow_tpu_torch.store.db import Store
 from deepflow_tpu_torch.store.table import AggKind, ColumnSpec, TableSchema
@@ -94,13 +98,15 @@ class AppRedExporter(QueueWorkerExporter):
                  batch_rows: int = 1 << 14,
                  window_seconds: float = 1.0,
                  prom_bucket_stride: int = 0,
+                 stats: Optional[StatsRegistry] = None,
                  device="cuda") -> None:
         if prom_bucket_stride > 0:
             raise NotImplementedError(
                 "prom_bucket_stride > 0 (the Prometheus le-bucket surface) "
                 "is not ported: it needs a port of store/dict_store.py "
                 "(TagDicts) and of the ext_metrics sample table")
-        super().__init__("app_red", ["l7_flow_log"], n_workers=1, batch=64)
+        super().__init__("app_red", ["l7_flow_log"], n_workers=1, batch=64,
+                         stats=stats)
         self.device = check_device(device)
         self._stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None

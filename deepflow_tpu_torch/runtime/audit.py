@@ -34,6 +34,9 @@ The anomaly plane's entropy-DDoS verdict is audited the same way: the
 shadow scores its exact entropies with `detectors.ddos_score_np` over
 its own EWMA baseline, and clean windows accumulate a confusion matrix
 (device verdict against shadow verdict) into precision and recall.
+
+Every window close sets the tracer gauges of `AUDIT_GAUGES` that the
+window's comparison produced (when the process tracer is on).
 """
 
 from __future__ import annotations
@@ -46,12 +49,27 @@ import numpy as np
 
 from deepflow_tpu_torch.anomaly.detectors import ddos_score_np
 from deepflow_tpu_torch.models.flow_suite import ENTROPY_FEATURES
+from deepflow_tpu_torch.runtime.tracing import default_tracer
 from deepflow_tpu_torch.utils.u32 import (_mix32_np, fold_columns_np,
                                           splitmix32_seeds)
 
-__all__ = ["ShadowAuditor"]
+__all__ = ["ShadowAuditor", "AUDIT_GAUGES"]
 
 _U32 = np.uint32
+
+# the gauges a window close sets (HELP text in tracing.GAUGE_HELP)
+AUDIT_GAUGES = (
+    "tpu_audit_cms_rel_error",
+    "tpu_audit_cms_eps_headroom",
+    "tpu_audit_hll_rel_error",
+    "tpu_audit_hll_eps_headroom",
+    "tpu_audit_entropy_abs_error",
+    "tpu_audit_topk_recall",
+    "tpu_audit_sampled_keys",
+    "tpu_audit_degraded_window",
+    "tpu_audit_detection_precision",
+    "tpu_audit_detection_recall",
+)
 
 
 def _as_u32_np(x) -> np.ndarray:
@@ -142,6 +160,7 @@ class ShadowAuditor:
         self._det_var = np.full(len(self._features), 0.25)
         self._det_windows = 0                   # busy windows into the EWMA
         self.last_detection: Optional[dict] = None
+        self._tracer = default_tracer()
 
     # -- ingest (host-side, every chunk) -----------------------------------
     def _admit(self, hashed: np.ndarray) -> np.ndarray:
@@ -267,6 +286,7 @@ class ShadowAuditor:
         if detection is not None:
             snap.update(self._close_detection_locked(
                 detection, degraded=degraded, lossy=lossy))
+        self._emit_gauges(snap)
         # alarm ladder: only clean windows (device lane, no counted
         # loss, unclipped shadow, enough sample) advance it — a degraded
         # or lossy window is expected to be wrong and is tagged, not
@@ -296,6 +316,18 @@ class ShadowAuditor:
         self._shard_rows = [0] * self.shards
         self.last_window = snap
         return snap
+
+    def _emit_gauges(self, snap: dict) -> None:
+        tr = self._tracer
+        if not tr.enabled:
+            return
+        tr.gauge("tpu_audit_sampled_keys", float(snap["sampled_keys"]))
+        tr.gauge("tpu_audit_degraded_window",
+                 1.0 if snap["degraded"] else 0.0)
+        for name in AUDIT_GAUGES:
+            key = name[len("tpu_audit_"):]
+            if key not in ("sampled_keys", "degraded_window") and key in snap:
+                tr.gauge(name, float(snap[key]))
 
     def _shadow_entropies(self) -> Optional[np.ndarray]:
         """Normalized Shannon entropies of the shadow's hashed-bucket

@@ -8,18 +8,25 @@ block. `QueueWorkerExporter` buffers chunks in its own drop-oldest
 threads into the subclass's `process(chunks)`. The registry that hosts
 exporters, and the circuit breaker around each, belong to the host
 (the JAX package's `Exporters` takes this class as it is).
+
+With `stats=` the exporter's counters register with a `StatsRegistry` as
+`exporter.<name>`. With the process tracer on, a chunk carries the
+enqueuing thread's batch id across the queue, and the worker pins it
+and records each drained batch as an `export` span.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from deepflow_tpu_torch.runtime.faults import (FAULT_EXPORTER_PROCESS,
                                                default_faults)
 from deepflow_tpu_torch.runtime.queues import OverwriteQueue
+from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
+from deepflow_tpu_torch.runtime.tracing import default_tracer
 
 
 class QueueWorkerExporter:
@@ -29,7 +36,8 @@ class QueueWorkerExporter:
 
     def __init__(self, name: str, streams: Sequence[str],
                  queue_size: int = 1 << 16, n_workers: int = 1,
-                 batch: int = 64) -> None:
+                 batch: int = 64,
+                 stats: Optional[StatsRegistry] = None) -> None:
         self.name = name
         self.streams = frozenset(streams)
         self.queue = OverwriteQueue(f"exporter.{name}", queue_size)
@@ -38,6 +46,9 @@ class QueueWorkerExporter:
         self._handles: List = []       # supervisor ThreadHandles
         self.processed = 0
         self.process_errors = 0        # process() raised; batch dropped
+        self._tracer = default_tracer()
+        if stats is not None:
+            stats.register(f"exporter.{name}", self.counters)
 
     # -- the exporter contract ----------------------------------------------
     def start(self) -> None:
@@ -57,9 +68,11 @@ class QueueWorkerExporter:
 
     def put(self, stream: str, decoder_index: int,
             cols: Dict[str, Any]) -> None:
-        # the batch id slot keeps the reference's chunk shape; this
-        # package has no tracer, so it is always -1
-        self.queue.put((stream, decoder_index, cols, -1))
+        # the enqueuing thread's batch id crosses the queue in the item
+        # (-1 with the tracer off: one tuple shape always)
+        self.queue.put((stream, decoder_index, cols,
+                        self._tracer.current_batch()
+                        if self._tracer.enabled else -1))
 
     # -- subclass surface -----------------------------------------------------
     def process(self, chunks: List[Any]) -> None:  # pragma: no cover
@@ -77,6 +90,7 @@ class QueueWorkerExporter:
         }
 
     def _run(self) -> None:
+        tracer = self._tracer
         sup = default_supervisor()
         faults = default_faults()
         while True:
@@ -90,7 +104,15 @@ class QueueWorkerExporter:
                     if faults.enabled:
                         faults.maybe_raise(FAULT_EXPORTER_PROCESS,
                                            key=self.name)
-                    self.process(chunks)
+                    if tracer.enabled:
+                        rows = sum(len(next(iter(c[2].values())))
+                                   if c[2] else 0 for c in chunks)
+                        tracer.set_batch(chunks[0][3])
+                        with tracer.span("export", stream=self.name,
+                                         batch_id=chunks[0][3], rows=rows):
+                            self.process(chunks)
+                    else:
+                        self.process(chunks)
                 except Exception:
                     self.process_errors += 1
                 else:

@@ -24,6 +24,15 @@ Accounting contract:
   group that was mid-flight and everything in flight is counted lost
   through `on_restart`, never dropped silently.
 
+Occupancy (runtime/profiler.py): every group's processing is a `feed`
+span, every fence wait a `fence` span, and the interval from a group's
+dispatch to its fence's retirement a `device` span (what
+`tpu_device_busy_fraction` unions); the time the feed waited for work
+with nothing in flight is the stall. With the process tracer on, every
+16th group sets the gauges `tpu_feed_overlap_efficiency` and
+`tpu_feed_inflight`. None of it waits on the device: it timestamps the
+fences the feed makes anyway.
+
 State ownership: between `drain()` barriers the feed thread is the only
 writer of the owner's device state; the window flush, checkpoint and
 probe touch it only after a drain returned. So the owner's callbacks
@@ -40,11 +49,16 @@ import time
 from collections import deque
 from typing import Any, Callable, List, Optional, Tuple
 
+from deepflow_tpu_torch.runtime.profiler import default_profiler
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
+from deepflow_tpu_torch.runtime.tracing import default_tracer
 
 __all__ = ["DeviceFeed", "InFlight"]
 
 _LOG = logging.getLogger(__name__)
+
+# gauge cadence: every Nth group, the exporter's attribution cadence
+_GAUGE_EVERY = 16
 
 
 class InFlight(tuple):
@@ -120,6 +134,10 @@ class DeviceFeed:
         self.crash_recoveries = 0
         self.fence_wait_s = 0.0
         self._closed = False
+        self._tracer = default_tracer()
+        self._prof = default_profiler()
+        self._mark_t = time.perf_counter()
+        self._mark_fence_s = 0.0
 
     # -- producer side -------------------------------------------------------
     def put(self, batch: Any, batch_id: int = -1) -> None:
@@ -173,11 +191,16 @@ class DeviceFeed:
         if self._active is not None or self._inflight:
             self._recover_after_crash()
         while True:
+            t0 = time.perf_counter()
             try:
                 item = self._q.get(timeout=0.2)
             except _queue.Empty:
                 sup.beat()
                 continue
+            if not self._inflight:
+                # the device sat with an empty window until work arrived;
+                # an idle pipeline (empty polls) accrues nothing
+                self._prof.add_stall(time.perf_counter() - t0)
             sup.beat()
             if item[0] != "batch":
                 if self._handle_control(item):
@@ -214,18 +237,27 @@ class DeviceFeed:
             self._queued_batches -= len(group)
             self._active_batches = len(group)
         self._active = group
+        t0 = time.perf_counter()
         out = self._process_group(group)
+        t1 = time.perf_counter()
+        self._prof.record("feed", f"group[{len(group)}]", t1 - t0,
+                          rows=sum(int(getattr(item, "valid", 0))
+                                   for item, _ in group))
         self._active = None
         self.groups += 1
         self.batches += len(group)
         if out is not None:
-            self._inflight.append(out)
+            # the dispatch time rides beside the fence: [dispatch,
+            # retirement] is the device interval the busy share unions
+            self._inflight.append((out, t1))
             while len(self._inflight) > self.depth:
-                self._fence_one(self._inflight.popleft())
+                self._fence_one(*self._inflight.popleft())
         with self._pending_lock:
             self._active_batches = 0
+        self._maybe_gauges()
 
-    def _fence_one(self, f: InFlight) -> None:
+    def _fence_one(self, f: InFlight,
+                   t_dispatch: Optional[float] = None) -> None:
         """Wait for one dispatched group to retire: the one blocking
         sync of the feed. An error here is an asynchronous device error:
         every younger group in flight ran on the state it left, so all
@@ -243,21 +275,26 @@ class DeviceFeed:
             if self._on_fence_error is not None:
                 self._on_fence_error(e, f.rows + extra)
             return
-        self.fence_wait_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.fence_wait_s += t1 - t0
         self.fences += 1
+        self._prof.record("fence", "wait", t1 - t0, rows=f.rows)
+        if t_dispatch is not None:
+            self._prof.record("device", "update", t1 - t_dispatch,
+                              rows=f.rows)
         if f.release is not None:
             f.release()
 
     def _fence_all(self) -> None:
         while self._inflight:
-            self._fence_one(self._inflight.popleft())
+            self._fence_one(*self._inflight.popleft())
 
     def _discard_inflight(self) -> int:
         """Drop every outstanding group, swallowing its (expected)
         error; returns the rows they carried, for the caller to count."""
         rows = 0
         while self._inflight:
-            f = self._inflight.popleft()
+            f, _t = self._inflight.popleft()
             rows += f.rows
             try:
                 if f.fence is not None:
@@ -283,6 +320,22 @@ class DeviceFeed:
                      "counted lost", self.name, rows)
         if self._on_restart is not None:
             self._on_restart(rows)
+
+    def _maybe_gauges(self) -> None:
+        tr = self._tracer
+        if not tr.enabled or self.groups % _GAUGE_EVERY:
+            return
+        now = time.perf_counter()
+        wall = now - self._mark_t
+        if wall > 0:
+            # the share of feed wall time spent waiting on fences: ~1 =
+            # the card is the bottleneck, ~0 = the host feed is
+            tr.gauge("tpu_feed_overlap_efficiency",
+                     min(1.0, max(0.0, (self.fence_wait_s
+                                        - self._mark_fence_s) / wall)))
+        tr.gauge("tpu_feed_inflight", float(len(self._inflight)))
+        self._mark_t = now
+        self._mark_fence_s = self.fence_wait_s
 
     def counters(self) -> dict:
         return {"feed_groups": self.groups, "feed_batches": self.batches,

@@ -253,9 +253,13 @@ _default_lock = threading.Lock()
 
 
 def default_supervisor() -> Supervisor:
-    """The process supervision tree, made on first use."""
+    """The process supervision tree, made on first use. It installs
+    itself as the default tracer's heartbeat hook, so every recorded
+    span is also a heartbeat of the thread that records it."""
     global _default
     with _default_lock:
         if _default is None:
             _default = Supervisor()
+            from deepflow_tpu_torch.runtime.tracing import default_tracer
+            default_tracer().heartbeat = _default.beat
         return _default

@@ -100,8 +100,30 @@ auditor closes it with the epoch's `lossy`/`degraded` verdicts. There is
 no single device state, so there is no exporter checkpoint or restore in
 pod mode; the pod's counters join the exporter's.
 
-Not ported here (ROADMAP): the tracer gauges of the plane and the
-auditor, tracer/profiler attribution and the autotuner.
+Flight recorder (runtime/tracing.py, runtime/profiler.py; off unless
+the process tracer is enabled). Every transfer and program call adds to
+the true totals `h2d_bytes`, `h2d_transfers` and `dispatches`. With the
+tracer on, one group in `_attrib_every` (16) is attributed in detail:
+its copy (`kernel.h2d`, the `tpu_h2d_mb_s` gauge), its program's host
+dispatch (`kernel.dispatch`: the host's time in the call, which
+launches every kernel of the program) and device time (`kernel.device`:
+the program's span on the compute stream, between an event before and
+one after the call; a card that waits on the launching host spans the
+dispatch), each stream named by its program (`dict:n8192+h16384`,
+`lanes_x4`); the first traced call of each program is `kernel.compile`
+and the gauge `tpu_compile_s_<program>` instead (the first launch loads
+the built kernel library). On a card the copy and the program are bracketed by
+timing events on the copy and compute streams, read when the group's
+fence retires (the feed) or by a synchronize of the sampled group's
+last event (the inline path, as the reference's sampled drain): the
+feed path makes no sync of its own for the recorder. On the CPU the
+program runs inside the call, whose wall time is both its dispatch and
+its device time. A window flush is a `window` span and a `window`
+profiler record; `stats=` registers the exporter's counters
+(`exporter.tpu_sketch`), the auditor's (`tpu_sketch_accuracy`) and the
+anomaly plane's (`anomaly`) with a `StatsRegistry`.
+
+Not ported here (ROADMAP): the autotuner.
 """
 
 from __future__ import annotations
@@ -131,8 +153,11 @@ from deepflow_tpu_torch.runtime.exporters import QueueWorkerExporter
 from deepflow_tpu_torch.runtime.faults import (FAULT_DEVICE_ERROR,
                                                default_faults)
 from deepflow_tpu_torch.runtime.feed import DeviceFeed, InFlight
+from deepflow_tpu_torch.runtime.profiler import default_profiler
 from deepflow_tpu_torch.runtime.snapbus import SnapshotBus
+from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
+from deepflow_tpu_torch.runtime.tracing import default_tracer
 from deepflow_tpu_torch.store.db import Store
 from deepflow_tpu_torch.store.table import AggKind, ColumnSpec, TableSchema
 from deepflow_tpu_torch.store.writer import StoreWriter
@@ -263,6 +288,10 @@ class _HostSketch:
         return out
 
 
+def _timing_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
 def _host_output(out: flow_suite.FlowWindowOutput
                  ) -> flow_suite.FlowWindowOutput:
     """A host copy of a window output in ONE device-to-host copy: every
@@ -307,9 +336,10 @@ class TpuSketchExporter(QueueWorkerExporter):
                  anomaly_dir: Optional[str] = None,
                  store: Optional[Store] = None,
                  staged: bool = False,
+                 stats: Optional[StatsRegistry] = None,
                  device="cuda") -> None:
         super().__init__("tpu_sketch", ["l4_flow_log"], n_workers=1,
-                         batch=64)
+                         batch=64, stats=stats)
         if wire not in ("dict", "lanes"):
             raise ValueError(f"wire must be 'dict' or 'lanes', got {wire!r}")
         pod_shards, pod_hosts = int(pod_shards), int(pod_hosts)
@@ -425,6 +455,16 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.h2d_bytes = 0
         self.h2d_transfers = 0
         self.dispatches = 0
+        # -- flight recorder: sampled h2d / dispatch / device attribution,
+        # the first traced call of each program split out as its compile
+        self._tracer = default_tracer()
+        self._prof = default_profiler()
+        self._warm: set = set()
+        self._attrib_every = 16
+        self._batches_traced = 0
+        self._detailed = False
+        self._h2d_mark = None      # the detailed group's copy, until used
+        self._attr_pending: list = []   # records awaiting their fence
         # -- degraded mode (fault domain: the device) ------------------
         self._faults = default_faults()
         self.degraded = False
@@ -490,6 +530,8 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.audit_rate = max(0.0, float(audit_rate))
         self._audit = ShadowAuditor(self.cfg, rate=self.audit_rate) \
             if self.audit_rate > 0 else None
+        if self._audit is not None and stats is not None:
+            stats.register("tpu_sketch_accuracy", self._audit.counters)
         # -- anomaly plane: its own device state beside the sketch state -
         self._anomaly = None
         if anomaly:
@@ -497,7 +539,7 @@ class TpuSketchExporter(QueueWorkerExporter):
                 else AnomalyConfig()
             with self._on_stream():
                 self._anomaly = AnomalyPlane(acfg, directory=anomaly_dir,
-                                             device=self.device)
+                                             stats=stats, device=self.device)
 
     def _new_packer(self) -> flow_dict.FlowDictPacker:
         return flow_dict.FlowDictPacker(capacity=self._packer_capacity,
@@ -570,7 +612,8 @@ class TpuSketchExporter(QueueWorkerExporter):
                     # the stager is private state guarded by this lock;
                     # a full feed queue is back-pressure, not deadlock
                     for sg in self._stager.put(schema_cols):
-                        self._feed.put(sg)
+                        self._feed.put(sg, self._tracer.current_batch()
+                                       if self._tracer.enabled else -1)
                 else:
                     for tb in self.batcher.put(schema_cols):
                         self._submit_batch_locked(tb)
@@ -596,9 +639,19 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.batcher.recycle(tb)
 
     def _submit_batch_locked(self, tb: TensorBatch) -> None:
-        """One TensorBatch through the inline path."""
+        """One TensorBatch through the inline path (a `kernel` span when
+        the tracer is on)."""
+        tr = self._tracer
         with self._on_stream():
-            self._run_batch_locked(tb)
+            if not tr.enabled:
+                self._run_batch_locked(tb)
+                return
+            before = self.h2d_transfers
+            with tr.span("kernel", stream=self.wire, rows=int(tb.valid)):
+                self._run_batch_locked(tb)
+            if self._detailed:
+                tr.gauge("tpu_transfers_per_batch",
+                         float(self.h2d_transfers - before))
 
     def _raise_kernel_error(self) -> None:
         """A kernel failed to build or launch: every later call raises."""
@@ -608,19 +661,34 @@ class TpuSketchExporter(QueueWorkerExporter):
     def _to_device(self, flat: np.ndarray, pinned: bool) -> torch.Tensor:
         """One staged uint32 buffer -> an int32 device tensor. A pinned
         buffer is copied asynchronously on the copy stream, which the
-        compute stream then waits on; a pageable one synchronously."""
+        compute stream then waits on; a pageable one synchronously. A
+        detailed group's copy is bracketed for `kernel.h2d`."""
         self.h2d_bytes += flat.nbytes
         self.h2d_transfers += 1
         host = torch.from_numpy(flat.view(np.int32))
+        timed = self._tracer.enabled and self._detailed
         if self._stream is None:
-            return host.clone()
+            t0 = time.perf_counter()
+            dev = host.clone()
+            if timed:
+                self._h2d_mark = (time.perf_counter() - t0, None,
+                                  flat.nbytes)
+            return dev
+        stream = self._copy_stream if pinned else self._stream
+        if timed:
+            ev = (_timing_event(), _timing_event())
+            ev[0].record(stream)
         if not pinned:
-            return host.to(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            dev = host.to(self.device, non_blocking=True)
-            copied = self._copy_stream.record_event()
-        self._stream.wait_event(copied)
-        dev.record_stream(self._stream)
+            dev = host.to(self.device)
+        else:
+            with torch.cuda.stream(self._copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                copied = self._copy_stream.record_event()
+            self._stream.wait_event(copied)
+            dev.record_stream(self._stream)
+        if timed:
+            ev[1].record(stream)
+            self._h2d_mark = (None, ev, flat.nbytes)
         return dev
 
     def _fence(self):
@@ -628,24 +696,111 @@ class TpuSketchExporter(QueueWorkerExporter):
         return None if self._stream is None else self._stream.record_event()
 
     def _dispatch_begin(self) -> None:
-        """Fault injection at every device dispatch."""
+        """Fault injection at every device dispatch, and the tracer's
+        every-Nth detailed-attribution cadence."""
         if self._faults.enabled:   # chaos: simulated device loss
             self._faults.maybe_raise(FAULT_DEVICE_ERROR, key=self.wire)
+        self._h2d_mark = None
+        self._attr_pending = []    # a failed dispatch's, never read
+        if self._tracer.enabled:
+            self._detailed = self._batches_traced % self._attrib_every == 0
+            self._batches_traced += 1
 
-    def _apply_wire(self, flat_d: torch.Tensor, sig) -> None:
+    def _timed_update(self, key: str, run, rows: int) -> None:
+        """Call one program (`run`), attributed when the tracer is on and
+        this group is a detailed one or the program's first traced call.
+        On a card the call is bracketed by timing events on the compute
+        stream; the inline path reads them through a synchronize of the
+        last one (the sampled drain), the feed when the group's fence
+        retires (`_read_attribution` from its release)."""
+        tr = self._tracer
+        first = key not in self._warm
+        if not tr.enabled or not (self._detailed or first):
+            run()
+            return
+        self._warm.add(key)
+        h2d, self._h2d_mark = self._h2d_mark, None
+        if self._stream is None:
+            t0 = time.perf_counter()
+            run()
+            dt = time.perf_counter() - t0
+            self._read_attribution([(key, first, rows, dt, dt, h2d)])
+            return
+        ev = (_timing_event(), _timing_event())
+        ev[0].record(self._stream)
+        t0 = time.perf_counter()
+        run()
+        dispatch_s = time.perf_counter() - t0
+        ev[1].record(self._stream)
+        rec = (key, first, rows, dispatch_s, ev, h2d)
+        if self._feed is None:
+            ev[1].synchronize()
+            self._read_attribution([rec])
+        else:
+            self._attr_pending.append(rec)
+
+    def _read_attribution(self, recs) -> None:
+        """Record attributed calls whose events have completed: stages,
+        gauges and profiler spans. A record whose events cannot be read
+        (its group died on the device) is dropped."""
+        tr, prof = self._tracer, self._prof
+        for key, first, rows, dispatch_s, dev, h2d in recs:
+            try:
+                if h2d is not None:
+                    h2d_s, ev, nbytes = h2d
+                    if ev is not None:
+                        h2d_s = ev[0].elapsed_time(ev[1]) / 1e3
+                    tr.observe("kernel.h2d", h2d_s, stream=self.wire,
+                               rows=rows)
+                    prof.record("h2d", self.wire, h2d_s, rows=rows)
+                    if h2d_s > 0:
+                        tr.gauge("tpu_h2d_mb_s", nbytes / 1e6 / h2d_s)
+                dev_s = dev if not isinstance(dev, tuple) \
+                    else dev[0].elapsed_time(dev[1]) / 1e3
+            except RuntimeError:
+                continue
+            if first:
+                compile_s = max(dispatch_s, dev_s)
+                tr.observe("kernel.compile", compile_s, stream=key)
+                tr.gauge(f"tpu_compile_s_{key}", compile_s)
+                prof.record("device", f"compile:{key}", compile_s)
+            else:
+                tr.observe("kernel.dispatch", dispatch_s, stream=key)
+                tr.observe("kernel.device", dev_s, stream=key)
+                # the dispatch ended a device execution ago: the timeline
+                # shows it before the device span, not on top of it
+                prof.record("dispatch", key, dispatch_s,
+                            t_end=time.time() - dev_s)
+                prof.record("device", key, dev_s)
+
+    def _take_attribution(self):
+        """The feed's records of the group just dispatched, for its
+        release to read once its fence retired."""
+        recs, self._attr_pending = self._attr_pending, []
+        return recs
+
+    def _apply_wire(self, flat_d: torch.Tensor, sig, rows: int) -> None:
         prog = self._program(
             ("dict", sig), lambda: flow_dict.make_wire_update(self.cfg, sig))
-        self.state, self._dict_state, _ = prog(self.state, self._dict_state,
-                                               flat_d)
+
+        def run():
+            self.state, self._dict_state, _ = prog(
+                self.state, self._dict_state, flat_d)
+        self._timed_update("dict:" + "+".join(f"{k[0]}{w}" for k, w in sig),
+                           run, rows)
         self.dispatches += 1
         if self._anomaly is not None:
             self._anomaly.feed_dict_flat(self._dict_state.table, flat_d, sig)
 
-    def _apply_lanes(self, flat_d: torch.Tensor, k: int, c: int) -> None:
+    def _apply_lanes(self, flat_d: torch.Tensor, k: int, c: int,
+                     rows: int) -> None:
         prog = self._program(
             ("lanes", k, c),
             lambda: flow_suite.make_coalesced_update(self.cfg, k, c))
-        self.state, _ = prog(self.state, flat_d)
+
+        def run():
+            self.state, _ = prog(self.state, flat_d)
+        self._timed_update(f"lanes_x{k}", run, rows)
         self.dispatches += 1
         if self._anomaly is not None:
             self._anomaly.feed_flat(flat_d, k, c)
@@ -669,7 +824,8 @@ class TpuSketchExporter(QueueWorkerExporter):
             sig = flow_dict.wire_signature(wire)
             flat = np.empty(flow_dict.wire_words(sig), np.uint32)
             flow_dict.stage_wire(wire, flat)
-            self._apply_wire(self._to_device(flat, pinned=False), sig)
+            self._apply_wire(self._to_device(flat, pinned=False), sig,
+                             int(tb.valid))
         except KernelError as e:
             self._kernel_error = e
             raise
@@ -706,7 +862,8 @@ class TpuSketchExporter(QueueWorkerExporter):
             return
         try:
             self._dispatch_begin()
-            self._apply_lanes(self._to_device(flat, pinned=False), k, C)
+            self._apply_lanes(self._to_device(flat, pinned=False), k, C,
+                              rows)
         except KernelError as e:
             self._kernel_error = e
             raise
@@ -840,9 +997,14 @@ class TpuSketchExporter(QueueWorkerExporter):
                 absorb(item)
             return None
         rows = sum(int(item.valid) for item, _ in group)
+        tr = self._tracer
         try:
             with self._on_stream():
-                return dispatch(group, rows)
+                if not tr.enabled:
+                    return dispatch(group, rows)
+                tr.set_batch(group[0][1])
+                with tr.span("kernel", stream=self.wire, rows=rows):
+                    return dispatch(group, rows)
         except KernelError as e:
             # no rollback, no fallback: kept for the producer to raise
             self._kernel_error = e
@@ -858,8 +1020,29 @@ class TpuSketchExporter(QueueWorkerExporter):
         return self._feed_process(group, self._absorb_staged_host,
                                   self._dispatch_staged)
 
+    def _group_gauges(self, before: int, groups) -> None:
+        """A detailed group's coalescing gauges (transfers per batch,
+        bytes of the staged transfer)."""
+        if self._tracer.enabled and self._detailed:
+            self._tracer.gauge("tpu_transfers_per_batch",
+                               (self.h2d_transfers - before)
+                               / max(1, sum(sg.k for sg in groups)))
+            self._tracer.gauge("tpu_h2d_coalesced_bytes",
+                               float(sum(sg.flat.nbytes for sg in groups)))
+
+    def _release(self, groups, recs):
+        """A fenced group's release: its attribution read, its staging
+        buffers recycled."""
+        def release():
+            if recs:
+                self._read_attribution(recs)
+            for sg in groups:
+                self._stager.recycle(sg)
+        return release
+
     def _dispatch_staged(self, group, rows: int) -> Optional[InFlight]:
         self._dispatch_begin()
+        before = self.h2d_transfers
         fence = None
         for sg, _ in group:        # coalesce=1: normally exactly one
             # a host barrier for the sharded pack (not a device sync): a
@@ -867,11 +1050,12 @@ class TpuSketchExporter(QueueWorkerExporter):
             # feed thread into the supervisor on purpose
             sg.wait_ready(timeout=30.0)
             self._apply_lanes(self._to_device(sg.flat, pinned=True),
-                              sg.k, sg.capacity)
+                              sg.k, sg.capacity, int(sg.valid))
             fence = sg.fence = self._fence()
         groups = [sg for sg, _ in group]
+        self._group_gauges(before, groups)
         return InFlight(fence, rows,
-                        lambda: [self._stager.recycle(sg) for sg in groups])
+                        self._release(groups, self._take_attribution()))
 
     def _absorb_staged_host(self, sg) -> None:
         """Degraded mode reached a staged lane group: shed, or the host
@@ -901,19 +1085,22 @@ class TpuSketchExporter(QueueWorkerExporter):
     def _dispatch_dict_staged(self, group,
                               rows: int) -> Optional[InFlight]:
         self._dispatch_begin()
+        before = self.h2d_transfers
         fence = None
         live = []
         for sg, _ in group:        # coalesce=1: normally exactly one
             sg.wait_ready(timeout=30.0)
             if self._drop_stale(sg):
                 continue
-            self._apply_wire(self._to_device(sg.flat, pinned=True), sg.sig)
+            self._apply_wire(self._to_device(sg.flat, pinned=True), sg.sig,
+                             int(sg.valid))
             fence = sg.fence = self._fence()
             live.append(sg)
         if not live:
             return None            # every group a counted stale drop
+        self._group_gauges(before, live)
         return InFlight(fence, sum(int(sg.valid) for sg in live),
-                        lambda: [self._stager.recycle(sg) for sg in live])
+                        self._release(live, self._take_attribution()))
 
     def _absorb_dict_staged_host(self, sg) -> None:
         """Degraded mode reached a staged wire group: shed, or the host
@@ -1003,6 +1190,18 @@ class TpuSketchExporter(QueueWorkerExporter):
         and read it out. None when no output was made (an idle degraded
         window, or a readout that died on the device)."""
         now = time.time() if now is None else now
+        tr = self._tracer
+        t0 = time.perf_counter()
+        if not tr.enabled:
+            out = self._flush_window(now)
+        else:
+            with tr.span("window", stream=self.wire):
+                out = self._flush_window(now)
+        self._prof.record("window", "flush", time.perf_counter() - t0)
+        return out
+
+    def _flush_window(self, now: float) -> Optional[
+            flow_suite.FlowWindowOutput]:
         if self._pod is not None:
             out, host_out = self._flush_pod_window(now)
             if out is None:
@@ -1016,7 +1215,8 @@ class TpuSketchExporter(QueueWorkerExporter):
             if self._stager is not None:
                 # the open staging prefix ships as it is
                 for sg in self._stager.flush():
-                    self._feed.put(sg)
+                    self._feed.put(sg, self._tracer.current_batch()
+                                   if self._tracer.enabled else -1)
                 if not self._feed.drain(timeout=60.0):
                     # the feed thread never takes _state_lock, so
                     # waiting under it is safe

@@ -48,7 +48,8 @@ def test_port_files_found():
             "table.py", "db.py", "writer.py", "metrics_suite.py", "mesh.py",
             "sharded.py", "rollup.py", "migrate.py", "monitor.py",
             "schema.py", "tag_code.py", "schemas.py",
-            "flow_metrics.py", "pod.py", "multihost.py"} <= names
+            "flow_metrics.py", "pod.py", "multihost.py", "tracing.py",
+            "profiler.py", "stats.py"} <= names
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
         in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "parallel" / "__init__.py") \
