@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
-suites, flow_metrics store lane, pod and global mesh on one CUDA card.
+suites, flow_metrics store lane, pod, global mesh and ingester on one
+CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -212,7 +213,33 @@ is printed):
    the matrix-profile sum within rel 1e-4; records/s per suite, the
    collectives' wall per flush and the per-update gradient sum
    reported. A child that fails or outlives 150 s fails the phase and is
-   killed.
+   killed;
+13. the ingester entry point: the port's `Ingester` (FlowSuiteConfig(),
+   AppSuiteConfig(), the dict wire with the zero-copy feed at depth 2,
+   the anomaly plane and the auditor at 1/64, a Store, the timeline off,
+   windows closed by `flush_window(now)`) fed over loopback TCP with
+   frames built by the port's wire modules: phase 3's two windows of
+   l4 records (window 0's first 2^16 as TAGGEDFLOW protobuf records,
+   the rest as planar COLUMNAR_FLOW frames; the L4_SCHEMA columns phase
+   3 does not draw from the seed), 2^17 l7 requests drawn as phase 8
+   draws them (PROTOCOLLOG) and 2^17 Documents drawn as phase 10 draws
+   them (METRICS). (a) One decoder, one connection: every sketch leaf at
+   every window, the anomaly states and alerts, every window and RED
+   output equal to a second TpuSketchExporter and AppRedExporter on the
+   card fed through put() with the same frames decoded here by the
+   port's decoders and stamped by the same PlatformDataManager; top-K
+   recall >= 0.99; conservation hop by hop (frames received, records
+   decoded, rows into the sketch, the registry's puts = the chunks its
+   exporters processed, stored + sampled-out rows = decoded rows); the
+   metrics 1m tier = a numpy GROUP BY. (b) Two decoders, 4 connections
+   with 4 vtap_ids, the tracer on: the l4 frames; the leaves that do not
+   depend on the batch partition equal to (a)'s; records/s from the
+   first byte sent to the last window flushed (beside phase 6's dict
+   feed), the stage medians, launches, and one more window's ingest
+   under torch.profiler: no stream or device sync, event syncs = fences.
+   (c) (b) with the feed autotuner at a 0.25 s interval: the same leaf
+   equality and the same ingest stream syncs; the knobs' final values,
+   trials and reverts reported.
 
 Each phase prints its time. `--one-generator` draws phase 2's rows for
 phase 9's shapes from the generator phases 2-8 share instead of their
@@ -3962,6 +3989,654 @@ def check_global_mesh(torch, dev, windows, ref, tmp, card):
     return report
 
 
+# -- phase 13: the ingester entry point --------------------------------------
+
+ING_TAGGED = 1 << 16       # window 0's first records, as TAGGEDFLOW protobuf
+ING_L7 = 1 << 17           # phase 8's l7 requests, as PROTOCOLLOG
+ING_DOC_TUPLES = 2048      # phase 10's tag tuples x seconds: 2^17 Documents,
+ING_DOC_SECONDS = 64       # as METRICS
+ING_PB_PER_FRAME = 1024    # protobuf records per frame
+ING_COL_PER_FRAME = 1024   # planar L4 rows per COLUMNAR_FLOW frame (~459 KB)
+ING_VTAPS = 4              # (b), (c): connections, one vtap_id each
+ING_PROFILED_FRAMES = 256  # (b), (c): window 1's first planar frames, profiled
+ING_AUTOTUNE_S = 0.25
+ING_STAGES = ("receiver", "decode", "queue.ingest.l4_flow_log",
+              "queue.exporter.tpu_sketch", "kernel.h2d", "kernel.dispatch",
+              "kernel.device")
+ING_NOWS = (3000.0, 3001.0)
+
+
+def l4_wide(rng, cols, second):
+    """Phase 3's rows as L4_SCHEMA columns: the drawn columns as they
+    are, `timestamp` the given second, v4 rows, every other column from
+    the seed."""
+    from deepflow_tpu_torch.batch.schema import L4_SCHEMA
+    n = len(cols["ip_src"])
+    out = {}
+    for name, dt in L4_SCHEMA.columns:
+        dt = np.dtype(dt)
+        if name in cols:
+            out[name] = cols[name].astype(dt)
+        elif name == "timestamp":
+            out[name] = np.full(n, second, dt)
+        elif name in ("_id", "is_ipv6"):
+            out[name] = np.zeros(n, dt)
+        elif dt.itemsize == 8:
+            out[name] = rng.integers(0, 1 << 48, n, dtype=np.uint64)
+        else:
+            out[name] = rng.integers(0, 1 << 16, n).astype(dt)
+    return out
+
+
+def l4_pb_records(wide, lo, hi):
+    """TaggedFlow records (the reference agent's wire) of rows [lo, hi)."""
+    from deepflow_tpu_torch.wire.gen import flow_log_pb2
+    c = {k: wide[k][lo:hi].tolist() for k in (
+        "ip_src", "ip_dst", "port_src", "port_dst", "proto", "vtap_id",
+        "mac_src", "mac_dst", "packet_tx", "packet_rx", "byte_tx",
+        "byte_rx", "l3_epc_id", "l3_epc_id_1", "flow_id", "timestamp",
+        "duration_us", "close_type", "tap_side", "rtt", "retrans")}
+    out = []
+    for i in range(hi - lo):
+        m = flow_log_pb2.TaggedFlow()
+        f = m.flow
+        k = f.flow_key
+        k.ip_src, k.ip_dst = c["ip_src"][i], c["ip_dst"][i]
+        k.port_src, k.port_dst = c["port_src"][i], c["port_dst"][i]
+        k.proto, k.vtap_id = c["proto"][i], c["vtap_id"][i]
+        k.mac_src, k.mac_dst = c["mac_src"][i], c["mac_dst"][i]
+        s, d = f.metrics_peer_src, f.metrics_peer_dst
+        s.packet_count, d.packet_count = c["packet_tx"][i], c["packet_rx"][i]
+        s.byte_count, d.byte_count = c["byte_tx"][i], c["byte_rx"][i]
+        s.l3_epc_id, d.l3_epc_id = c["l3_epc_id"][i], c["l3_epc_id_1"][i]
+        f.flow_id = c["flow_id"][i]
+        f.start_time = c["timestamp"][i] * 1_000_000_000
+        f.duration = c["duration_us"][i] * 1000
+        f.close_type, f.tap_side = c["close_type"][i], c["tap_side"][i]
+        f.perf_stats.tcp.rtt = c["rtt"][i]
+        f.perf_stats.tcp.total_retrans_count = c["retrans"][i]
+        out.append(m.SerializeToString())
+    return out
+
+
+def l7_pb_records(rng, cols, second):
+    """AppProtoLogsData records of phase 8's l7 requests: the RED
+    columns as drawn (rrt in ns on the wire), clients, endpoints and
+    trace ids from the seed."""
+    from deepflow_tpu_torch.wire.gen import flow_log_pb2
+    n = len(cols["rrt_us"])
+    c = {k: cols[k].tolist() for k in ("ip_dst", "port_dst", "protocol",
+                                       "status", "rrt_us")}
+    src = (0x0A000000 + rng.integers(0, 1 << 20, n)).tolist()
+    ep = rng.integers(0, 256, n).tolist()
+    out = []
+    for i in range(n):
+        m = flow_log_pb2.AppProtoLogsData()
+        b = m.base
+        b.start_time = second * 1_000_000_000 + i
+        b.ip_src, b.ip_dst = src[i], c["ip_dst"][i]
+        b.port_dst, b.protocol = c["port_dst"][i], c["protocol"][i]
+        b.head.proto = 20
+        b.head.rrt = c["rrt_us"][i] * 1000
+        m.req.endpoint = f"/api/v1/item/{ep[i]}"
+        m.resp.status = c["status"][i]
+        m.trace_info.trace_id = f"{src[i]:08x}{i:08x}"
+        out.append(m.SerializeToString())
+    return out
+
+
+def doc_pb_records(cols):
+    """metric Documents of phase 10's rows: every tag dimension and meter
+    of the METRIC_SCHEMA row on its protobuf field; the two hashed
+    strings become names (the decoder hashes them again)."""
+    from deepflow_tpu_torch.batch.schema import METRIC_SCHEMA
+    from deepflow_tpu_torch.wire.gen import metric_pb2
+    tags = {"server_port": "server_port", "vtap_id": "vtap_id",
+            "protocol": "protocol", "l3_epc_id": "l3_epc_id",
+            "direction": "direction", "tap_side": "tap_side",
+            "tap_type": "tap_type", "tap_port": "tap_port",
+            "l7_protocol": "l7_protocol", "gprocess_id": "gpid",
+            "signal_source": "signal_source", "pod_id": "pod_id"}
+    flow = metric_pb2.FlowMeter.DESCRIPTOR
+    meters = []
+    for name, _ in METRIC_SCHEMA.columns:
+        for sub in ("traffic", "latency", "performance", "anomaly"):
+            if name in flow.fields_by_name[sub].message_type.fields_by_name:
+                meters.append((sub, name))
+    lists = {k: cols[k].tolist() for k in
+             list(tags) + [m for _, m in meters]
+             + ["timestamp", "tag_code", "ip", "app_service_hash",
+                "endpoint_hash"]}
+    out = []
+    for i in range(len(cols["timestamp"])):
+        d = metric_pb2.Document()
+        d.timestamp = lists["timestamp"][i]
+        d.tag.code = lists["tag_code"][i]
+        fld = d.tag.field
+        fld.ip = lists["ip"][i].to_bytes(4, "big")
+        for col, field in tags.items():
+            setattr(fld, field, lists[col][i])
+        fld.app_service = f"svc-{lists['app_service_hash'][i] % 512}"
+        fld.endpoint = f"/ep/{lists['endpoint_hash'][i] % 4096}"
+        fm = d.meter.flow
+        for sub, name in meters:
+            setattr(getattr(fm, sub), name, lists[name][i])
+        out.append(d.SerializeToString())
+    return out
+
+
+class FrameSequencer:
+    """Wire frames with the sequence numbers an agent gives them: one
+    counter per (vtap_id, message type)."""
+
+    def __init__(self):
+        self.seq = {}
+
+    def frame(self, msg_type, payload, vtap):
+        from deepflow_tpu_torch.wire import FlowHeader, encode_frame
+        key = (vtap, int(msg_type))
+        self.seq[key] = self.seq.get(key, 0) + 1
+        return encode_frame(msg_type, payload,
+                            FlowHeader(sequence=self.seq[key], vtap_id=vtap))
+
+    def pb(self, msg_type, records, vtap=1):
+        from deepflow_tpu_torch.wire import pack_pb_records
+        return [self.frame(msg_type,
+                           pack_pb_records(records[s:s + ING_PB_PER_FRAME]),
+                           vtap)
+                for s in range(0, len(records), ING_PB_PER_FRAME)]
+
+    def columnar(self, wide, lo, hi, vtap=1):
+        from deepflow_tpu_torch.wire import MessageType
+        from deepflow_tpu_torch.wire.columnar_wire import encode_columnar
+        return [self.frame(MessageType.COLUMNAR_FLOW, encode_columnar(
+            {k: v[s:min(hi, s + ING_COL_PER_FRAME)] for k, v in wide.items()}),
+            vtap) for s in range(lo, hi, ING_COL_PER_FRAME)]
+
+    def revtap(self, frames, n_vtaps):
+        """The same frames spread over `n_vtaps` agents round robin, each
+        agent's sequence its own; [frames of agent v]."""
+        import struct
+        out = [[] for _ in range(n_vtaps)]
+        for j, f in enumerate(frames):
+            v = j % n_vtaps
+            key = (v + 1, f[4])
+            self.seq[key] = self.seq.get(key, 0) + 1
+            out[v].append(f[:9] + struct.pack("<QH", self.seq[key], v + 1)
+                          + f[19:])
+        return out
+
+
+def ingester_traffic(rng, windows):
+    """(a)'s frames: per l4 window [TAGGEDFLOW frames, COLUMNAR_FLOW
+    frames] (window 0 starts with ING_TAGGED protobuf records, the rest
+    planar), phase 8's l7 requests and phase 10's Documents, with the
+    source columns and the build time."""
+    from deepflow_tpu_torch.pipelines.tag_code import VTAP_FLOW_PORT
+    from deepflow_tpu_torch.wire import MessageType
+    t0 = time.perf_counter()
+    second = int(time.time())
+    seqr = FrameSequencer()
+    l4 = []
+    for w, cols in enumerate(windows):
+        wide = l4_wide(rng, cols, second + w)
+        n = len(wide["ip_src"])
+        k = ING_TAGGED if w == 0 else 0
+        l4.append((seqr.pb(MessageType.TAGGEDFLOW,
+                           l4_pb_records(wide, 0, k)),
+                   seqr.columnar(wide, k, n)))
+    pool, p = red_pool(rng)
+    l7_cols = red_window(rng, pool, p, ING_L7)
+    l7 = seqr.pb(MessageType.PROTOCOLLOG,
+                 l7_pb_records(rng, l7_cols, second))
+    doc_t0 = (int(time.time()) // 3600 + 2) * 3600   # ahead: the ticker waits
+    docs = fm_rows(rng, doc_t0, fm_tuples(rng, ING_DOC_TUPLES),
+                   seconds=ING_DOC_SECONDS)
+    docs["tag_code"][:] = int(VTAP_FLOW_PORT)
+    metrics = seqr.pb(MessageType.METRICS, doc_pb_records(docs))
+    return {"l4": l4, "l7": l7, "l7_cols": l7_cols, "metrics": metrics,
+            "doc_t0": doc_t0, "seq": seqr,
+            "build_s": time.perf_counter() - t0}
+
+
+def decode_frames(frames, platform, l7_dict=None):
+    """The yardstick's decode of a run of frames, frame by frame, in
+    order: the port's decoders, the ingester's PlatformDataManager and
+    row ids. Yields (stream, cols)."""
+    from deepflow_tpu_torch.decode import columnar
+    from deepflow_tpu_torch.pipelines.flow_log import stamp_row_ids
+    from deepflow_tpu_torch.wire import FrameReader, MessageType
+    from deepflow_tpu_torch.wire.codec import iter_pb_records
+    from deepflow_tpu_torch.wire.columnar_wire import decode_columnar
+    reader = FrameReader()
+    for raw in frames:
+        for f in reader.feed(raw):
+            if f.msg_type == MessageType.COLUMNAR_FLOW:
+                cols, bad = decode_columnar(f.payload)
+            elif f.msg_type == MessageType.TAGGEDFLOW:
+                cols, bad = columnar.decode_l4_records(
+                    list(iter_pb_records(f.payload))), 0
+            elif f.msg_type == MessageType.PROTOCOLLOG:
+                cols = columnar.decode_l7_records(
+                    list(iter_pb_records(f.payload)), endpoint_dict=l7_dict)
+                yield "l7_flow_log", stamp_row_ids(platform.stamp_l7(cols))
+                continue
+            else:
+                yield "flow_metrics", columnar.decode_metric_records(
+                    list(iter_pb_records(f.payload)))
+                continue
+            if bad:
+                raise AssertionError("the yardstick could not decode a frame")
+            yield "l4_flow_log", stamp_row_ids(platform.stamp_l4(cols))
+
+
+def wait_for(fn, what, timeout=300):
+    deadline = time.monotonic() + timeout
+    while not fn():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 13: timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def send_all(port, frames):
+    """One agent connection: every frame, in order, then close."""
+    import socket
+    with socket.create_connection(("127.0.0.1", port)) as s:
+        for f in frames:
+            s.sendall(f)
+
+
+def send_parallel(port, per_conn):
+    """One connection per frame list, all sending at once."""
+    errs = []
+
+    def run(frames):
+        try:
+            send_all(port, frames)
+        except Exception as e:       # noqa: BLE001 -- re-raised below
+            errs.append(e)
+    ts = [threading.Thread(target=run, args=(f,)) for f in per_conn]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errs:
+        raise errs[0]
+
+
+def ingester_config(root, **kw):
+    from deepflow_tpu_torch.pipelines import IngesterConfig
+    return IngesterConfig(listen_port=0, store_path=root,
+                          tpu_sketch_window_s=3600, app_red_window_s=3600,
+                          anomaly_enabled=True, timeline_sample_s=0, **kw)
+
+
+def yardstick(dev, cfg):
+    """The directly fed exporters: the ingester's configuration, no store
+    and no checkpoint directory (neither touches the state)."""
+    from deepflow_tpu_torch.anomaly import AnomalyConfig
+    from deepflow_tpu_torch.runtime.app_red import AppRedExporter
+    from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
+    sketch = TpuSketchExporter(
+        window_seconds=3600, wire=cfg.tpu_sketch_wire,
+        prefetch_depth=cfg.prefetch_depth,
+        coalesce_batches=cfg.coalesce_batches, zero_copy=cfg.zero_copy,
+        pack_workers=cfg.pack_workers, audit_rate=cfg.audit_sample_rate,
+        anomaly=AnomalyConfig(active_log2=cfg.anomaly_active_log2,
+                              entropy_z=cfg.anomaly_entropy_z,
+                              pca_z=cfg.anomaly_pca_z,
+                              mp_threshold=cfg.anomaly_mp_threshold,
+                              warmup_windows=cfg.anomaly_warmup_windows),
+        device=dev)
+    red = AppRedExporter(window_seconds=3600, device=dev)
+    return sketch, red
+
+
+def decoder(ing, stream):
+    return next(d for d in ing.flow_log.decoders if d.stream == stream)
+
+
+def check_ingester_identity(torch, dev, traffic, windows, tmp, card):
+    """Phase 13(a): one decoder, one connection; the socket-fed ingester
+    against the directly fed yardstick, hop-by-hop conservation."""
+    import socket
+
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.models.app_suite import AppSuiteConfig
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.pipelines import Ingester
+    from deepflow_tpu_torch.pipelines.schemas import METRICS_TABLE
+    from deepflow_tpu_torch.store.db import Store
+    from deepflow_tpu_torch.store.dict_store import TagDict
+
+    cfg = ingester_config(os.path.join(tmp, "a"), n_decoders=1)
+    ing = Ingester(cfg, device=dev)
+    y_sketch, y_red = yardstick(dev, cfg)
+    counters = launch_counters()
+    i_snaps, y_snaps = bus_snapshots(ing.tpu_sketch), bus_snapshots(y_sketch)
+    i_planes, y_planes, i_outs, y_outs = [], [], [], []
+    l4, l7 = decoder(ing, "l4_flow_log"), decoder(ing, "l7_flow_log")
+    frames_sent = 0
+    n_docs = ING_DOC_TUPLES * ING_DOC_SECONDS
+    l7_dict = TagDict()
+    try:
+        ing.start()
+        y_sketch.start()
+        y_red.start()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t_first = time.perf_counter()
+        conn = socket.create_connection(("127.0.0.1", ing.port))
+        try:
+            for w, (tagged, planar) in enumerate(traffic["l4"]):
+                before = sum(len(x["ip_src"]) for x in windows[:w])
+                # one wire at a time: a decoder batch of mixed frames
+                # decodes its planar frames first
+                for f in tagged:
+                    conn.sendall(f)
+                if tagged:
+                    wait_for(lambda: l4.records == before + ING_TAGGED,
+                             "the TAGGEDFLOW decode")
+                for f in planar:
+                    conn.sendall(f)
+                frames_sent += len(tagged) + len(planar)
+                n = before + len(windows[w]["ip_src"])
+                wait_for(lambda: ing.tpu_sketch.rows_in == n,
+                         "the sketch exporter")
+                i_outs.append(ing.tpu_sketch.flush_window(now=ING_NOWS[w]))
+                torch.cuda.synchronize()
+                i_planes.append(convert.anomaly_to_numpy(
+                    ing.tpu_sketch.anomaly.state))
+            t_l4 = time.perf_counter() - t_first
+            for f in traffic["l7"]:
+                conn.sendall(f)
+            frames_sent += len(traffic["l7"])
+            wait_for(lambda: ing.app_red.rows_in == ING_L7, "the RED exporter")
+            i_red = ing.app_red.flush_window(now=ING_NOWS[0])
+            for f in traffic["metrics"]:
+                conn.sendall(f)
+            frames_sent += len(traffic["metrics"])
+            wait_for(lambda: ing.flow_metrics.records == n_docs,
+                     "the unmarshaller")
+        finally:
+            conn.close()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        # the yardstick: the same frames decoded here, in the same order
+        y_docs = []
+        for w, segments in enumerate(traffic["l4"]):
+            for frames in segments:
+                for _, cols in decode_frames(frames, ing.platform):
+                    y_sketch.put("l4_flow_log", 0, cols)
+            n = sum(len(x["ip_src"]) for x in windows[:w + 1])
+            wait_for(lambda: y_sketch.rows_in == n, "the yardstick sketch")
+            y_outs.append(y_sketch.flush_window(now=ING_NOWS[w]))
+            torch.cuda.synchronize()
+            y_planes.append(convert.anomaly_to_numpy(y_sketch.anomaly.state))
+        for _, cols in decode_frames(traffic["l7"], ing.platform, l7_dict):
+            y_red.put("l7_flow_log", 0, cols)
+        wait_for(lambda: y_red.rows_in == ING_L7, "the yardstick RED")
+        y_red_out = y_red.flush_window(now=ING_NOWS[0])
+        for _, cols in decode_frames(traffic["metrics"], ing.platform):
+            y_docs.append(cols)
+        torch.cuda.synchronize()
+        ing.flush()
+        # the writers' own threads may still be writing what they took
+        tables = {w.table.schema.name: w.table for w in ing.flow_log.writers}
+        emitted = {s: sum(d.throttler.counters()["emitted"]
+                          for d in ing.flow_log.decoders if d.stream == s)
+                   for s in tables}
+        base = ing.flow_metrics.rollups.base
+        wait_for(lambda: all(tables[s].rows_written >= emitted[s]
+                             for s in tables)
+                 and base.rows_written >= n_docs, "the store writers")
+        rollups = ing.flow_metrics.rollups
+        # every minute the Documents touch is complete
+        rollups.advance(traffic["doc_t0"] + -(-ING_DOC_SECONDS // 60) * 60
+                        + rollups.allowance)
+        rc = ing.receiver.counters()
+        dc = {d.stream: d.counters() for d in ing.flow_log.decoders}
+        ec = ing.exporters.counters()
+        chunks = ing.tpu_sketch.processed + ing.app_red.processed
+        sampled = {s: sum(d.throttler.counters()["sampled_out"]
+                          for d in ing.flow_log.decoders if d.stream == s)
+                   for s in ("l4_flow_log", "l7_flow_log")}
+        store = Store(cfg.store_path)
+        stored = {s: store.table("flow_log", s).row_count()
+                  for s in ("l4_flow_log", "l7_flow_log")}
+        tier = store.table("flow_metrics", METRICS_TABLE.name + ".1m").scan()
+        sc = ing.tpu_sketch.counters()
+        alerts = (list(ing.tpu_sketch.anomaly.alerts_total),
+                  list(y_sketch.anomaly.alerts_total))
+    finally:
+        ing.close()
+        y_sketch.close()
+        y_red.close()
+    l4_rows = sum(len(x["ip_src"]) for x in windows)
+    compare_snaps(i_snaps[:len(windows)], y_snaps[:len(windows)], None,
+                  "the socket-fed ingester", "the directly fed exporter")
+    compare_planes(i_planes, y_planes, "the ingester's anomaly plane",
+                   "the yardstick's")
+    if alerts[0] != alerts[1]:
+        raise AssertionError(f"anomaly alerts differ: {alerts}")
+    for w, (a, b) in enumerate(zip(i_outs, y_outs)):
+        for name in a._fields:
+            x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+            if not torch.equal(x, y):
+                raise AssertionError(f"window {w}: output {name} differs")
+    for name in i_red._fields:
+        if not torch.equal(getattr(i_red, name).cpu(),
+                           getattr(y_red_out, name).cpu()):
+            raise AssertionError(f"RED output {name} differs")
+    fcfg, recalls = FlowSuiteConfig(), []
+    for w, out in enumerate(i_outs):
+        check_output(torch, out, fcfg)
+        got = set(out.topk_keys.cpu().numpy().view(np.uint32).tolist())
+        recalls.append(len(got & exact_topk(windows[w], fcfg.top_k))
+                       / fcfg.top_k)
+    if min(recalls) < 0.99:
+        raise AssertionError(f"phase 13: top-K recall {recalls} < 0.99")
+    if int(i_red.requests.sum()) != ING_L7 or AppSuiteConfig().groups != \
+            i_red.requests.shape[0]:
+        raise AssertionError("RED requests do not add up")
+    # conservation, hop by hop
+    if (rc["rx_frames"] != frames_sent or rc["no_handler"]
+            or rc["rx_duplicate"] or rc["rx_errors"]):
+        raise AssertionError(f"receiver counters {rc} ({frames_sent} sent)")
+    if (dc["l4_flow_log"]["records"] != l4_rows
+            or dc["l7_flow_log"]["records"] != ING_L7
+            or any(c["decode_errors"] for c in dc.values())):
+        raise AssertionError(f"decoder counters {dc}")
+    if sc["rows_in"] != l4_rows or sc["lost_rows"] or sc["device_errors"]:
+        raise AssertionError(f"sketch exporter counters {sc}")
+    if ec["put"] != chunks or ec["put_errors"] or ec["shed"]:
+        raise AssertionError(f"registry counters {ec}, {chunks} chunks "
+                             "processed")
+    for s, n in (("l4_flow_log", l4_rows), ("l7_flow_log", ING_L7)):
+        if stored[s] + sampled[s] != n:
+            raise AssertionError(f"{s}: {stored[s]} rows stored + "
+                                 f"{sampled[s]} sampled out != {n}")
+    if ing.flow_metrics.records != n_docs or ing.flow_metrics.decode_errors:
+        raise AssertionError("unmarshaller counters")
+    want = numpy_rollup({k: np.concatenate([c[k] for c in y_docs])
+                         for k in y_docs[0]})
+    assert_tables_equal(want, tier, "phase 13 1m tier vs numpy GROUP BY")
+    log(f"  (a) one decoder, one connection, on {card}: {frames_sent} frames "
+        f"({rc['rx_bytes'] / 1e6:.1f} MB); l4 {l4_rows} rows in {t_l4:.2f} s "
+        f"({l4_rows / t_l4:.0f} records/s, first byte to the last window "
+        f"flushed); every sketch leaf, the anomaly states and alerts "
+        f"{alerts[0]}, every window and RED output = the directly fed "
+        f"exporters; recall {recalls}; stored l4 {stored['l4_flow_log']} + "
+        f"sampled out {sampled['l4_flow_log']}, l7 {stored['l7_flow_log']} "
+        f"+ {sampled['l7_flow_log']}; registry {ec}; 1m tier "
+        f"{len(tier['timestamp'])} rows = numpy GROUP BY; launches {launches}")
+    return {"frames": frames_sent, "rx_bytes": rc["rx_bytes"],
+            "l4_rows": l4_rows, "l4_seconds": t_l4,
+            "l4_records_per_s": l4_rows / t_l4, "recall": recalls,
+            "stored": stored, "sampled_out": sampled, "registry": ec,
+            "tier_rows": len(tier["timestamp"]), "launches": launches,
+            "snaps": i_snaps[:len(windows)]}
+
+
+def run_ingester_throughput(torch, dev, name, per_window, profiled, windows,
+                            ref_snaps, tmp, card, **knobs):
+    """Phase 13(b)/(c): the default two decoders, ING_VTAPS connections
+    (one vtap_id each) sending at once, the tracer on. Windows 0 and 1
+    unprofiled (records/s from the first byte sent to the last window
+    flushed, stage medians, launches); then `profiled` = (frames per
+    connection, rows) sent again with the ingest under torch.profiler
+    (the feed drained inside it) for the ingest path's syncs. Returns
+    the run's record."""
+    from deepflow_tpu_torch.pipelines import Ingester
+    from deepflow_tpu_torch.runtime.tracing import default_tracer
+    from torch.profiler import ProfilerActivity, profile
+
+    ing = Ingester(ingester_config(os.path.join(tmp, name), **knobs),
+                   device=dev)
+    exp = ing.tpu_sketch
+    snaps = bus_snapshots(exp)
+    counters = launch_counters()
+    tr = default_tracer()
+    l4_rows = sum(len(w["ip_src"]) for w in windows)
+    try:
+        ing.start()
+        tr.reset()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        done = 0
+        for w, per_conn in enumerate(per_window):
+            send_parallel(ing.port, per_conn)
+            done += len(windows[w]["ip_src"])
+            wait_for(lambda: exp.rows_in == done, "the sketch exporter")
+            exp.flush_window(now=ING_NOWS[w])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        lat = tr.latency()
+        busy_s = {s: sk.sum for s, sk in tr.stages().items()}
+        c0 = exp.counters()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            mark(torch, dev)
+            tp = time.perf_counter()
+            send_parallel(ing.port, profiled[0])
+            done += profiled[1]
+            wait_for(lambda: exp.rows_in == done, "the sketch exporter")
+            if not exp._feed.drain(60):
+                raise AssertionError(f"{name}: the feed did not drain")
+            t_prof = time.perf_counter() - tp
+            mark(torch, dev)
+        c1 = exp.counters()
+        exp.flush_window(now=ING_NOWS[-1] + 1)
+        tuner = None if ing.autotuner is None else ing.autotuner.counters()
+        knob_values = None if ing.autotuner is None else {
+            k.name: k.get() for k in ing.autotuner.knobs}
+        rc, ec = ing.receiver.counters(), ing.exporters.counters()
+        dc = [d.counters() for d in ing.flow_log.decoders
+              if d.stream == "l4_flow_log"]
+    finally:
+        ing.close()
+        tr.disable()
+    session = trace_session(torch, prof, t_prof)
+    calls = session["runtime_calls"]
+    fences = c1["feed_fences"] - c0["feed_fences"]
+    compare_snaps(ref_snaps, snaps[:len(windows)], WIRE_FREE_LEAVES,
+                  "(a)", name)
+    if sum(d["records"] for d in dc) != l4_rows + profiled[1] \
+            or any(d["decode_errors"] for d in dc) or rc["no_handler"] \
+            or rc["rx_duplicate"] or ec["put_errors"] or ec["shed"]:
+        raise AssertionError(f"{name}: counters {rc} {dc} {ec}")
+    for k in ("fused_news_hists", "fused_lane_hists"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    if (calls["cudaStreamSynchronize"] or calls["cudaDeviceSynchronize"]
+            or calls["cudaEventSynchronize"] != fences
+            or session["d2h_copy_activities"]):
+        raise AssertionError(f"{name}: the ingest path synced or read back "
+                             f"outside its fences: {calls}, {fences} fences")
+    stages = {s: round(lat[s]["p50_ms"], 4) for s in ING_STAGES if s in lat}
+    # (a CPU rehearsal has no device stages: its groups carry no fence)
+    missing = [s for s in ING_STAGES if s not in lat
+               and (torch.device(dev).type == "cuda"
+                    or not s.startswith("kernel."))]
+    if missing:
+        raise AssertionError(f"{name}: no {missing} stage in the tracer")
+    # the decoders' summed busy time over the wall (two decoders: <= 2)
+    decode_share = busy_s["decode"] / dt
+    r = {"records": l4_rows, "seconds": dt, "records_per_s": l4_rows / dt,
+         "stage_p50_ms": stages,
+         "stage_counts": {s: lat[s]["count"] for s in stages},
+         "stage_sum_s": {s: busy_s[s] for s in stages},
+         "decode_share": decode_share,
+         "launches": launches, "stream_syncs": calls["cudaStreamSynchronize"],
+         "event_syncs": calls["cudaEventSynchronize"], "fences": fences,
+         "device_syncs": calls["cudaDeviceSynchronize"],
+         "profiled_ingest_ms": session["wall_ms"],
+         "device_busy_share": session["device_busy_share"],
+         "autotune": tuner, "knobs": knob_values, "snaps": snaps}
+    log(f"  {name} on {card}: {l4_rows / dt:.0f} records/s ({dt:.2f} s for "
+        f"{l4_rows} l4 records over {ING_VTAPS} connections, first byte to "
+        f"the last window flushed); stage p50 ms {stages}; decode spans "
+        f"{busy_s['decode']:.2f} s = {decode_share:.3f} of the wall; launches "
+        f"{launches}; profiled ingest of one window {session['wall_ms']:.0f} "
+        f"ms, device busy {100 * session['device_busy_share']:.1f}%, syncs: "
+        f"stream {calls['cudaStreamSynchronize']}, event "
+        f"{calls['cudaEventSynchronize']} = {fences} fences, device "
+        f"{calls['cudaDeviceSynchronize']}"
+        + ("" if tuner is None else f"; autotuner {tuner}, knobs "
+           f"{knob_values}"))
+    return r
+
+
+def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
+    """Phase 13: the port's Ingester fed over loopback TCP: (a) identity
+    and conservation at one decoder, (b) throughput at two decoders and
+    ING_VTAPS connections, (c) (b) with the feed autotuner on."""
+    traffic = ingester_traffic(rng, windows)
+    n_frames = sum(len(a) + len(b) for a, b in traffic["l4"]) \
+        + len(traffic["l7"]) + len(traffic["metrics"])
+    log(f"  {n_frames} frames built in {traffic['build_s']:.1f} s: "
+        f"{len(traffic['l4'][0][0])} TAGGEDFLOW, "
+        f"{sum(len(b) for _, b in traffic['l4'])} COLUMNAR_FLOW, "
+        f"{len(traffic['l7'])} PROTOCOLLOG, {len(traffic['metrics'])} "
+        "METRICS")
+    seqr = traffic["seq"]
+    per_window = [seqr.revtap(a + b, ING_VTAPS) for a, b in traffic["l4"]]
+    again = traffic["l4"][1][1][:ING_PROFILED_FRAMES]
+    profiled = (seqr.revtap(again, ING_VTAPS), ING_PROFILED_FRAMES
+                * ING_COL_PER_FRAME)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ing_") as tmp:
+        a = check_ingester_identity(torch, dev, traffic, windows, tmp, card)
+        del traffic
+        b = run_ingester_throughput(torch, dev, "(b)", per_window, profiled,
+                                    windows, a["snaps"], tmp, card)
+        c = run_ingester_throughput(
+            torch, dev, "(c) autotune", per_window, profiled, windows,
+            a["snaps"], tmp, card, autotune=True,
+            autotune_interval_s=ING_AUTOTUNE_S)
+    if c["stream_syncs"] != b["stream_syncs"] \
+            or c["device_syncs"] != b["device_syncs"]:
+        raise AssertionError(f"the autotuner changed the ingest syncs: "
+                             f"{b['stream_syncs']} -> {c['stream_syncs']}")
+    log(f"  (b), (c): the partition-free leaves {sorted(WIRE_FREE_LEAVES)} = "
+        f"(a)'s at both windows; ingest stream syncs {b['stream_syncs']} = "
+        f"{c['stream_syncs']}; records/s (b) {b['records_per_s']:.0f}, "
+        f"(c) {c['records_per_s']:.0f}, phase 6's dict feed through put() "
+        f"{dict_feed_rate:.0f}")
+    for r in (a, b, c):
+        r.pop("snaps")
+    launches = {}
+    for r in (a, b, c):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"identity": a, "throughput": b, "autotune": c,
+            "launches": launches, "dict_feed_records_per_s": dict_feed_rate,
+            "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4063,6 +4738,11 @@ def main() -> int:
         mesh = check_global_mesh(torch, dev, windows, mesh_ref, tmp, card)
     del mesh_ref
     phase_done(12)
+    log("phase 13: the ingester entry point over loopback TCP")
+    ingest = check_ingester(torch, dev, np.random.default_rng((args.seed, 13)),
+                            windows, card,
+                            ingester["dict_feed"]["records_per_s"])
+    phase_done(13)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -4070,7 +4750,8 @@ def main() -> int:
     for launches in [p["launches"] for p in paths.values()] \
             + [p["launches"] for p in ingester.values()] \
             + list(detection["launches"].values()) + [red["launches"]] \
-            + shard["launches"] + pod["launches"] + [mesh["launches"]]:
+            + shard["launches"] + pod["launches"] + [mesh["launches"]] \
+            + [ingest["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -4086,6 +4767,7 @@ def main() -> int:
         "attribution": attribution, "detection": detection, "red": red,
         "sharded": shard,
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
+        "ingester": ingest,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

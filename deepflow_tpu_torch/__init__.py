@@ -1,4 +1,5 @@
-"""deepflow_tpu_torch: the l4 sketch step of deepflow_tpu and its
-exporter in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+"""deepflow_tpu_torch: the device half of deepflow_tpu (the sketch,
+RED, metrics and detection lanes, their exporters and the ingester that
+feeds them) in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
 (csrc/). Imports torch and numpy only; entry points run on the card
 unless the caller passes device="cpu"."""

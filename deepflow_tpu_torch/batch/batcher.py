@@ -27,6 +27,9 @@ class Schema:
     def names(self) -> Tuple[str, ...]:
         return tuple(n for n, _ in self.columns)
 
+    def row_bytes(self) -> int:
+        return sum(np.dtype(d).itemsize for _, d in self.columns)
+
     def coerce(self, cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Project a decoded chunk onto the schema: contiguous casts for
         present columns, zeros for absent ones."""

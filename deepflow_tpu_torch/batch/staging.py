@@ -143,6 +143,9 @@ class PackPool:
 
     def __init__(self, n_workers: int, name: str = "stage-pack") -> None:
         self.n_workers = max(1, int(n_workers))
+        # routing width: submit shards over the first `active` workers
+        # (the autotuner's pack_workers knob moves it through resize)
+        self.active = self.n_workers
         self.name = name
         self._queues: List[_queue.Queue] = [
             _queue.Queue(maxsize=256) for _ in range(self.n_workers)]
@@ -187,7 +190,27 @@ class PackPool:
                state: _GroupState) -> None:
         state.add()
         self.tasks += 1
-        self._queues[shard_key % self.n_workers].put((fn, state))
+        self._queues[shard_key % self.active].put((fn, state))
+
+    def resize(self, n_workers: int) -> int:
+        """Retarget the routing width (the autotuner's pack_workers
+        knob). Growing past the spawned count spawns more supervised
+        workers; shrinking only narrows `active` (idle workers keep
+        beating). Tasks already queued finish where they are, and the
+        destinations are pre-assigned, so any routing lands the same
+        bytes. Returns the width applied."""
+        n = max(1, int(n_workers))
+        if self._closed:
+            return self.active
+        if n > self.n_workers:
+            sup = default_supervisor()
+            for i in range(self.n_workers, n):
+                self._queues.append(_queue.Queue(maxsize=256))
+                self._handles.append(
+                    sup.spawn(f"{self.name}-{i}", self._make_worker(i)))
+            self.n_workers = n
+        self.active = n
+        return n
 
     def close(self, timeout: float = 5.0) -> None:
         self._closed = True
@@ -198,7 +221,7 @@ class PackPool:
             h.join(timeout=timeout)
 
     def counters(self) -> dict:
-        return {"pack_workers": self.n_workers, "pack_tasks": self.tasks,
+        return {"pack_workers": self.active, "pack_tasks": self.tasks,
                 "pack_task_errors": self.task_errors}
 
 
@@ -222,6 +245,7 @@ class LaneStager:
         self._pinned = bool(pinned)
         self._words = flow_suite.coalesced_lanes_words(
             self.group_batches, self.capacity)
+        self._pending_group: Optional[int] = None
         self._free: list = []
         self._buf: Optional[np.ndarray] = None
         self._state: Optional[_GroupState] = None
@@ -281,10 +305,32 @@ class LaneStager:
         if len(self._free) < self._pool_cap:
             self._free.append(group.buffer)
 
+    def set_pool_cap(self, n: int) -> None:
+        """Bound the free list at `n` buffers (the autotuner raises it
+        with the feed's depth). A lower cap takes effect as buffers are
+        taken; nothing is freed here."""
+        self._pool_cap = max(1, int(n))
+
+    def set_group_batches(self, n: int) -> None:
+        """Retarget the coalesce width (the autotuner's coalesce_batches
+        knob). It takes effect at the next group boundary: the open
+        buffer keeps its layout, so no half-retuned group is emitted.
+        The free list is dropped then (its buffers have the old size;
+        `recycle` rejects them too), and buffers of the new size are
+        allocated on this producer thread as groups need them."""
+        self._pending_group = max(1, int(n))
+
     # -- internals ----------------------------------------------------------
     def _ensure_buffer(self) -> None:
         if self._buf is not None:
             return
+        if self._pending_group is not None \
+                and self._pending_group != self.group_batches:
+            self.group_batches = self._pending_group
+            self._words = flow_suite.coalesced_lanes_words(
+                self.group_batches, self.capacity)
+            self._free.clear()
+        self._pending_group = None
         try:
             self._buf = self._free.pop()
             self.pool_hits += 1
@@ -404,6 +450,7 @@ class DictWireStager:
         # size-keyed free lists: the packer's power-of-two plane widths
         # keep the distinct sizes few
         self._free: Dict[int, list] = {}
+        self._pending_group: Optional[int] = None
         self.total_rows = 0
         self.staged_groups = 0
         self.staged_batches = 0
@@ -476,12 +523,25 @@ class DictWireStager:
             self._rows = 0
             return dropped
 
+    def set_pool_cap(self, n: int) -> None:
+        """Bound each size's free list at `n` buffers, as in LaneStager."""
+        self._pool_cap = max(1, int(n))
+
+    def set_group_batches(self, n: int) -> None:
+        """Retarget the coalesce width; it takes effect when the next
+        group opens, as in LaneStager. The free lists are size-keyed, so
+        buffers stay reusable whenever a size repeats."""
+        self._pending_group = max(1, int(n))
+
     # -- internals ----------------------------------------------------------
     def _cut_batch(self, n: int,
                    force_emit: bool = False) -> Optional[StagedWireGroup]:
         batch = {c: self._cols[c][:n] for c in _PACK_COLS}
         g = None
         with self._lock:
+            if self._batches == 0 and self._pending_group is not None:
+                self.group_batches = self._pending_group
+                self._pending_group = None
             # the inline sequence verbatim: one pack + one hit drain per
             # cut (the drain pins the partition to the inline path's)
             wire = self._packer.pack(batch)

@@ -1,2 +1,6 @@
-"""Ingester pipelines of the port: the flow_metrics pipeline's store lane
-and the metrics table schemas it writes."""
+"""Ingester pipelines of the port: the `Ingester` builder with its
+flow_log and flow_metrics pipelines, and the table schemas they write."""
+
+from deepflow_tpu_torch.pipelines.ingester import Ingester, IngesterConfig
+
+__all__ = ["Ingester", "IngesterConfig"]

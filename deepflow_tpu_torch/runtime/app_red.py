@@ -25,8 +25,8 @@ With `stats=` the exporter's counters register with a `StatsRegistry`
 as `exporter.app_red`.
 
 Not ported here (ROADMAP): the Prometheus `le`-bucket surface
-(`prom_bucket_stride > 0`), which needs the store's tag dictionaries
-and the ext_metrics sample table.
+(`prom_bucket_stride > 0`), which needs the ext_metrics sample table
+beside the store's tag dictionaries (`store/dict_store.py`).
 """
 
 from __future__ import annotations
@@ -103,8 +103,8 @@ class AppRedExporter(QueueWorkerExporter):
         if prom_bucket_stride > 0:
             raise NotImplementedError(
                 "prom_bucket_stride > 0 (the Prometheus le-bucket surface) "
-                "is not ported: it needs a port of store/dict_store.py "
-                "(TagDicts) and of the ext_metrics sample table")
+                "is not ported: it needs the ext_metrics sample table "
+                "beside store/dict_store.py's TagDicts")
         super().__init__("app_red", ["l7_flow_log"], n_workers=1, batch=64,
                          stats=stats)
         self.device = check_device(device)

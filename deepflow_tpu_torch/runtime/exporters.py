@@ -1,13 +1,14 @@
-"""The exporter contract and its queue-worker base.
+"""The exporter contract, the registry that fans chunks out, and the
+queue-worker base.
 
 An exporter takes decoded columnar chunks from the ingester's decode
 stage: `start`, `close`, `is_export_data(stream, cols)` (a cheap filter
 before enqueue) and `put(stream, decoder_index, cols)`, which must not
-block. `QueueWorkerExporter` buffers chunks in its own drop-oldest
-`OverwriteQueue` (the loss counted) and drains them on supervised worker
-threads into the subclass's `process(chunks)`. The registry that hosts
-exporters, and the circuit breaker around each, belong to the host
-(the JAX package's `Exporters` takes this class as it is).
+block. `Exporters` is the registry the decoders call: each registered
+exporter sits behind its own `CircuitBreaker`. `QueueWorkerExporter`
+buffers chunks in its own drop-oldest `OverwriteQueue` (the loss
+counted) and drains them on supervised worker threads into the
+subclass's `process(chunks)`.
 
 With `stats=` the exporter's counters register with a `StatsRegistry` as
 `exporter.<name>`. With the process tracer on, a chunk carries the
@@ -17,16 +18,127 @@ and records each drained batch as an `export` span.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from deepflow_tpu_torch.runtime.breaker import BreakerConfig, CircuitBreaker
 from deepflow_tpu_torch.runtime.faults import (FAULT_EXPORTER_PROCESS,
+                                               FAULT_EXPORTER_RAISE,
                                                default_faults)
 from deepflow_tpu_torch.runtime.queues import OverwriteQueue
 from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
 from deepflow_tpu_torch.runtime.tracing import default_tracer
+
+
+class Exporters:
+    """Registry and fan-out; one instance sits after the decode stage.
+
+    `put` runs on the decoder thread. The filter runs first, outside the
+    breaker's accounting (a raising filter is counted loss, not a
+    breaker outcome). A raise out of `put`, or a put slower than the
+    latency budget, is recorded against that exporter alone; an open
+    breaker sheds its puts, counted (`shed`), while siblings and decode
+    keep flowing. `breaker_cfg=None` runs unwrapped (errors still
+    contained, never quarantined)."""
+
+    def __init__(self, stats: Optional[StatsRegistry] = None,
+                 breaker_cfg: Optional[BreakerConfig] = BreakerConfig()
+                 ) -> None:
+        self._exporters: List[Any] = []
+        self._breakers: List[Optional[CircuitBreaker]] = []
+        self._breaker_cfg = breaker_cfg
+        self._stats = stats
+        self._faults = default_faults()
+        self._started = False
+        self.put_count = 0
+        self.filtered_count = 0
+        self.put_errors = 0        # exporter raised out of put/filter
+        self.shed_count = 0        # puts dropped by an open breaker
+        if stats is not None:
+            stats.register("exporters", self.counters)
+
+    def register(self, exporter) -> None:
+        if self._started:
+            raise RuntimeError("register before start()")
+        self._exporters.append(exporter)
+        breaker = None
+        if self._breaker_cfg is not None:
+            name = getattr(exporter, "name",
+                           f"exporter{len(self._exporters) - 1}")
+            breaker = CircuitBreaker(name, self._breaker_cfg)
+            if self._stats is not None:
+                self._stats.register(f"breaker.{name}", breaker.counters)
+        self._breakers.append(breaker)
+
+    def start(self) -> None:
+        self._started = True
+        for e in self._exporters:
+            e.start()
+
+    def close(self) -> None:
+        for e in self._exporters:
+            e.close()
+        self._started = False
+
+    def put(self, stream: str, decoder_index: int,
+            cols: Dict[str, Any]) -> None:
+        faults = self._faults
+        for e, breaker in zip(self._exporters, self._breakers):
+            try:
+                if not e.is_export_data(stream, cols):
+                    self.filtered_count += 1
+                    continue
+            except Exception:
+                self.put_errors += 1
+                continue
+            if breaker is not None and not breaker.allow():
+                self.shed_count += 1   # the breaker counts its own `dropped`
+                continue
+            t0 = time.perf_counter()
+            try:
+                if faults.enabled:
+                    faults.maybe_raise(FAULT_EXPORTER_RAISE,
+                                       key=getattr(e, "name", ""))
+                e.put(stream, decoder_index, cols)
+                self.put_count += 1
+            except Exception:
+                # counted loss, never an exception into the decode stage
+                self.put_errors += 1
+                if breaker is not None:
+                    breaker.record_failure()
+            else:
+                if breaker is not None:
+                    breaker.record_success(time.perf_counter() - t0)
+
+    def pending(self) -> int:
+        """Chunks parked in exporter queues (`.queue`) plus what a device
+        feed holds past them (`pending_extra`): the drain ladder waits
+        on this before closing."""
+        total = 0
+        for e in self._exporters:
+            q = getattr(e, "queue", None)
+            if q is not None:
+                total += len(q)
+            extra = getattr(e, "pending_extra", None)
+            if extra is not None:
+                try:
+                    total += int(extra())
+                except Exception:
+                    pass
+        return total
+
+    def breakers(self) -> Dict[str, dict]:
+        """Per-exporter breaker states."""
+        return {b.name: b.counters()
+                for b in self._breakers if b is not None}
+
+    def counters(self) -> dict:
+        return {"put": self.put_count, "filtered": self.filtered_count,
+                "put_errors": self.put_errors, "shed": self.shed_count,
+                "n_exporters": len(self._exporters)}
 
 
 class QueueWorkerExporter:
@@ -47,6 +159,7 @@ class QueueWorkerExporter:
         self.processed = 0
         self.process_errors = 0        # process() raised; batch dropped
         self._tracer = default_tracer()
+        self.queue.trace_dwell(self._tracer, f"queue.exporter.{name}")
         if stats is not None:
             stats.register(f"exporter.{name}", self.counters)
 

@@ -4,6 +4,11 @@ Named sites ask `should_fire(site)` at the spot where a real fault would
 land; tests and `chip_smoke.py` arm them with a fixed seed so every run
 replays the same schedule. The sites this package fires:
 
+- ``receiver.truncate`` -- truncate a TCP read mid-frame (framing loss);
+- ``queue.stall``      -- sleep inside `OverwriteQueue.gets` (a slow
+  consumer);
+- ``exporter.raise``   -- raise out of an exporter's `put` in the
+  `Exporters` fan-out;
 - ``tpu.device_error`` -- raise a device-classified `RuntimeError` where
   the exporter dispatches to the device (the name is the reference's);
 - ``checkpoint.torn``  -- tear a snapshot file mid-write;
@@ -43,12 +48,16 @@ import time
 from typing import Dict, List, Optional
 
 __all__ = ["FaultSite", "FaultRegistry", "InjectedFault", "default_faults",
-           "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
+           "FAULT_RECEIVER_TRUNCATE", "FAULT_QUEUE_STALL",
+           "FAULT_EXPORTER_RAISE", "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
            "FAULT_EXPORTER_PROCESS", "FAULT_ANOMALY_SCORE",
            "FAULT_SHARD_DEVICE_ERROR", "FAULT_MERGE_STALL",
            "FAULT_SHARD_LOST", "FAULT_HOST_LOST", "FAULT_DCN_PARTITION",
            "FAULT_DCN_MARKER_LOSS"]
 
+FAULT_RECEIVER_TRUNCATE = "receiver.truncate"
+FAULT_QUEUE_STALL = "queue.stall"
+FAULT_EXPORTER_RAISE = "exporter.raise"
 FAULT_DEVICE_ERROR = "tpu.device_error"
 FAULT_CHECKPOINT_TORN = "checkpoint.torn"
 FAULT_EXPORTER_PROCESS = "exporter.process"
@@ -190,6 +199,27 @@ class FaultRegistry:
                 fs = self._sites.get(site)
                 delay = fs.delay_s if fs is not None else 0.05
             self._sleep(delay)
+
+    def maybe_truncate(self, site: str, data: bytes, key: str = "") -> bytes:
+        """A prefix of `data` when the site fires (at least one byte
+        short, so the framing downstream sees a tear)."""
+        if data and self.should_fire(site, key):
+            with self._lock:
+                fs = self._sites.get(site)
+                rng = fs._rng if fs is not None else random.Random(0)
+            return data[:rng.randrange(0, len(data))]
+        return data
+
+    def counters(self) -> dict:
+        """Per-site hit and fired totals."""
+        out: dict = {"armed": 0}
+        with self._lock:
+            for name, fs in self._sites.items():
+                out["armed"] += 1
+                key = name.replace(".", "_")
+                out[f"{key}_hits"] = fs.hits
+                out[f"{key}_fired"] = fs.fired
+        return out
 
 
 _default: Optional[FaultRegistry] = None

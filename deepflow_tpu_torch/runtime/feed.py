@@ -133,6 +133,10 @@ class DeviceFeed:
         self.fence_errors = 0
         self.crash_recoveries = 0
         self.fence_wait_s = 0.0
+        # enqueue -> pull latency summed per item: the queue-dwell
+        # signal the autotuner (runtime/autotune.py) reads
+        self.queue_dwell_s = 0.0
+        self.dwell_batches = 0
         self._closed = False
         self._tracer = default_tracer()
         self._prof = default_profiler()
@@ -146,7 +150,7 @@ class DeviceFeed:
         self._ensure_started()
         with self._pending_lock:
             self._queued_batches += 1
-        self._q.put(("batch", batch, batch_id))
+        self._q.put(("batch", batch, batch_id, time.perf_counter()))
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Barrier: True once everything enqueued before this call has
@@ -206,6 +210,9 @@ class DeviceFeed:
                 if self._handle_control(item):
                     return
                 continue
+            now = time.perf_counter()
+            self.queue_dwell_s += now - item[3]
+            self.dwell_batches += 1
             group = [(item[1], item[2])]
             ctl = None
             while len(group) < self.coalesce:
@@ -214,6 +221,8 @@ class DeviceFeed:
                 except _queue.Empty:
                     break
                 if nxt[0] == "batch":
+                    self.queue_dwell_s += now - nxt[3]
+                    self.dwell_batches += 1
                     group.append((nxt[1], nxt[2]))
                 else:
                     ctl = nxt          # handled after the group applies
@@ -343,4 +352,6 @@ class DeviceFeed:
                 "feed_fences": self.fences,
                 "feed_fence_errors": self.fence_errors,
                 "feed_fence_wait_s": round(self.fence_wait_s, 6),
+                "feed_queue_dwell_s": round(self.queue_dwell_s, 6),
+                "feed_queue_dwell_batches": self.dwell_batches,
                 "feed_crash_recoveries": self.crash_recoveries}

@@ -3,13 +3,21 @@
 Between pipeline stages records move through bounded rings that
 overwrite the oldest entry instead of blocking the producer; the loss is
 deliberate and counted (`overwritten`). A lock + condvar ring with the
-batch `gets` contract the exporter's worker relies on.
+batch `gets` contract the decoders and the exporter's worker rely on.
+With `trace_dwell` armed and the tracer on, the time the oldest item of
+each drained batch spent parked lands in the tracer under one stage
+(`queue.ingest.<stream>`, `queue.exporter.<name>`).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, List, Optional, Sequence
+
+from deepflow_tpu_torch.runtime.faults import FAULT_QUEUE_STALL, default_faults
+
+_FAULTS = default_faults()
 
 
 class OverwriteQueue:
@@ -29,6 +37,10 @@ class OverwriteQueue:
         self.out_count = 0
         self.overwritten = 0
         self.closed_dropped = 0   # puts after close(): counted, not raised
+        # dwell sampling (trace_dwell): per-slot put timestamps
+        self._tracer = None
+        self._dwell_stage = ""
+        self._put_ts: Optional[List[float]] = None
 
     def __len__(self) -> int:
         with self._ready:
@@ -41,6 +53,9 @@ class OverwriteQueue:
         """Append a batch, overwriting the oldest entries when full. A
         closed queue counts the batch as `closed_dropped` instead of
         raising: producers race the close during shutdown."""
+        tracer = self._tracer
+        tracing = tracer is not None and tracer.enabled
+        now = time.perf_counter() if tracing else 0.0
         with self._ready:
             if self._closed:
                 self.closed_dropped += len(items)
@@ -53,6 +68,8 @@ class OverwriteQueue:
                 else:
                     self._size += 1
                 self._buf[tail] = item
+                if tracing:
+                    self._put_ts[tail] = now
             self.in_count += len(items)
             if items:
                 self._ready.notify_all()
@@ -62,10 +79,21 @@ class OverwriteQueue:
         """Take up to max_items; block until one is there, the timeout
         passes, or the queue closes. [] only on timeout or closed and
         drained."""
+        if _FAULTS.enabled:   # chaos: a stalled consumer
+            _FAULTS.maybe_stall(FAULT_QUEUE_STALL, key=self.name)
+        tracer = self._tracer
+        dwell = None
         with self._ready:
             if self._size == 0 and not self._closed:
                 self._ready.wait(timeout)
             n = min(self._size, max_items)
+            if (n and tracer is not None and tracer.enabled
+                    and self._put_ts is not None):
+                # one observation per batch: the oldest item's dwell,
+                # emitted after the condvar is released
+                ts = self._put_ts[self._head]
+                if ts > 0.0:
+                    dwell = time.perf_counter() - ts
             out = []
             for _ in range(n):
                 out.append(self._buf[self._head])
@@ -73,6 +101,8 @@ class OverwriteQueue:
                 self._head = (self._head + 1) % self.capacity
             self._size -= n
             self.out_count += n
+        if dwell is not None:
+            tracer.observe(self._dwell_stage, dwell)
         return out
 
     def close(self) -> None:
@@ -86,6 +116,15 @@ class OverwriteQueue:
     def closed(self) -> bool:
         return self._closed
 
+    def trace_dwell(self, tracer, stage: str) -> None:
+        """Arm dwell sampling into `tracer` under `stage`: one
+        perf_counter per put batch and a float store per item, only
+        while the tracer is enabled."""
+        with self._ready:
+            self._tracer = tracer
+            self._dwell_stage = stage
+            self._put_ts = [0.0] * self.capacity
+
     def counters(self) -> dict:
         with self._ready:
             return {"in": self.in_count, "out": self.out_count,
@@ -97,7 +136,7 @@ class OverwriteQueue:
 class MultiQueue:
     """N OverwriteQueues addressed by a key (reference: FixedMultiQueue):
     a key always lands on one queue, so one source's stream stays
-    ordered within a single consumer."""
+    ordered within a single consumer. The receiver keys by vtap_id."""
 
     def __init__(self, name: str, n_queues: int, capacity: int) -> None:
         self.name = name
@@ -120,6 +159,11 @@ class MultiQueue:
     def close(self) -> None:
         for q in self.queues:
             q.close()
+
+    def trace_dwell(self, tracer, stage: str) -> None:
+        """Arm dwell sampling on every sub-queue under one stage."""
+        for q in self.queues:
+            q.trace_dwell(tracer, stage)
 
     def counters(self) -> dict:
         agg: dict = {}

@@ -7,8 +7,8 @@ callable returning {name: number}, so stages register their `counters`
 method as it is.
 
 The reference's `StatsShipper`, which ships samples back into the
-ingester as DFSTATS records, waits for the port's ingester slice: it
-needs the agent sender, the wire framing and the stats protobuf.
+ingester as DFSTATS records, is not ported: it needs the agent sender
+and the stats protobuf.
 """
 
 from __future__ import annotations

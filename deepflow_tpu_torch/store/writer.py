@@ -12,10 +12,11 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
 from deepflow_tpu_torch.store.db import Table
 
@@ -24,7 +25,9 @@ class StoreWriter:
     """Buffers columnar chunks for one table; background flush thread."""
 
     def __init__(self, table: Table, batch_rows: int = 512_000,
-                 flush_interval: float = 10.0) -> None:
+                 flush_interval: float = 10.0,
+                 stats: Optional[StatsRegistry] = None,
+                 stats_name: Optional[str] = None) -> None:
         self.table = table
         self.batch_rows = batch_rows
         self.flush_interval = flush_interval
@@ -35,6 +38,9 @@ class StoreWriter:
         self._kick = threading.Event()  # threshold crossed: flush off-thread
         self._thread = None            # supervisor ThreadHandle
         self.flushes = 0
+        if stats is not None:
+            stats.register(stats_name or f"store.{table.schema.name}",
+                           self.counters)
 
     def start(self) -> None:
         self._thread = default_supervisor().spawn(

@@ -49,7 +49,14 @@ def test_port_files_found():
             "sharded.py", "rollup.py", "migrate.py", "monitor.py",
             "schema.py", "tag_code.py", "schemas.py",
             "flow_metrics.py", "pod.py", "multihost.py", "tracing.py",
-            "profiler.py", "stats.py"} <= names
+            "profiler.py", "stats.py", "breaker.py", "framing.py",
+            "codec.py", "columnar_wire.py", "flow_log_pb2.py",
+            "metric_pb2.py", "columnar.py", "dict_store.py",
+            "platform_data.py", "geo.py", "throttler.py", "receiver.py",
+            "flow_log.py", "autotune.py", "ingester.py"} <= names
+    for pkg in ("wire", "wire/gen", "decode", "enrich"):
+        assert (REPO / "deepflow_tpu_torch" / pkg / "__init__.py") \
+            in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
         in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "parallel" / "__init__.py") \
@@ -132,7 +139,8 @@ def test_every_entry_point_defaults_to_cuda():
             "deepflow_tpu_torch.store.rollup.RollupManager",
             "deepflow_tpu_torch.pipelines.flow_metrics.FlowMetricsPipeline",
             "deepflow_tpu_torch.parallel.pod.PodFlowSuite",
-            "deepflow_tpu_torch.parallel.multihost.HostPodCoordinator"
+            "deepflow_tpu_torch.parallel.multihost.HostPodCoordinator",
+            "deepflow_tpu_torch.pipelines.ingester.Ingester"
             } <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad
