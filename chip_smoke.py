@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
-suites, flow_metrics store lane, pod, global mesh and ingester on one
-CUDA card.
+suites, flow_metrics store lane, pod, global mesh and ingester with its
+operations surface on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -27,7 +27,13 @@ is printed):
    torch.profiler; then, checked but not timed, hist on
    its widest block-private row (2^15 bins) and the lane kernel with
    entropy rows of 2^13 bins (its widest shared copy) and 2^16 bins (too
-   wide for one, added straight into the state);
+   wide for one, added straight into the state); then the device gate of
+   the flight recorder (csrc/gate.cu, an instrument with no plain
+   version): 512 launches of a 2^22-element add with 30 us of host work
+   between launches, timed behind the gate (within 20% of
+   torch.profiler's summed kernel time) and without it (above it); a
+   gate held past its timeout reports the timeout; the launch queue's
+   depth behind a held gate is printed;
 3. the slice at the exporter defaults (FlowSuiteConfig(), batch_rows
    32768): two windows of 2^20 records each, drawn by Zipf(1.1) from a
    pool of 2^17 distinct 5-tuples, through full-row `update`, the
@@ -216,7 +222,9 @@ is printed):
    killed;
 13. the ingester entry point: the port's `Ingester` (FlowSuiteConfig(),
    AppSuiteConfig(), the dict wire with the zero-copy feed at depth 2,
-   the anomaly plane and the auditor at 1/64, a Store, the timeline off,
+   the anomaly plane and the auditor at 1/64, a Store, the operations
+   surface on its defaults: the timeline at 1.0 s with its SLO rules,
+   `prom_port=0`, `debug_port=0`, a spill and an incident directory;
    windows closed by `flush_window(now)`) fed over loopback TCP with
    frames built by the port's wire modules: phase 3's two windows of
    l4 records (window 0's first 2^16 as TAGGEDFLOW protobuf records,
@@ -236,10 +244,34 @@ is printed):
    depend on the batch partition equal to (a)'s; records/s from the
    first byte sent to the last window flushed (beside phase 6's dict
    feed), the stage medians, launches, and one more window's ingest
-   under torch.profiler: no stream or device sync, event syncs = fences.
-   (c) (b) with the feed autotuner at a 0.25 s interval: the same leaf
-   equality and the same ingest stream syncs; the knobs' final values,
-   trials and reverts reported.
+   under torch.profiler: no stream or device sync, event syncs = fences,
+   and tpu_device_busy_fraction's spans against torch.profiler's kernel
+   share (the recorder's gate kernels left out); a strict
+   validate_exposition of a /metrics scrape, /healthz, UDP round trips of
+   counters, queues, breakers and spill. (b) again with the operations
+   surface off: the same syncs, records/s beside (b)'s. (c) (b) with the
+   feed autotuner at a 0.25 s interval: the same leaf equality and the
+   same ingest stream syncs; the knobs' final values, trials and reverts
+   reported;
+14. the operations surface under injected faults, at phase 13's widths
+   (128 planar frames of phase 3's rows): exporter.raise on the sketch
+   exporter for 2 s opens its breaker, and exactly one incident bundle
+   results (breaker_open; the edges of the same moment suppressed by the
+   rate limit) whose timeline window holds the put errors' rise; the
+   deepflow_slo_burn_rate samples of a scrape equal a numpy
+   recomputation from the timeline's rings and health()["slo_burning"]
+   names the fast-burning SLOs; queue.stall on the l4 ingest queue for
+   2 s with 64-frame rings and the spill armed writes segments that are
+   replayed (spilled = replayed, none evicted), delivered + counted loss
+   = sent, and the partition-free sketch leaves equal a fault-free
+   run's.
+
+Phases 6 and 7's traced windows also hold the device-busy measure
+against torch.profiler: tpu_device_busy_fraction's spans over the
+ingest against the compute stream's kernel share, and kernel.device's
+p50 against the profiler's kernel time per program and its span of each
+gated program's kernels (within 30% of that span, asserted, in phase 6's
+dict feed, where every group is gated).
 
 Each phase prints its time. `--one-generator` draws phase 2's rows for
 phase 9's shapes from the generator phases 2-8 share instead of their
@@ -1277,6 +1309,34 @@ def _overlap_us(spans, cover):
                for s, e in spans for ms, me in merged)
 
 
+GATE_KERNEL = "gate_kernel"
+
+
+def occupancy_share(occ, t0, t1):
+    """The occupancy profiler's device spans (what tpu_device_busy_
+    fraction unions) clipped to the wall-clock window [t0, t1], their
+    union over the window: the gauge's measure over exactly the window
+    torch.profiler's share covers (the gauge itself shrinks its window
+    to the first span it holds)."""
+    ivals = [(max(t_end - dur, t0), min(t_end, t1))
+             for tr, _n, t_end, dur, _r in occ._snapshot()
+             if tr == "device" and t_end >= t0 and t_end - dur <= t1]
+    return _union_us(ivals) / max(t1 - t0, 1e-9)
+
+
+def gated_spans_ms(kernels, gates):
+    """Per gate, the span of the kernels that ran between its end and the
+    next gate's start (a gated program's kernels back to back): first
+    kernel start to last kernel end, ms."""
+    out = []
+    for i, (_, g_end) in enumerate(gates):
+        nxt = gates[i + 1][0] if i + 1 < len(gates) else float("inf")
+        ks = [(s, e) for s, e in kernels if g_end <= s < nxt]
+        if ks:
+            out.append((max(e for _, e in ks) - min(s for s, _ in ks)) / 1e3)
+    return out
+
+
 def trace_session(torch, prof, wall_s):
     """One profiler session (its work ended inside it): the device's busy
     share (union of its kernels and copies over `wall_s`), host-to-device
@@ -1288,6 +1348,10 @@ def trace_session(torch, prof, wall_s):
     events = list(prof.events())
     d = [(e.name, e.time_range.start, e.time_range.end)
          for e in events if e.device_type == cuda]
+    # the recorder's gate kernels (ops/cuda_gate.py) spin while the host
+    # launches: an instrument, not work; counted apart
+    gates = sorted((s, e) for n, s, e in d if GATE_KERNEL in n)
+    d = [x for x in d if GATE_KERNEL not in x[0]]
     api = sorted((e.time_range.start, e.name) for e in events
                  if e.device_type != cuda and e.name.startswith("cuda"))
     marks = [t for t, n in api if n == MARK]
@@ -1302,6 +1366,13 @@ def trace_session(torch, prof, wall_s):
         "wall_ms": wall_s * 1e3,
         "device_busy_share": _union_us([(s, e) for _, s, e in d])
         / 1e6 / wall_s,
+        # the compute stream's share: its kernels (copies run on the
+        # copy stream)
+        "kernel_ms": _union_us(kernels) / 1e3,
+        "kernel_busy_share": _union_us(kernels) / 1e6 / wall_s,
+        "gate_kernels": len(gates),
+        "gate_ms": sum(e - s for s, e in gates) / 1e3,
+        "gated_spans_ms": gated_spans_ms(kernels, gates),
         "kernels": len(kernels),
         "h2d_copies": len(h2d),
         "h2d_ms": sum(e - s for s, e in h2d) / 1e3,
@@ -1346,6 +1417,7 @@ def profile_ingester_paths(torch, dev, windows, tmp, card,
     run)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from deepflow_tpu_torch.runtime.profiler import default_profiler
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
     for name, knobs, via_put, _ in runs:
@@ -1360,15 +1432,19 @@ def profile_ingester_paths(torch, dev, windows, tmp, card,
             exp.flush_window()
             torch.cuda.synchronize()
             before = exp.counters()
+            occ = default_profiler()
+            occ.reset()
             with profile(activities=acts) as prof_ingest:
                 mark(torch, dev)
-                t0 = time.perf_counter()
+                t0, w0 = time.perf_counter(), time.time()
                 ingest_window(exp, windows[1], via_put)
                 if exp._feed is None:
                     torch.cuda.synchronize()
                 elif not exp._feed.drain(60):
                     raise AssertionError(f"{name}: feed did not drain")
                 t_ingest = time.perf_counter() - t0
+                # the occupancy profiler's busy share over the same ingest
+                occ_busy = occupancy_share(occ, w0, time.time())
                 mark(torch, dev)
             after = exp.counters()
             fences = after.get("feed_fences", 0) - before.get("feed_fences", 0)
@@ -1385,7 +1461,12 @@ def profile_ingester_paths(torch, dev, windows, tmp, card,
         ingest = trace_session(torch, prof_ingest, t_ingest)
         flush = trace_session(torch, prof_flush, t_flush)
         ingest["h2d_transfers"] = h2d
-        out[name] = {"ingest": ingest, "flush": flush, "fences": fences}
+        out[name] = {"ingest": ingest, "flush": flush, "fences": fences,
+                     "occupancy_busy": occ_busy,
+                     "dispatches": after["dispatches"]
+                     - before["dispatches"],
+                     "busy_counters": {k: v for k, v in after.items()
+                                       if k.startswith("busy_")}}
         calls = ingest["runtime_calls"]
         if calls["cudaLaunchKernel"] == 0:
             raise AssertionError(f"{name}: the profiler saw no runtime calls")
@@ -1465,6 +1546,8 @@ def traced_profile(torch, dev, windows, tmp, card, run, untraced):
         raise AssertionError(f"{run[0]}: ingest syncs with the tracer on "
                              f"{syncs}, off {want}")
     medians = {k: lat[k]["p50_ms"] for k in ATTRIB_STAGES}
+    busy_check = busy_against_profiler(prof, lat, run[0], card,
+                                       hold=run[0] == "dict_feed_traced")
     log(f"  {run[0]} traced on {card}: sampled medians h2d "
         f"{medians['kernel.h2d']:.4f} ms, dispatch "
         f"{medians['kernel.dispatch']:.4f} ms, device "
@@ -1475,7 +1558,68 @@ def traced_profile(torch, dev, windows, tmp, card, run, untraced):
         f"ingest {prof['ingest']['wall_ms']:.1f} ms (untraced "
         f"{untraced['ingest']['wall_ms']:.1f} ms)")
     return {"latency": lat, "gauges": gauges, "busy_fraction": busy,
-            "syncs": syncs, "profile": prof}
+            "syncs": syncs, "profile": prof, "busy_check": busy_check}
+
+
+def busy_against_profiler(prof, lat, name, card, hold=False):
+    """The repaired busy measure against torch.profiler on one profiled
+    ingest: the occupancy profiler's busy share (`tpu_device_busy_
+    fraction`'s spans over the ingest) over the compute stream's kernel
+    share, and `kernel.device`'s p50 over the profiler's kernel time per
+    program call and over the profiler's span of each gated program's
+    kernels. Logged and returned with the limits (a factor 1.5, +-30%).
+    `hold` (a run of one program kind, every group gated): the p50 must
+    lie within 30% of the profiler's span of the same programs."""
+    ingest = prof["ingest"]
+    share = ingest["kernel_busy_share"]
+    per_call_ms = ingest["kernel_ms"] / max(1, prof["dispatches"])
+    dev_p50 = lat["kernel.device"]["p50_ms"] if "kernel.device" in lat \
+        else None
+    spans = ingest["gated_spans_ms"]
+    span_ms = float(np.median(spans)) if spans else None
+    # the programs' spans as the profiler saw them (every group gated):
+    # their kernels and the gaps between back-to-back kernels
+    span_share = sum(spans) / ingest["wall_ms"] if spans else None
+    r = {"occupancy_busy": prof["occupancy_busy"],
+         "profiler_kernel_share": share,
+         "busy_ratio": prof["occupancy_busy"] / share if share else None,
+         "kernel_device_p50_ms": dev_p50,
+         "profiler_ms_per_program": per_call_ms,
+         "device_ratio": dev_p50 / per_call_ms if dev_p50 and per_call_ms
+         else None,
+         "profiler_gated_span_p50_ms": span_ms,
+         "device_over_span": dev_p50 / span_ms if dev_p50 and span_ms
+         else None,
+         "profiler_span_share": span_share,
+         "busy_over_span_share": prof["occupancy_busy"] / span_share
+         if span_share else None,
+         "gate_kernels": ingest["gate_kernels"],
+         "gate_ms": ingest["gate_ms"],
+         "dispatches": prof["dispatches"],
+         "busy_counters": prof["busy_counters"]}
+    r["busy_within_1_5"] = r["busy_ratio"] is not None and \
+        1 / 1.5 <= r["busy_ratio"] <= 1.5
+    r["device_within_30pct"] = r["device_ratio"] is not None and \
+        0.7 <= r["device_ratio"] <= 1.3
+    log(f"  {name} busy on {card}: tpu_device_busy_fraction over the "
+        f"ingest {r['occupancy_busy']:.4f} vs torch.profiler's kernel share "
+        f"{share:.4f} (ratio {r['busy_ratio']}, within 1.5x: "
+        f"{r['busy_within_1_5']}); kernel.device p50 {dev_p50} ms vs "
+        f"{per_call_ms:.4f} ms of kernels per program call "
+        f"({prof['dispatches']} calls; ratio {r['device_ratio']}, within "
+        f"30%: {r['device_within_30pct']}); the profiler's span of each "
+        f"gated program's kernels, p50 {span_ms} ms (kernel.device over it "
+        f"{r['device_over_span']}), their share of the ingest {span_share} "
+        f"(the busy fraction over it {r['busy_over_span_share']}); "
+        f"{ingest['gate_kernels']} gate kernels "
+        f"({ingest['gate_ms']:.1f} ms, left out of the shares); "
+        f"{prof['busy_counters']}")
+    if hold and not (r["device_over_span"] is not None
+                     and 0.7 <= r["device_over_span"] <= 1.3):
+        raise AssertionError(f"{name}: kernel.device p50 {dev_p50} ms is "
+                             f"not within 30% of the profiler's span of "
+                             f"the gated programs, {span_ms} ms")
+    return r
 
 
 # -- phase 7: the detection lanes --------------------------------------------
@@ -4264,11 +4408,65 @@ def send_parallel(port, per_conn):
         raise errs[0]
 
 
-def ingester_config(root, **kw):
+def ingester_config(root, surface=True, **kw):
+    """Phase 13's ingester: the exporter defaults with the anomaly plane
+    and a store. `surface`: the operations surface on its defaults (the
+    timeline at IngesterConfig's 1.0 s with its SLO rules, the
+    Prometheus and debug listeners on ephemeral ports, a spill and an
+    incident directory under `root`); else the timeline off and no
+    listener, spill or recorder."""
     from deepflow_tpu_torch.pipelines import IngesterConfig
-    return IngesterConfig(listen_port=0, store_path=root,
-                          tpu_sketch_window_s=3600, app_red_window_s=3600,
-                          anomaly_enabled=True, timeline_sample_s=0, **kw)
+    ops = dict(prom_port=0, debug_port=0,
+               spill_dir=os.path.join(root, "spill"),
+               incident_dir=os.path.join(root, "incidents")) if surface \
+        else dict(timeline_sample_s=0)
+    return IngesterConfig(**{**dict(
+        listen_port=0, store_path=root, tpu_sketch_window_s=3600,
+        app_red_window_s=3600, anomaly_enabled=True), **ops, **kw})
+
+
+def probe_surface(ing, name):
+    """The operations surface of a running ingester: one strict
+    validate_exposition of a /metrics scrape, a /healthz read, UDP round
+    trips of `counters`, `queues`, `breakers` and `spill`."""
+    import urllib.error
+    import urllib.request
+
+    from deepflow_tpu_torch.runtime.debug import debug_request
+    from deepflow_tpu_torch.runtime.promexpo import validate_exposition
+    base = f"http://127.0.0.1:{ing.prom_port}"
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        body = r.read().decode()
+    problems = validate_exposition(body)
+    if problems:
+        raise AssertionError(f"{name}: /metrics is not valid: {problems[:5]}")
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            code, health = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, health = e.code, json.loads(e.read())
+    if code != (200 if health.get("ok") else 503) \
+            or "slo_burning" not in health:
+        raise AssertionError(f"{name}: /healthz {code} {health}")
+    replies = {}
+    for cmd, kw in (("counters", {"module": "exporter.tpu_sketch"}),
+                    ("queues", {}), ("breakers", {}), ("spill", {})):
+        rep = debug_request(cmd, port=ing.debug.port, timeout=10, **kw)
+        if not rep.get("ok"):
+            raise AssertionError(f"{name}: debug {cmd}: {rep}")
+        replies[cmd] = rep["data"]
+    if ("rows_in" not in replies["counters"].get("exporter.tpu_sketch", {})
+            or "ingest.l4_flow_log" not in replies["queues"]
+            or "tpu_sketch" not in replies["breakers"]
+            or replies["spill"].get("enabled") is not True):
+        raise AssertionError(f"{name}: debug replies {replies}")
+    tl = ing.timeline.counters()
+    if tl["ticks"] < 1 or tl["rule_errors"]:
+        raise AssertionError(f"{name}: timeline {tl}")
+    return {"metrics_lines": len(body.splitlines()),
+            "metrics_bytes": len(body), "healthz": code,
+            "slo_burning": health["slo_burning"], "timeline": tl,
+            "spilled": sum(q["spilled"] for q in replies["queues"].values())}
 
 
 def yardstick(dev, cfg):
@@ -4480,7 +4678,7 @@ def check_ingester_identity(torch, dev, traffic, windows, tmp, card):
 
 
 def run_ingester_throughput(torch, dev, name, per_window, profiled, windows,
-                            ref_snaps, tmp, card, **knobs):
+                            ref_snaps, tmp, card, surface=True, **knobs):
     """Phase 13(b)/(c): the default two decoders, ING_VTAPS connections
     (one vtap_id each) sending at once, the tracer on. Windows 0 and 1
     unprofiled (records/s from the first byte sent to the last window
@@ -4489,11 +4687,12 @@ def run_ingester_throughput(torch, dev, name, per_window, profiled, windows,
     (the feed drained inside it) for the ingest path's syncs. Returns
     the run's record."""
     from deepflow_tpu_torch.pipelines import Ingester
+    from deepflow_tpu_torch.runtime.profiler import default_profiler
     from deepflow_tpu_torch.runtime.tracing import default_tracer
     from torch.profiler import ProfilerActivity, profile
 
-    ing = Ingester(ingester_config(os.path.join(tmp, name), **knobs),
-                   device=dev)
+    ing = Ingester(ingester_config(os.path.join(tmp, name), surface=surface,
+                                   **knobs), device=dev)
     exp = ing.tpu_sketch
     snaps = bus_snapshots(exp)
     counters = launch_counters()
@@ -4519,18 +4718,23 @@ def run_ingester_throughput(torch, dev, name, per_window, profiled, windows,
         busy_s = {s: sk.sum for s, sk in tr.stages().items()}
         c0 = exp.counters()
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        occ = default_profiler()
+        occ.reset()
         with profile(activities=acts) as prof:
             mark(torch, dev)
-            tp = time.perf_counter()
+            tp, wp = time.perf_counter(), time.time()
             send_parallel(ing.port, profiled[0])
             done += profiled[1]
             wait_for(lambda: exp.rows_in == done, "the sketch exporter")
             if not exp._feed.drain(60):
                 raise AssertionError(f"{name}: the feed did not drain")
             t_prof = time.perf_counter() - tp
+            occ_busy = occupancy_share(occ, wp, time.time())
+            gauge_busy = occ.busy_fraction(horizon_s=t_prof)
             mark(torch, dev)
         c1 = exp.counters()
         exp.flush_window(now=ING_NOWS[-1] + 1)
+        surface_probe = probe_surface(ing, name) if surface else None
         tuner = None if ing.autotuner is None else ing.autotuner.counters()
         knob_values = None if ing.autotuner is None else {
             k.name: k.get() for k in ing.autotuner.knobs}
@@ -4576,6 +4780,13 @@ def run_ingester_throughput(torch, dev, name, per_window, profiled, windows,
          "device_syncs": calls["cudaDeviceSynchronize"],
          "profiled_ingest_ms": session["wall_ms"],
          "device_busy_share": session["device_busy_share"],
+         "kernel_busy_share": session["kernel_busy_share"],
+         "occupancy_busy": occ_busy, "busy_gauge": gauge_busy,
+         "busy_ratio": occ_busy / session["kernel_busy_share"]
+         if session["kernel_busy_share"] else None,
+         "busy_counters": {k: v for k, v in c1.items()
+                           if k.startswith("busy_")},
+         "surface": surface_probe,
          "autotune": tuner, "knobs": knob_values, "snaps": snaps}
     log(f"  {name} on {card}: {l4_rows / dt:.0f} records/s ({dt:.2f} s for "
         f"{l4_rows} l4 records over {ING_VTAPS} connections, first byte to "
@@ -4585,9 +4796,20 @@ def run_ingester_throughput(torch, dev, name, per_window, profiled, windows,
         f"ms, device busy {100 * session['device_busy_share']:.1f}%, syncs: "
         f"stream {calls['cudaStreamSynchronize']}, event "
         f"{calls['cudaEventSynchronize']} = {fences} fences, device "
-        f"{calls['cudaDeviceSynchronize']}"
+        f"{calls['cudaDeviceSynchronize']}; tpu_device_busy_fraction's "
+        f"spans over it {occ_busy:.4f} (the gauge {gauge_busy:.4f}) vs "
+        f"torch.profiler's kernel share "
+        f"{session['kernel_busy_share']:.4f} (ratio {r['busy_ratio']}; "
+        f"{session['gate_kernels']} gate kernels, "
+        f"{session['gate_ms']:.1f} ms, left out), {r['busy_counters']}"
         + ("" if tuner is None else f"; autotuner {tuner}, knobs "
-           f"{knob_values}"))
+           f"{knob_values}")
+        + ("; operations surface off" if surface_probe is None else
+           f"; operations surface: /metrics {surface_probe['metrics_lines']}"
+           f" lines valid, /healthz {surface_probe['healthz']}, slo_burning "
+           f"{surface_probe['slo_burning']}, timeline "
+           f"{surface_probe['timeline']}, debug counters/queues/breakers/"
+           f"spill answered"))
     return r
 
 
@@ -4613,6 +4835,9 @@ def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
         del traffic
         b = run_ingester_throughput(torch, dev, "(b)", per_window, profiled,
                                     windows, a["snaps"], tmp, card)
+        off = run_ingester_throughput(
+            torch, dev, "(b) surface off", per_window, profiled, windows,
+            a["snaps"], tmp, card, surface=False)
         c = run_ingester_throughput(
             torch, dev, "(c) autotune", per_window, profiled, windows,
             a["snaps"], tmp, card, autotune=True,
@@ -4621,19 +4846,383 @@ def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
             or c["device_syncs"] != b["device_syncs"]:
         raise AssertionError(f"the autotuner changed the ingest syncs: "
                              f"{b['stream_syncs']} -> {c['stream_syncs']}")
+    # the recorder's rule: the operations surface adds no sync (each run
+    # already holds its event syncs to its fences)
+    if (b["stream_syncs"], b["device_syncs"]) != \
+            (off["stream_syncs"], off["device_syncs"]):
+        raise AssertionError(
+            f"the operations surface changed the ingest syncs: off "
+            f"{off['stream_syncs']}/{off['device_syncs']}, on "
+            f"{b['stream_syncs']}/{b['device_syncs']}")
+    log(f"  (b) with the operations surface on: {b['records_per_s']:.0f} "
+        f"records/s, off {off['records_per_s']:.0f} (ratio "
+        f"{b['records_per_s'] / off['records_per_s']:.3f}); ingest syncs "
+        f"stream {b['stream_syncs']} = {off['stream_syncs']}, device "
+        f"{b['device_syncs']} = {off['device_syncs']}, event syncs = fences "
+        f"in both")
     log(f"  (b), (c): the partition-free leaves {sorted(WIRE_FREE_LEAVES)} = "
         f"(a)'s at both windows; ingest stream syncs {b['stream_syncs']} = "
         f"{c['stream_syncs']}; records/s (b) {b['records_per_s']:.0f}, "
         f"(c) {c['records_per_s']:.0f}, phase 6's dict feed through put() "
         f"{dict_feed_rate:.0f}")
-    for r in (a, b, c):
+    for r in (a, b, off, c):
         r.pop("snaps")
     launches = {}
-    for r in (a, b, c):
+    for r in (a, b, off, c):
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    return {"identity": a, "throughput": b, "autotune": c,
-            "launches": launches, "dict_feed_records_per_s": dict_feed_rate,
+    return {"identity": a, "throughput": b, "surface_off": off,
+            "autotune": c, "launches": launches,
+            "dict_feed_records_per_s": dict_feed_rate, "card": card}
+
+# -- the gate instrument (ops/cuda_gate.py), checked in phase 2 ----------------
+
+GATE_LAUNCHES = 512
+GATE_ELEMS = 1 << 22       # one add over 16 MiB: ~10 us on the device
+GATE_HOST_US = 30          # host work between launches, as a program's Python
+
+
+def _spin_us(us):
+    end = time.perf_counter() + us * 1e-6
+    while time.perf_counter() < end:
+        pass
+
+
+def check_gate(torch, dev, card):
+    """The device gate against torch.profiler: GATE_LAUNCHES launches of
+    one kernel with GATE_HOST_US of host work between them, timed three
+    ways: gated (events behind a gate the host opens after the last
+    launch), ungated (events around the launches) and by torch.profiler
+    (the kernels' summed device time). The gated median must lie within
+    20% of the profiler's time and the ungated one above it; a gate the
+    host holds past its timeout must report the timeout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepflow_tpu_torch.ops.cuda_gate import DeviceGate, gate_launch
+    x = torch.zeros(GATE_ELEMS, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    gate = DeviceGate(dev, timeout_s=2.0)
+
+    def launches():
+        for _ in range(GATE_LAUNCHES):
+            x.add_(1.0)
+            _spin_us(GATE_HOST_US)
+
+    launches()             # the kernel loaded before any gate holds
+    torch.cuda.synchronize()
+    gate_launch.launches = 0
+    gated, ungated, verdicts, host = [], [], [], []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ticket = gate.hold()
+        ev[0].record(stream)
+        t0 = time.perf_counter()
+        launches()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev[1].record(stream)
+        gate.release(ticket)
+        torch.cuda.synchronize()
+        verdicts.append(gate.verdict(ticket))
+        gated.append(ev[0].elapsed_time(ev[1]))
+        ev[2].record(stream)
+        launches()
+        ev[3].record(stream)
+        torch.cuda.synchronize()
+        ungated.append(ev[2].elapsed_time(ev[3]))
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        launches()
+        torch.cuda.synchronize()
+    kern = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == cuda
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    prof_ms = sum(kern) / 1e3
+    short = DeviceGate(dev, timeout_s=0.002)
+    ticket = short.hold()
+    time.sleep(0.05)          # the host holds it past the timeout
+    short.release(ticket)
+    torch.cuda.synchronize()
+    timeout_verdict = short.verdict(ticket)
+    # the launch queue's depth: tiny launches behind a held gate until
+    # one blocks the host (the gate's timeout then releases it)
+    tiny = torch.zeros(1024, device=dev)
+    tiny.add_(1.0)
+    torch.cuda.synchronize()
+    probe = DeviceGate(dev, timeout_s=0.3)
+    ticket = probe.hold()
+    depth = None
+    for i in range(4096):
+        t0 = time.perf_counter()
+        tiny.add_(1.0)
+        if time.perf_counter() - t0 > 0.1:
+            depth = i
+            break
+    probe.release(ticket)
+    torch.cuda.synchronize()
+    probe_verdict = probe.verdict(ticket)
+    r = {"launches": GATE_LAUNCHES, "gate_launches": gate_launch.launches,
+         "gated_ms": gated, "ungated_ms": ungated, "host_launch_ms": host,
+         "profiler_kernel_ms": prof_ms, "profiler_kernels": len(kern),
+         "gated_over_profiler": float(np.median(gated)) / prof_ms,
+         "ungated_over_profiler": float(np.median(ungated)) / prof_ms,
+         "timeout_verdict": timeout_verdict,
+         "timed_out": gate.timed_out + short.timed_out,
+         "launch_queue_depth": depth, "depth_probe_verdict": probe_verdict,
+         "card": card}
+    log(f"  gate on {card}: {GATE_LAUNCHES} launches of a 2^22-element add "
+        f"with {GATE_HOST_US} us of host work between them: gated "
+        f"{np.median(gated):.3f} ms, ungated {np.median(ungated):.3f} ms, "
+        f"torch.profiler's kernels {prof_ms:.3f} ms ({len(kern)} kernels); "
+        f"gated/profiler {r['gated_over_profiler']:.3f}, ungated/profiler "
+        f"{r['ungated_over_profiler']:.3f}; host launching "
+        f"{np.median(host):.2f} ms; a gate held past its 2 ms timeout "
+        f"reports {timeout_verdict}; launches queued behind a held gate "
+        f"before one blocked the host: {depth}; {gate_launch.launches} gate "
+        "launches")
+    if (verdicts != [True] * 3 or len(kern) != GATE_LAUNCHES
+            or abs(r["gated_over_profiler"] - 1) > 0.2
+            or not r["ungated_over_profiler"] > 1
+            or timeout_verdict is not False or gate.timed_out != 0):
+        raise AssertionError(f"the gate check failed: {r}, verdicts "
+                             f"{verdicts}")
+    for g in (gate, short, probe):
+        g.close()
+    return r
+
+
+# -- phase 14: the operations surface under injected faults --------------------
+
+OPS_FRAMES = 128           # planar frames of ING_COL_PER_FRAME rows per run
+OPS_QUEUE = 64             # the spill runs' ingest queue capacity (frames)
+OPS_BREAKER_S = 2.0        # exporter.raise armed this long on tpu_sketch
+
+
+def ops_frames(rng, windows):
+    """OPS_FRAMES planar COLUMNAR_FLOW frames of window 0's first rows."""
+    n = OPS_FRAMES * ING_COL_PER_FRAME
+    wide = l4_wide(rng, {k: v[:n] for k, v in windows[0].items()},
+                   int(time.time()))
+    return FrameSequencer().columnar(wide, 0, n), n
+
+
+def _ops_ingester(torch, dev, root, **kw):
+    from deepflow_tpu_torch.pipelines import Ingester
+    return Ingester(ingester_config(root, **kw), device=dev)
+
+
+def check_ops_breaker(torch, dev, frames, n, tmp, card):
+    """Phase 14 (a), (c): exporter.raise on tpu_sketch for OPS_BREAKER_S
+    opens its breaker; the watcher captures exactly one incident bundle
+    (the healthz and SLO edges of the same moment are suppressed by the
+    rate limit, counted) whose timeline window holds the put errors'
+    rise; then health()["slo_burning"] and the deepflow_slo_burn_rate
+    gauges read as the SLO rules say, recomputed from the timeline's
+    rings."""
+    import urllib.request
+
+    from deepflow_tpu_torch.runtime.faults import default_faults
+    root = os.path.join(tmp, "breaker")
+    ing = _ops_ingester(torch, dev, root)
+    faults = default_faults()
+    try:
+        ing.start()
+        wait_for(lambda: ing.timeline.ticks >= 2, "two timeline ticks")
+        faults.arm_spec(f"exporter.raise:p=1.0,for_s={OPS_BREAKER_S},"
+                        "match=tpu_sketch;seed=14")
+        t_armed = time.time()
+
+        def tripped():
+            return ing.exporters.breakers()["tpu_sketch"]["trips"] >= 1
+        # rounds of new frames while the fault is armed: each round's
+        # decoded chunks are puts that raise
+        for i in range(0, len(frames), 8):
+            if tripped() or time.time() - t_armed > OPS_BREAKER_S:
+                break
+            send_all(ing.port, frames[i:i + 8])
+            time.sleep(0.05)
+        wait_for(tripped, "the breaker to open", timeout=60)
+        t_open = time.time()
+        ticks = ing.timeline.ticks
+        wait_for(lambda: ing.timeline.ticks >= ticks + 2
+                 and ing.incidents.captured >= 1, "the incident capture",
+                 timeout=60)
+        faults.disarm()
+        # the sampler stopped: the scrape and the rings hold one tick
+        ing.timeline.stop()
+        inc = ing.incidents.counters()
+        bundles = ing.incidents.list()
+        health = ing.health()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{ing.prom_port}/metrics", timeout=30) as r:
+            body = r.read().decode()
+        slo = slo_readback(ing, body)
+        ec = ing.exporters.counters()
+    finally:
+        faults.disarm()
+        ing.close()
+    if inc["captured"] != 1 or len(bundles) != 1:
+        raise AssertionError(f"phase 14: {inc['captured']} incidents "
+                             f"captured, {len(bundles)} bundles: {inc}")
+    m = bundles[0]
+    with open(os.path.join(m["path"], "timeline.json")) as f:
+        tl = json.load(f)
+    errs = [sv for sv in tl["series"]
+            if sv["metric"] == "exporters_put_errors"]
+    lo, hi = m["window"]
+    covers = (lo <= t_armed <= hi and errs and errs[0]["values"][0] == 0
+              and errs[0]["values"][-1] > 0)
+    if m["kind"] != "breaker_open" or not covers:
+        raise AssertionError(f"phase 14: bundle {m['id']} kind {m['kind']}"
+                             f", window {m['window']} vs armed {t_armed}, "
+                             f"put errors {errs[:1]}")
+    if "ingest_availability" not in health["slo_burning"] \
+            or sorted(health["slo_burning"]) != slo["fast_burning"]:
+        raise AssertionError(f"phase 14: slo_burning {health} vs {slo}")
+    log(f"  (a) breaker on {card}: exporter.raise for {OPS_BREAKER_S} s "
+        f"opened tpu_sketch's breaker {t_open - t_armed:.2f} s after "
+        f"arming; incidents {inc}; bundle {m['id']} ({m['kind']}, files "
+        f"{sorted(m['files'])}), its window [{lo:.1f}, {hi:.1f}] holds the "
+        f"put errors' rise 0 -> {errs[0]['values'][-1]:.0f}; registry {ec}")
+    log(f"  (c) SLO on {card}: slo_burning {health['slo_burning']}; burn "
+        f"rates read back {slo['gauges']} = recomputed from the rings")
+    return {"incidents": inc, "bundle": m["id"], "kind": m["kind"],
+            "window": m["window"], "armed": t_armed,
+            "open_after_s": t_open - t_armed, "registry": ec,
+            "slo_burning": health["slo_burning"], "slo": slo}
+
+
+def slo_readback(ing, body):
+    """Each deepflow_slo_burn_rate sample of a scrape against the burn
+    recomputed with numpy from the timeline's rings at the sample's
+    tick: ratio SLOs as window deltas of the bad over the total
+    counters, threshold SLOs as the share of samples over the bound."""
+    from deepflow_tpu_torch.runtime.timeline import (SLO_FAST_WINDOW_S,
+                                                     SLO_SLOW_WINDOW_S)
+    tl = ing.timeline
+    got = {}
+    for line in body.splitlines():
+        if line.startswith("deepflow_slo_burn_rate{"):
+            lbl, v = line.rsplit(" ", 1)
+            got[lbl[len("deepflow_slo_burn_rate"):]] = float(v)
+    windows = {"fast": SLO_FAST_WINDOW_S, "slow": SLO_SLOW_WINDOW_S}
+    want = {}
+    for ring in tl._rings_of("slo_burn_rate"):
+        now, _ = ring.last
+        slo = next(r for r in tl._slos if r.name == ring.labels["slo"])
+        lo = now - windows[ring.labels["window"]]
+        if slo.kind == "threshold":
+            vs = [ring2.samples(lo, None)[1]
+                  for ring2 in tl._rings_of(slo.series)]
+            vs = np.concatenate(vs) if vs else np.zeros(0)
+            frac = float(np.mean(vs > slo.bound)) if len(vs) else 0.0
+        else:
+            def delta(metric):
+                d = 0.0
+                for r2 in tl._rings_of(metric):
+                    ts, v = r2.samples()
+                    b = np.searchsorted(ts, now, side="right") - 1
+                    a = max(np.searchsorted(ts, lo, side="right") - 1, 0)
+                    if len(ts) >= 2 and b > 0 and b > a:
+                        d += max(0.0, float(v[b] - v[a]))
+                return d
+            bad = sum(delta(m) for m in slo.bad)
+            tot = sum(delta(m) for m in slo.total)
+            frac = (1.0 if bad > 0 else 0.0) if tot <= 0 \
+                else min(1.0, bad / tot)
+        key = '{slo="%s",window="%s"}' % (ring.labels["slo"],
+                                          ring.labels["window"])
+        want[key] = frac / max(1.0 - slo.objective, 1e-9)
+    if set(got) != set(want) or len(want) != 6:
+        raise AssertionError(f"phase 14: burn gauges {got} vs {want}")
+    for k in want:
+        if not np.isclose(got[k], want[k], rtol=1e-9, atol=0):
+            raise AssertionError(f"phase 14: {k} scraped {got[k]}, "
+                                 f"recomputed {want[k]}")
+    fast = sorted(ring.labels["slo"] for ring in tl._rings_of(
+        "slo_burn_rate") if ring.labels["window"] == "fast"
+        and ring.last[1] > tl.fast_burn_threshold)
+    return {"gauges": got, "fast_burning": fast}
+
+
+def check_ops_spill(torch, dev, frames, n, tmp, card):
+    """Phase 14 (b): the same frames through a fault-free ingester and
+    one whose l4 ingest queue stalls (queue.stall on its consumer) with
+    the spill armed on OPS_QUEUE-frame queues: segments are written and
+    replayed, delivered + counted loss == sent, and the partition-free
+    sketch leaves equal the fault-free run's."""
+    from deepflow_tpu_torch.runtime.faults import default_faults
+    out = {}
+    for name, spec in (("fault-free", None),
+                       ("stalled", "queue.stall:p=1.0,for_s=2.0,"
+                        "delay_s=0.25,match=ingest.l4_flow_log;seed=14")):
+        ing = _ops_ingester(torch, dev, os.path.join(tmp, name),
+                            n_decoders=1, queue_size=OPS_QUEUE)
+        exp = ing.tpu_sketch
+        snaps = bus_snapshots(exp)
+        faults = default_faults()
+        try:
+            ing.start()
+            if spec:
+                faults.arm_spec(spec)
+            t0 = time.perf_counter()
+            send_all(ing.port, frames)
+            lost = lambda: sum(  # noqa: E731
+                c["spill_evicted"] for c in ing.spill.per_queue().values())
+            wait_for(lambda: exp.rows_in + lost() * ING_COL_PER_FRAME >= n
+                     and ing.spill.pending_segments() == 0,
+                     f"{name}: every frame delivered or counted", timeout=120)
+            dt = time.perf_counter() - t0
+            faults.disarm()
+            exp.flush_window(now=ING_NOWS[0])
+            sc = ing.spill.counters()
+            qc = ing._own_queues()["ingest.l4_flow_log"].counters()
+            rows_in = exp.rows_in
+        finally:
+            faults.disarm()
+            ing.close()
+        out[name] = {"rows_in": rows_in, "spill": sc, "queue": qc,
+                     "seconds": dt, "snaps": snaps[:1]}
+    st = out["stalled"]
+    loss_rows = (st["spill"]["spill_evicted"] + st["queue"]["overwritten"]
+                 + st["queue"]["closed_dropped"]) * ING_COL_PER_FRAME
+    if st["spill"]["spilled_records"] <= 0 \
+            or st["spill"]["replayed"] != st["spill"]["spilled_records"] \
+            or st["rows_in"] + loss_rows != n \
+            or out["fault-free"]["rows_in"] != n:
+        raise AssertionError(f"phase 14: spill conservation {out}")
+    compare_snaps(out["fault-free"]["snaps"], st["snaps"], WIRE_FREE_LEAVES,
+                  "fault-free", "spilled")
+    log(f"  (b) spill on {card}: queue.stall on the l4 ingest queue for 2 s "
+        f"({OPS_QUEUE}-frame rings, watermark 0.75): {st['spill']} ; queue "
+        f"{st['queue']}; delivered {st['rows_in']} + counted loss "
+        f"{loss_rows} = sent {n}; partition-free leaves "
+        f"{sorted(WIRE_FREE_LEAVES)} = the fault-free run's; "
+        f"{st['seconds']:.2f} s stalled vs {out['fault-free']['seconds']:.2f}"
+        " s fault-free")
+    for r in out.values():
+        r.pop("snaps")
+    return out
+
+
+def check_ops(torch, dev, rng, windows, card):
+    """Phase 14: the operations surface under injected faults at phase
+    13's widths (planar frames of phase 3's rows, the ingester of phase
+    13 on its defaults)."""
+    frames, n = ops_frames(rng, windows)
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ops_") as tmp:
+        breaker = check_ops_breaker(torch, dev, frames, n, tmp, card)
+        spill = check_ops_spill(torch, dev, frames, n, tmp, card)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    for k in ("fused_news_hists", "fused_lane_hists"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 14: kernel {k} never launched")
+    return {"breaker_slo": breaker, "spill": spill, "launches": launches,
             "card": card}
 
 
@@ -4690,6 +5279,7 @@ def main() -> int:
     kernels, extra = check_kernels(torch, rng, dev,
                                    rng if args.one_generator else rng9,
                                    rng11)
+    gate = check_gate(torch, dev, card)
     phase_done(2)
 
     log("phase 3: the slice at the exporter defaults")
@@ -4743,6 +5333,10 @@ def main() -> int:
                             windows, card,
                             ingester["dict_feed"]["records_per_s"])
     phase_done(13)
+    log("phase 14: the operations surface under injected faults")
+    ops = check_ops(torch, dev, np.random.default_rng((args.seed, 14)),
+                    windows, card)
+    phase_done(14)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -4751,7 +5345,7 @@ def main() -> int:
             + [p["launches"] for p in ingester.values()] \
             + list(detection["launches"].values()) + [red["launches"]] \
             + shard["launches"] + pod["launches"] + [mesh["launches"]] \
-            + [ingest["launches"]]:
+            + [ingest["launches"], ops["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -4767,7 +5361,7 @@ def main() -> int:
         "attribution": attribution, "detection": detection, "red": red,
         "sharded": shard,
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
-        "ingester": ingest,
+        "ingester": ingest, "operations": ops, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

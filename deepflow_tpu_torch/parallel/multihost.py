@@ -43,7 +43,8 @@ Conservation, pod-wide, off one `counters()` snapshot::
     pod_rows_sent == pod_rows_delivered + pod_rows_host + pod_rows_lost
                      + pod_rows_pending
 
-Not ported here (ROADMAP): the pod's tracer gauges.
+With the process tracer on, every global epoch close sets the gauges
+`pod_hosts_active`, `pod_hosts_missed` and `pod_merge_epoch_s`.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ import numpy as np
 import torch
 
 from deepflow_tpu_torch.models import flow_suite
+from deepflow_tpu_torch.runtime.tracing import default_tracer
 from deepflow_tpu_torch.models.flow_suite import (FlowSuiteConfig,
                                                   check_device)
 from deepflow_tpu_torch.parallel.mesh import Mesh, _visible, make_mesh
@@ -769,6 +771,13 @@ class HostPodCoordinator:
         if self.auto_rejoin:
             for i in lost_now:
                 self.rejoin_host(i)
+        tr = default_tracer()
+        if tr.enabled:
+            tr.gauge("pod_hosts_active",
+                     float(sum(1 for ln in self._lanes
+                               if ln.status == ACTIVE)))
+            tr.gauge("pod_hosts_missed", float(self._hosts_missed))
+            tr.gauge("pod_merge_epoch_s", self._last_merge_s)
         return res
 
     def _merge_global(self, ep: int, arrived: List[_DcnMessage],

@@ -74,8 +74,8 @@ the merge runs on the merge stream, and its output is handed to the
 caller's stream. A shard's slice is made contiguous and copied with a
 plain synchronous `.to(device)`.
 
-Not ported (ROADMAP): the reference's tracer gauges of the pod
-(`pod_shards_active`, `pod_merge_epoch_s`, `pod_merge_missed`).
+With the process tracer on, every epoch close sets the gauges
+`pod_shards_active`, `pod_merge_epoch_s` and `pod_merge_missed`.
 """
 
 from __future__ import annotations
@@ -104,6 +104,7 @@ from deepflow_tpu_torch.runtime.faults import (FAULT_MERGE_STALL,
                                                default_faults)
 from deepflow_tpu_torch.runtime.snapbus import SnapshotBus
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
+from deepflow_tpu_torch.runtime.tracing import default_tracer
 
 __all__ = ["PodFlowSuite", "EpochResult", "ACTIVE", "DEGRADED", "LOST"]
 
@@ -853,6 +854,7 @@ class PodFlowSuite:
             self.epochs += 1
             self.late_merges += len(late)
             self.last_merge_s = time.perf_counter() - t0
+            active = sum(1 for sh in self._shards if sh.status == ACTIVE)
         self.epoch = ep + 1
         if self.auto_rejoin:
             for i in lost_now:
@@ -861,6 +863,11 @@ class PodFlowSuite:
             self._auditor.close_window(
                 None if out is None else sharded._host_output(out),
                 degraded=bool(degraded_now), lossy=lossy or bool(lost_now))
+        tr = default_tracer()
+        if tr.enabled:
+            tr.gauge("pod_shards_active", float(active))
+            tr.gauge("pod_merge_epoch_s", self.last_merge_s)
+            tr.gauge("pod_merge_missed", float(self.merge_missed))
         return EpochResult(ep, out, tags, participated, missed,
                            degraded_now, lost_now, merged_rows,
                            host_outputs, lossy or bool(lost_now))

@@ -12,18 +12,22 @@ JAX package's Ingester builds on the data plane: the receiver,
 PROTOCOLLOG) and `FlowMetricsPipeline` (METRICS), the `Exporters`
 registry with a circuit breaker per exporter, the sketch exporter (with
 its anomaly plane, auditor and autotuner) and the RED exporter, the
-store with its disk monitor, the tag dictionaries and geo. `device` is
-an argument of the builder, not a config field, so `IngesterConfig`
-stays field for field the reference's; it goes to every device-side
-part, and "cuda" without a card raises.
+store with its disk monitor, the tag dictionaries and geo, and the
+operations surface around them: the disk spill on the ingest queues
+(`spill_dir`), the self-telemetry timeline with its recording and SLO
+rules (`timeline_sample_s`, on at 1.0 s by default), the incident
+recorder (`incident_dir`, by default `<store_path>/incidents`), the
+Prometheus listener (`prom_port`: /metrics and /healthz) and the UDP
+debug server (`debug_port`). `device` is an argument of the builder,
+not a config field, so `IngesterConfig` stays field for field the
+reference's; it goes to every device-side part, and "cuda" without a
+card raises.
 
 Not ported here (`UNPORTED` raises NotImplementedError naming the
-field when it is set): the disk spill, the Prometheus and debug
-listeners, the self-telemetry timeline with its SLO rules and the
-incident recorder. The timeline's default cadence is 1.0 s, so a caller
-passes `timeline_sample_s=0`. The ext_metrics, event, profile and
-droplet pipelines and the OTel and PACKETSEQUENCE loggers are not built:
-the receiver counts their frames as `no_handler`.
+field when it is set): the RED exporter's Prometheus `le` buckets. The
+ext_metrics, event, profile and droplet pipelines and the OTel and
+PACKETSEQUENCE loggers are not built: the receiver counts their frames
+as `no_handler`.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ class IngesterConfig:
 
     listen_port: int = 30033
     listen_host: str = "127.0.0.1"
-    debug_port: Optional[int] = None     # UDP debug server (not ported: raises)
+    debug_port: Optional[int] = None     # None disables the UDP debug server
     store_path: Optional[str] = None     # None = StorageDisabled mode
     n_decoders: int = 2
     queue_size: int = 16384
@@ -189,8 +193,8 @@ class IngesterConfig:
     # histogram add per batch stage; the device attribution is sampled
     # (every 16th group), so the asynchronous feed keeps its shape
     trace_enabled: bool = True
-    # Prometheus text-exposition listener (not ported: anything but None
-    # raises; reference: the :9526 stats/pprof listener)
+    # Prometheus text-exposition listener (/metrics, /healthz); None
+    # disables it (reference: the :9526 stats/pprof listener)
     prom_port: Optional[int] = None
     # -- resilience (runtime/supervisor.py, breaker.py, faults.py) ----
     # deadman watchdog: a supervised worker whose last heartbeat is
@@ -212,9 +216,10 @@ class IngesterConfig:
     # e.g. "exporter.raise:p=1,for_s=5;seed=7"); also read from the
     # DEEPFLOW_FAULTS env var — config wins when both are set
     fault_spec: Optional[str] = None
-    # -- durability (disk spill for the ingest queues; not ported) -----
+    # -- durability (disk spill for the ingest queues) -----------------
     # None disables (overload falls back to overwrite-oldest); a path
-    # raises. The segment knobs below are inert without it.
+    # arms runtime/spill.py on every ingest queue. The segment knobs
+    # below are inert without it.
     spill_dir: Optional[str] = None
     spill_segment_bytes: int = 1 << 20    # roll (fsync) cadence
     spill_budget_bytes: int = 64 << 20    # oldest-segment eviction past this
@@ -222,11 +227,10 @@ class IngesterConfig:
     # drain ladder (close()): how long to wait for queues + exporters
     # to flush
     drain_deadline_s: float = 5.0
-    # -- self-telemetry timeline (not ported) --------------------------
+    # -- self-telemetry timeline (runtime/timeline.py) ----------------
     # sampler cadence of the in-process TSDB over every Countable; the
     # SLO burn-rate rules and the incident recorder ride its tick.
-    # 0 disables it; the default 1.0 raises in this package, so pass
-    # timeline_sample_s=0
+    # 0 disables it
     timeline_sample_s: float = 1.0
     # hot per-series ring capacity (samples); the oldest sample past
     # this either graduates to the coarse tier or is dropped counted
@@ -234,7 +238,7 @@ class IngesterConfig:
     # every Nth evicted hot sample joins the coarse tier (same
     # capacity -> Nx the lookback at 1/N resolution); 0 disables it
     timeline_coarse_every: int = 10
-    # -- SLO burn-rate rules (on the sampler tick; inert here) ---------
+    # -- SLO burn-rate rules (on the sampler tick) ---------------------
     # shared objective for the declared SLOs (ingest availability off
     # the conservation-ledger loss counters; serving p99; detection
     # latency); burn rate = error fraction / (1 - objective)
@@ -247,9 +251,9 @@ class IngesterConfig:
     # health()["slo_burning"] and the incident trigger (14.4 burns a
     # 0.999 objective's monthly budget in about two days)
     slo_fast_burn: float = 14.4
-    # -- incident flight recorder (not ported) -------------------------
-    # bundle directory; None leaves the recorder off here (it rides the
-    # timeline), a path raises
+    # -- incident flight recorder (runtime/incident.py) ---------------
+    # bundle directory; None defaults to <store_path>/incidents (off
+    # without a store). It rides the timeline: off when that is off
     incident_dir: Optional[str] = None
     incident_budget_bytes: int = 64 << 20  # oldest bundles evicted past
     incident_min_interval_s: float = 30.0  # global capture rate limit
@@ -259,13 +263,6 @@ class IngesterConfig:
 # config fields whose subsystem this package does not port: a value
 # other than the "off" one raises in Ingester, naming the field
 UNPORTED = (
-    ("spill_dir", lambda v: v is not None, "the disk spill"),
-    ("prom_port", lambda v: v is not None,
-     "the Prometheus exposition listener"),
-    ("debug_port", lambda v: v is not None, "the UDP debug server"),
-    ("incident_dir", lambda v: v is not None, "the incident recorder"),
-    ("timeline_sample_s", lambda v: v > 0,
-     "the self-telemetry timeline (pass timeline_sample_s=0)"),
     ("app_red_prom_buckets", lambda v: v > 0,
      "the RED exporter's Prometheus le-bucket surface"),
 )
@@ -408,6 +405,129 @@ class Ingester:
         self._drain_state = "running"
         self._janitor = None
         self._janitor_stop = threading.Event()
+        # the droplet pipeline's artifact directory (not built here; the
+        # `artifacts` debug command lists it as the reference does)
+        self._droplet_dir = None if cfg.store_path is None else \
+            os.path.join(cfg.store_path, "droplet")
+        # durability: disk spill on every ingest queue; segments a
+        # previous process left behind replay once start() runs
+        self.spill = None
+        if cfg.spill_dir is not None:
+            from deepflow_tpu_torch.runtime.spill import SpillGroup
+            self.spill = SpillGroup(
+                self._own_queues(), cfg.spill_dir,
+                segment_bytes=cfg.spill_segment_bytes,
+                budget_bytes=cfg.spill_budget_bytes,
+                watermark=cfg.spill_watermark)
+            self.stats.register("spill", self.spill.counters)
+        self.timeline = None
+        self.incidents = None
+        self._incident_watcher = None
+        if cfg.timeline_sample_s > 0:
+            self._build_timeline(cfg)
+        self.prom = None
+        if cfg.prom_port is not None:
+            from deepflow_tpu_torch.runtime.promexpo import \
+                PrometheusExporter
+            self.prom = PrometheusExporter(stats=self.stats,
+                                           tracer=self.tracer,
+                                           port=cfg.prom_port,
+                                           health=self.health,
+                                           timeline=self.timeline)
+        self.debug = None
+        if cfg.debug_port is not None:
+            self._build_debug(cfg)
+
+    def _build_timeline(self, cfg: IngesterConfig) -> None:
+        """The self-telemetry timeline with the reference's recording
+        rules and SLOs, and the incident recorder on its tick. Host-side
+        only: the device state is the same with it on or off."""
+        from deepflow_tpu_torch.runtime.profiler import default_profiler
+        from deepflow_tpu_torch.runtime.timeline import (RecordingRule,
+                                                         SloRule, Timeline)
+        self.timeline = Timeline(
+            sample_s=cfg.timeline_sample_s,
+            hot_samples=cfg.timeline_hot_samples,
+            coarse_every=cfg.timeline_coarse_every,
+            stats=self.stats, tracer=self.tracer,
+            profiler=default_profiler(),
+            fast_burn_threshold=cfg.slo_fast_burn)
+        # derived lane rates over 10 ticks (the staleness horizon)
+        rate_win = 10.0 * cfg.timeline_sample_s
+
+        def _per_s(metric):
+            def fn(tl, now):
+                return tl._window_delta(metric, now - rate_win, now) \
+                    / rate_win
+            return fn
+
+        self.timeline.add_rule(RecordingRule(
+            "ingest_frames_per_s", _per_s("receiver_rx_frames")))
+        self.timeline.add_rule(RecordingRule(
+            "sketch_rows_per_s", _per_s("tpu_sketch_rows_in")))
+        # declared SLOs: availability off the loss counters, serving
+        # p99, detection latency
+        self.timeline.add_slo(SloRule(
+            "ingest_availability", objective=cfg.slo_objective,
+            kind="ratio",
+            bad=("receiver_rx_dropped", "exporters_put_errors",
+                 "exporters_shed"),
+            total=("receiver_rx_frames",)))
+        self.timeline.add_slo(SloRule(
+            "serving_p99", objective=cfg.slo_objective,
+            kind="threshold", series="querier_read_p99_s",
+            bound=cfg.slo_serving_p99_s))
+        self.timeline.add_slo(SloRule(
+            "detection_latency", objective=cfg.slo_objective,
+            kind="threshold", series="anomaly_detect_latency_windows",
+            bound=cfg.slo_detect_latency_windows))
+        self.stats.register("timeline", self.timeline.counters)
+        incident_dir = cfg.incident_dir
+        if incident_dir is None and cfg.store_path is not None:
+            incident_dir = os.path.join(cfg.store_path, "incidents")
+        if incident_dir is None:
+            return
+        from deepflow_tpu_torch.runtime.incident import (IncidentRecorder,
+                                                         IncidentWatcher)
+        buses = {}
+        if self.tpu_sketch is not None:
+            buses["sketch"] = self.tpu_sketch.snapshot_bus
+            if self.tpu_sketch.anomaly is not None:
+                buses["anomaly"] = self.tpu_sketch.anomaly.bus
+        self.incidents = IncidentRecorder(
+            incident_dir, timeline=self.timeline,
+            profiler=default_profiler(), stats=self.stats,
+            snapbuses=buses, budget_bytes=cfg.incident_budget_bytes,
+            min_interval_s=cfg.incident_min_interval_s,
+            window_s=cfg.incident_window_s)
+        self.stats.register("incidents", self.incidents.counters)
+        anomaly = None if self.tpu_sketch is None \
+            else self.tpu_sketch.anomaly
+        self._incident_watcher = IncidentWatcher(
+            self.incidents, health_fn=self.health,
+            breakers_fn=self.exporters.breakers,
+            alerts_fn=None if anomaly is None else
+            (lambda: float(sum(anomaly.alerts_total))),
+            timeline=self.timeline)
+        self.timeline.add_tick_hook(self._incident_watcher.tick)
+
+    def _build_debug(self, cfg: IngesterConfig) -> None:
+        """The UDP debug server with the ingester's commands."""
+        from deepflow_tpu_torch.runtime.debug import DebugServer
+        self.debug = DebugServer(self.stats, port=cfg.debug_port,
+                                 tracer=self.tracer)
+        self.debug.register(
+            "vtap-status",
+            lambda req: {f"{v}:{t}": vars(st) for (v, t), st
+                         in self.receiver.status().items()})
+        self.debug.register("artifacts", self._artifact_listing)
+        self.debug.register("datasource", self._datasource_cmd)
+        self.debug.register("queues", self._queues_cmd)
+        self.debug.register("queue-tap", self._queue_tap_cmd)
+        # `supervisor` is DebugServer's built-in (process-scoped)
+        self.debug.register("breakers",
+                            lambda req: self.exporters.breakers())
+        self.debug.register("spill", self._spill_cmd)
 
     def health(self) -> dict:
         """Liveness verdict: not ok when a supervised worker is
@@ -434,6 +554,10 @@ class Ingester:
             "degraded_tpu_sketch": degraded,
             "accuracy_alarm": accuracy_alarm,
         }
+        # informational: fast-burning SLOs, not folded into `ok` (burn
+        # lags its cause, which already turned a breaker or a counter)
+        if self.timeline is not None:
+            out["slo_burning"] = self.timeline.fast_burning()
         pod = None if self.tpu_sketch is None else self.tpu_sketch.pod
         if pod is not None:
             status = pod.shard_status()
@@ -465,12 +589,112 @@ class Ingester:
         out[self.flow_metrics.queues.name] = self.flow_metrics.queues
         return out
 
+    def _spill_cmd(self, req: dict) -> dict:
+        """Per-queue disk-spill accounting (the `spill` debug command)."""
+        if self.spill is None:
+            return {"enabled": False}
+        want = req.get("module") or ""
+        return {"enabled": True, "drain": self._drain_state,
+                "queues": {name: c for name, c in sorted(
+                    self.spill.per_queue().items()) if want in name}}
+
+    def _queues_cmd(self, req: dict) -> dict:
+        """Every inter-stage queue's in/out/overwritten/spilled/pending."""
+        want = req.get("module") or ""
+        return {name: q.counters()
+                for name, q in sorted(self._own_queues().items())
+                if want in name}
+
+    def _queue_tap_cmd(self, req: dict) -> dict:
+        """Sample up to `count` items flowing through a named queue. The
+        wait is clamped below the client's 2 s datagram timeout (the
+        debug loop answers one request at a time)."""
+        name = req.get("module") or ""
+        q = self._own_queues().get(name)
+        if q is None:
+            return {"error": f"unknown queue {name!r} "
+                             "(list with the queues command)"}
+        count = min(int(req.get("count", 3)), 20)
+        wait_s = min(max(float(req.get("wait_s", 1.0)), 0.0), 1.5)
+        q.tap(count)
+        try:
+            deadline = time.time() + wait_s
+            items: list = []
+            while time.time() < deadline:
+                items.extend(q.tap_take())
+                if len(items) >= count:
+                    break
+                time.sleep(0.05)
+            items.extend(q.tap_take())
+        finally:
+            q.untap()
+        return {"queue": name, "sampled": items[:count]}
+
+    def _datasource_cmd(self, req: dict) -> dict:
+        """Rollup-tier CRUD (`deepflow-ctl domain datasource`). op: list
+        | add | del | retention; add/del/retention take interval
+        (seconds, whole minutes), add and retention take ttl (seconds,
+        0 = keep forever)."""
+        rollups = self.flow_metrics.rollups
+        if rollups is None:
+            return {"error": "storage disabled: no rollup tiers"}
+        op = req.get("op", "list")
+        if op not in ("list", "add", "del", "retention"):
+            return {"error": f"unknown op {op!r}"}
+        try:
+            if op == "list":
+                return {"datasources": rollups.list_datasources()}
+            interval = int(req["interval"])
+            if op == "add":
+                ttl = req.get("ttl")
+                from deepflow_tpu_torch.store.rollup import TTL_DERIVE
+                return rollups.add_interval(
+                    interval, TTL_DERIVE if ttl is None else int(ttl))
+            if op == "del":
+                ok = rollups.remove_interval(
+                    interval, drop_data=bool(req.get("drop", True)))
+                return {"deleted": ok, "interval": interval}
+            # retention: an explicit ttl is required; 0 = keep forever
+            ttl = req.get("ttl")
+            if ttl is None:
+                return {"error": "retention requires ttl "
+                                 "(seconds; 0 = keep forever)"}
+            ok = rollups.set_retention(interval,
+                                       None if int(ttl) == 0 else int(ttl))
+            return {"updated": ok, "interval": interval}
+        except KeyError as e:
+            return {"error": f"missing field {e}"}
+        except ValueError as e:
+            return {"error": str(e)}
+
+    def _artifact_listing(self, req: dict) -> dict:
+        """Stored droplet artifacts under `<store_path>/droplet`, names
+        and sizes, truncated to one datagram's budget."""
+        out_dir = self._droplet_dir
+        if out_dir is None or not os.path.isdir(out_dir):
+            return {"dir": out_dir, "files": []}
+        want = req.get("module") or ""
+        names = [n for n in sorted(os.listdir(out_dir)) if want in n]
+        files = []
+        for name in names[:500]:
+            p = os.path.join(out_dir, name)
+            if os.path.isfile(p):
+                files.append({"name": name, "bytes": os.path.getsize(p)})
+        out = {"dir": out_dir, "files": files}
+        if len(names) > 500:
+            out["truncated"] = len(names) - 500
+        return out
+
     def start(self) -> None:
         self.exporters.start()
         for p in self._pipelines:
             p.start()
         if self.monitor is not None:
             self.monitor.start()
+        if self.debug is not None:
+            self.debug.start()
+        if self.prom is not None:
+            self.prom.start()
         self._janitor_stop.clear()
 
         def _janitor():
@@ -481,6 +705,15 @@ class Ingester:
                 self.flow_log.tick()
         self._janitor = self.supervisor.spawn(
             "throttle-janitor", _janitor, beat_period_s=1.0)
+        if self.spill is not None:
+            # replay before receive: the drain threads re-inject what a
+            # previous process left while the listener comes up
+            self.spill.start()
+        if self.timeline is not None:
+            self.timeline.register_datasource()
+            if self.incidents is not None:
+                self.incidents.register_datasource()
+            self.timeline.start(self.supervisor)
         if self.autotuner is not None:
             self.autotuner.start()
         self.receiver.start()  # last, like the reference (ingester.go:220)
@@ -503,7 +736,9 @@ class Ingester:
 
         def drained() -> bool:
             return (all(len(q) == 0 for q in queues)
-                    and self.exporters.pending() == 0)
+                    and self.exporters.pending() == 0
+                    and (self.spill is None
+                         or self.spill.pending_segments() == 0))
 
         while time.monotonic() < deadline:
             if drained():
@@ -514,10 +749,18 @@ class Ingester:
     def close(self) -> None:
         """The drain ladder: stop accepting, let decoders and exporters
         flush under `drain_deadline_s`, take a final sketch checkpoint,
+        park what never drained in spill segments for the next start,
         tear down. health() reports the rung through `drain`."""
         self._drain_state = "draining"
-        # the controller first: knob moves during teardown would race
-        # the ladder's own barriers for no benefit
+        # the sampler first: its tick hooks read health() and the
+        # breakers, which are about to be torn down under it
+        if self.timeline is not None:
+            self.timeline.stop()
+            self.timeline.unregister_datasource()
+            if self.incidents is not None:
+                self.incidents.unregister_datasource()
+        # then the controller: knob moves during teardown would race the
+        # ladder's own barriers for no benefit
         if self.autotuner is not None:
             self.autotuner.close()
         started = self._janitor is not None
@@ -531,12 +774,18 @@ class Ingester:
                 deadline_s=max(0.5, self.cfg.drain_deadline_s / 4))
         self.receiver.close()
         # rung 2: bounded flush while pipelines and exporters still run
+        drained = True
         if started:
-            self._drain_wait(time.monotonic() + self.cfg.drain_deadline_s)
+            drained = self._drain_wait(
+                time.monotonic() + self.cfg.drain_deadline_s)
             self.flush()
         # rung 3: the final sketch checkpoint
         if self.tpu_sketch is not None:
             self.tpu_sketch.checkpoint_now()
+        # rung 4: park the undrained remainder on disk, counted, for the
+        # next start's replay
+        if self.spill is not None:
+            self.spill.close(spill_remaining=not drained)
         for p in self._pipelines:
             p.close()
         if self.monitor is not None:
@@ -544,11 +793,20 @@ class Ingester:
             self.stats.deregister("ckmonitor")
         self.exporters.close()
         self._drain_state = "drained"
+        if self.debug is not None:
+            self.debug.close()
+        if self.prom is not None:
+            self.prom.close()
         self.tag_dicts.close()
         self.stats.deregister("tracer")
         self.stats.deregister("supervisor")
         if self.autotuner is not None:
             self.stats.deregister("exporter.tpu_autotune")
+        for name, on in (("timeline", self.timeline),
+                         ("incidents", self.incidents),
+                         ("spill", self.spill)):
+            if on is not None:
+                self.stats.deregister(name)
         for site in self._armed_sites:
             self.faults.disarm(site)
         if self._armed_sites:
@@ -561,6 +819,6 @@ class Ingester:
 
     @property
     def prom_port(self) -> Optional[int]:
-        """The metrics endpoint's port: always None here (the listener is
-        not ported, `prom_port` raises when set)."""
-        return None
+        """The bound metrics-endpoint port, or None when exposition is
+        off."""
+        return None if self.prom is None else self.prom.port

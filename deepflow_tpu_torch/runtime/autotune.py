@@ -24,9 +24,11 @@ and hill-climbs one knob at a time, within bounds:
   controller.
 
 The control law is the JAX package's (runtime/autotune.py), unchanged.
-Its busy fraction is the profiler's dispatch-to-fence union; in eager
-torch that interval also covers the host's launching, so it reads well
-above torch.profiler's device busy share (PERF.md).
+Its busy fraction is the profiler's union of device spans. Eager torch
+runs a program's kernels as the host launches them, so a tuner reading
+would steer on launch time; the tuner therefore marks the exporter a
+busy reader (`busy_reader`), which times its programs behind a device
+gate with the tracer off too (runtime/tpu_sketch.py).
 
 Knobs and what each resizes:
 
@@ -143,6 +145,10 @@ class FeedAutotuner:
             profiler = default_profiler()
         self._prof = profiler
         self._metrics = metrics if metrics is not None else self._read
+        if metrics is None and hasattr(exporter, "busy_reader"):
+            # the objective reads the busy gauge: the exporter keeps it
+            # timed on the device (gated samples) with the tracer off too
+            exporter.busy_reader = True
         self._lock = threading.Lock()      # tick() vs close()/gauges()
         self._handle = None
         self._stop = threading.Event()

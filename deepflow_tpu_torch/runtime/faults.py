@@ -12,6 +12,8 @@ replays the same schedule. The sites this package fires:
 - ``tpu.device_error`` -- raise a device-classified `RuntimeError` where
   the exporter dispatches to the device (the name is the reference's);
 - ``checkpoint.torn``  -- tear a snapshot file mid-write;
+- ``spill.write``      -- fail a disk-spill segment write (disk full,
+  EIO; runtime/spill.py counts the records lost);
 - ``exporter.process`` -- raise inside `QueueWorkerExporter.process`;
 - ``anomaly.score``    -- raise where the anomaly plane scores a window
   (the window closes unscored, counted);
@@ -50,6 +52,7 @@ from typing import Dict, List, Optional
 __all__ = ["FaultSite", "FaultRegistry", "InjectedFault", "default_faults",
            "FAULT_RECEIVER_TRUNCATE", "FAULT_QUEUE_STALL",
            "FAULT_EXPORTER_RAISE", "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
+           "FAULT_SPILL_WRITE",
            "FAULT_EXPORTER_PROCESS", "FAULT_ANOMALY_SCORE",
            "FAULT_SHARD_DEVICE_ERROR", "FAULT_MERGE_STALL",
            "FAULT_SHARD_LOST", "FAULT_HOST_LOST", "FAULT_DCN_PARTITION",
@@ -60,6 +63,7 @@ FAULT_QUEUE_STALL = "queue.stall"
 FAULT_EXPORTER_RAISE = "exporter.raise"
 FAULT_DEVICE_ERROR = "tpu.device_error"
 FAULT_CHECKPOINT_TORN = "checkpoint.torn"
+FAULT_SPILL_WRITE = "spill.write"
 FAULT_EXPORTER_PROCESS = "exporter.process"
 FAULT_ANOMALY_SCORE = "anomaly.score"
 FAULT_SHARD_DEVICE_ERROR = "shard.device_error"

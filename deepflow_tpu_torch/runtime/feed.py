@@ -25,11 +25,15 @@ Accounting contract:
   through `on_restart`, never dropped silently.
 
 Occupancy (runtime/profiler.py): every group's processing is a `feed`
-span, every fence wait a `fence` span, and the interval from a group's
-dispatch to its fence's retirement a `device` span (what
-`tpu_device_busy_fraction` unions); the time the feed waited for work
-with nothing in flight is the stall. With the process tracer on, every
-16th group sets the gauges `tpu_feed_overlap_efficiency` and
+span, every fence wait a `fence` span, and each fenced group a `device`
+span ending at its fence's retirement (what `tpu_device_busy_fraction`
+unions). With an `estimator` (the exporter's `BusyEstimator`) and a
+group that lists its programs, the span's length is the device time of
+those programs as gated samples measured it, never longer than the
+group's dispatch -> fence interval; otherwise (the CPU) it is that
+interval. The time the feed waited
+for work with nothing in flight is the stall. With the process tracer
+on, every 16th group sets the gauges `tpu_feed_overlap_efficiency` and
 `tpu_feed_inflight`. None of it waits on the device: it timestamps the
 fences the feed makes anyway.
 
@@ -62,16 +66,19 @@ _GAUGE_EVERY = 16
 
 
 class InFlight(tuple):
-    """(fence, rows, release): one dispatched, unfenced group. `fence`
-    is a `torch.cuda.Event` recorded after the group's program (None
-    for a host-path group); `rows` the records it carried; `release`
-    returns its staging buffers to their pool (or None)."""
+    """(fence, rows, release, programs): one dispatched, unfenced group.
+    `fence` is a `torch.cuda.Event` recorded after the group's program
+    (None for a host-path group); `rows` the records it carried;
+    `release` returns its staging buffers to their pool (or None);
+    `programs` the keys of the programs it dispatched, for the
+    device-time estimate."""
 
     __slots__ = ()
 
     def __new__(cls, fence: Any, rows: int,
-                release: Optional[Callable[[], None]] = None):
-        return tuple.__new__(cls, (fence, rows, release))
+                release: Optional[Callable[[], None]] = None,
+                programs: tuple = ()):
+        return tuple.__new__(cls, (fence, rows, release, tuple(programs)))
 
     @property
     def fence(self):
@@ -84,6 +91,10 @@ class InFlight(tuple):
     @property
     def release(self):
         return self[2]
+
+    @property
+    def programs(self) -> tuple:
+        return self[3]
 
 
 class DeviceFeed:
@@ -108,14 +119,15 @@ class DeviceFeed:
                  *, depth: int = 2, coalesce: int = 1,
                  on_fence_error: Optional[Callable[[BaseException, int],
                                                    None]] = None,
-                 on_restart: Optional[Callable[[int], None]] = None
-                 ) -> None:
+                 on_restart: Optional[Callable[[int], None]] = None,
+                 estimator=None) -> None:
         self.name = name
         self._process_group = process_group
         self.depth = max(1, int(depth))
         self.coalesce = max(1, int(coalesce))
         self._on_fence_error = on_fence_error
         self._on_restart = on_restart
+        self._estimator = estimator
         # bounded: a full queue back-pressures the enqueuing worker, so
         # overload lands in the exporter queue's counted drop-oldest
         cap = max(4, 2 * self.depth * self.coalesce)
@@ -288,11 +300,15 @@ class DeviceFeed:
         self.fence_wait_s += t1 - t0
         self.fences += 1
         self._prof.record("fence", "wait", t1 - t0, rows=f.rows)
-        if t_dispatch is not None:
-            self._prof.record("device", "update", t1 - t_dispatch,
-                              rows=f.rows)
+        # released first: the release reads the group's own gated sample
         if f.release is not None:
             f.release()
+        if t_dispatch is not None:
+            dev_s = t1 - t_dispatch
+            if (f.fence is not None and self._estimator is not None
+                    and f.programs):
+                dev_s = self._estimator.estimate(f.programs, dev_s)
+            self._prof.record("device", "update", dev_s, rows=f.rows)
 
     def _fence_all(self) -> None:
         while self._inflight:

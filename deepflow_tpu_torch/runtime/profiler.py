@@ -6,10 +6,15 @@ exporter's sampled attribution and the sharded suites' dispatch records,
 reduced into live gauges:
 
 - `tpu_device_busy_fraction`: the union of device-execution intervals
-  over a sliding horizon, over the horizon. On the feed path an interval
-  runs from a group's dispatch to its fence's retirement, which brackets
-  the real execution; on the inline path only the sampled attribution
-  contributes, so the number is authoritative with the feed on.
+  over a sliding horizon, over the horizon. On a card an interval is the
+  program's gated execution time (`BusyEstimator`, `ops/cuda_gate.py`):
+  the attributed group's kernels run back to back behind a gate, so two
+  events time the card's execution, not the host's launching. On the
+  feed path each group's interval is the newest gated sample of its
+  program (its key names the plane widths, which fix the work), ending
+  at its fence's retirement and never longer than dispatch -> fence; a program not yet gated borrows its
+  family's newest sample, else falls back to that interval (counted). On the inline path the sampled attribution
+  contributes; on the CPU a program's wall time is its device time.
 - `tpu_feed_stall_seconds`: cumulative seconds the feed thread sat with
   nothing in flight before work arrived: the device starved by the host.
 
@@ -26,13 +31,16 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["OccupancyProfiler", "default_profiler", "PROFILER_GAUGE_HELP"]
+__all__ = ["OccupancyProfiler", "BusyEstimator", "default_profiler",
+           "PROFILER_GAUGE_HELP"]
 
 PROFILER_GAUGE_HELP: Dict[str, str] = {
     "tpu_device_busy_fraction":
-        "union of device-execution intervals over the sliding horizon "
-        "(dispatch->fence on the feed path; sampled drains inline). "
-        "ROADMAP item 2's continuously-measured device-busy number",
+        "union of device-execution intervals over the sliding horizon: "
+        "each group's program timed behind a device gate (its kernels "
+        "back to back, not the host's launching), capped at "
+        "dispatch->fence on the feed path; a program not yet "
+        "gated borrows its family's sample, else counts dispatch->fence",
     "tpu_feed_stall_seconds":
         "cumulative seconds the device sat with an empty in-flight "
         "window immediately before work ARRIVED (host starvation "
@@ -170,6 +178,74 @@ class OccupancyProfiler:
             self._ring = [None] * self._cap
             self._n = 0
             self.stall_s = 0.0
+
+
+class BusyEstimator:
+    """Device time per group from gated samples of its programs.
+
+    The exporter feeds it one sample per gated attribution (`sample`:
+    the program key and its gated execution seconds) and counts the
+    samples a gate's timeout released (`timed_out`: discarded). The
+    feed asks it for a fenced group's device time (`estimate`): the sum
+    over the group's programs of the newest sample of the same key,
+    capped at the group's dispatch -> fence interval. A key names the
+    widths of the planes its program runs over, and its kernels run
+    over those padded planes, so a sample is not scaled by the group's
+    valid rows (a partial group costs the launches of a full one). A
+    program not sampled yet (its first call, which is never gated)
+    borrows the newest sample of its family (the key before its first
+    ':', e.g. `dict`, `anomaly`, `lanes_x4`), counted in
+    `groups_borrowed`; with none in its family the group gets the
+    interval itself, counted in `groups_ungated`."""
+
+    def __init__(self) -> None:
+        self._newest: Dict[str, float] = {}   # key -> seconds
+        self._family: Dict[str, float] = {}   # family -> seconds
+        self.samples = 0
+        self.samples_timed_out = 0
+        self.groups_estimated = 0
+        self.groups_borrowed = 0
+        self.groups_ungated = 0
+
+    @staticmethod
+    def family(key: str) -> str:
+        return key.split(":", 1)[0]
+
+    def sample(self, key: str, device_s: float) -> None:
+        self._newest[key] = self._family[self.family(key)] = float(device_s)
+        self.samples += 1
+
+    def timed_out(self, key: str) -> None:
+        self.samples_timed_out += 1
+
+    def has(self, key: str) -> bool:
+        return key in self._newest
+
+    def estimate(self, programs, interval_s: float) -> float:
+        """Device seconds of a group's program keys."""
+        total = 0.0
+        borrowed = False
+        for key in programs:
+            got = self._newest.get(key)
+            if got is None:
+                got = self._family.get(self.family(key))
+                borrowed = True
+            if got is None:
+                self.groups_ungated += 1
+                return interval_s
+            total += got
+        if borrowed:
+            self.groups_borrowed += 1
+        else:
+            self.groups_estimated += 1
+        return min(total, interval_s)
+
+    def counters(self) -> dict:
+        return {"busy_samples": self.samples,
+                "busy_samples_timed_out": self.samples_timed_out,
+                "busy_groups_estimated": self.groups_estimated,
+                "busy_groups_borrowed": self.groups_borrowed,
+                "busy_groups_ungated": self.groups_ungated}
 
 
 _default: Optional[OccupancyProfiler] = None

@@ -7,13 +7,19 @@ batch `gets` contract the decoders and the exporter's worker rely on.
 With `trace_dwell` armed and the tracer on, the time the oldest item of
 each drained batch spent parked lands in the tracer under one stage
 (`queue.ingest.<stream>`, `queue.exporter.<name>`).
+
+With a spill sink armed (`spill_arm`, runtime/spill.py), a put that would
+push the ring past the watermark diverts the overflow to the sink (disk
+segments) instead of overwriting, counted as `spilled`; the spill's drain
+thread puts the items back through `reinject`, which bypasses the sink.
+A debug tap (`tap`, `tap_take`) samples summaries of the next items put.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 from deepflow_tpu_torch.runtime.faults import FAULT_QUEUE_STALL, default_faults
 
@@ -37,6 +43,13 @@ class OverwriteQueue:
         self.out_count = 0
         self.overwritten = 0
         self.closed_dropped = 0   # puts after close(): counted, not raised
+        self.spilled = 0          # items diverted to the armed spill sink
+        # the spill sink, called after the condvar is released
+        self._spill_sink: Optional[Callable[[Sequence[Any]], None]] = None
+        self._spill_mark = 0
+        # debug tap: the next `_tap_left` puts record item summaries
+        self._tap_left = 0
+        self._tap_out: List[str] = []
         # dwell sampling (trace_dwell): per-slot put timestamps
         self._tracer = None
         self._dwell_stage = ""
@@ -56,23 +69,70 @@ class OverwriteQueue:
         tracer = self._tracer
         tracing = tracer is not None and tracer.enabled
         now = time.perf_counter() if tracing else 0.0
+        overflow: Optional[Sequence[Any]] = None
         with self._ready:
             if self._closed:
                 self.closed_dropped += len(items)
                 return
-            for item in items:
-                tail = (self._head + self._size) % self.capacity
-                if self._size == self.capacity:
-                    self._head = (self._head + 1) % self.capacity
-                    self.overwritten += 1
-                else:
-                    self._size += 1
-                self._buf[tail] = item
-                if tracing:
-                    self._put_ts[tail] = now
-            self.in_count += len(items)
+            sink = self._spill_sink
+            if sink is not None and \
+                    self._size + len(items) > self._spill_mark:
+                headroom = max(0, self._spill_mark - self._size)
+                overflow = items[headroom:]
+                items = items[:headroom]
+                self.spilled += len(overflow)
+            self._append_locked(items, tracing, now)
             if items:
                 self._ready.notify_all()
+        if overflow:
+            # outside the condvar: the sink does disk I/O under its own
+            # locks
+            sink(overflow)
+
+    def reinject(self, items: Sequence[Any]) -> None:
+        """Put spilled items back without consulting the spill sink (the
+        spill's drain thread; a sink-aware put would loop). Overflow
+        falls back to counted overwrites; the drain checks headroom
+        first."""
+        tracer = self._tracer
+        tracing = tracer is not None and tracer.enabled
+        now = time.perf_counter() if tracing else 0.0
+        with self._ready:
+            if self._closed:
+                self.closed_dropped += len(items)
+                return
+            self._append_locked(items, tracing, now)
+            self._ready.notify_all()
+
+    def _append_locked(self, items: Sequence[Any], tracing: bool,
+                       now: float) -> None:
+        """The ring append shared by puts and reinject: counted
+        overwrites, dwell stamps, tap samples, `in_count`."""
+        for item in items:
+            tail = (self._head + self._size) % self.capacity
+            if self._size == self.capacity:
+                self._head = (self._head + 1) % self.capacity
+                self.overwritten += 1
+            else:
+                self._size += 1
+            self._buf[tail] = item
+            if tracing:
+                self._put_ts[tail] = now
+            if self._tap_left > 0:
+                self._tap_left -= 1
+                self._tap_out.append(repr(item)[:240])
+        self.in_count += len(items)
+
+    def spill_arm(self, sink: Callable[[Sequence[Any]], None],
+                  watermark: int) -> None:
+        """Divert puts past `watermark` items to `sink`."""
+        with self._ready:
+            self._spill_sink = sink
+            self._spill_mark = max(1, min(int(watermark), self.capacity))
+
+    def spill_disarm(self) -> None:
+        with self._ready:
+            self._spill_sink = None
 
     def gets(self, max_items: int,
              timeout: Optional[float] = None) -> List[Any]:
@@ -112,6 +172,19 @@ class OverwriteQueue:
             self._closed = True
             self._ready.notify_all()
 
+    def drain_remaining(self) -> List[Any]:
+        """Take everything parked in the ring at once (the shutdown
+        spill: the drain ladder hands it to disk)."""
+        with self._ready:
+            out = []
+            for _ in range(self._size):
+                out.append(self._buf[self._head])
+                self._buf[self._head] = None
+                self._head = (self._head + 1) % self.capacity
+            self._size = 0
+            self.out_count += len(out)
+            return out
+
     @property
     def closed(self) -> bool:
         return self._closed
@@ -125,11 +198,24 @@ class OverwriteQueue:
             self._dwell_stage = stage
             self._put_ts = [0.0] * self.capacity
 
+    def tap(self, count: int) -> None:
+        """Sample summaries of the next `count` items put."""
+        with self._ready:
+            self._tap_left = max(0, count)
+            self._tap_out = []
+
+    def tap_take(self) -> List[str]:
+        """Collect (and clear) the sampled summaries."""
+        with self._ready:
+            out, self._tap_out = self._tap_out, []
+            return out
+
     def counters(self) -> dict:
         with self._ready:
             return {"in": self.in_count, "out": self.out_count,
                     "overwritten": self.overwritten,
                     "closed_dropped": self.closed_dropped,
+                    "spilled": self.spilled,
                     "pending": self._size}
 
 
@@ -164,6 +250,23 @@ class MultiQueue:
         """Arm dwell sampling on every sub-queue under one stage."""
         for q in self.queues:
             q.trace_dwell(tracer, stage)
+
+    def tap(self, count: int) -> None:
+        """Arm every sub-queue to sample up to `count` items."""
+        for q in self.queues:
+            q.tap(count)
+
+    def untap(self) -> None:
+        """Disarm every sub-queue and drop what it sampled (an armed tap
+        pays a repr on the put path)."""
+        for q in self.queues:
+            q.tap(0)
+
+    def tap_take(self) -> List[str]:
+        out: List[str] = []
+        for q in self.queues:
+            out.extend(q.tap_take())
+        return out
 
     def counters(self) -> dict:
         agg: dict = {}

@@ -101,27 +101,39 @@ no single device state, so there is no exporter checkpoint or restore in
 pod mode; the pod's counters join the exporter's.
 
 Flight recorder (runtime/tracing.py, runtime/profiler.py; off unless
-the process tracer is enabled). Every transfer and program call adds to
-the true totals `h2d_bytes`, `h2d_transfers` and `dispatches`. With the
-tracer on, one group in `_attrib_every` (16) is attributed in detail:
-its copy (`kernel.h2d`, the `tpu_h2d_mb_s` gauge), its program's host
-dispatch (`kernel.dispatch`: the host's time in the call, which
-launches every kernel of the program) and device time (`kernel.device`:
-the program's span on the compute stream, between an event before and
-one after the call; a card that waits on the launching host spans the
-dispatch), each stream named by its program (`dict:n8192+h16384`,
-`lanes_x4`); the first traced call of each program is `kernel.compile`
-and the gauge `tpu_compile_s_<program>` instead (the first launch loads
-the built kernel library). On a card the copy and the program are bracketed by
-timing events on the copy and compute streams, read when the group's
-fence retires (the feed) or by a synchronize of the sampled group's
-last event (the inline path, as the reference's sampled drain): the
-feed path makes no sync of its own for the recorder. On the CPU the
-program runs inside the call, whose wall time is both its dispatch and
-its device time. A window flush is a `window` span and a `window`
-profiler record; `stats=` registers the exporter's counters
-(`exporter.tpu_sketch`), the auditor's (`tpu_sketch_accuracy`) and the
-anomaly plane's (`anomaly`) with a `StatsRegistry`.
+the process tracer is enabled or a reader of the busy gauge is attached,
+`busy_reader`, which the autotuner sets). Every transfer and program call
+adds to the true totals `h2d_bytes`, `h2d_transfers` and `dispatches`.
+One group in `_attrib_every` (16) is attributed in detail: its copy
+(`kernel.h2d`, the `tpu_h2d_mb_s` gauge), its program's host dispatch
+(`kernel.dispatch`: the host's time in the call, which launches every
+kernel of the program) and device time (`kernel.device`), each stream
+named by its program (`dict:n8192+h16384`, `lanes_x4`); the first
+traced call of each program is `kernel.compile` and the gauge
+`tpu_compile_s_<program>` instead (the first launch loads the built
+kernel library). On a card the card would run the program's kernels as
+the host launches them, so events around the call would time the host.
+The attributed call is therefore gated (`ops/cuda_gate.py`): a gate
+kernel holds the compute stream, the start event is recorded behind it,
+the host launches the program, records the end event and opens the
+gate; the events then bracket the kernels running back to back, the
+card's execution time. A gate the timeout released (the host blocked
+while it held: a full launch queue, a sync) is discarded and counted
+(`busy_samples_timed_out`), and a program whose gate timed out twice is
+no longer gated. On the feed a program's first warm call is gated
+whatever the cadence, and on a card the detection lanes' launches after
+a program are timed as a program of their own (`anomaly:<program>`). Each gated sample feeds the exporter's
+`BusyEstimator`, from which the feed sizes every group's `device` span
+(runtime/feed.py).
+The copy's events and the program's are read when the group's fence
+retires (the feed) or by a synchronize of the sampled group's last event
+(the inline path, as the reference's sampled drain): the feed path makes
+no sync of its own for the recorder. On the CPU the program runs inside
+the call, whose wall time is both its dispatch and its device time. A
+window flush is a `window` span and a `window` profiler record; `stats=`
+registers the exporter's counters (`exporter.tpu_sketch`), the
+auditor's (`tpu_sketch_accuracy`) and the anomaly plane's (`anomaly`)
+with a `StatsRegistry`.
 
 Not ported here (ROADMAP): the autotuner.
 """
@@ -153,7 +165,8 @@ from deepflow_tpu_torch.runtime.exporters import QueueWorkerExporter
 from deepflow_tpu_torch.runtime.faults import (FAULT_DEVICE_ERROR,
                                                default_faults)
 from deepflow_tpu_torch.runtime.feed import DeviceFeed, InFlight
-from deepflow_tpu_torch.runtime.profiler import default_profiler
+from deepflow_tpu_torch.ops.cuda_gate import DeviceGate
+from deepflow_tpu_torch.runtime.profiler import BusyEstimator, default_profiler
 from deepflow_tpu_torch.runtime.snapbus import SnapshotBus
 from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
@@ -166,6 +179,10 @@ from deepflow_tpu_torch.utils.u32 import fold_columns_np
 _LOG = logging.getLogger(__name__)
 
 SKETCH_DB = "tpu_sketch"
+
+# how long a gate holds the compute stream at most (ops/cuda_gate.py): a
+# program the host takes longer to launch is not timed
+GATE_TIMEOUT_S = 0.5
 
 TOPK_TABLE = TableSchema(
     name="topk_flows",
@@ -465,6 +482,14 @@ class TpuSketchExporter(QueueWorkerExporter):
         self._detailed = False
         self._h2d_mark = None      # the detailed group's copy, until used
         self._attr_pending: list = []   # records awaiting their fence
+        # device time of the programs, from gated samples (a card only);
+        # the autotuner sets busy_reader, which gates without the tracer
+        self.busy_reader = False
+        self._busy = BusyEstimator() if cuda else None
+        self._gate = DeviceGate(self.device, timeout_s=GATE_TIMEOUT_S) \
+            if cuda else None
+        self._gate_timeouts: Dict[str, int] = {}
+        self._group_programs: list = []  # program keys of this group
         # -- degraded mode (fault domain: the device) ------------------
         self._faults = default_faults()
         self.degraded = False
@@ -518,7 +543,8 @@ class TpuSketchExporter(QueueWorkerExporter):
                 # groups are coalesced at the stager
                 depth=self.prefetch_depth, coalesce=1,
                 on_fence_error=self._feed_fence_error,
-                on_restart=self._feed_crash_restart)
+                on_restart=self._feed_crash_restart,
+                estimator=self._busy)
         else:
             self.batcher = Batcher(SKETCH_L4_SCHEMA, self.batch_rows)
             if wire == "lanes" and self._pod is None:
@@ -702,20 +728,29 @@ class TpuSketchExporter(QueueWorkerExporter):
             self._faults.maybe_raise(FAULT_DEVICE_ERROR, key=self.wire)
         self._h2d_mark = None
         self._attr_pending = []    # a failed dispatch's, never read
-        if self._tracer.enabled:
+        self._group_programs = []
+        if self._tracer.enabled or self.busy_reader:
             self._detailed = self._batches_traced % self._attrib_every == 0
             self._batches_traced += 1
 
     def _timed_update(self, key: str, run, rows: int) -> None:
-        """Call one program (`run`), attributed when the tracer is on and
-        this group is a detailed one or the program's first traced call.
-        On a card the call is bracketed by timing events on the compute
-        stream; the inline path reads them through a synchronize of the
-        last one (the sampled drain), the feed when the group's fence
-        retires (`_read_attribution` from its release)."""
+        """Call one program (`run`), attributed when the tracer (or a busy
+        reader) is on and this group is a detailed one or the program's
+        first traced call. On a card a warm attributed call is gated and
+        bracketed by timing events on the compute stream; the inline path
+        reads them through a synchronize of the last one (the sampled
+        drain), the feed when the group's fence retires
+        (`_read_attribution` from its release)."""
         tr = self._tracer
+        self._group_programs.append(key)
         first = key not in self._warm
-        if not tr.enabled or not (self._detailed or first):
+        # on the feed, a program's first warm call is gated whatever the
+        # cadence, so every group soon has a sample to be sized from
+        unsampled = (self._feed is not None and self._busy is not None
+                     and not first and not self._busy.has(key)
+                     and self._gate_timeouts.get(key, 0) < 2)
+        if not (tr.enabled or self.busy_reader) \
+                or not (self._detailed or first or unsampled):
             run()
             return
         self._warm.add(key)
@@ -724,29 +759,49 @@ class TpuSketchExporter(QueueWorkerExporter):
             t0 = time.perf_counter()
             run()
             dt = time.perf_counter() - t0
-            self._read_attribution([(key, first, rows, dt, dt, h2d)])
+            self._read_attribution([(key, first, rows, dt, dt, h2d, None)])
             return
+        ticket = None
+        if not first and self._gate_timeouts.get(key, 0) < 2:
+            ticket = self._gate.hold(self._stream.cuda_stream)
         ev = (_timing_event(), _timing_event())
         ev[0].record(self._stream)
         t0 = time.perf_counter()
-        run()
-        dispatch_s = time.perf_counter() - t0
-        ev[1].record(self._stream)
-        rec = (key, first, rows, dispatch_s, ev, h2d)
+        try:
+            run()
+        finally:
+            dispatch_s = time.perf_counter() - t0
+            ev[1].record(self._stream)
+            if ticket is not None:
+                self._gate.release(ticket)
+        rec = (key, first, rows, dispatch_s, ev, h2d, ticket)
         if self._feed is None:
             ev[1].synchronize()
             self._read_attribution([rec])
         else:
             self._attr_pending.append(rec)
 
+    def _lanes_update(self, key: str, run, rows: int) -> None:
+        """The detection lanes' launches after a program: on a card timed
+        (and gated) as a program of their own, `anomaly:<key>`, so the
+        busy estimate counts their kernels too; on the CPU untimed."""
+        if self._stream is None:
+            run()
+        else:
+            self._timed_update("anomaly:" + key, run, rows)
+
     def _read_attribution(self, recs) -> None:
         """Record attributed calls whose events have completed: stages,
         gauges and profiler spans. A record whose events cannot be read
-        (its group died on the device) is dropped."""
+        (its group died on the device) is dropped. On a card a warm
+        call's device time counts only when its gate was opened by the
+        host: one the timeout released is discarded and counted, and an
+        ungated warm call (its program no longer gated) times nothing."""
         tr, prof = self._tracer, self._prof
-        for key, first, rows, dispatch_s, dev, h2d in recs:
+        traced = tr.enabled
+        for key, first, rows, dispatch_s, dev, h2d, ticket in recs:
             try:
-                if h2d is not None:
+                if h2d is not None and traced:
                     h2d_s, ev, nbytes = h2d
                     if ev is not None:
                         h2d_s = ev[0].elapsed_time(ev[1]) / 1e3
@@ -760,17 +815,32 @@ class TpuSketchExporter(QueueWorkerExporter):
             except RuntimeError:
                 continue
             if first:
-                compile_s = max(dispatch_s, dev_s)
-                tr.observe("kernel.compile", compile_s, stream=key)
-                tr.gauge(f"tpu_compile_s_{key}", compile_s)
-                prof.record("device", f"compile:{key}", compile_s)
-            else:
-                tr.observe("kernel.dispatch", dispatch_s, stream=key)
-                tr.observe("kernel.device", dev_s, stream=key)
-                # the dispatch ended a device execution ago: the timeline
-                # shows it before the device span, not on top of it
-                prof.record("dispatch", key, dispatch_s,
-                            t_end=time.time() - dev_s)
+                if traced:
+                    compile_s = max(dispatch_s, dev_s)
+                    tr.observe("kernel.compile", compile_s, stream=key)
+                    tr.gauge(f"tpu_compile_s_{key}", compile_s)
+                    if self._feed is None:
+                        prof.record("device", f"compile:{key}", compile_s)
+                continue
+            if isinstance(dev, tuple):
+                if ticket is None:
+                    continue
+                if self._gate.verdict(ticket) is not True:
+                    self._busy.timed_out(key)
+                    self._gate_timeouts[key] = \
+                        self._gate_timeouts.get(key, 0) + 1
+                    continue
+                self._busy.sample(key, dev_s)
+            if not traced:
+                continue
+            tr.observe("kernel.dispatch", dispatch_s, stream=key)
+            tr.observe("kernel.device", dev_s, stream=key)
+            # the dispatch ended a device execution ago: the timeline
+            # shows it before the device span, not on top of it
+            prof.record("dispatch", key, dispatch_s,
+                        t_end=time.time() - dev_s)
+            if self._feed is None:
+                # the feed records every group's device span at its fence
                 prof.record("device", key, dev_s)
 
     def _take_attribution(self):
@@ -786,11 +856,12 @@ class TpuSketchExporter(QueueWorkerExporter):
         def run():
             self.state, self._dict_state, _ = prog(
                 self.state, self._dict_state, flat_d)
-        self._timed_update("dict:" + "+".join(f"{k[0]}{w}" for k, w in sig),
-                           run, rows)
+        key = "dict:" + "+".join(f"{k[0]}{w}" for k, w in sig)
+        self._timed_update(key, run, rows)
         self.dispatches += 1
         if self._anomaly is not None:
-            self._anomaly.feed_dict_flat(self._dict_state.table, flat_d, sig)
+            self._lanes_update(key, lambda: self._anomaly.feed_dict_flat(
+                self._dict_state.table, flat_d, sig), rows)
 
     def _apply_lanes(self, flat_d: torch.Tensor, k: int, c: int,
                      rows: int) -> None:
@@ -803,7 +874,9 @@ class TpuSketchExporter(QueueWorkerExporter):
         self._timed_update(f"lanes_x{k}", run, rows)
         self.dispatches += 1
         if self._anomaly is not None:
-            self._anomaly.feed_flat(flat_d, k, c)
+            self._lanes_update(
+                f"lanes_x{k}",
+                lambda: self._anomaly.feed_flat(flat_d, k, c), rows)
 
     def _run_batch_locked(self, tb: TensorBatch) -> None:
         """Inline path, on the compute stream."""
@@ -1055,7 +1128,8 @@ class TpuSketchExporter(QueueWorkerExporter):
         groups = [sg for sg, _ in group]
         self._group_gauges(before, groups)
         return InFlight(fence, rows,
-                        self._release(groups, self._take_attribution()))
+                        self._release(groups, self._take_attribution()),
+                        self._group_programs)
 
     def _absorb_staged_host(self, sg) -> None:
         """Degraded mode reached a staged lane group: shed, or the host
@@ -1100,7 +1174,8 @@ class TpuSketchExporter(QueueWorkerExporter):
             return None            # every group a counted stale drop
         self._group_gauges(before, live)
         return InFlight(fence, sum(int(sg.valid) for sg in live),
-                        self._release(live, self._take_attribution()))
+                        self._release(live, self._take_attribution()),
+                        self._group_programs)
 
     def _absorb_dict_staged_host(self, sg) -> None:
         """Degraded mode reached a staged wire group: shed, or the host
@@ -1433,6 +1508,8 @@ class TpuSketchExporter(QueueWorkerExporter):
                   "shed_rows": self.shed_rows})
         if self._feed is not None:
             c.update(self._feed.counters())
+        if self._busy is not None:
+            c.update(self._busy.counters())
         if self._pod is not None:
             # shard states, epoch merges and the pod-wide conservation
             # terms (sent = delivered + host + lost + pending)

@@ -119,6 +119,12 @@ GAUGE_HELP: Dict[str, str] = {
                         "their epoch's merge deadline (each counted "
                         "row rides pod_rows_excluded until it merges "
                         "late)",
+    "pod_hosts_active": "hosts of the cross-host pod in the active state "
+                        "after the last global merge epoch (out of "
+                        "pod_hosts; lower = lost hosts)",
+    "pod_hosts_missed": "cumulative host contributions that missed "
+                        "their global epoch's marker deadline (their "
+                        "rows merge late, counted)",
 }
 
 # dynamically named gauges get their HELP by prefix

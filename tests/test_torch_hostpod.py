@@ -667,3 +667,46 @@ def _gloo_pair(tmp_path, idle):
         assert r["bus"] == ref_bus
         assert r["sent"] == r["delivered"] and r["pending"] == 0
     assert sum(r["sent"] for r in results) == rows
+
+
+@pytest.fixture
+def tracers():
+    """Both packages' process tracers, emptied and enabled; disabled and
+    emptied again after the test."""
+    from deepflow_tpu.runtime.tracing import default_tracer as jtracer
+    from deepflow_tpu_torch.runtime.tracing import default_tracer as ttracer
+    both = (ttracer(), jtracer())
+    for tr in both:
+        tr.reset()
+        tr.enable()
+    yield both
+    for tr in both:
+        tr.disable()
+        tr.reset()
+
+
+def test_hostpod_tracer_gauges_match_jax(faults, tracers):
+    """Each global epoch close sets pod_hosts_active, pod_hosts_missed
+    and pod_merge_epoch_s under the tracer, as the JAX coordinator does;
+    a lost marker reads one host missed."""
+    coords = t, j = _coords()
+    tt, jt = tracers
+    names = ("pod_hosts_active", "pod_hosts_missed", "pod_shards_active",
+             "pod_merge_missed")
+    agent = SyntheticAgent(seed=3)
+    try:
+        _warm(coords, agent)
+        tg, jg = tt.gauges(), jt.gauges()
+        assert {k: tg[k] for k in names} == {k: jg[k] for k in names}
+        assert tg["pod_hosts_active"] == 2.0 and tg["pod_hosts_missed"] == 0
+        faults("dcn.marker_loss:count=1,match=host1;seed=7")
+        _put(coords, _plane(agent))
+        assert t.drain(30) and j.drain(30)
+        t.close_epoch(deadline_s=0.6)
+        j.close_epoch(deadline_s=0.6)
+        tg, jg = tt.gauges(), jt.gauges()
+        assert {k: tg[k] for k in names} == {k: jg[k] for k in names}
+        assert tg["pod_hosts_missed"] == 1.0
+        assert tg["pod_merge_epoch_s"] > 0
+    finally:
+        _close(coords, final_epoch=False)

@@ -53,7 +53,9 @@ def test_port_files_found():
             "codec.py", "columnar_wire.py", "flow_log_pb2.py",
             "metric_pb2.py", "columnar.py", "dict_store.py",
             "platform_data.py", "geo.py", "throttler.py", "receiver.py",
-            "flow_log.py", "autotune.py", "ingester.py"} <= names
+            "flow_log.py", "autotune.py", "ingester.py", "spill.py",
+            "timeline.py", "incident.py", "promexpo.py", "debug.py",
+            "cuda_gate.py"} <= names
     for pkg in ("wire", "wire/gen", "decode", "enrich"):
         assert (REPO / "deepflow_tpu_torch" / pkg / "__init__.py") \
             in PORT_FILES

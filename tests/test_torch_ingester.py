@@ -12,7 +12,13 @@ the exporter. Compared: the l4 and l7 table rows (sorted by `_id`),
 every sketch leaf at every window close, the window outputs, the RED
 outputs, the metrics 1m tier and the receiver, decoder and registry
 counters: integers exactly, float readouts at rtol 1e-5 (RED quantiles
-2e-6, as in test_torch_app_red.py)."""
+2e-6, as in test_torch_app_red.py). The port runs the same traffic once
+more with the operations surface on (the timeline at its default
+cadence, the Prometheus and debug listeners, a spill and an incident
+directory): its sketch state equals the run with the surface off, and
+the surface answers (a strict /metrics scrape, /healthz, debug round
+trips). `IngesterConfig()`'s defaults build on the CPU; only
+`app_red_prom_buckets` still raises."""
 
 import socket
 import time
@@ -149,9 +155,9 @@ DOC_T0 = (int(time.time()) // 3600 + 2) * 3600
 
 
 def _cfg(mod, root, **kw):
-    return mod(listen_port=0, store_path=root, n_decoders=1,
-               tpu_sketch_window_s=3600, app_red_window_s=3600,
-               timeline_sample_s=0, **kw)
+    return mod(**{**dict(listen_port=0, store_path=root, n_decoders=1,
+                         tpu_sketch_window_s=3600, app_red_window_s=3600,
+                         timeline_sample_s=0), **kw})
 
 
 def _wait(fn, what, timeout=60):
@@ -225,20 +231,60 @@ def _run_jax(root, frames, counts):
         ing.close()
 
 
-def _run_port(root, frames, counts):
+def _run_port(root, frames, counts, probe=None, **kw):
     tflow_log._ID_NEXT[0] = 1
-    ing = Ingester(_cfg(IngesterConfig, root), device="cpu")
+    ing = Ingester(_cfg(IngesterConfig, root, **kw), device="cpu")
     ing.start()
     try:
         res = _drive(ing, frames, counts, ing.flow_log.decoders)
-        return res + (_counters(ing, ing.flow_log.decoders),)
+        out = res + (_counters(ing, ing.flow_log.decoders),)
+        if probe is not None:
+            out += (probe(ing),)
+        return out
     finally:
         ing.close()
+
+
+def _probe_surface(ing):
+    """The operations surface of a running ingester: a strict /metrics
+    scrape, /healthz, debug round trips, the timeline's own counters."""
+    import json
+    import urllib.request
+    from deepflow_tpu_torch.runtime.debug import debug_request
+    from deepflow_tpu_torch.runtime.promexpo import validate_exposition
+    _wait(lambda: ing.timeline.ticks >= 2, "two timeline ticks")
+    base = f"http://127.0.0.1:{ing.prom_port}"
+    with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+        body = r.read().decode()
+    with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+        health = json.loads(r.read())
+    replies = {cmd: debug_request(cmd, port=ing.debug.port)
+               for cmd in ("ping", "counters", "queues", "breakers",
+                           "spill", "lint")}
+    return {"problems": validate_exposition(body), "body": body,
+            "health": health, "replies": replies,
+            "timeline": ing.timeline.counters(),
+            "series": ing.timeline.metric_names()}
 
 
 def _scan(root, db, table):
     t = jdb.Store(root).table(db, table)
     return t.scan()
+
+
+@pytest.fixture(scope="module")
+def runs_surface(tmp_path_factory):
+    """The port's run of `runs` with the operations surface on: the
+    timeline at its default cadence, the listeners, a spill and an
+    incident directory."""
+    frames, counts = _traffic()
+    root = tmp_path_factory.mktemp("surface")
+    troot = str(root / "store")
+    return _run_port(troot, frames, counts, probe=_probe_surface,
+                     timeline_sample_s=IngesterConfig().timeline_sample_s,
+                     prom_port=0, debug_port=0,
+                     spill_dir=str(root / "spill"),
+                     incident_dir=str(root / "incidents"))
 
 
 @pytest.fixture(scope="module")
@@ -328,20 +374,82 @@ def test_counters_equal(runs):
     ("spill_dir", "/nonexistent"), ("prom_port", 0), ("debug_port", 0),
     ("incident_dir", "/nonexistent"), ("timeline_sample_s", 1.0),
     ("app_red_prom_buckets", 4)])
-def test_unported_settings_raise(field, value):
-    assert field in {f for f, _, _ in UNPORTED}
-    kw = {"timeline_sample_s": 0, field: value}
-    with pytest.raises(NotImplementedError, match=field):
-        Ingester(IngesterConfig(**kw), device="cpu")
+def test_unported_settings_raise(field, value, tmp_path):
+    """Only the RED exporter's le buckets are still unported: that field
+    raises, naming itself; the others build their subsystem (paths
+    under tmp_path)."""
+    assert {f for f, _, _ in UNPORTED} == {"app_red_prom_buckets"}
+    if isinstance(value, str):
+        value = str(tmp_path) + value
+    kw = {"timeline_sample_s": 0, "listen_port": 0, field: value}
+    if field in {f for f, _, _ in UNPORTED}:
+        with pytest.raises(NotImplementedError, match=field):
+            Ingester(IngesterConfig(**kw), device="cpu")
+        return
+    ing = Ingester(IngesterConfig(**kw), device="cpu")
+    try:
+        built = {"spill_dir": ing.spill, "prom_port": ing.prom,
+                 "debug_port": ing.debug, "incident_dir": ing.incidents,
+                 "timeline_sample_s": ing.timeline}[field]
+        assert built is not None or field == "incident_dir"
+        if field == "incident_dir":
+            # the recorder rides the timeline, off in this config
+            assert ing.timeline is None and ing.incidents is None
+    finally:
+        ing.close()
 
 
 def test_default_config_raises_and_cuda_needs_a_card():
+    """`IngesterConfig()`'s defaults build on the CPU (the timeline on at
+    1.0 s, no store: no incident recorder); "cuda" without a card
+    raises."""
     import torch
-    with pytest.raises(NotImplementedError, match="timeline_sample_s"):
-        Ingester(IngesterConfig(), device="cpu")
+    ing = Ingester(IngesterConfig(), device="cpu")
+    try:
+        assert ing.timeline is not None and ing.timeline.sample_s == 1.0
+        assert ing.incidents is None and ing.prom is None
+        assert ing.health()["slo_burning"] == []
+    finally:
+        ing.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            Ingester(IngesterConfig(timeline_sample_s=0))
+            Ingester(IngesterConfig())
+
+
+def test_sketch_state_equal_with_operations_surface_on_and_off(
+        runs, runs_surface):
+    """Every sketch leaf at every window close, the window outputs and
+    the RED output are the same with the operations surface on."""
+    on, off = runs_surface, runs["port"]
+    assert len(on[0]) == len(off[0])
+    for a, b in zip(on[0], off[0]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for a, b in zip(on[1] + [on[2]], off[1] + [off[2]]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert on[3]["receiver"] == off[3]["receiver"]
+    assert on[3]["exporters"] == off[3]["exporters"]
+
+
+def test_operations_surface_live(runs, runs_surface):
+    probe = runs_surface[4]
+    assert probe["problems"] == []
+    assert "deepflow_slo_burn_rate" in probe["body"]
+    assert "deepflow_timeline_ticks" in probe["body"]
+    assert probe["health"]["ok"] and probe["health"]["slo_burning"] == []
+    r = probe["replies"]
+    assert r["ping"] == {"ok": True, "data": "pong"}
+    assert r["counters"]["data"]["exporter.tpu_sketch"]["rows_in"] == \
+        sum(runs["counts"][:2])
+    assert "ingest.l4_flow_log" in r["queues"]["data"]
+    assert set(r["breakers"]["data"]) == {"tpu_sketch", "app_red"}
+    assert r["spill"]["data"]["enabled"] is True
+    assert r["lint"]["ok"] is False
+    assert probe["timeline"]["ticks"] >= 2
+    assert probe["timeline"]["rule_errors"] == 0
+    assert {"tpu_sketch_rows_in", "receiver_rx_frames",
+            "slo_burn_rate", "ingest_frames_per_s"} <= set(probe["series"])
 
 
 def test_close_drains_pending_feed_groups(tmp_path):

@@ -631,3 +631,56 @@ def test_pod_exporter_kernel_error_surfaces_and_close_stops_the_shards(
         assert not sh.handle.is_alive()
     c = _conserve(exp.pod)
     assert c["pod_rows_lost"] == B and c["pod_device_errors"] == 0
+
+
+@pytest.fixture
+def tracers():
+    """Both packages' process tracers, emptied and enabled; disabled and
+    emptied again after the test."""
+    from deepflow_tpu.runtime.tracing import default_tracer as jtracer
+    from deepflow_tpu_torch.runtime.tracing import default_tracer as ttracer
+    both = (ttracer(), jtracer())
+    for tr in both:
+        tr.reset()
+        tr.enable()
+    yield both
+    for tr in both:
+        tr.disable()
+        tr.reset()
+
+
+def test_pod_tracer_gauges_match_jax(tracers):
+    """Each epoch close sets pod_shards_active, pod_merge_missed and
+    pod_merge_epoch_s under the tracer, as the JAX pod does: a kill
+    epoch reads 7 active shards, the rejoin epoch 8; none is set with
+    the tracer off."""
+    pods = t, j = _pods(n_shards=8, merge_deadline_s=30.0,
+                        snapshot_batches=2)
+    tt, jt = tracers
+    names = ("pod_shards_active", "pod_merge_missed")
+    agent = SyntheticAgent(seed=11)
+    try:
+        _feed(pods, agent, batches=4)
+        assert t.drain(30) and j.drain(30)
+        t.kill(2)
+        j.kill(2)
+        _feed(pods, agent, batches=2)
+        t.close_epoch()
+        j.close_epoch()
+        tg, jg = tt.gauges(), jt.gauges()
+        assert {k: tg[k] for k in names} == {k: jg[k] for k in names}
+        assert tg["pod_shards_active"] == 7.0
+        assert tg["pod_merge_epoch_s"] > 0
+        t.close_epoch()
+        j.close_epoch()
+        tg, jg = tt.gauges(), jt.gauges()
+        assert {k: tg[k] for k in names} == {k: jg[k] for k in names}
+        assert tg["pod_shards_active"] == 8.0
+        tt.disable()
+        tt.reset()
+        _feed((t,), agent, batches=1)
+        assert t.drain(30)
+        t.close_epoch()
+        assert not set(tt.gauges()) & set(names)
+    finally:
+        _close(pods)

@@ -272,3 +272,133 @@ def test_sharded_suite_spans_match_jax(tracers):
     jnames = {e["name"] for e in jprofiler.default_profiler()
               .to_chrome_trace()["traceEvents"] if e["ph"] == "X"}
     assert names == jnames == {"shard:ShardedFlowSuite"}
+
+
+# -- the device-busy measure (gated samples, runtime/profiler.py) ---------
+
+def test_busy_estimator_scales_caps_and_counts():
+    """A group's device time is the sum of the newest gated sample of
+    each of its programs (a key fixes its planes' widths, so the rows do
+    not scale it), capped at its dispatch -> fence interval; a program
+    not sampled yet borrows its family's newest sample, counted, and
+    with none in its family the group gives the interval itself,
+    counted; timed-out samples are counted and change nothing."""
+    est = profiler.BusyEstimator()
+    est.sample("dict:n8192", 0.002)
+    est.sample("lanes_x2", 0.0005)
+    est.timed_out("dict:n8192")
+    assert est.estimate(["dict:n8192"], 0.01) == pytest.approx(0.002)
+    assert est.estimate(["dict:n8192", "lanes_x2"], 0.01) == \
+        pytest.approx(0.0025)
+    assert est.estimate(["dict:n8192", "lanes_x2"], 0.001) == 0.001
+    assert est.estimate(["dict:n8192", "anomaly:h16384"], 0.007) == 0.007
+    # an unsampled program of a sampled family borrows its sample
+    assert est.estimate(["dict:h16384"], 1.0) == pytest.approx(0.002)
+    # the newest sample of a key replaces the older one (and its family's)
+    est.sample("dict:n8192", 0.004)
+    assert est.estimate(["dict:n8192"], 1.0) == pytest.approx(0.004)
+    assert est.estimate(["dict:n16384"], 1.0) == pytest.approx(0.004)
+    assert est.has("dict:n8192") and not est.has("dict:n16384")
+    assert est.counters() == {"busy_samples": 3,
+                              "busy_samples_timed_out": 1,
+                              "busy_groups_estimated": 4,
+                              "busy_groups_borrowed": 2,
+                              "busy_groups_ungated": 1}
+
+
+def test_feed_device_spans_from_the_estimator(tracers):
+    """The feed sizes each fenced group's `device` span from the
+    estimator (fences injected: an object with a `synchronize` that
+    waits a set time): a sampled program gives its sample, capped at
+    dispatch -> fence; a program with no sample in its family, and a
+    host-path group (no fence), the interval. The release runs before
+    the estimate, so a group's own gated sample sizes its span."""
+    import time
+    from deepflow_tpu_torch.runtime.feed import DeviceFeed, InFlight
+    est = profiler.BusyEstimator()
+
+    class Fence:
+        def synchronize(self):
+            time.sleep(0.02)
+
+    plan = {0: ("p", 0.001), 1: ("p", None), 2: ("p", 5.0),
+            3: ("q", None), 4: (None, None)}
+
+    def process(group):
+        (i, _), = group
+        key, sample = plan[i]
+        release = None if sample is None else \
+            (lambda: est.sample(key, sample))
+        if key is None:
+            return InFlight(None, 100)
+        return InFlight(Fence(), 100, release, [key])
+
+    prof = profiler.default_profiler()
+    feed = DeviceFeed("busy-feed", process, depth=1, estimator=est)
+    try:
+        for i in range(5):
+            feed.put(i)
+        assert feed.drain(10)
+    finally:
+        feed.close()
+    spans = [s for s in prof._snapshot() if s[0] == "device"]
+    durs = [s[3] for s in spans]
+    assert len(durs) == 5
+    assert durs[0] == pytest.approx(0.001)
+    assert durs[1] == pytest.approx(0.001)
+    assert 0.015 < durs[2] < 1.0          # capped at dispatch -> fence
+    assert durs[3] > 0.015                # no sample in its family
+    assert durs[4] > 0                    # no fence: the interval
+    assert est.counters()["busy_groups_ungated"] == 1
+    assert est.counters()["busy_groups_estimated"] == 3
+
+
+class _Ev:
+    def __init__(self, t):
+        self.t = t
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+class _Gate:
+    """A gate whose verdicts the test sets per ticket."""
+
+    def __init__(self, verdicts):
+        self.verdicts = verdicts
+
+    def verdict(self, ticket):
+        return self.verdicts[ticket]
+
+
+def test_gated_attribution_discards_timed_out_samples(tracers):
+    """A warm attributed call read with its gate's verdict (events and
+    gate injected): opened by the host, its event time is
+    `kernel.device` and a sample; released by the timeout, it is
+    discarded and counted (`busy_samples_timed_out`), and a program
+    whose gate timed out twice is not gated again; an ungated warm call
+    on the card times nothing."""
+    _, tr = tracers
+    exp = TpuSketchExporter(cfg=flow_suite.FlowSuiteConfig(**_SMALL),
+                            batch_rows=B, window_seconds=3600, device="cpu")
+    try:
+        exp._gate = _Gate({1: True, 2: False, 3: None})
+        exp._busy = profiler.BusyEstimator()
+        ev = (_Ev(0.0), _Ev(0.0025))
+        exp._read_attribution([("dict:n8", False, 64, 0.03, ev, None, 1)])
+        lat = tr.latency()
+        assert lat["kernel.device"]["count"] == 1
+        assert lat["kernel.device"]["p50_ms"] == pytest.approx(2.5, rel=0.02)
+        assert exp._busy.estimate(["dict:n8"], 1.0) == \
+            pytest.approx(0.0025)
+        for ticket in (2, 3):
+            exp._read_attribution([("dict:n8", False, 64, 0.03, ev, None,
+                                    ticket)])
+        exp._read_attribution([("dict:n8", False, 64, 0.03, ev, None,
+                                None)])
+        assert tr.latency()["kernel.device"]["count"] == 1
+        c = exp._busy.counters()
+        assert c["busy_samples"] == 1 and c["busy_samples_timed_out"] == 2
+        assert exp._gate_timeouts == {"dict:n8": 2}
+    finally:
+        exp.close()
