@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
-suites, flow_metrics store lane, pod, global mesh and ingester with its
-operations surface on one CUDA card.
+suites, flow_metrics store lane, pod, global mesh, ingester with its
+operations surface, and serving with the querier on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -264,7 +264,32 @@ is printed):
    2 s with 64-frame rings and the spill armed writes segments that are
    replayed (spilled = replayed, none evicted), delivered + counted loss
    = sent, and the partition-free sketch leaves equal a fault-free
-   run's.
+   run's;
+15. serving and the querier. (a) Run inside phase 10, on its store
+   while it lives (1,966,080 vtap_flow_port rows and their 1m tier):
+   nine statements of the DeepFlow UI's kinds (GROUP BY over 1, 2 and 3
+   u32 tags with Sum, Max and Avg; derived metrics; time(60); WHERE time
+   bounds, HAVING, ORDER BY ... LIMIT 100; a Percentile, whose GROUP BY
+   takes the host sort with the row->group map; the 1m tier; SHOW TAG
+   VALUES) through QueryEngine on the card and on the CPU: identical
+   rows; two statements equal a numpy GROUP BY of phase 10's columns;
+   per statement the rows grouped, the GROUP BY path taken and the wall
+   p50 of 5 runs each way; one device-path query under torch.profiler
+   (kernels, syncs, device-to-host copies). (b) Phase 13 (b)'s ingester
+   with SnapshotCache, SketchTables and AnomalyTables mounted on its
+   exporter's snapshot bus and anomaly bus and a QuerierServer on port 0
+   with its timeline and incident recorder; phase 3's window 0 sent over
+   4 connections, with no client and then with a client sending about
+   20 requests a second over HTTP (sketch SQL to /v1/query, PromQL over
+   the sketch, anomaly and timeline series to /api/v1/query and
+   query_range): SketchTables.cms_points over 2^16 keys = ops/cms.query
+   on the exporter's state bit for bit, hll_card = ops/hll.estimate
+   within rtol 1e-6, no CMS estimate below its exact count, served top-K
+   recall >= 0.99 before and after the flush, SELECT * FROM timeline and
+   FROM incidents answer, the serving_p99 SLO's series has samples, and
+   the ingest's syncs under torch.profiler are the same with and without
+   the client (event syncs = fences); records/s both ways, HTTP and
+   serving p50/p99.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -3167,9 +3192,11 @@ def check_compaction(torch, base, tier):
     return res
 
 
-def check_flow_metrics(torch, dev, rng, card):
+def check_flow_metrics(torch, dev, rng, card, querier=None):
     """Phase 10: the flow_metrics pipeline's store lane, the rollup
-    GROUP BY on the card, the store's read half."""
+    GROUP BY on the card, the store's read half. `querier(root, db,
+    cols, t0)` runs on the store as the pipeline left it (phase 15 (a));
+    its result is returned beside phase 10's."""
     from deepflow_tpu_torch.pipelines.schemas import METRICS_TABLE
     from deepflow_tpu_torch.store.db import Store
     from deepflow_tpu_torch.store.rollup import RollupManager
@@ -3206,6 +3233,7 @@ def check_flow_metrics(torch, dev, rng, card):
             f"{run['disk_bytes'] / 1e6:.1f} MB); rollup build "
             f"{run['build_s'] * 1e3:.1f} ms for {2 * FM_TUPLES} 1m rows; "
             f"numpy reference {ref_s:.1f} s; 1m tier = numpy")
+        sql = None if querier is None else querier(root, db, cols, t0)
         split, out = build_split(torch, dev, fresh, t0, t0 + FM_SECONDS, tmp)
         assert_tables_equal(want, out, "build split vs numpy")
         log("  build split (s): " + ", ".join(
@@ -3243,7 +3271,7 @@ def check_flow_metrics(torch, dev, rng, card):
             "pipeline": {k: v for k, v in run.items() if k != "db"},
             "numpy_reference_s": ref_s, "build_split_s": split,
             "groupby": groupby, "compaction": compaction,
-            "build_profile": build_prof, "card": card}
+            "build_profile": build_prof, "card": card}, sql
 
 
 # -- phase 11: the pod fault domains and the cross-host pod ------------------
@@ -5226,6 +5254,464 @@ def check_ops(torch, dev, rng, windows, card):
             "card": card}
 
 
+# -- phase 15: serving and the querier --------------------------------------
+
+QUERY_RUNS = 5             # wall p50 over this many runs per statement
+SERVE_RPS = 20.0           # (b)'s client: requests a second over HTTP
+SERVE_MIN_S = 3.0          # (b)'s client runs at least this long
+SERVE_CMS_KEYS = 1 << 16   # keys of the CMS multiget against ops/cms.query
+
+
+def querier_statements(t0):
+    """(a)'s statements, the DeepFlow UI's kinds: (label, sql)."""
+    b = "vtap_flow_port"
+    w = f"timestamp >= {t0 + 30} AND timestamp < {t0 + 90}"
+    return [
+        ("1 tag", f"SELECT ip, Sum(byte_tx) AS b, Max(rtt_max) AS r, "
+         f"Avg(packet_tx) AS p FROM {b} GROUP BY ip"),
+        ("2 tags", f"SELECT ip, server_port, Sum(packet_tx) AS p FROM {b} "
+         f"GROUP BY ip, server_port ORDER BY p DESC LIMIT 100"),
+        ("3 tags", f"SELECT vtap_id, server_port, l3_epc_id, "
+         f"Avg(rtt_sum) AS a, Max(rtt_max) AS m, Sum(byte_rx) AS r "
+         f"FROM {b} GROUP BY vtap_id, server_port, l3_epc_id"),
+        ("derived", f"SELECT server_port, rtt_avg, byte, retrans_ratio "
+         f"FROM {b} GROUP BY server_port"),
+        ("time(60)", f"SELECT time(60) AS t, Sum(byte_tx) AS b, "
+         f"Sum(packet_tx) AS p FROM {b} GROUP BY time(60)"),
+        ("where+having", f"SELECT ip, Sum(byte_tx) AS b FROM {b} WHERE {w} "
+         f"GROUP BY ip HAVING b > 1000000 ORDER BY b DESC LIMIT 100"),
+        ("percentile", f"SELECT vtap_id, Percentile(rtt_max, 99) AS p "
+         f"FROM {b} GROUP BY vtap_id"),
+        ("1m tier", f"SELECT ip, vtap_id, Sum(byte_tx) AS b FROM {b}.1m "
+         f"GROUP BY ip, vtap_id ORDER BY b DESC LIMIT 100"),
+        ("show", f"SHOW TAG vtap_id VALUES FROM {b}"),
+    ]
+
+
+class PathCounter:
+    """Wraps the querier's group_reduce: per call the rows grouped and
+    the path taken ("device": the whole GROUP BY on the card; "host":
+    the host lexsort, the reduce on the engine's device; "host+inverse":
+    the same with the row->group map, a Percentile's)."""
+
+    def __init__(self):
+        from deepflow_tpu_torch.querier import engine
+        from deepflow_tpu_torch.store import rollup
+        self.calls = []
+        self._engine, self._rollup = engine, rollup
+        self._real, self._real_dev = engine.group_reduce, \
+            rollup.group_reduce_device
+        self._took_device = False
+
+    def __enter__(self):
+        def dev_path(*a, **kw):
+            self._took_device = True
+            return self._real_dev(*a, **kw)
+
+        def wrapped(cols, keys, aggs, **kw):
+            self._took_device = False
+            out = self._real(cols, keys, aggs, **kw)
+            path = "device" if self._took_device else (
+                "host+inverse" if kw.get("return_inverse") else "host")
+            self.calls.append((len(next(iter(cols.values()))), path))
+            return out
+        self._rollup.group_reduce_device = dev_path
+        self._engine.group_reduce = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.group_reduce = self._real
+        self._rollup.group_reduce_device = self._real_dev
+
+
+def numpy_groupby_checks(cols, t0, results):
+    """Two statements against a plain numpy GROUP BY of phase 10's
+    columns: "1 tag" and "time(60)"."""
+    ip, inv = np.unique(cols["ip"], return_inverse=True)
+    inv = inv.reshape(-1)
+    n = np.bincount(inv)
+    b = np.bincount(inv, cols["byte_tx"].astype(np.float64))
+    r = np.zeros(len(ip), np.int64)
+    np.maximum.at(r, inv, cols["rtt_max"].astype(np.int64))
+    p = np.bincount(inv, cols["packet_tx"].astype(np.float64))
+    want = [[int(ip[i]), int(b[i]), int(r[i]), float(p[i] / n[i])]
+            for i in range(len(ip))]
+    if results["1 tag"] != want:
+        raise AssertionError("querier '1 tag' != numpy GROUP BY")
+    bucket = cols["timestamp"].astype(np.int64) // 60 * 60
+    tb, tinv = np.unique(bucket, return_inverse=True)
+    tinv = tinv.reshape(-1)
+    want = [[int(tb[i]),
+             int(cols["byte_tx"].astype(np.int64)[tinv == i].sum()),
+             int(cols["packet_tx"].astype(np.int64)[tinv == i].sum())]
+            for i in range(len(tb))]
+    if results["time(60)"] != want:
+        raise AssertionError("querier 'time(60)' != numpy GROUP BY")
+
+
+def check_querier_sql(torch, dev, root, db, cols, t0, card):
+    """Phase 15 (a): the DeepFlow UI's kinds of SQL over phase 10's store
+    through QueryEngine on the card and on the CPU: identical rows, two
+    statements = numpy, the GROUP BY path of each, wall p50 of
+    QUERY_RUNS runs each way, one device-path query profiled."""
+    from deepflow_tpu_torch.querier import QueryEngine
+    from deepflow_tpu_torch.store.db import Store
+    from deepflow_tpu_torch.store.dict_store import TagDictRegistry
+    t_a = time.perf_counter()
+    store = Store(root)
+    engines = {"card": QueryEngine(store, TagDictRegistry(None),
+                                   device=dev),
+               "cpu": QueryEngine(store, TagDictRegistry(None),
+                                  device="cpu")}
+    rows, results = [], {}
+    for label, sql in querier_statements(t0):
+        got, walls, paths = {}, {}, {}
+        for where, eng in engines.items():
+            with PathCounter() as pc:
+                got[where] = eng.execute(sql, db=db)
+            paths[where] = pc.calls
+            times = []
+            for _ in range(QUERY_RUNS):
+                t = time.perf_counter()
+                eng.execute(sql, db=db)
+                times.append(time.perf_counter() - t)
+            walls[where] = float(np.median(times)) * 1e3
+        if got["card"].columns != got["cpu"].columns \
+                or got["card"].values != got["cpu"].values:
+            raise AssertionError(f"querier {label!r}: card rows != CPU rows")
+        if not got["card"].values:
+            raise AssertionError(f"querier {label!r} answered no rows")
+        results[label] = got["card"].values
+        row = {"statement": label, "rows_out": len(got["card"].values),
+               "groupby": paths["card"], "cpu_groupby": paths["cpu"],
+               "card_p50_ms": walls["card"], "cpu_p50_ms": walls["cpu"]}
+        rows.append(row)
+        log(f"  querier {label!r} on {card}: GROUP BY "
+            + (", ".join(f"{n} rows on the {p} path"
+                         for n, p in paths["card"]) or "none")
+            + f"; {row['rows_out']} rows out; wall p50 card "
+            f"{walls['card']:.1f} ms, cpu {walls['cpu']:.1f} ms; "
+            "card rows = cpu rows")
+    numpy_groupby_checks(cols, t0, results)
+    taken = {p for r in rows for _, p in r["groupby"]}
+    if "host+inverse" not in taken or (
+            "device" not in taken and torch.device(dev).type == "cuda"):
+        raise AssertionError(f"querier paths {[r['groupby'] for r in rows]}"
+                             ": no device or no inverse GROUP BY")
+    label, sql = querier_statements(t0)[0]
+    prof = profile_call(torch, dev, lambda: engines["card"].execute(sql,
+                                                                    db=db))
+    log(f"  querier {label!r} profiled on {card}: {prof['wall_ms']:.1f} ms "
+        f"wall, {prof['kernels']} kernels ({prof['kernel_ms']:.3f} ms), "
+        f"syncs " + ", ".join(f"{k} {prof['runtime_calls'][k]}"
+                              for k in SYNC_CALLS)
+        + f", {prof['d2h_copy_activities']} device-to-host copies; "
+        "'1 tag' and 'time(60)' = numpy GROUP BY")
+    return {"statements": rows, "profile": {
+        k: prof[k] for k in ("wall_ms", "kernels", "kernel_ms",
+                             "d2h_copy_activities", "runtime_calls",
+                             "attempts")},
+        "seconds": time.perf_counter() - t_a, "card": card}
+
+
+class ServingClient(threading.Thread):
+    """(b)'s client: SERVE_RPS requests a second over HTTP, round robin
+    over the sketch SQL and the PromQL the dashboards send; latencies
+    kept, any answer but 200 kept as an error. PromQL over a
+    self-telemetry series is sent once the timeline carries it (before
+    that the evaluator looks for it in the store's ext_samples table,
+    which this store does not have, and answers 400)."""
+
+    def __init__(self, port, keys, timeline):
+        super().__init__(daemon=True)
+        self.port = port
+        self.timeline = timeline
+        self.lat, self.errors = [], []
+        self._halt = threading.Event()
+        k = int(keys[0])
+        self.requests = [
+            ("sql", "SELECT sketch.topk(100) FROM sketch"),
+            ("sql", f"SELECT sketch.cms_point({k}) FROM sketch"),
+            ("sql", "SELECT sketch.hll_card() FROM sketch"),
+            ("sql", "SELECT sketch.entropy() FROM sketch"),
+            ("query", "sketch_topk(10)"),
+            ("query", 'anomaly_score{detector="entropy_ddos"}'),
+            ("query", "tpu_sketch_rows_in"),
+            ("query", "querier_read_p99_s"),
+            ("range", "sketch_topk(10)"),
+            ("range", "tpu_sketch_rows_in"),
+            ("range", "querier_read_p99_s"),
+        ]
+
+    def call(self, kind, q):
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+        base = f"http://127.0.0.1:{self.port}"
+        now = int(time.time())
+        if kind == "sql":
+            req = urllib.request.Request(
+                base + "/v1/query",
+                data=urllib.parse.urlencode({"sql": q}).encode())
+        elif kind == "query":
+            req = base + "/api/v1/query?" + urllib.parse.urlencode(
+                {"query": q, "time": now})
+        else:
+            req = base + "/api/v1/query_range?" + urllib.parse.urlencode(
+                {"query": q, "start": now - 10, "end": now, "step": 1})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def run(self):
+        i = 0
+        while not self._halt.is_set():
+            kind, q = self.requests[i % len(self.requests)]
+            i += 1
+            series = q if q in ("tpu_sketch_rows_in",
+                                "querier_read_p99_s") else None
+            if series and not self.timeline.has_metric(series):
+                continue
+            t = time.perf_counter()
+            code, body = self.call(kind, q)
+            self.lat.append(time.perf_counter() - t)
+            if code != 200:
+                self.errors.append((kind, q, code, body))
+            self._halt.wait(max(0.0, 1.0 / SERVE_RPS
+                                - (time.perf_counter() - t)))
+
+    def stop(self):
+        self._halt.set()
+        self.join(timeout=60)
+
+
+def check_served_sketch(torch, dev, exp, tables, window, card):
+    """(b)'s checks on the current window, drained and published by
+    checkpoint_now: SketchTables against the card's own ops on the
+    exporter's state (read after a synchronize), top-K recall and the
+    CMS's one-sided error against exact counts."""
+    from deepflow_tpu_torch.ops import cms, hll
+    from deepflow_tpu_torch.utils.u32 import fold_columns_np
+    if not exp.checkpoint_now():
+        raise AssertionError("phase 15: checkpoint_now did not publish")
+    torch.cuda.synchronize()
+    keys = fold_columns_np([window[c] for c in ("ip_src", "ip_dst",
+                                                "port_src", "port_dst",
+                                                "proto")])
+    uniq, counts = np.unique(keys, return_counts=True)
+    # the window's keys (up to SERVE_CMS_KEYS), topped up with keys it
+    # never sent (exact count 0)
+    rng = np.random.default_rng(15)
+    sent = uniq[rng.permutation(len(uniq))[:SERVE_CMS_KEYS]]
+    extra = np.setdiff1d(rng.integers(0, 1 << 32, 2 * SERVE_CMS_KEYS,
+                                      dtype=np.uint64).astype(np.uint32),
+                         uniq)[:SERVE_CMS_KEYS - len(sent)]
+    probe = np.concatenate([sent, rng.permutation(extra)])
+    exact = np.zeros(len(probe), np.int64)
+    exact[:len(sent)] = counts[np.searchsorted(uniq, sent)]
+    t = time.perf_counter()
+    served = tables.cms_points(probe)["estimates"]
+    walls = {"cms_points": time.perf_counter() - t}
+    on_card = cms.query(exp.state.sketch, torch.from_numpy(
+        probe.astype(np.int64)).to(dev)).cpu().numpy()
+    if len(probe) != SERVE_CMS_KEYS or served.dtype != on_card.dtype \
+            or not np.array_equal(served, on_card):
+        raise AssertionError("SketchTables.cms_points != ops/cms.query")
+    if (served < exact).any():
+        raise AssertionError("a CMS point estimate is below its exact count")
+    card_hll = float(hll.estimate(exp.state.services).sum().item())
+    t = time.perf_counter()
+    served_hll = tables.hll_card()["cardinality"]
+    walls["hll_card"] = time.perf_counter() - t
+    if not np.isclose(served_hll, card_hll, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"hll_card {served_hll} != ops/hll.estimate "
+                             f"{card_hll}")
+    t = time.perf_counter()
+    top = {r["flow_key"] for r in tables.topk(100)}
+    walls["topk"] = time.perf_counter() - t
+    rec = len(top & exact_topk(window, 100)) / 100
+    if rec < 0.99:
+        raise AssertionError(f"served top-K recall {rec} < 0.99")
+    return {"cms_keys": len(probe), "cms_keys_sent": len(sent),
+            "hll_card": served_hll, "recall": rec,
+            "cms_over": int((served - exact).sum()),
+            "read_ms": {k: round(v * 1e3, 3) for k, v in walls.items()}}
+
+
+def serve_run(torch, dev, name, frames, profiled, window, tmp, card,
+              client_on):
+    """Phase 15 (b), one run: the ingester of phase 13 (b) with serving
+    mounted on its buses and a QuerierServer on port 0; window 0 sent
+    over ING_VTAPS connections (records/s), checked and flushed, then
+    ING_PROFILED_FRAMES more frames under torch.profiler (syncs). With
+    `client_on` a ServingClient queries throughout."""
+    from deepflow_tpu_torch.pipelines import Ingester
+    from deepflow_tpu_torch.querier.server import QuerierServer
+    from deepflow_tpu_torch.runtime.tracing import default_tracer
+    from deepflow_tpu_torch.serving import (AnomalyTables, SketchTables,
+                                            SnapshotCache)
+    from deepflow_tpu_torch.utils.u32 import fold_columns_np
+    from torch.profiler import ProfilerActivity, profile
+
+    ing = Ingester(ingester_config(os.path.join(tmp, name)), device=dev)
+    exp = ing.tpu_sketch
+    tables = SketchTables(SnapshotCache(exp.snapshot_bus))
+    atables = AnomalyTables(SnapshotCache(exp.anomaly.bus))
+    srv = QuerierServer(ing.store, ing.tag_dicts, port=0, sketch=tables,
+                        anomaly=atables, timeline=ing.timeline,
+                        incidents=ing.incidents, device=dev)
+    keys = fold_columns_np([window[c][:1] for c in (
+        "ip_src", "ip_dst", "port_src", "port_dst", "proto")])
+    client = ServingClient(srv.port, keys, ing.timeline) if client_on \
+        else None
+    counters = launch_counters()
+    tr = default_tracer()
+    n = len(window["ip_src"])
+    served = None
+    try:
+        ing.start()
+        srv.start()
+        tr.enable()
+        t_client = time.perf_counter()
+        if client is not None:
+            client.start()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        send_parallel(ing.port, frames)
+        wait_for(lambda: exp.rows_in == n, "the sketch exporter")
+        if not exp._feed.drain(60):
+            raise AssertionError(f"{name}: the feed did not drain")
+        dt = time.perf_counter() - t0
+        if client is not None:
+            served = check_served_sketch(torch, dev, exp, tables, window,
+                                         card)
+        exp.flush_window(now=time.time())
+        if client is not None:
+            after = {r["flow_key"] for r in tables.topk(100)}
+            if len(after & exact_topk(window, 100)) / 100 < 0.99:
+                raise AssertionError("the flushed window's served top-K "
+                                     "recall < 0.99")
+        c0 = exp.counters()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            mark(torch, dev)
+            tp = time.perf_counter()
+            send_parallel(ing.port, profiled[0])
+            wait_for(lambda: exp.rows_in == n + profiled[1],
+                     "the sketch exporter")
+            if not exp._feed.drain(60):
+                raise AssertionError(f"{name}: the feed did not drain")
+            t_prof = time.perf_counter() - tp
+            mark(torch, dev)
+        c1 = exp.counters()
+        exp.flush_window(now=time.time())
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        answers = None
+        if client is not None:
+            wait_for(lambda: time.perf_counter() - t_client >= SERVE_MIN_S
+                     and len(ing.timeline.prom_fetch(
+                         "querier_read_p99_s", [], 0, 1 << 62)) > 0,
+                     "querier_read_p99_s samples in the timeline", 60)
+            client.stop()
+            answers = {q: client.call("sql", q) for q in (
+                "SELECT * FROM timeline", "SELECT * FROM incidents")}
+            for q, (code, body) in answers.items():
+                if code != 200:
+                    raise AssertionError(f"{q}: {code} {body}")
+            slo = ing.timeline.prom_fetch("querier_read_p99_s", [], 0,
+                                          1 << 62)
+            if client.errors:
+                raise AssertionError(f"client errors {client.errors[:3]}")
+        tc = tables.counters()
+    finally:
+        if client is not None and client.is_alive():
+            client.stop()
+        srv.close()
+        ing.close()
+        tr.disable()
+    session = trace_session(torch, prof, t_prof)
+    calls = session["runtime_calls"]
+    fences = c1["feed_fences"] - c0["feed_fences"]
+    for k in ("fused_news_hists", "fused_lane_hists"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    if (calls["cudaStreamSynchronize"] or calls["cudaDeviceSynchronize"]
+            or calls["cudaEventSynchronize"] != fences
+            or session["d2h_copy_activities"]):
+        raise AssertionError(f"{name}: the ingest synced or read back "
+                             f"outside its fences: {calls}, {fences} fences")
+    r = {"records": n, "seconds": dt, "records_per_s": n / dt,
+         "launches": launches, "stream_syncs": calls["cudaStreamSynchronize"],
+         "event_syncs": calls["cudaEventSynchronize"], "fences": fences,
+         "device_syncs": calls["cudaDeviceSynchronize"],
+         "profiled_ingest_ms": t_prof * 1e3}
+    if client is not None:
+        lat = np.asarray(client.lat)
+        r.update({"served": served, "requests": len(lat),
+                  "http_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                  "http_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                  "serving_p50_ms": tc["read_p50_s"] * 1e3,
+                  "serving_p99_ms": tc["read_p99_s"] * 1e3,
+                  "serving_reads": tc["reads"],
+                  "slo_samples": int(sum(len(ts) for _, ts, _ in slo)),
+                  "timeline_rows": len(answers["SELECT * FROM timeline"][1]
+                                       ["result"]["values"]),
+                  "incident_rows": len(answers["SELECT * FROM incidents"][1]
+                                       ["result"]["values"])})
+    log(f"  {name} on {card}: {n / dt:.0f} records/s ({dt:.2f} s for {n} "
+        f"records over {ING_VTAPS} connections); profiled ingest of "
+        f"{profiled[1]} records: syncs stream {r['stream_syncs']}, event "
+        f"{r['event_syncs']} = {fences} fences, device "
+        f"{r['device_syncs']}; launches {launches}"
+        + ("" if client is None else
+           f"; {r['requests']} HTTP requests, p50 {r['http_p50_ms']:.2f} "
+           f"ms, p99 {r['http_p99_ms']:.2f} ms; serving reads "
+           f"{r['serving_reads']}, p50 {r['serving_p50_ms']:.3f} ms, p99 "
+           f"{r['serving_p99_ms']:.3f} ms (host); served: {served}; "
+           f"serving_p99 SLO samples {r['slo_samples']}; timeline "
+           f"{r['timeline_rows']} rows, incidents {r['incident_rows']} "
+           "rows"))
+    return r
+
+
+def check_serving(torch, dev, rng, windows, card):
+    """Phase 15 (b): serving and the querier's HTTP API on a live
+    ingester, phase 3's window 0 sent with the client off and then on."""
+    t_b = time.perf_counter()
+    window = windows[0]
+    n = len(window["ip_src"])
+    seqr = FrameSequencer()
+    planar = seqr.columnar(l4_wide(rng, window, int(time.time())), 0, n)
+    frames = seqr.revtap(planar, ING_VTAPS)
+    profiled = (seqr.revtap(planar[:ING_PROFILED_FRAMES], ING_VTAPS),
+                ING_PROFILED_FRAMES * ING_COL_PER_FRAME)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        off = serve_run(torch, dev, "(b) client off", frames, profiled,
+                        window, tmp, card, client_on=False)
+        on = serve_run(torch, dev, "(b) client on", frames, profiled,
+                       window, tmp, card, client_on=True)
+    if (on["stream_syncs"], on["device_syncs"]) != \
+            (off["stream_syncs"], off["device_syncs"]):
+        raise AssertionError(f"the client changed the ingest syncs: off "
+                             f"{off}, on {on}")
+    log(f"  (b): records/s with the client on {on['records_per_s']:.0f}, "
+        f"off {off['records_per_s']:.0f} (ratio "
+        f"{on['records_per_s'] / off['records_per_s']:.3f}); ingest syncs "
+        f"equal (event syncs = fences in both: {on['event_syncs']}, "
+        f"{off['event_syncs']})")
+    launches = {}
+    for r in (off, on):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"client_off": off, "client_on": on, "launches": launches,
+            "seconds": time.perf_counter() - t_b, "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5316,8 +5802,12 @@ def main() -> int:
     log("phase 9: the multi-device suites (4 shards on one card)")
     shard, mesh_ref = check_sharded(torch, dev, rng9, args, windows, card)
     phase_done(9)
-    log("phase 10: the flow_metrics store lane and the rollup GROUP BY")
-    flow_metrics = check_flow_metrics(torch, dev, rng10, card)
+    log("phase 10: the flow_metrics store lane and the rollup GROUP BY, "
+        "and phase 15 (a): the querier's SQL over its store")
+    flow_metrics, querier = check_flow_metrics(
+        torch, dev, rng10, card, lambda root, db, cols, t0:
+        check_querier_sql(torch, dev, root, db, cols, t0, card))
+    log(f"phase 15 (a): {querier['seconds']:.1f} s (inside phase 10)")
     phase_done(10)
     log("phase 11: the pod fault domains and the cross-host pod")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
@@ -5337,6 +5827,11 @@ def main() -> int:
     ops = check_ops(torch, dev, np.random.default_rng((args.seed, 14)),
                     windows, card)
     phase_done(14)
+    log("phase 15: serving and the querier ((b): the HTTP API on a live "
+        "ingester)")
+    serving = check_serving(torch, dev, np.random.default_rng((args.seed, 15)),
+                            windows, card)
+    phase_done(15)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -5345,7 +5840,7 @@ def main() -> int:
             + [p["launches"] for p in ingester.values()] \
             + list(detection["launches"].values()) + [red["launches"]] \
             + shard["launches"] + pod["launches"] + [mesh["launches"]] \
-            + [ingest["launches"], ops["launches"]]:
+            + [ingest["launches"], ops["launches"], serving["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -5361,7 +5856,8 @@ def main() -> int:
         "attribution": attribution, "detection": detection, "red": red,
         "sharded": shard,
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
-        "ingester": ingest, "operations": ops, "gate": gate,
+        "ingester": ingest, "operations": ops, "querier": querier,
+        "serving": serving, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

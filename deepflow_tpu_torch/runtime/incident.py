@@ -28,9 +28,8 @@ sampler tick and calls `IncidentRecorder.capture` on transitions
 (closed -> open, ok -> not ok, a rising alert count, an SLO entering
 fast burn), never on levels: a breaker open for an hour is one incident.
 
-The JAX package also serves the bundles to its querier (`sql`,
-`SELECT * FROM incidents`). The querier is not ported yet (ROADMAP
-Queue 1 item 2), so `sql` raises NotImplementedError here.
+The recorder is also the querier's SQL datasource (`sql`,
+`SELECT * FROM incidents`): one row per readable bundle manifest.
 """
 
 from __future__ import annotations
@@ -234,14 +233,39 @@ class IncidentRecorder:
         m["bytes"] = sum(m.get("files", {}).values())
         return m
 
-    # -- querier datasource ------------------------------------------------
-    def sql(self, stmt):
-        """The SQL datasource (`SELECT * FROM incidents`): needs the
-        querier (not ported)."""
-        raise NotImplementedError(
-            "the incident recorder's SQL datasource needs the querier, "
-            "which deepflow_tpu_torch does not port yet (ROADMAP Queue 1 "
-            "item 2)")
+    # -- SQL datasource (querier/engine.py routes table == "incidents") ----
+    def sql(self, stmt) -> "QueryResult":
+        """`SELECT * FROM incidents`: one row per bundle, WHERE time
+        bounds applied, sorted by (time, id)."""
+        from deepflow_tpu_torch.querier import sql as Q
+        from deepflow_tpu_torch.querier.engine import QueryResult
+        from deepflow_tpu_torch.serving.tables import SketchTables
+
+        if len(stmt.items) != 1 \
+                or not isinstance(stmt.items[0].expr, Q.Column) \
+                or stmt.items[0].expr.name != "*":
+            raise ValueError("the incidents datasource answers "
+                             "SELECT * FROM incidents (one row per "
+                             "bundle; WHERE time bounds apply)")
+        lo, hi = SketchTables._time_bounds(stmt.where)
+        rows = []
+        for m in self.list():
+            t = int(m.get("wall_time", 0))
+            if (lo is not None and t < lo) or \
+                    (hi is not None and t >= hi):
+                continue
+            rows.append([t, m.get("id", ""), m.get("kind", ""),
+                         int(m.get("bytes", 0)),
+                         len(m.get("files", {})),
+                         json.dumps(m.get("detail", {}),
+                                    sort_keys=True)])
+        rows.sort(key=lambda r: (r[0], r[1]))
+        off = getattr(stmt, "offset", 0)
+        if off:
+            rows = rows[off:]
+        if stmt.limit is not None:
+            rows = rows[:stmt.limit]
+        return QueryResult(list(INCIDENTS_SQL_COLUMNS), rows)
 
     def register_datasource(self) -> None:
         from deepflow_tpu_torch.store import rollup

@@ -87,6 +87,10 @@ class SnapshotBus:
         self._seq = 0
         self._latest: Optional[SketchSnapshot] = None
         self._subs: List[Callable[[SketchSnapshot], None]] = []
+        # (path, mtime, snapshot): read_latest's one-deep disk cache, so
+        # a reader polling a quiet directory gets the same snapshot back
+        # (same seq) instead of a fresh npz load per query
+        self._read_cache: Optional[Tuple[str, float, SketchSnapshot]] = None
         self._lock = threading.Lock()
 
     # -- pub/sub -------------------------------------------------------------
@@ -205,9 +209,18 @@ class SnapshotBus:
 
     def read_latest(self) -> Optional[SketchSnapshot]:
         """The newest parseable snapshot on disk (torn files skipped),
-        without shape validation."""
+        without shape validation. An unchanged file returns the snapshot
+        read before."""
         for fname in reversed(self._snapshots()):
             path = os.path.join(self.directory, fname)
+            try:
+                mtime = os.path.getmtime(path)
+            except OSError:
+                continue
+            cached = self._read_cache
+            if cached is not None and cached[0] == path \
+                    and cached[1] == mtime:
+                return cached[2]
             try:
                 with np.load(path) as z:
                     n = sum(1 for k in z.files if k.startswith("leaf_"))
@@ -215,7 +228,7 @@ class SnapshotBus:
                     step = int(z["__step"]) if "__step" in z.files else \
                         int(fname[len(self.name) + 1:-4])
                     wall = float(z["__wall"]) if "__wall" in z.files \
-                        else os.path.getmtime(path)
+                        else mtime
                     tags = json.loads(str(z["__tags"])) \
                         if "__tags" in z.files else {}
             except Exception:
@@ -223,8 +236,10 @@ class SnapshotBus:
             with self._lock:
                 self._seq += 1
                 seq = self._seq
-            return SketchSnapshot(step=step, seq=seq, wall_time=wall,
+            snap = SketchSnapshot(step=step, seq=seq, wall_time=wall,
                                   leaves=leaves, tags=tags, path=path)
+            self._read_cache = (path, mtime, snap)
+            return snap
         return None
 
     # -- restore -------------------------------------------------------------

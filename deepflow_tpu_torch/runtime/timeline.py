@@ -28,11 +28,9 @@ sample cadence) is skipped counted (`stale_skipped`) instead of
 extending its series, and promexpo reports the count as
 `deepflow_selfmetric_stale`.
 
-The JAX package also serves the timeline to its querier as a PromQL and
-SQL datasource (`prom_fetch`, `sql`). The querier is not ported yet
-(ROADMAP Queue 1 item 2), so those methods raise NotImplementedError
-here; `register_datasource` lists the timeline in the port's
-`store/rollup.py` registry all the same.
+The timeline is also the querier's PromQL and SQL datasource
+(`prom_fetch` for any metric it carries, `SELECT * FROM timeline`), and
+`register_datasource` lists it in `store/rollup.py`'s registry.
 """
 
 from __future__ import annotations
@@ -55,11 +53,6 @@ TIMELINE_SQL_COLUMNS = ["time", "metric", "labels", "value", "tier"]
 # confirms it is not a blip
 SLO_FAST_WINDOW_S = 300.0
 SLO_SLOW_WINDOW_S = 3600.0
-
-_QUERIER = ("the timeline's PromQL and SQL datasources need the querier, "
-            "which deepflow_tpu_torch does not port yet (ROADMAP Queue 1 "
-            "item 2)")
-
 
 class SeriesRing:
     """One series' fixed-size hot ring + coarse downsampled tier.
@@ -428,13 +421,62 @@ class Timeline:
             return sorted(self._by_metric)
 
     def prom_fetch(self, metric: str, matchers, lo: int, hi: int):
-        """The PromQL datasource: needs the querier (not ported)."""
-        raise NotImplementedError(_QUERIER)
+        """[(labels, sorted int64-second ts, float64 vs)]: the PromQL
+        evaluator's `_fetch` contract, served from the rings instead of
+        a store scan. Sub-second samples truncate onto the
+        integer-second grid the evaluator runs on (duplicates are fine:
+        searchsorted and the extrapolated-rate math tolerate them)."""
+        out = []
+        for ring in self._rings_of(metric):
+            labels = {"__name__": metric, **ring.labels}
+            if not self._match(labels, matchers):
+                continue
+            ts, vs = ring.samples(float(lo), float(hi))
+            if not len(ts):
+                continue
+            out.append((labels, ts.astype(np.int64),
+                        vs.astype(np.float64)))
+        return out
 
-    def sql(self, stmt):
-        """The SQL datasource (`SELECT * FROM timeline`): needs the
-        querier (not ported)."""
-        raise NotImplementedError(_QUERIER)
+    @staticmethod
+    def _match(labels: Dict[str, str], matchers) -> bool:
+        from deepflow_tpu_torch.querier.promql import PromEngine
+        return PromEngine._match(labels, list(matchers or ()))
+
+    # -- SQL datasource (querier/engine.py routes table == "timeline") -----
+    def sql(self, stmt) -> "QueryResult":
+        """`SELECT * FROM timeline`: one row per ring sample, WHERE time
+        bounds applied, sorted by (time, metric, labels)."""
+        from deepflow_tpu_torch.querier import sql as Q
+        from deepflow_tpu_torch.querier.engine import QueryResult
+        from deepflow_tpu_torch.serving.tables import SketchTables
+
+        if len(stmt.items) != 1 \
+                or not isinstance(stmt.items[0].expr, Q.Column) \
+                or stmt.items[0].expr.name != "*":
+            raise ValueError("the timeline datasource answers "
+                             "SELECT * FROM timeline (one row per "
+                             "sample; WHERE time bounds apply)")
+        lo, hi = SketchTables._time_bounds(stmt.where)
+        rows: List[list] = []
+        with self._lock:
+            rings = list(self._series.values())
+        for ring in rings:
+            lbl = ",".join(f"{k}={v}"
+                           for k, v in sorted(ring.labels.items()))
+            hts, _ = ring._tier(ring.ts, ring.vs, ring.n, ring.cap)
+            hot_lo = float(hts[0]) if len(hts) else float("inf")
+            ts, vs = ring.samples(lo, hi)
+            for t, v in zip(ts.tolist(), vs.tolist()):
+                rows.append([int(t), ring.name, lbl, float(v),
+                             "hot" if t >= hot_lo else "coarse"])
+        rows.sort(key=lambda r: (r[0], r[1], r[2]))
+        off = getattr(stmt, "offset", 0)
+        if off:
+            rows = rows[off:]
+        if stmt.limit is not None:
+            rows = rows[:stmt.limit]
+        return QueryResult(list(TIMELINE_SQL_COLUMNS), rows)
 
     # -- datasource registration (store/rollup.py) -------------------------
     def register_datasource(self) -> None:

@@ -55,8 +55,14 @@ def test_port_files_found():
             "platform_data.py", "geo.py", "throttler.py", "receiver.py",
             "flow_log.py", "autotune.py", "ingester.py", "spill.py",
             "timeline.py", "incident.py", "promexpo.py", "debug.py",
-            "cuda_gate.py"} <= names
-    for pkg in ("wire", "wire/gen", "decode", "enrich"):
+            "cuda_gate.py", "twinmark.py", "snappy.py", "telemetry_pb2.py",
+            "sql.py", "metrics.py", "engine.py", "promql.py", "tempo.py",
+            "tracing_adapter.py", "profile.py", "server.py", "cache.py",
+            "tables.py", "anomaly.py"} <= names
+    assert (REPO / "deepflow_tpu_torch" / "wire" / "protos"
+            / "telemetry.proto").is_file()
+    for pkg in ("wire", "wire/gen", "decode", "enrich", "serving", "querier",
+                "utils"):
         assert (REPO / "deepflow_tpu_torch" / pkg / "__init__.py") \
             in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
@@ -142,7 +148,10 @@ def test_every_entry_point_defaults_to_cuda():
             "deepflow_tpu_torch.pipelines.flow_metrics.FlowMetricsPipeline",
             "deepflow_tpu_torch.parallel.pod.PodFlowSuite",
             "deepflow_tpu_torch.parallel.multihost.HostPodCoordinator",
-            "deepflow_tpu_torch.pipelines.ingester.Ingester"
+            "deepflow_tpu_torch.pipelines.ingester.Ingester",
+            "deepflow_tpu_torch.querier.engine.QueryEngine",
+            "deepflow_tpu_torch.querier.promql.PromEngine",
+            "deepflow_tpu_torch.querier.server.QuerierServer"
             } <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad

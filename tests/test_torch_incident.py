@@ -8,8 +8,8 @@ timeline of its own package fed the same samples, a StatsRegistry of its
 own, the same fake snapshot buses). Compared: the edges fired, every
 bundle's name, manifest keys and files, the trigger and timeline files
 byte for byte, rate-limit suppressions and budget evictions. Each
-package lists the other's bundles; the port's `sql` raises (ROADMAP
-Queue 1 item 2)."""
+package lists the other's bundles, and `SELECT * FROM incidents` answers
+alike in both."""
 
 import json
 import os
@@ -160,10 +160,37 @@ def test_torn_manifest_counted_and_no_tmp_left(tmp_path):
 
 
 def test_sql_raises_and_registry_lists_incidents(tmp_path):
+    """`SELECT * FROM incidents` answers as the JAX package's over the
+    same bundles (each package's recorder over the other's directory
+    too), and `register_datasource` lists the recorder."""
+    from deepflow_tpu.querier.sql import parse_sql as jparse
+    from deepflow_tpu_torch.querier.sql import parse_sql
     from deepflow_tpu_torch.store import rollup
-    rec = tinc.IncidentRecorder(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        rec.sql(None)
+    plan = _levels_plan(3, 40)
+    dt, dj = str(tmp_path / "t"), str(tmp_path / "j")
+    _, rt, _ = _run(tinc, ttl, TStats, dt, plan, 0.0, 6000)
+    _, rj, _ = _run(jinc, jtl, JStats, dj, plan, 0.0, 6000)
+    end = int(T0 + 5.0 * 40)
+    for sql in ("SELECT * FROM incidents",
+                f"SELECT * FROM incidents WHERE time >= {int(T0) + 50} "
+                f"AND time < {end}",
+                "SELECT * FROM incidents LIMIT 3 OFFSET 1"):
+        want = rj.sql(jparse(sql))
+        got = rt.sql(parse_sql(sql))
+        assert got.columns == want.columns == tinc.INCIDENTS_SQL_COLUMNS
+        assert got.values == want.values and got.values
+        # either package's recorder over the other's bundles
+        assert tinc.IncidentRecorder(dj).sql(parse_sql(sql)).values == \
+            want.values
+        assert jinc.IncidentRecorder(dt).sql(jparse(sql)).values == \
+            got.values
+    with pytest.raises(ValueError) as je:
+        rj.sql(jparse("SELECT id FROM incidents"))
+    with pytest.raises(ValueError) as te:
+        rt.sql(parse_sql("SELECT id FROM incidents"))
+    assert str(te.value) == str(je.value)
+    rec = tinc.IncidentRecorder(str(tmp_path / "empty"))
+    assert rec.sql(parse_sql("SELECT * FROM incidents")).values == []
     rec.register_datasource()
     try:
         rows = [r for r in rollup.external_datasources()

@@ -8,8 +8,9 @@ wall stamps set on the fake clock (some of them fossils), profiler
 gauges, two recording rules and both SLO kinds. Compared, per series:
 hot and coarse rings (stamps exactly, values at rtol 1e-6), overwrite
 counts; then the counters, the burn-rate gauges, `fast_burning`,
-`stale_gauges` and `window`. The querier datasource methods raise in the
-port (ROADMAP Queue 1 item 2)."""
+`stale_gauges` and `window`. The querier datasources (`prom_fetch`,
+`_match`, `sql`, and PromQL through both packages' engines) answer as
+the JAX package's."""
 
 import time
 
@@ -183,12 +184,61 @@ def test_threshold_slo_and_rules_fire():
     np.testing.assert_allclose(v, want, rtol=RTOL)
 
 
+def _driven_pair():
+    plan = _plan(5, 40)
+    return (_drive(_build(jtl, JStats, JTracer, 16, 4), plan),
+            _drive(_build(ttl, TStats, TTracer, 16, 4), plan))
+
+
+PROM_FETCHES = [
+    ("tpu_sketch_rows_in", [], T0, T0 + 40),
+    ("receiver_rx_frames", [("host", "=", "a")], T0 + 3, T0 + 30),
+    ("receiver_rx_frames", [("host", "!~", "a.*")], T0, T0 + 40),
+    ("sketch_rows_per_s", [("lane", "=~", "l[0-9]")], T0 + 10, T0 + 40),
+    ("tpu_device_busy_fraction", [], T0, T0 + 12),
+    ("querier_read_p99_s", [("__name__", "=", "querier_read_p99_s")],
+     T0, T0 + 40),
+    ("no_such_series", [], T0, T0 + 40),
+]
+
+
 def test_querier_datasources_raise_and_registry_lists_the_timeline():
+    """The querier datasources (`prom_fetch`, `_match`, `sql`) answer as
+    the JAX package's on the same samples, and `register_datasource`
+    lists the timeline in the registry."""
+    from deepflow_tpu.querier.sql import parse_sql as jparse
+    from deepflow_tpu_torch.querier.sql import parse_sql
+    j, t = _driven_pair()
+    for metric, matchers, lo, hi in PROM_FETCHES:
+        want = j.prom_fetch(metric, matchers, lo, hi)
+        got = t.prom_fetch(metric, matchers, lo, hi)
+        assert [g[0] for g in got] == [w[0] for w in want]
+        for (_, gts, gvs), (_, wts, wvs) in zip(got, want):
+            assert gts.dtype == wts.dtype == np.int64
+            assert gvs.dtype == wvs.dtype == np.float64
+            np.testing.assert_array_equal(gts, wts)
+            np.testing.assert_array_equal(gvs, wvs)
+    labels = {"__name__": "receiver_rx_frames", "host": "ab"}
+    for m in ([], [("host", "=", "ab")], [("host", "!=", "ab")],
+              [("host", "=~", "a.")], [("host", "!~", "a")],
+              [("zone", "=", "")], [("zone", "!=", "")]):
+        assert t._match(labels, m) == j._match(labels, m)
+    assert t._match(labels, None) is j._match(labels, None) is True
+    for sql in ("SELECT * FROM timeline",
+                f"SELECT * FROM timeline WHERE time >= {T0 + 20:.0f} "
+                f"AND time < {T0 + 30:.0f}",
+                "SELECT * FROM timeline LIMIT 25 OFFSET 40"):
+        want, got = j.sql(jparse(sql)), t.sql(parse_sql(sql))
+        assert got.columns == want.columns == ttl.TIMELINE_SQL_COLUMNS
+        assert got.values == want.values and got.values
+    assert {r[4] for r in t.sql(parse_sql("SELECT * FROM timeline"))
+            .values} == {"hot", "coarse"}
+    with pytest.raises(ValueError) as je:
+        j.sql(jparse("SELECT value FROM timeline"))
+    with pytest.raises(ValueError) as te:
+        t.sql(parse_sql("SELECT value FROM timeline"))
+    assert str(te.value) == str(je.value)
     tl = ttl.Timeline(sample_s=1.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tl.prom_fetch("tpu_sketch_rows_in", [], 0, 10)
-    with pytest.raises(NotImplementedError, match="querier"):
-        tl.sql(None)
     tl.register_datasource()
     try:
         rows = [r for r in trollup.external_datasources()
@@ -199,6 +249,34 @@ def test_querier_datasources_raise_and_registry_lists_the_timeline():
         tl.unregister_datasource()
     assert not [r for r in trollup.external_datasources()
                 if r.get("table") == ttl.TIMELINE_TABLE]
+
+
+@pytest.mark.parametrize("q", [
+    "rate(receiver_rx_frames[10s])", "tpu_sketch_rows_in",
+    'sketch_rows_per_s{lane="l4"}', "max_over_time(tpu_h2d_mb_s[20s])",
+    "querier_read_p99_s > bool 0.05"])
+def test_timeline_through_both_prom_engines(tmp_path, q):
+    """PromQL selectors over timeline-carried metrics answer from the
+    rings in both packages' engines alike."""
+    import json
+
+    from deepflow_tpu.querier.promql import PromEngine as JProm
+    from deepflow_tpu.store import db as jdb
+    from deepflow_tpu.store import dict_store as jdicts
+    from deepflow_tpu_torch.querier.promql import PromEngine
+    from deepflow_tpu_torch.store import db as tdb
+    from deepflow_tpu_torch.store import dict_store as tdicts
+    j, t = _driven_pair()
+    je = JProm(jdb.Store(str(tmp_path / "j")), jdicts.TagDictRegistry(None),
+               timeline=j)
+    te = PromEngine(tdb.Store(str(tmp_path / "t")),
+                    tdicts.TagDictRegistry(None), timeline=t, device="cpu")
+    for fn, args in (("query", (q, int(T0) + 35)),
+                     ("query_range", (q, int(T0) + 10, int(T0) + 39, 3))):
+        want = getattr(je, fn)(*args)
+        got = getattr(te, fn)(*args)
+        assert want and json.dumps(got, sort_keys=True) == \
+            json.dumps(want, sort_keys=True)
 
 
 def test_sampler_runs_on_the_supervisor():
