@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
 suites, flow_metrics store lane, pod, global mesh, ingester with its
-operations surface, and serving with the querier on one CUDA card.
+operations surface, serving with the querier, and the server process
+with every ingest lane on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -289,7 +290,35 @@ is printed):
    FROM incidents answer, the serving_p99 SLO's series has samples, and
    the ingest's syncs under torch.profiler are the same with and without
    the client (event syncs = fences); records/s both ways, HTTP and
-   serving p50/p99.
+   serving p50/p99;
+16. the whole ingest surface and the server: `server.Server` from a
+   JSON config (the controller off, the querier on, self-telemetry on,
+   one decoder a stream, the sketch and RED lanes at FlowSuiteConfig()
+   and AppSuiteConfig() with their windows closed by `flush_window(now)`,
+   the RED lane's Prometheus le buckets every 8th gamma bound, a Store)
+   on the card, fed over one loopback connection stream after stream:
+   phase 3's window 0 cut to 2^18 records as planar frames; 4 RED
+   windows of 2^15 PROTOCOLLOG requests over all 1024 services
+   (log-normal rrt_us, a median per service); 2^14 OTel spans, half in
+   zlib-compressed frames; PACKETSEQUENCE blocks of 2^12 flows;
+   Prometheus remote write (1,024 series x 60 samples, one frame bare
+   and snappy); Telegraf lines; proc and alarm events; profiles; syslog,
+   StatsD and pcap. Asserted: no_handler 0 and conservation hop by hop
+   (frames received = frames sent + the shipper's DFSTATS frames,
+   records per decoder, rows per exporter and table), 1024 x 64 le rows
+   a window, the p95 of 64 services through histogram_quantile(0.95,
+   rate(app_rrt_bucket[75s])) within alpha plus one retained bucket
+   width of the exact one, the StatsShipper's DFSTATS in
+   deepflow_system, a /v1/query SQL and a PromQL request over the
+   Server's HTTP equal to the engines on its store, a reload that
+   rebuilds and answers the same, hist launched at the DDSketch and the
+   service widths and both fused kernels launched, the last RED flush
+   under torch.profiler with exactly 2 stream syncs (the readout, the
+   gathered rows); then the same frames through a second Server on the
+   CPU: every table (but deepflow_system), l4_packet blob, droplet
+   artifact and dictionary equal. Printed: records/s per stream, le
+   rows and device-to-host bytes per window against the 2 MB plane,
+   flush walls and syncs, the start-to-first-answer time.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -4609,7 +4638,8 @@ def check_ingester_identity(torch, dev, traffic, windows, tmp, card):
         torch.cuda.synchronize()
         ing.flush()
         # the writers' own threads may still be writing what they took
-        tables = {w.table.schema.name: w.table for w in ing.flow_log.writers}
+        tables = {w.table.schema.name: w.table for w in ing.flow_log.writers
+                  if w.table.schema.name in ("l4_flow_log", "l7_flow_log")}
         emitted = {s: sum(d.throttler.counters()["emitted"]
                           for d in ing.flow_log.decoders if d.stream == s)
                    for s in tables}
@@ -5712,6 +5742,783 @@ def check_serving(torch, dev, rng, windows, card):
             "seconds": time.perf_counter() - t_b, "card": card}
 
 
+# -- phase 16: the whole ingest surface and the server --------------------
+
+SRV_L4 = 1 << 18           # phase 3's window 0, cut, as planar frames
+SRV_RED_WINDOWS = 4
+SRV_RED_RECORDS = 1 << 15  # l7 requests per RED window (cut from 2^18)
+SRV_RED_STEP = 15          # seconds between the RED windows' stamps
+SRV_PROM_BUCKETS = 8       # le bounds every 8th gamma bucket (g^8 ~ 1.38)
+SRV_OTEL_SPANS = 1 << 14   # half of them in zlib-compressed frames
+SRV_OTEL_PER_REQ = 256
+SRV_PSEQ_FLOWS = 1 << 12
+SRV_PROM_SERIES = 1024     # remote-write series x samples
+SRV_PROM_SAMPLES = 60
+SRV_TELEGRAF_LINES = 2048  # two fields a line
+SRV_PROC_EVENTS = 1024
+SRV_ALARMS = 256
+SRV_PROFILES = 1024
+SRV_SAMPLED = 64           # services whose p95 is held against the exact one
+SRV_FRAME_BYTES = 400_000  # raw payloads packed below the 512 KB frame cap
+
+
+def red_services(rng, cfg):
+    """One server endpoint per service group, so every one of cfg.groups
+    is active, and the group of each."""
+    from deepflow_tpu_torch.utils.u32 import fold_columns_np
+    n = 1 << 15
+    cand = {"ip_dst": (0xAC100000 + rng.permutation(1 << 20)[:n])
+            .astype(np.uint32),
+            "port_dst": rng.choice(np.array([80, 443, 8080, 9092],
+                                            np.uint32), n),
+            "protocol": np.full(n, 6, np.uint32)}
+    group = (fold_columns_np([cand["ip_dst"], cand["port_dst"],
+                              cand["protocol"]])
+             % np.uint32(cfg.groups)).astype(np.int64)
+    first = np.unique(group, return_index=True)[1]
+    if len(first) != cfg.groups:
+        raise AssertionError("the candidate endpoints miss a service group")
+    return {k: v[first] for k, v in cand.items()}, group[first]
+
+
+def red_server_window(rng, pool, records):
+    """One RED window over every service: the first len(pool) records
+    one per service, the rest uniform over them; rrt_us log-normal with
+    a median per service (500 us to 20 ms) and sigma 1.0, 1% zeros."""
+    n_svc = len(pool["ip_dst"])
+    pick = np.concatenate([np.arange(n_svc),
+                           rng.integers(0, n_svc, records - n_svc)])
+    median = np.exp(np.linspace(np.log(500.0), np.log(20_000.0), n_svc))
+    rrt = np.round(rng.lognormal(np.log(median[pick]), 1.0))
+    rrt[rng.random(records) < 0.01] = 0
+    cols = {k: v[pick] for k, v in pool.items()}
+    cols["rrt_us"] = np.minimum(rrt, 2 ** 32 - 1).astype(np.uint32)
+    cols["status"] = rng.choice(RED_CODES, records, p=RED_P)
+    return cols, pick
+
+
+def raw_frames(seqr, msg_type, payloads, vtap=1):
+    """Self-delimited payloads packed into frames below the frame cap."""
+    out, batch, size = [], [], 0
+    for p in payloads + [None]:
+        if p is not None and size + len(p) < SRV_FRAME_BYTES:
+            batch.append(p)
+            size += len(p)
+            continue
+        if batch:
+            out.append(seqr.frame(msg_type, b"".join(batch), vtap))
+        batch, size = ([p], len(p)) if p is not None else ([], 0)
+    return out
+
+
+def pseq_blocks(rng, n_flows, t0_us):
+    """PACKETSEQUENCE blocks in the envelope l4_packet.go decodes (u32
+    size, u64 flow_id, u64 count<<56 | end_us, 20-byte entries, the
+    format of agent/packet_sequence.py): 1 to 255 packets a flow."""
+    import struct
+    blocks = []
+    fids = rng.integers(1, 1 << 62, n_flows, dtype=np.uint64)
+    counts = rng.integers(1, 256, n_flows)
+    for f in range(n_flows):
+        k = int(counts[f])
+        e = np.zeros((k, 5), np.uint32)
+        e[:, 0] = np.sort(rng.integers(0, 3_000_000, k))
+        e[:, 1] = rng.integers(0, 1 << 32, k, dtype=np.uint64)
+        e[:, 2] = rng.integers(0, 1 << 32, k, dtype=np.uint64)
+        e[:, 3] = (rng.integers(0, 1500, k).astype(np.uint32) << 16) \
+            | rng.integers(0, 1 << 16, k).astype(np.uint32)
+        e[:, 4] = rng.integers(0, 256, k).astype(np.uint32) \
+            | (rng.integers(0, 2, k).astype(np.uint32) << 8)
+        end = t0_us + int(e[-1, 0])
+        blocks.append(struct.pack("<IQQ", 16 + e.nbytes, int(fids[f]),
+                                  (k << 56) | end) + e.tobytes())
+    return blocks
+
+
+def otel_payloads(rng, n_req, per_req, t0):
+    """ExportTraceServiceRequests of seeded spans: http and grpc
+    attributes, peer ports, status codes, random ids, service names."""
+    from deepflow_tpu_torch.wire.gen import otel_pb2
+    names = ["GET /api/users", "POST /api/orders", "UserService/Get",
+             "db.query", "cache.get"]
+    out = []
+    for _ in range(n_req):
+        req = otel_pb2.ExportTraceServiceRequest()
+        rs = req.resource_spans.add()
+        kv = rs.resource.attributes.add()
+        kv.key = "service.name"
+        kv.value.string_value = f"svc-{int(rng.integers(0, 64))}"
+        ss = rs.scope_spans.add()
+        starts = t0 * 1_000_000_000 + rng.integers(0, 10 ** 10, per_req)
+        durs = rng.lognormal(15, 1.5, per_req).astype(np.int64)
+        kinds = rng.integers(0, 3, per_req)
+        for i in range(per_req):
+            s = ss.spans.add()
+            s.name = names[int(kinds[i] + i) % len(names)]
+            s.trace_id = rng.bytes(16)
+            s.span_id = rng.bytes(8)
+            s.parent_span_id = rng.bytes(8)
+            s.kind = 2
+            s.start_time_unix_nano = int(starts[i])
+            s.end_time_unix_nano = int(starts[i] + durs[i])
+            s.status.code = int(kinds[i] == 2) * 2
+            a = s.attributes.add()
+            if kinds[i] == 1:
+                a.key, a.value.string_value = "rpc.system", "grpc"
+            else:
+                a.key, a.value.int_value = "http.status_code", 200
+            a = s.attributes.add()
+            a.key, a.value.int_value = "net.peer.port", 8080
+        out.append(req.SerializeToString())
+    return out
+
+
+def server_traffic(rng, window, t_data):
+    """Phase 16's frames, a list per stream, with what the checks need
+    (the RED windows' columns and groups, the counts per stream)."""
+    import zlib
+
+    from deepflow_tpu_torch.models.app_suite import AppSuiteConfig
+    from deepflow_tpu_torch.utils import snappy
+    from deepflow_tpu_torch.wire import MessageType
+    from deepflow_tpu_torch.wire.gen import telemetry_pb2
+    t0 = time.perf_counter()
+    seqr = FrameSequencer()
+    cut = {k: v[:SRV_L4] for k, v in window.items()}
+    l4 = seqr.columnar(l4_wide(rng, cut, t_data), 0, SRV_L4)
+    pool, group = red_services(rng, AppSuiteConfig())
+    red, red_cols, red_groups = [], [], []
+    for w in range(SRV_RED_WINDOWS):
+        cols, pick = red_server_window(rng, pool, SRV_RED_RECORDS)
+        red.append(seqr.pb(MessageType.PROTOCOLLOG, l7_pb_records(
+            rng, cols, t_data + SRV_RED_STEP * w)))
+        red_cols.append(cols)
+        red_groups.append(group[pick])
+    half = SRV_OTEL_SPANS // SRV_OTEL_PER_REQ // 2
+    otel = [seqr.frame(MessageType.OPENTELEMETRY, p, 1)
+            for p in otel_payloads(rng, half, SRV_OTEL_PER_REQ, t_data)] \
+        + [seqr.frame(MessageType.OPENTELEMETRY_COMPRESSED,
+                      zlib.compress(p), 1)
+           for p in otel_payloads(rng, half, SRV_OTEL_PER_REQ, t_data)]
+    pseq = raw_frames(seqr, MessageType.PACKETSEQUENCE,
+                      pseq_blocks(rng, SRV_PSEQ_FLOWS, t_data * 1_000_000))
+    prom = []
+    per = SRV_PROM_SERIES // 4
+    for part in range(4):
+        wr = telemetry_pb2.WriteRequest()
+        for i in range(part * per, (part + 1) * per):
+            ts = wr.timeseries.add()
+            ts.labels.add(name="__name__", value=f"node_metric_{i % 16}")
+            ts.labels.add(name="instance",
+                          value=f"10.1.{i // 256}.{i % 256}")
+            ts.labels.add(name="job", value=f"job{i % 8}")
+            vals = rng.normal(100, 30, SRV_PROM_SAMPLES)
+            for k in range(SRV_PROM_SAMPLES):
+                ts.samples.add(value=float(vals[k]),
+                               timestamp=(t_data + k) * 1000)
+        body = wr.SerializeToString()
+        if part == 3:      # a direct remote-write sender: bare, snappy
+            prom.append(seqr.frame(MessageType.PROMETHEUS,
+                                   snappy.compress(body), 1))
+        else:
+            pm = telemetry_pb2.PrometheusMetric(
+                metrics=body, extra_label_names=["cluster"],
+                extra_label_values=["prod"])
+            prom.append(seqr.frame(MessageType.PROMETHEUS,
+                                   pm.SerializeToString(), 1))
+    lines = [f"cpu,host=h{i % 32},cpu=c{i % 4} usage_idle="
+             f"{rng.uniform(0, 100):.3f},usage_user={rng.uniform(0, 50):.3f}"
+             f" {(t_data + i % 60) * 1_000_000_000}"
+             for i in range(SRV_TELEGRAF_LINES)]
+    telegraf = [seqr.frame(MessageType.TELEGRAF,
+                           "\n".join(lines[s:s + 1024]).encode(), 1)
+                for s in range(0, SRV_TELEGRAF_LINES, 1024)]
+    procs = []
+    for i in range(SRV_PROC_EVENTS):
+        ev = telemetry_pb2.ProcEvent(
+            pid=100 + i % 97, thread_id=i, pod_id=i % 7,
+            start_time=(t_data + i % 60) * 1_000_000_000,
+            end_time=(t_data + i % 60) * 1_000_000_000
+            + int(rng.integers(0, 1 << 24)),
+            event_type=telemetry_pb2.IoEvent)
+        ev.io_event_data.bytes_count = int(rng.integers(0, 1 << 20))
+        ev.io_event_data.operation = telemetry_pb2.Read
+        ev.io_event_data.filename = f"/data/f{i % 50}.log\x00".encode()
+        procs.append(ev.SerializeToString())
+    alarms = [telemetry_pb2.AlarmEvent(
+        timestamp=t_data + i % 60, policy_id=i % 8,
+        policy_name=f"policy-{i % 8}", event_level=i % 3,
+        alarm_target=f"svc-{i % 32}",
+        trigger_value=float(rng.uniform(0, 1000))).SerializeToString()
+        for i in range(SRV_ALARMS)]
+    events = seqr.pb(MessageType.PROC_EVENT, procs) \
+        + seqr.pb(MessageType.ALARM_EVENT, alarms)
+    funcs = ["main", "serve", "handle", "query", "encode", "gc", "read"]
+    profiles = seqr.pb(MessageType.PROFILE, [telemetry_pb2.Profile(
+        timestamp=(t_data + i % 60) * 1_000_000_000,
+        app_service=f"svc-{i % 16}", pid=200 + i % 13, vtap_id=1,
+        pod_id=i % 5, event_type="on-cpu",
+        stack=";".join(funcs[int(k)] for k in rng.integers(0, 7, 4)),
+        value=int(rng.integers(1, 1 << 20))).SerializeToString()
+        for i in range(SRV_PROFILES)])
+    statsd = "\n".join(f"api.rps.{i % 8}:{int(rng.integers(0, 500))}|c"
+                       f"|#env:prod,az:{i % 3}" for i in range(256))
+    pcap = rng.integers(0, 256, 1 << 16, dtype=np.uint8).tobytes()
+    droplet = [seqr.frame(MessageType.SYSLOG, "".join(
+        f"<14>host{i % 4} app: request {i} done\n"
+        for i in range(512)).encode(), 1),
+        seqr.frame(MessageType.STATSD, statsd.encode(), 1)] \
+        + [seqr.frame(MessageType.RAW_PCAP, pcap[s:s + 16384],
+                      1 + s // 16384 % 3)
+           for s in range(0, len(pcap), 16384)]
+    return {"l4": l4, "red": red, "red_cols": red_cols,
+            "red_groups": red_groups, "otel": otel, "pseq": pseq,
+            "prom": prom, "telegraf": telegraf, "events": events,
+            "profiles": profiles, "droplet": droplet,
+            "counts": {"prom": SRV_PROM_SERIES * SRV_PROM_SAMPLES,
+                       "telegraf": 2 * SRV_TELEGRAF_LINES,
+                       "events": SRV_PROC_EVENTS + SRV_ALARMS,
+                       "profiles": SRV_PROFILES, "statsd": 256,
+                       "syslog": 512, "pcap": len(pcap)},
+            "build_s": time.perf_counter() - t0}
+
+
+def server_config(root):
+    """Phase 16's deployment as a JSON config: the controller off, the
+    querier on, self-telemetry on, one decoder a stream, the sketch and
+    RED lanes with their windows closed by hand (flush_window(now)), the
+    RED lane's le buckets, the incident bundles beside the store."""
+    cfg = {"controller": {"enabled": False},
+           "ingester": {"port": 0, "store_path": os.path.join(root, "store"),
+                        "n_decoders": 1, "tpu_sketch_window_s": 3600,
+                        "app_red_window_s": 3600,
+                        "app_red_prom_buckets": SRV_PROM_BUCKETS,
+                        # beside the store, not in it: a Store reopened on
+                        # reload reads <root>/<db>/<table>/manifest.json,
+                        # and a bundle's manifest is not a table's
+                        "incident_dir": os.path.join(root, "incidents")},
+           "querier": {"enabled": True, "port": 0},
+           "self_telemetry": True}
+    path = os.path.join(root, "server.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def http_json(url, form=None):
+    import urllib.parse
+    import urllib.request
+    data = None if form is None else urllib.parse.urlencode(form).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                timeout=30) as r:
+        return json.loads(r.read())
+
+
+def sorted_rows(cols):
+    """Columns with their rows sorted (integer columns first)."""
+    if not cols or not len(next(iter(cols.values()))):
+        return cols
+    keys = sorted(cols, key=lambda k: (cols[k].dtype.kind == "f", k))
+    order = np.lexsort([cols[k] for k in reversed(keys)])
+    return {k: cols[k][order] for k in keys}
+
+
+def store_rows(root):
+    """{(db, table): sorted rows} of every table of a store."""
+    from deepflow_tpu_torch.store.db import Store
+    store = Store(root)
+    return {(db, name): sorted_rows(store.table(db, name).scan())
+            for db, name in store.tables()}
+
+
+def dir_bytes(root, prefix=""):
+    """{name: bytes} of a directory's files whose name starts with
+    `prefix`."""
+    out = {}
+    if not os.path.isdir(root):
+        return out
+    for name in sorted(os.listdir(root)):
+        p = os.path.join(root, name)
+        if os.path.isfile(p) and name.startswith(prefix):
+            with open(p, "rb") as f:
+                out[name] = f.read()
+    return out
+
+
+def profile_red_flush(torch, dev, red, now):
+    """The last RED window's flush, le buckets on, under torch.profiler
+    between two marks: wall time, syncs by kind, device-to-host copies."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mark(torch, dev)
+        t0 = time.perf_counter()
+        red.flush_window(now=now)
+        wall = time.perf_counter() - t0
+        mark(torch, dev)
+    s = trace_session(torch, prof, wall)
+    return {"wall_ms": wall * 1e3, "syncs": {k: s["runtime_calls"][k]
+                                             for k in SYNC_CALLS},
+            "d2h_copy_activities": s["d2h_copy_activities"],
+            "memcpy_calls": s["memcpy_calls"]}
+
+
+SRV_SQL = ("SELECT Count(*) AS n FROM l7_flow_log", "flow_log")
+# the range starts two steps before the first window's sample: rate()
+# then extrapolates every series of a service by the same half interval
+# (a range starting one step before lets the zero-point limit cut some
+# series' extrapolation, which bends the quantile)
+SRV_PROMQL = ("histogram_quantile(0.95, rate(app_rrt_bucket"
+              "{service_group=~\"%s\"}"
+              f"[{(SRV_RED_WINDOWS + 1) * SRV_RED_STEP}s]))")
+
+
+def sampled_services(groups):
+    return np.linspace(0, groups - 1, SRV_SAMPLED).astype(int)
+
+
+def served_answers(dev, srv, t_data):
+    """One SQL and one PromQL request through the Server's HTTP (the p95
+    of the sampled services), and the same through the engines directly
+    on its store: equal."""
+    import urllib.parse
+
+    from deepflow_tpu_torch.querier.engine import QueryEngine
+    from deepflow_tpu_torch.querier.promql import PromEngine
+    ing = srv.ingester
+    base = f"http://127.0.0.1:{srv.querier.port}"
+    at = t_data + SRV_RED_STEP * SRV_RED_WINDOWS
+    promql = SRV_PROMQL % "|".join(
+        str(g) for g in sampled_services(ing.app_red.cfg.groups))
+    t0 = time.perf_counter()
+    sql = http_json(f"{base}/v1/query", form={"db": SRV_SQL[1],
+                                               "sql": SRV_SQL[0]})
+    prom = http_json(f"{base}/api/v1/query?" + urllib.parse.urlencode(
+        {"query": promql, "time": at}))
+    http_s = time.perf_counter() - t0
+    d_sql = QueryEngine(ing.store, ing.tag_dicts, device=dev).execute(
+        SRV_SQL[0], db=SRV_SQL[1]).as_dict()
+    d_prom = PromEngine(ing.store, ing.tag_dicts, device=dev).query(
+        promql, at=at)
+    if json.dumps(sql.get("result"), sort_keys=True) != \
+            json.dumps(d_sql, sort_keys=True):
+        raise AssertionError("phase 16: /v1/query differs from QueryEngine")
+    if prom.get("status") != "success" or json.dumps(
+            prom["data"]["result"], sort_keys=True) != json.dumps(
+            d_prom, sort_keys=True):
+        raise AssertionError("phase 16: /api/v1/query differs from "
+                             "PromEngine")
+    return {"sql": d_sql, "prom": d_prom, "http_s": http_s}
+
+
+def reload_answers(srv, path, before):
+    """Reload with a changed config: the roles rebuild on the same store
+    and answer the same SQL again."""
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["ingester"]["throttle_per_s"] = 60_000
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    old = srv.ingester
+    t0 = time.perf_counter()
+    srv.reload()
+    if srv.reload_error is not None or srv.ingester is old \
+            or srv.ingester.cfg.throttle_per_s != 60_000:
+        raise AssertionError(f"phase 16: reload failed ({srv.reload_error})")
+    got = http_json(f"http://127.0.0.1:{srv.querier.port}/v1/query",
+                    form={"db": SRV_SQL[1], "sql": SRV_SQL[0]})["result"]
+    if json.dumps(got, sort_keys=True) != json.dumps(before["sql"],
+                                                     sort_keys=True):
+        raise AssertionError("phase 16: the reloaded server answers "
+                             f"{got}, before {before['sql']}")
+    return {"reload_s": time.perf_counter() - t0}
+
+
+def drive_server(torch, dev, path, traffic, t_data, card_run):
+    """Start a Server from `path` on `dev`, feed every stream over one
+    connection (each waited for before the next), close the sketch and
+    RED windows by hand, ship one DFSTATS scrape; on the card run also
+    profile the last RED flush, answer over HTTP and reload. Returns what
+    the checks need, the server closed."""
+    import socket
+
+    from deepflow_tpu_torch.ops import cuda_hist
+    from deepflow_tpu_torch.pipelines import flow_log
+    from deepflow_tpu_torch.server import Server
+    cuda = torch.device(dev).type == "cuda"
+    res = {"rates": {}}
+    # the row-id counter is process-wide: both runs start it at 1, so
+    # their rows carry the same _id
+    flow_log._ID_NEXT[0] = 1
+    t_start = time.perf_counter()
+    srv = Server(path, device=dev)
+    try:
+        srv.start()
+        ing = srv.ingester
+        red = ing.app_red
+        http_json(f"http://127.0.0.1:{srv.querier.port}/v1/query", form={
+            "db": "flow_log", "sql": "SELECT Count(*) AS n FROM l4_flow_log"})
+        res["start_to_first_answer_s"] = time.perf_counter() - t_start
+        # the shipper's 10 s background scrape would add DFSTATS frames
+        # while the streams are counted: it is stopped, and one scrape is
+        # shipped by hand after the ingest
+        ing.stats.stop()
+        if cuda:
+            torch.cuda.synchronize()
+        zero_launches()
+        # hist's launches by width: the wrapper counts into the module's
+        # `hist_add_cuda.launches`, which is this shim's while it stands
+        widths = {}
+        orig = cuda_hist.hist_add_cuda
+
+        def counting(acc, idx, width, *a, **k):
+            out = orig(acc, idx, width, *a, **k)
+            widths[width] = widths.get(width, 0) + 1
+            return out
+        counting.launches = 0
+        cuda_hist.hist_add_cuda = counting
+        sent = 0
+        conn = socket.create_connection(("127.0.0.1", ing.port))
+        try:
+            def stream(name, frames, done, records):
+                nonlocal sent
+                t0 = time.perf_counter()
+                for f in frames:
+                    conn.sendall(f)
+                sent += len(frames)
+                wait_for(done, f"phase 16: {name}", timeout=600)
+                dt = time.perf_counter() - t0
+                res["rates"][name] = {"records": records, "s": dt,
+                                      "records_per_s": records / dt}
+            stream("l4 (COLUMNAR_FLOW)", traffic["l4"],
+                   lambda: ing.tpu_sketch.rows_in == SRV_L4, SRV_L4)
+            if not ing.tpu_sketch._feed.drain(120):
+                raise AssertionError("phase 16: the feed did not drain")
+            ing.tpu_sketch.flush_window(now=t_data + 120)
+            flushes = []
+            for w, frames in enumerate(traffic["red"]):
+                n = SRV_RED_RECORDS * (w + 1)
+                stream(f"l7 window {w} (PROTOCOLLOG)", frames,
+                       lambda n=n: red.rows_in == n, SRV_RED_RECORDS)
+                now = t_data + SRV_RED_STEP * (w + 1)
+                c0 = red.counters()
+                if cuda and card_run and w == SRV_RED_WINDOWS - 1:
+                    flushes.append(profile_red_flush(torch, dev, red, now))
+                else:
+                    t0 = time.perf_counter()
+                    red.flush_window(now=now)
+                    flushes.append({"wall_ms": (time.perf_counter() - t0)
+                                    * 1e3})
+                c1 = red.counters()
+                flushes[-1]["bucket_d2h_bytes"] = \
+                    c1["bucket_d2h_bytes"] - c0["bucket_d2h_bytes"]
+                flushes[-1]["d2h_transfers"] = \
+                    c1["d2h_transfers"] - c0["d2h_transfers"]
+            res["flushes"] = flushes
+            otel = decoder(ing, "l7_flow_log.otel")
+            stream("OTel (raw + zlib)", traffic["otel"],
+                   lambda: otel.throttler.in_count == SRV_OTEL_SPANS,
+                   SRV_OTEL_SPANS)
+            pseq = decoder(ing, "l4_packet")
+            stream("PACKETSEQUENCE", traffic["pseq"],
+                   lambda: pseq.records == SRV_PSEQ_FLOWS, SRV_PSEQ_FLOWS)
+            em, c = ing.ext_metrics, traffic["counts"]
+            stream("Prometheus remote write", traffic["prom"],
+                   lambda: em.samples == c["prom"], c["prom"])
+            stream("Telegraf", traffic["telegraf"],
+                   lambda: em.samples == c["prom"] + c["telegraf"],
+                   c["telegraf"])
+            stream("proc and alarm events", traffic["events"],
+                   lambda: ing.event.events == c["events"], c["events"])
+            stream("profiles", traffic["profiles"],
+                   lambda: ing.profile.profiles == c["profiles"],
+                   c["profiles"])
+            dr = ing.droplet
+            stream("syslog, StatsD, pcap", traffic["droplet"],
+                   lambda: (dr.syslog_lines, dr.statsd_samples,
+                            dr.pcap_bytes)
+                   == (c["syslog"], c["statsd"], c["pcap"]),
+                   c["syslog"] + c["statsd"])
+        finally:
+            conn.close()
+            cuda_hist.hist_add_cuda = orig
+            orig.launches += counting.launches
+        if cuda:
+            torch.cuda.synchronize()
+        res["launches"] = {k: ctr.launches
+                           for k, ctr in launch_counters().items()}
+        res["hist_widths"] = widths
+        res["frames_sent"] = sent
+        # DFSTATS: one scrape through the shipper, back through the socket
+        ing.stats.collect()
+        srv.stats_shipper.flush()
+        shipper = srv.stats_shipper.sender
+        wait_for(lambda: shipper.pending_frames() == 0
+                 and ing.receiver.rx_frames == sent + shipper.sent_frames,
+                 "phase 16: the DFSTATS frames")
+        md = ing.tag_dicts.get("metric_name")
+        system = ing.store.table("deepflow_system", "ext_samples")
+
+        def dfstats_landed():
+            ing.flush()
+            names = {md.decode(int(h)) for h in
+                     set(system.scan(["metric"])["metric"].tolist())}
+            return "receiver.rx_frames" in names
+        wait_for(dfstats_landed, "phase 16: DFSTATS in deepflow_system")
+        # a writer's own thread may still be appending what it took: wait
+        # for the rows the queries read
+        n_le = SRV_RED_WINDOWS * red.cfg.groups * len(red._bucket_les)
+        for (db, name), n in (
+                (("flow_log", "l7_flow_log"),
+                 SRV_RED_WINDOWS * SRV_RED_RECORDS + SRV_OTEL_SPANS),
+                (("ext_metrics", "ext_samples"),
+                 c["prom"] + c["telegraf"] + c["statsd"] + n_le)):
+            table = ing.store.table(db, name)
+            wait_for(lambda: ing.flush() or table.row_count() == n,
+                     f"phase 16: {db}.{name}'s rows")
+        res["receiver"] = ing.receiver.counters()
+        res["shipper"] = shipper.counters()
+        res["decoders"] = {d.stream: d.counters()
+                           for d in ing.flow_log.decoders}
+        res["aux"] = {"ext": ing.ext_metrics.counters(),
+                      "event": ing.event.counters(),
+                      "profile": ing.profile.counters(),
+                      "droplet": ing.droplet.counters()}
+        res["exporters"] = ing.exporters.counters()
+        res["sketch"] = ing.tpu_sketch.counters()
+        res["red"] = red.counters()
+        if card_run:
+            res["http"] = served_answers(dev, srv, t_data)
+            res["reload"] = reload_answers(srv, path, res["http"])
+    finally:
+        srv.close()
+    with open(path) as f:
+        root = json.load(f)["ingester"]["store_path"]
+    res["tables"] = store_rows(root)
+    res["droplet"] = dir_bytes(os.path.join(root, "droplet"))
+    res["blobs"] = dir_bytes(os.path.join(root, "flow_log", "l4_packet"),
+                             "batches-p")
+    res["dicts"] = {n: sorted(v.decode().splitlines()) for n, v in
+                    dir_bytes(os.path.join(root, "flow_tag")).items()}
+    return res
+
+
+def compare_server_runs(a, b, t_data, names):
+    """The card run against the CPU twin: every table but deepflow_system
+    (self-telemetry values differ by run) row for row, the sketch and RED
+    tables' floats within rtol 1e-5; the droplet files and the l4_packet
+    blobs byte for byte, the dictionaries entry for entry. Rows stamped by the wall
+    clock: StatsD's compare without their timestamp; the sketch and RED
+    windows that close() writes are left out (the card run's reload
+    closes one ingester more)."""
+    if sorted(a["tables"]) != sorted(b["tables"]):
+        raise AssertionError(f"phase 16: tables {sorted(a['tables'])} vs "
+                             f"{sorted(b['tables'])}")
+    for key in a["tables"]:
+        if key[0] == "deepflow_system":
+            continue
+        x, y = a["tables"][key], b["tables"][key]
+        if sorted(x) != sorted(y):
+            raise AssertionError(f"phase 16: {key} columns differ")
+        if not x:
+            continue
+        split = []
+        for cols in (x, y):
+            late = cols["timestamp"] >= t_data + 600
+            split.append(({k: v[~late] for k, v in cols.items()},
+                          {} if key[0] == "tpu_sketch" else
+                          sorted_rows({k: v[late] for k, v in cols.items()
+                                       if k != "timestamp"})))
+        for part in (0, 1):
+            p, q = split[0][part], split[1][part]
+            for col in q:
+                if p[col].dtype != q[col].dtype \
+                        or len(p[col]) != len(q[col]):
+                    raise AssertionError(f"phase 16: {names} differ in "
+                                         f"{key} {col}")
+                if key[0] == "tpu_sketch" and q[col].dtype.kind == "f":
+                    same = np.allclose(p[col], q[col], rtol=1e-5, atol=1e-6)
+                else:
+                    same = np.array_equal(p[col], q[col])
+                if not same:
+                    raise AssertionError(f"phase 16: {names} differ in "
+                                         f"{key} {col}")
+    for what in ("droplet", "blobs"):
+        if a[what] != b[what]:
+            raise AssertionError(f"phase 16: {names} differ in {what}")
+    # the metric and label-set dictionaries also hold the self-telemetry
+    # names, which differ by device: compared on the entries the
+    # compared tables reference
+    ext = a["tables"][("ext_metrics", "ext_samples")]
+    used = {"metric_name.jsonl": set(ext["metric"].tolist()),
+            "label_set.jsonl": set(ext["labels"].tolist())}
+    if sorted(a["dicts"]) != sorted(b["dicts"]):
+        raise AssertionError(f"phase 16: {names} differ in dictionaries")
+    for name in a["dicts"]:
+        x, y = a["dicts"][name], b["dicts"][name]
+        if name in used:
+            x, y = ([e for e in d if json.loads(e)["h"] in used[name]]
+                    for d in (x, y))
+        if x != y:
+            raise AssertionError(f"phase 16: {names} differ in {name}")
+
+
+def check_server_run(r, traffic, t_data, cfg):
+    """One run's own checks: conservation hop by hop, no_handler 0, the
+    tables' rows, the le rows per window, and the p95 of sampled services
+    through histogram_quantile against the exact one."""
+    from deepflow_tpu_torch.ops import ddsketch
+    rc = r["receiver"]
+    if rc["no_handler"] or rc["rx_duplicate"] or rc["rx_errors"] \
+            or rc["rx_frames"] != r["frames_sent"] \
+            + r["shipper"]["sent_frames"]:
+        raise AssertionError(f"phase 16: receiver {rc}, {r['frames_sent']} "
+                             f"sent + {r['shipper']['sent_frames']} DFSTATS")
+    dc = r["decoders"]
+    want = {"l4_flow_log": SRV_L4,
+            "l7_flow_log": SRV_RED_RECORDS * SRV_RED_WINDOWS,
+            "l7_flow_log.otel": SRV_OTEL_SPANS,
+            "l4_packet": SRV_PSEQ_FLOWS}
+    if any(dc[s]["records"] != n for s, n in want.items()) \
+            or any(c["decode_errors"] for c in dc.values()):
+        raise AssertionError(f"phase 16: decoders {dc}")
+    ec = r["exporters"]
+    if ec["put_errors"] or ec["shed"]:
+        raise AssertionError(f"phase 16: registry {ec}")
+    if r["sketch"]["rows_in"] != SRV_L4 or r["sketch"]["lost_rows"] \
+            or r["red"]["rows_in"] != want["l7_flow_log"]:
+        raise AssertionError("phase 16: exporter rows")
+    aux = r["aux"]
+    if aux["ext"]["decode_errors"] or aux["event"]["decode_errors"] \
+            or aux["profile"]["decode_errors"]:
+        raise AssertionError(f"phase 16: aux pipelines {aux}")
+    t = r["tables"]
+    for (db, name), n in ((("flow_log", "l4_flow_log"), SRV_L4),
+                          (("flow_log", "l7_flow_log"),
+                           want["l7_flow_log"] + SRV_OTEL_SPANS),
+                          (("flow_log", "l4_packet"), SRV_PSEQ_FLOWS),
+                          (("event", "perf_event"), SRV_PROC_EVENTS),
+                          (("event", "alarm_event"), SRV_ALARMS),
+                          (("profile", "in_process_profile"), SRV_PROFILES)):
+        got = len(next(iter(t[(db, name)].values()))) if t[(db, name)] else 0
+        if got != n:
+            raise AssertionError(f"phase 16: {db}.{name} holds {got} rows, "
+                                 f"{n} sent")
+    md = {json.loads(x)["s"]: json.loads(x)["h"]
+          for x in r["dicts"]["metric_name.jsonl"]}
+    ext = t[("ext_metrics", "ext_samples")]
+    le = ext["metric"] == md["app_rrt_bucket"]
+    n_le = len(range(SRV_PROM_BUCKETS - 1, cfg.dd.buckets, SRV_PROM_BUCKETS))
+    per_window = [int((le & (ext["timestamp"] == t_data + SRV_RED_STEP
+                             * (w + 1))).sum())
+                  for w in range(SRV_RED_WINDOWS)]
+    if per_window != [cfg.groups * n_le] * SRV_RED_WINDOWS:
+        raise AssertionError(f"phase 16: le rows per window {per_window}")
+    out = {"le_rows_per_window": per_window}
+    if "http" not in r:
+        return out
+    # rate() over the range takes the counters' rise from the first
+    # sample in it, so windows 1-3 carry the quantile
+    g = ddsketch.gamma(cfg.dd)
+    limit = cfg.dd.alpha + (g ** SRV_PROM_BUCKETS - 1)
+    est = {int(s["metric"]["service_group"]): float(s["value"][1])
+           for s in r["http"]["prom"]}
+    if len(est) != SRV_SAMPLED:
+        raise AssertionError(f"phase 16: histogram_quantile answers "
+                             f"{len(est)} services")
+    rrt = np.concatenate([c["rrt_us"] for c in traffic["red_cols"][1:]])
+    grp = np.concatenate(traffic["red_groups"][1:])
+    worst = 0.0
+    for gi in sampled_services(cfg.groups):
+        exact = float(np.quantile(rrt[grp == gi], 0.95,
+                                  method="inverted_cdf"))
+        worst = max(worst, abs(est[int(gi)] - exact) / exact)
+    if worst > limit:
+        raise AssertionError(f"phase 16: p95 relative error {worst} > "
+                             f"{limit}")
+    out.update(p95_worst_rel_err=worst, p95_limit=limit)
+    return out
+
+
+def check_server(torch, dev, rng, windows, card):
+    """Phase 16: one production cluster's ingester as server.py builds
+    it, every ingest stream over loopback TCP, on the card and on the
+    CPU."""
+    from deepflow_tpu_torch.models.app_suite import AppSuiteConfig
+    cfg = AppSuiteConfig()
+    t_data = (int(time.time()) // 60) * 60 - 1200
+    traffic = server_traffic(rng, windows[0], t_data)
+    log(f"  traffic built in {traffic['build_s']:.1f} s: "
+        f"{len(traffic['l4'])} l4, {sum(len(f) for f in traffic['red'])} "
+        f"l7, {len(traffic['otel'])} OTel, {len(traffic['pseq'])} "
+        f"PACKETSEQUENCE, {len(traffic['prom'])} remote-write frames")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_srv_") as tmp:
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            root = os.path.join(tmp, name)
+            os.makedirs(root)
+            t0 = time.perf_counter()
+            runs[name] = drive_server(torch, d, server_config(root),
+                                      traffic, t_data, name == "card")
+            runs[name]["seconds"] = time.perf_counter() - t0
+            runs[name]["checks"] = check_server_run(runs[name], traffic,
+                                                    t_data, cfg)
+        compare_server_runs(runs["card"], runs["cpu"], t_data,
+                            "the card run and the CPU twin")
+    r = runs["card"]
+    launches, widths = r["launches"], r["hist_widths"]
+    if not {cfg.groups * cfg.dd.buckets, cfg.groups} <= set(widths) \
+            or launches["fused_lane_hists"] <= 0 \
+            or launches["fused_news_hists"] <= 0:
+        raise AssertionError(f"phase 16: launches {launches}, hist widths "
+                             f"{widths}")
+    fl = r["flushes"][-1]
+    syncs = fl.get("syncs")
+    if syncs is not None and (syncs["cudaStreamSynchronize"] != 2
+                              or syncs["cudaEventSynchronize"]
+                              or syncs["cudaDeviceSynchronize"]):
+        raise AssertionError(f"phase 16: the le-bucket flush syncs {syncs}")
+    plane = cfg.groups * cfg.dd.buckets * 4
+    log(f"  on {card}")
+    for s, v in r["rates"].items():
+        log(f"  {s}: {v['records']} records in {v['s']:.3f} s, "
+            f"{v['records_per_s']:.0f} records/s through the socket "
+            f"(CPU twin {runs['cpu']['rates'][s]['records_per_s']:.0f})")
+    log(f"  le rows per window {r['checks']['le_rows_per_window']}; flush "
+        "wall ms " + ", ".join(f"{f['wall_ms']:.2f}" for f in r["flushes"])
+        + "; device-to-host bytes gathered per window "
+        f"{[f['bucket_d2h_bytes'] for f in r['flushes']]} against the full "
+        f"plane's {plane}; copies per flush "
+        f"{[f['d2h_transfers'] for f in r['flushes']]} (the readout and the "
+        f"gathered rows); the profiled flush's syncs {syncs}, d2h copy "
+        f"activities {fl.get('d2h_copy_activities')}")
+    log(f"  histogram_quantile(0.95) over windows 1-3 against the exact "
+        f"p95 of {SRV_SAMPLED} services: worst relative error "
+        f"{r['checks']['p95_worst_rel_err']:.4f} (limit "
+        f"{r['checks']['p95_limit']:.4f})")
+    log(f"  server start to first answer {r['start_to_first_answer_s']:.2f}"
+        f" s (CPU twin {runs['cpu']['start_to_first_answer_s']:.2f} s); "
+        f"HTTP SQL + PromQL {r['http']['http_s'] * 1e3:.1f} ms = the "
+        f"engines; reload {r['reload']['reload_s']:.2f} s; DFSTATS "
+        f"{r['shipper']['sent_records']} records in deepflow_system; "
+        f"launches {launches}, hist widths {widths}; card run "
+        f"{r['seconds']:.1f} s, CPU twin {runs['cpu']['seconds']:.1f} s; "
+        "every table, blob, artifact and dictionary = the CPU twin's")
+    return {"launches": launches, "hist_widths": widths,
+            "rates": {s: v["records_per_s"] for s, v in r["rates"].items()},
+            "cpu_rates": {s: v["records_per_s"]
+                          for s, v in runs["cpu"]["rates"].items()},
+            "flushes": r["flushes"], "plane_bytes": plane,
+            "checks": r["checks"],
+            "start_to_first_answer_s": r["start_to_first_answer_s"],
+            "cpu_start_to_first_answer_s":
+                runs["cpu"]["start_to_first_answer_s"],
+            "reload_s": r["reload"]["reload_s"],
+            "http_s": r["http"]["http_s"], "build_s": traffic["build_s"],
+            "card_s": r["seconds"], "cpu_s": runs["cpu"]["seconds"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5832,6 +6639,11 @@ def main() -> int:
     serving = check_serving(torch, dev, np.random.default_rng((args.seed, 15)),
                             windows, card)
     phase_done(15)
+    log("phase 16: the whole ingest surface and the server (server.py, "
+        "the card and a CPU twin)")
+    server = check_server(torch, dev, np.random.default_rng((args.seed, 16)),
+                          windows, card)
+    phase_done(16)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -5840,7 +6652,8 @@ def main() -> int:
             + [p["launches"] for p in ingester.values()] \
             + list(detection["launches"].values()) + [red["launches"]] \
             + shard["launches"] + pod["launches"] + [mesh["launches"]] \
-            + [ingest["launches"], ops["launches"], serving["launches"]]:
+            + [ingest["launches"], ops["launches"], serving["launches"],
+               server["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -5857,7 +6670,7 @@ def main() -> int:
         "sharded": shard,
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
         "ingester": ingest, "operations": ops, "querier": querier,
-        "serving": serving, "gate": gate,
+        "serving": serving, "server": server, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

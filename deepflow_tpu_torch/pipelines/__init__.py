@@ -1,5 +1,6 @@
 """Ingester pipelines of the port: the `Ingester` builder with its
-flow_log and flow_metrics pipelines, and the table schemas they write."""
+flow_log, flow_metrics, ext_metrics, event, profile and droplet
+pipelines, and the table schemas they write."""
 
 from deepflow_tpu_torch.pipelines.ingester import Ingester, IngesterConfig
 

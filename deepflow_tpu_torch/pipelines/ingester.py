@@ -1,5 +1,4 @@
-"""Ingester assembly: the receiver and every ported pipeline from one
-config.
+"""Ingester assembly: the receiver and every pipeline from one config.
 
 Reference: server/ingester/ingester/ingester.go:67-224 -- loads per-module
 configs, builds Receiver + PlatformDataManager, starts all pipelines,
@@ -7,12 +6,17 @@ returns closers. Storage can be disabled (`store_path=None`, the
 reference's StorageDisabled mode), which leaves decode and export live.
 
 `Ingester(cfg, platform=None, stats=None, device="cuda")` builds what the
-JAX package's Ingester builds on the data plane: the receiver,
+JAX package's Ingester builds: the receiver and its six pipelines --
 `FlowLogPipeline` (l4 over TAGGEDFLOW and COLUMNAR_FLOW, l7 over
-PROTOCOLLOG) and `FlowMetricsPipeline` (METRICS), the `Exporters`
-registry with a circuit breaker per exporter, the sketch exporter (with
-its anomaly plane, auditor and autotuner) and the RED exporter, the
-store with its disk monitor, the tag dictionaries and geo, and the
+PROTOCOLLOG and OTLP spans, l4_packet over PACKETSEQUENCE),
+`FlowMetricsPipeline` (METRICS), `ExtMetricsPipeline` (PROMETHEUS,
+TELEGRAF, DFSTATS), `EventPipeline` (PROC_EVENT, ALARM_EVENT),
+`ProfilePipeline` (PROFILE) and `DropletPipeline` (SYSLOG, STATSD,
+RAW_PCAP) -- so it claims every message type the JAX Ingester claims;
+the `Exporters` registry with a circuit breaker per exporter, the sketch
+exporter (with its anomaly plane, auditor and autotuner) and the RED
+exporter (with its Prometheus `le` buckets when `app_red_prom_buckets`
+is set), the store with its disk monitor, the tag dictionaries and geo, and the
 operations surface around them: the disk spill on the ingest queues
 (`spill_dir`), the self-telemetry timeline with its recording and SLO
 rules (`timeline_sample_s`, on at 1.0 s by default), the incident
@@ -22,12 +26,6 @@ debug server (`debug_port`). `device` is an argument of the builder,
 not a config field, so `IngesterConfig` stays field for field the
 reference's; it goes to every device-side part, and "cuda" without a
 card raises.
-
-Not ported here (`UNPORTED` raises NotImplementedError naming the
-field when it is set): the RED exporter's Prometheus `le` buckets. The
-ext_metrics, event, profile and droplet pipelines and the OTel and
-PACKETSEQUENCE loggers are not built: the receiver counts their frames
-as `no_handler`.
 """
 
 from __future__ import annotations
@@ -40,8 +38,12 @@ from typing import Optional
 
 from deepflow_tpu_torch.enrich.platform_data import PlatformDataManager
 from deepflow_tpu_torch.models.flow_suite import check_device
+from deepflow_tpu_torch.pipelines.droplet import DropletPipeline
+from deepflow_tpu_torch.pipelines.event import EventPipeline
+from deepflow_tpu_torch.pipelines.ext_metrics import ExtMetricsPipeline
 from deepflow_tpu_torch.pipelines.flow_log import FlowLogPipeline
 from deepflow_tpu_torch.pipelines.flow_metrics import FlowMetricsPipeline
+from deepflow_tpu_torch.pipelines.profile import ProfilePipeline
 from deepflow_tpu_torch.runtime.breaker import BreakerConfig
 from deepflow_tpu_torch.runtime.exporters import Exporters
 from deepflow_tpu_torch.runtime.faults import default_faults
@@ -58,9 +60,7 @@ from deepflow_tpu_torch.store.monitor import DiskMonitor
 class IngesterConfig:
     """Mirrors the reference's per-module config blocks
     (flow_log/config/config.go defaults). Field for field, and default
-    for default, the JAX package's IngesterConfig; the fields whose
-    subsystem this package does not port raise NotImplementedError in
-    `Ingester` when set (see `UNPORTED`)."""
+    for default, the JAX package's IngesterConfig."""
 
     listen_port: int = 30033
     listen_host: str = "127.0.0.1"
@@ -176,7 +176,7 @@ class IngesterConfig:
     # None disables, a float sets window seconds
     app_red_window_s: Optional[float] = None
     # > 0: surface app_red's DDSketch windows as Prometheus `le` bucket
-    # counters (not ported: raises)
+    # counters (every Nth gamma boundary) so histogram_quantile works
     app_red_prom_buckets: int = 0
     # this ingester's id inside a multi-analyzer deployment: the 10
     # analyzer bits of every row _id (l4_flow_log.go genID) — distinct
@@ -260,13 +260,6 @@ class IngesterConfig:
     incident_window_s: float = 120.0       # timeline lookback per bundle
 
 
-# config fields whose subsystem this package does not port: a value
-# other than the "off" one raises in Ingester, naming the field
-UNPORTED = (
-    ("app_red_prom_buckets", lambda v: v > 0,
-     "the RED exporter's Prometheus le-bucket surface"),
-)
-
 
 class Ingester:
     """One-call construction of the receive -> decode -> export -> store
@@ -276,11 +269,6 @@ class Ingester:
                  platform: Optional[PlatformDataManager] = None,
                  stats: Optional[StatsRegistry] = None,
                  device="cuda") -> None:
-        for field, is_set, what in UNPORTED:
-            if is_set(getattr(cfg, field)):
-                raise NotImplementedError(
-                    f"IngesterConfig.{field}={getattr(cfg, field)!r}: "
-                    f"{what} is not ported to deepflow_tpu_torch")
         self.device = check_device(device)
         self.cfg = cfg
         self.stats = stats or StatsRegistry()
@@ -385,7 +373,7 @@ class Ingester:
             from deepflow_tpu_torch.runtime.app_red import AppRedExporter
             self.app_red = AppRedExporter(
                 store=self.store, window_seconds=cfg.app_red_window_s,
-                stats=self.stats,
+                stats=self.stats, tag_dicts=self.tag_dicts,
                 prom_bucket_stride=cfg.app_red_prom_buckets,
                 device=self.device)
             self.exporters.register(self.app_red)
@@ -401,14 +389,23 @@ class Ingester:
             n_unmarshallers=cfg.n_decoders, queue_size=cfg.queue_size,
             rollup_intervals=cfg.rollup_intervals, device=self.device,
             receiver=self.receiver, stats=self.stats)
-        self._pipelines = (self.flow_log, self.flow_metrics)
+        self.ext_metrics = ExtMetricsPipeline(
+            self.receiver, self.store, self.tag_dicts, stats=self.stats)
+        self.event = EventPipeline(
+            self.receiver, self.store, self.tag_dicts, stats=self.stats)
+        self.profile = ProfilePipeline(
+            self.receiver, self.store, self.tag_dicts, stats=self.stats)
+        droplet_dir = None if cfg.store_path is None else \
+            os.path.join(cfg.store_path, "droplet")
+        self.droplet = DropletPipeline(
+            self.receiver, self.store, self.tag_dicts, droplet_dir,
+            stats=self.stats)
+        self._pipelines = (self.flow_log, self.flow_metrics,
+                           self.ext_metrics, self.event, self.profile,
+                           self.droplet)
         self._drain_state = "running"
         self._janitor = None
         self._janitor_stop = threading.Event()
-        # the droplet pipeline's artifact directory (not built here; the
-        # `artifacts` debug command lists it as the reference does)
-        self._droplet_dir = None if cfg.store_path is None else \
-            os.path.join(cfg.store_path, "droplet")
         # durability: disk spill on every ingest queue; segments a
         # previous process left behind replay once start() runs
         self.spill = None
@@ -586,7 +583,11 @@ class Ingester:
     def _own_queues(self) -> dict:
         """This ingester's inter-stage MultiQueues by name."""
         out = {q.name: q for _, q in self.flow_log._streams}
-        out[self.flow_metrics.queues.name] = self.flow_metrics.queues
+        for p in (self.flow_metrics, self.ext_metrics, self.event,
+                  self.profile, self.droplet):
+            q = getattr(p, "queues", None)
+            if q is not None:
+                out[q.name] = q
         return out
 
     def _spill_cmd(self, req: dict) -> dict:
@@ -670,7 +671,7 @@ class Ingester:
     def _artifact_listing(self, req: dict) -> dict:
         """Stored droplet artifacts under `<store_path>/droplet`, names
         and sizes, truncated to one datagram's budget."""
-        out_dir = self._droplet_dir
+        out_dir = self.droplet.out_dir
         if out_dir is None or not os.path.isdir(out_dir):
             return {"dir": out_dir, "files": []}
         want = req.get("module") or ""
@@ -702,7 +703,10 @@ class Ingester:
             # rows reach the writer within one bucket width
             while not self._janitor_stop.wait(1.0):
                 self.supervisor.beat()
-                self.flow_log.tick()
+                for p in self._pipelines:
+                    tick = getattr(p, "tick", None)
+                    if tick is not None:
+                        tick()
         self._janitor = self.supervisor.spawn(
             "throttle-janitor", _janitor, beat_period_s=1.0)
         if self.spill is not None:

@@ -11,7 +11,7 @@ drive the rollup manager: KEY columns form the rollup group identity,
 SUM/MAX columns aggregate, LAST columns pass through.
 
 A copy of the JAX package's pipelines/schemas.py (this package imports
-none of it) without the l4_packet table, whose logger is not ported.
+none of it).
 """
 
 from __future__ import annotations
@@ -109,6 +109,28 @@ L7_TABLE = TableSchema(
     name="l7_flow_log",
     columns=_lift(L7_SCHEMA, _L7_KEYS, _L7_AGG)
     + _kg_columns(skip=_L7_DECODED_KG),
+    time_column="timestamp",
+    ttl_seconds=3 * 24 * 3600,
+)
+
+# packet-sequence rows (reference: flow_log/log_data/l4_packet.go
+# L4PacketColumns — time/start_time/end_time/flow_id/vtap_id/
+# packet_count/packet_batch). The opaque packet_batch string column
+# becomes (batch_off, batch_len) into an append-only sidecar blob file
+# beside the table (this store is numeric-columnar by design); the
+# batch content format is documented in agent/packet_sequence.py.
+L4_PACKET_TABLE = TableSchema(
+    name="l4_packet",
+    columns=(
+        ColumnSpec("timestamp", np.dtype(np.uint32), AggKind.KEY),
+        ColumnSpec("start_time_us", np.dtype(np.uint64)),
+        ColumnSpec("end_time_us", np.dtype(np.uint64)),
+        ColumnSpec("flow_id", np.dtype(np.uint64), AggKind.KEY),
+        ColumnSpec("vtap_id", np.dtype(np.uint32), AggKind.KEY),
+        ColumnSpec("packet_count", np.dtype(np.uint32), AggKind.SUM),
+        ColumnSpec("batch_off", np.dtype(np.uint64)),
+        ColumnSpec("batch_len", np.dtype(np.uint32)),
+    ),
     time_column="timestamp",
     ttl_seconds=3 * 24 * 3600,
 )

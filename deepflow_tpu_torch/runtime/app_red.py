@@ -18,15 +18,23 @@ DDSketch) and no host read. A window with a store reads its requests,
 errors and quantiles back in one packed copy; without a store nothing
 is read back.
 
+With `prom_bucket_stride > 0` each window's DDSketch also lands as
+cumulative Prometheus `le` buckets in `ext_metrics.ext_samples` (one
+sample per active service group per retained gamma boundary, every
+stride-th boundary plus +Inf), as running counters, so Grafana's
+`histogram_quantile(0.95, rate(app_rrt_bucket[5m]))` reads the sketch
+windows. On the card the flush gathers the active groups' rows of
+`rrt_hist` and `rrt_zeros` before it copies them (the full
+[groups, buckets] plane would be 2 MB a window at the defaults): one
+more copy and the one stream sync it costs. The cumulative sums, the
+float64 running counters, the +Inf bucket and the counter reset past
+2^23 are host work, vectorised over (group, bucket).
+
 A kernel that cannot be built or launched raises `KernelError`; it is
 kept, and every later `process` and `flush_window` raises it.
 
 With `stats=` the exporter's counters register with a `StatsRegistry`
 as `exporter.app_red`.
-
-Not ported here (ROADMAP): the Prometheus `le`-bucket surface
-(`prom_bucket_stride > 0`), which needs the ext_metrics sample table
-beside the store's tag dictionaries (`store/dict_store.py`).
 """
 
 from __future__ import annotations
@@ -97,14 +105,15 @@ class AppRedExporter(QueueWorkerExporter):
                  cfg: Optional[app_suite.AppSuiteConfig] = None,
                  batch_rows: int = 1 << 14,
                  window_seconds: float = 1.0,
-                 prom_bucket_stride: int = 0,
                  stats: Optional[StatsRegistry] = None,
+                 tag_dicts=None,
+                 prom_bucket_stride: int = 0,
+                 prom_bucket_metric: str = "app_rrt_bucket", *,
                  device="cuda") -> None:
-        if prom_bucket_stride > 0:
-            raise NotImplementedError(
-                "prom_bucket_stride > 0 (the Prometheus le-bucket surface) "
-                "is not ported: it needs the ext_metrics sample table "
-                "beside store/dict_store.py's TagDicts")
+        """The positional arguments are the JAX package's, in its order;
+        `device` is a keyword. prom_bucket_stride > 0 also writes the `le`
+        buckets (module docstring) and needs `store` and `tag_dicts` (the
+        metric and label-set dictionaries)."""
         super().__init__("app_red", ["l7_flow_log"], n_workers=1, batch=64,
                          stats=stats)
         self.device = check_device(device)
@@ -120,6 +129,7 @@ class AppRedExporter(QueueWorkerExporter):
         self.windows = 0
         self.h2d_transfers = 0
         self.d2h_transfers = 0
+        self.bucket_d2h_bytes = 0
         self.last_output: Optional[app_suite.AppWindowOutput] = None
         self.writer = None
         if store is not None:
@@ -127,10 +137,46 @@ class AppRedExporter(QueueWorkerExporter):
                 store.create_table(APP_RED_DB,
                                    app_red_table(self.cfg.quantiles)),
                 batch_rows=4096, flush_interval=5.0)
+        self.bucket_writer = None
+        if prom_bucket_stride > 0:
+            self._init_buckets(store, tag_dicts, prom_bucket_stride,
+                               prom_bucket_metric)
         self._state_lock = threading.Lock()
         self._window_stop = threading.Event()
         self._window_thread = None     # supervisor ThreadHandle
         self._kernel_error: Optional[KernelError] = None
+
+    def _init_buckets(self, store, tag_dicts, stride: int,
+                      metric: str) -> None:
+        if store is None or tag_dicts is None:
+            raise ValueError("prom_bucket_stride needs store and tag_dicts")
+        from deepflow_tpu_torch.ops import ddsketch
+        from deepflow_tpu_torch.pipelines.ext_metrics import (EXT_METRICS_DB,
+                                                              SAMPLE_TABLE)
+        self.bucket_writer = StoreWriter(
+            store.create_table(EXT_METRICS_DB, SAMPLE_TABLE),
+            batch_rows=4096, flush_interval=5.0)
+        dd = self.cfg.dd
+        # retained boundaries: every stride-th bucket upper edge, always
+        # ending in +Inf (Prometheus requires the Inf bucket)
+        idx = np.arange(stride - 1, dd.buckets, stride)
+        if len(idx) == 0 or idx[-1] != dd.buckets - 1:
+            idx = np.append(idx, dd.buckets - 1)
+        self._bucket_idx = idx
+        # sketch bucket i covers (min*g^(i-1), min*g^i] (the bucket index
+        # is ceil-based), so the cumsum through bucket i counts the values
+        # <= min*g^i: that is the le bound
+        les = dd.min_value * ddsketch.gamma(dd) ** idx.astype(np.float64)
+        self._bucket_les = [f"{v:.6g}" for v in les[:-1]] + ["+Inf"]
+        self._bucket_metric_h = tag_dicts.get("metric_name").encode_one(
+            metric)
+        self._label_dict = tag_dicts.get("label_set")
+        self._label_rows: dict = {}   # group -> uint32 label hashes
+        # running cumulative counters per (group, retained bucket), in
+        # float64; the f32 value column holds exact integers only up to
+        # 2^24, so a counter resets to its window's counts past 2^23 (a
+        # counter reset that rate() absorbs)
+        self._bucket_cum = np.zeros((self.cfg.groups, len(idx)), np.float64)
 
     def _on_stream(self):
         """Enter the exporter's compute stream on the calling thread (a
@@ -143,6 +189,8 @@ class AppRedExporter(QueueWorkerExporter):
     def start(self) -> None:
         if self.writer is not None:
             self.writer.start()
+        if self.bucket_writer is not None:
+            self.bucket_writer.start()
         super().start()
         # deadman off: the loop blocks a whole window between beats
         self._window_thread = default_supervisor().spawn(
@@ -159,6 +207,8 @@ class AppRedExporter(QueueWorkerExporter):
         finally:
             if self.writer is not None:
                 self.writer.close()
+            if self.bucket_writer is not None:
+                self.bucket_writer.close()
 
     def _window_loop(self) -> None:
         while not self._window_stop.wait(self.window_seconds):
@@ -216,6 +266,9 @@ class AppRedExporter(QueueWorkerExporter):
             with self._on_stream():
                 self.state, out = app_suite.flush(self.state, self.cfg)
                 host = None if self.writer is None else self._readout(out)
+                sketch = None
+                if host is not None and self.bucket_writer is not None:
+                    sketch = self._gather_sketch(out, host[0])
         if self._stream is not None:
             # hand the readout to the caller's stream: its work on the
             # outputs waits for the flush, and the allocator keeps their
@@ -227,6 +280,8 @@ class AppRedExporter(QueueWorkerExporter):
         self.last_output = out
         if host is not None:
             self._write_output(*host, int(now))
+        if sketch is not None:
+            self._write_buckets(*sketch, int(now))
         return out
 
     def _readout(self, out: app_suite.AppWindowOutput):
@@ -236,6 +291,21 @@ class AppRedExporter(QueueWorkerExporter):
                            out.rrt_quantiles.reshape(-1)]).cpu().numpy()
         self.d2h_transfers += 1
         return words[:g], words[g:2 * g], words[2 * g:].reshape(-1, g)
+
+    def _gather_sketch(self, out: app_suite.AppWindowOutput,
+                       reqs: np.ndarray):
+        """(active, hist, zeros): the active groups' sketch rows, gathered
+        on the device and read back in one copy; None without one."""
+        active = np.nonzero(reqs > 0)[0]
+        if len(active) == 0:
+            return None
+        idx = torch.from_numpy(active).to(self.device, non_blocking=True)
+        rows = torch.cat([out.rrt_hist.index_select(0, idx),
+                          out.rrt_zeros.index_select(0, idx)[:, None]],
+                         dim=1).cpu().numpy()
+        self.d2h_transfers += 1
+        self.bucket_d2h_bytes += rows.nbytes
+        return active, rows[:, :-1], rows[:, -1]
 
     def _write_output(self, reqs: np.ndarray, errors: np.ndarray,
                       qs: np.ndarray, second: int) -> None:
@@ -252,15 +322,51 @@ class AppRedExporter(QueueWorkerExporter):
             row[quantile_column(q)] = qs[i, active].astype(np.float32)
         self.writer.put(row)
 
+    def _write_buckets(self, active: np.ndarray, hist: np.ndarray,
+                       zeros: np.ndarray, second: int) -> None:
+        # cumulative over buckets (le: the count of samples <= bound; the
+        # below-min zeros count is <= every retained bound), then
+        # accumulated over windows (counter semantics)
+        cum = np.cumsum(hist, axis=1)[:, self._bucket_idx] + zeros[:, None]
+        # reset a group's counter to this window's counts before its
+        # total leaves the f32 exact-integer range
+        over = self._bucket_cum[active, -1] > float(1 << 23)
+        self._bucket_cum[active] = np.where(
+            over[:, None], cum, self._bucket_cum[active] + cum)
+        # one label-hash row per group, dictionary-encoded once; the rows
+        # are array ops (a per-(group, bucket) Python loop would stall
+        # the window thread)
+        n_le = len(self._bucket_les)
+        lh_rows = []
+        for g in active.tolist():
+            row = self._label_rows.get(g)
+            if row is None:
+                row = np.asarray(
+                    [self._label_dict.encode_one(
+                        f"le={le},service_group={g}")
+                     for le in self._bucket_les], np.uint32)
+                self._label_rows[g] = row
+            lh_rows.append(row)
+        k = len(active) * n_le
+        self.bucket_writer.put({
+            "timestamp": np.full(k, second, np.uint32),
+            "metric": np.full(k, self._bucket_metric_h, np.uint32),
+            "labels": np.concatenate(lh_rows),
+            "value": self._bucket_cum[active].ravel().astype(np.float32),
+        })
+
     def flush(self) -> None:
         """Drain pending RED rows to disk (the ingester's flush hook)."""
         if self.writer is not None:
             self.writer.flush()
+        if self.bucket_writer is not None:
+            self.bucket_writer.flush()
 
     def counters(self) -> dict:
         c = super().counters()   # the queue's observable-loss stats
         c.update({"rows_in": self.rows_in, "windows": self.windows,
                   "batches": self.batcher.emitted_batches,
                   "h2d_transfers": self.h2d_transfers,
-                  "d2h_transfers": self.d2h_transfers})
+                  "d2h_transfers": self.d2h_transfers,
+                  "bucket_d2h_bytes": self.bucket_d2h_bytes})
         return c

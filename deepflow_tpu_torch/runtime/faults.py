@@ -14,6 +14,8 @@ replays the same schedule. The sites this package fires:
 - ``checkpoint.torn``  -- tear a snapshot file mid-write;
 - ``spill.write``      -- fail a disk-spill segment write (disk full,
   EIO; runtime/spill.py counts the records lost);
+- ``sender.disconnect`` -- drop `agent/sender.UniformSender`'s TCP
+  connection at a frame boundary (an ingester restart);
 - ``exporter.process`` -- raise inside `QueueWorkerExporter.process`;
 - ``anomaly.score``    -- raise where the anomaly plane scores a window
   (the window closes unscored, counted);
@@ -52,7 +54,7 @@ from typing import Dict, List, Optional
 __all__ = ["FaultSite", "FaultRegistry", "InjectedFault", "default_faults",
            "FAULT_RECEIVER_TRUNCATE", "FAULT_QUEUE_STALL",
            "FAULT_EXPORTER_RAISE", "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
-           "FAULT_SPILL_WRITE",
+           "FAULT_SPILL_WRITE", "FAULT_SENDER_DISCONNECT",
            "FAULT_EXPORTER_PROCESS", "FAULT_ANOMALY_SCORE",
            "FAULT_SHARD_DEVICE_ERROR", "FAULT_MERGE_STALL",
            "FAULT_SHARD_LOST", "FAULT_HOST_LOST", "FAULT_DCN_PARTITION",
@@ -64,6 +66,7 @@ FAULT_EXPORTER_RAISE = "exporter.raise"
 FAULT_DEVICE_ERROR = "tpu.device_error"
 FAULT_CHECKPOINT_TORN = "checkpoint.torn"
 FAULT_SPILL_WRITE = "spill.write"
+FAULT_SENDER_DISCONNECT = "sender.disconnect"
 FAULT_EXPORTER_PROCESS = "exporter.process"
 FAULT_ANOMALY_SCORE = "anomaly.score"
 FAULT_SHARD_DEVICE_ERROR = "shard.device_error"

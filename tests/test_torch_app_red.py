@@ -230,11 +230,188 @@ def test_exporter_in_a_live_jax_ingester(tmp_path):
 
 
 def test_unported_surfaces_raise():
-    with pytest.raises(NotImplementedError, match="dict_store"):
-        tred.AppRedExporter(prom_bucket_stride=1, device="cpu")
+    """The le-bucket surface is ported: without its store and tag
+    dictionaries it refuses as the JAX exporter does (ValueError naming
+    both); "cuda" without a card raises."""
+    for mod, kw in ((jred, {}), (tred, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="store and tag_dicts"):
+            mod.AppRedExporter(prom_bucket_stride=1, **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tred.AppRedExporter()
+
+
+# -- the Prometheus le-bucket surface ---------------------------------------
+def _bucket_pair(tmp_path, stride=8, groups=64, batch_rows=512):
+    """A JAX and a port exporter with le buckets, each over its own store
+    and tag dictionaries."""
+    from deepflow_tpu.store import dict_store as jdicts
+    from deepflow_tpu_torch.store import dict_store as tdicts
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    jreg, treg = jdicts.TagDictRegistry(jroot), tdicts.TagDictRegistry(troot)
+    kw = dict(groups=groups)
+    jexp = jred.AppRedExporter(jdb.Store(jroot), jas.AppSuiteConfig(**kw),
+                               batch_rows, 3600.0, None, jreg, stride)
+    texp = tred.AppRedExporter(tdb.Store(troot), tas.AppSuiteConfig(**kw),
+                               batch_rows, 3600.0, None, treg, stride,
+                               device="cpu")
+    return (jexp, jreg, jroot), (texp, treg, troot)
+
+
+def _feed_windows(jexp, texp, rng, nows, n=3000, groups=64):
+    for w, now in enumerate(nows):
+        cols = _stream(rng, n + 400 * w, endpoints=groups)
+        assert _no_boundary_values(cols["rrt_us"], jexp.cfg.dd)
+        for c in _chunks(cols, 700):
+            jexp.process([("l7_flow_log", 0, c, -1)])
+            texp.process([("l7_flow_log", 0, c, -1)])
+        _assert_output_equal(texp.flush_window(now=now),
+                             jexp.flush_window(now=now))
+
+
+def _samples(root):
+    from deepflow_tpu.pipelines.ext_metrics import EXT_METRICS_DB
+    rows = jdb.Store(root).table(EXT_METRICS_DB, "ext_samples").scan()
+    order = np.lexsort((rows["labels"], rows["metric"], rows["timestamp"]))
+    return {k: v[order] for k, v in rows.items()}
+
+
+def _close_pair(*pairs):
+    for exp, reg, _ in pairs:
+        exp.close()
+        reg.flush()
+        reg.close()
+
+
+def test_le_buckets_match_jax_over_three_windows(tmp_path):
+    """Three windows (the last in another partition hour): the
+    ext_samples rows (timestamp, metric, labels, value) equal the JAX
+    exporter's counter by counter, and both packages' persisted
+    metric_name and label_set dictionaries hold the same entries."""
+    (jexp, jreg, jroot), (texp, treg, troot) = _bucket_pair(tmp_path)
+    try:
+        _feed_windows(jexp, texp, np.random.default_rng(61),
+                      (5000.0, 5001.0, 9000.0))
+        np.testing.assert_array_equal(texp._bucket_cum, jexp._bucket_cum)
+        assert texp.counters()["d2h_transfers"] == 6   # readout + gather
+        assert texp.counters()["bucket_d2h_bytes"] > 0
+    finally:
+        _close_pair((jexp, jreg, jroot), (texp, treg, troot))
+    t, j = _samples(troot), _samples(jroot)
+    assert len(j["timestamp"]) > 0
+    n_le = len(jexp._bucket_les)
+    assert len(j["timestamp"]) % n_le == 0 and n_le == 512 // 8
+    for k in j:
+        assert t[k].dtype == j[k].dtype, k
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    for name in ("metric_name", "label_set"):
+        rd = lambda root: sorted(
+            open(f"{root}/flow_tag/{name}.jsonl").read().splitlines())
+        assert rd(troot) == rd(jroot), name
+
+
+def test_le_bucket_counter_reset_past_2_23(tmp_path):
+    """Both exporters' running counters are preloaded identically before
+    the first window (the preload stands in for the windows a long-lived
+    service would have accumulated): groups 0-31 at 2^23 + 7 in every
+    retained bucket (past the reset bound), groups 32-63 at 2^23 - 7
+    (below it). After one window the rows equal the JAX exporter's; the
+    preloaded-past-bound groups restart at this window's own counts, the
+    others add to their preload."""
+    (jexp, jreg, jroot), (texp, treg, troot) = _bucket_pair(tmp_path)
+    pre = np.zeros_like(jexp._bucket_cum)
+    pre[:32] = float((1 << 23) + 7)
+    pre[32:] = float((1 << 23) - 7)
+    jexp._bucket_cum[:] = pre
+    texp._bucket_cum[:] = pre
+    try:
+        _feed_windows(jexp, texp, np.random.default_rng(62), (7000.0,),
+                      n=6000)
+        out = texp.last_output
+        act = np.nonzero(out.requests.numpy() > 0)[0]
+        cum = np.cumsum(out.rrt_hist.numpy()[act], axis=1)[
+            :, texp._bucket_idx] + out.rrt_zeros.numpy()[act][:, None]
+        want = np.where((act < 32)[:, None], cum, pre[act] + cum)
+        np.testing.assert_array_equal(texp._bucket_cum[act], want)
+        assert (act < 32).any() and (act >= 32).any()
+        np.testing.assert_array_equal(texp._bucket_cum, jexp._bucket_cum)
+    finally:
+        _close_pair((jexp, jreg, jroot), (texp, treg, troot))
+    t, j = _samples(troot), _samples(jroot)
+    for k in j:
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+
+
+def test_le_buckets_histogram_quantile_matches_jax(tmp_path):
+    """`histogram_quantile(0.95, rate(app_rrt_bucket[2m]))` through the
+    port's PromEngine on the port's store answers as the JAX engine on
+    the JAX store (JSON text, instant and range)."""
+    import json
+    from deepflow_tpu.querier.promql import PromEngine as JProm
+    from deepflow_tpu.store import dict_store as jdicts
+    from deepflow_tpu_torch.querier.promql import PromEngine
+    from deepflow_tpu_torch.store import dict_store as tdicts
+    (jexp, jreg, jroot), (texp, treg, troot) = _bucket_pair(tmp_path)
+    try:
+        _feed_windows(jexp, texp, np.random.default_rng(63),
+                      (5000.0, 5030.0, 5060.0, 5090.0))
+    finally:
+        _close_pair((jexp, jreg, jroot), (texp, treg, troot))
+    jr, tr = jdicts.TagDictRegistry(jroot), tdicts.TagDictRegistry(troot)
+    try:
+        j = JProm(jdb.Store(jroot), jr)
+        t = PromEngine(tdb.Store(troot), tr, device="cpu")
+        for expr in ("histogram_quantile(0.95, rate(app_rrt_bucket[2m]))",
+                     "histogram_quantile(0.5, sum by (le) "
+                     "(rate(app_rrt_bucket[2m])))"):
+            want = j.query(expr, at=5090)
+            assert want
+            assert json.dumps(t.query(expr, at=5090), sort_keys=True) == \
+                json.dumps(want, sort_keys=True)
+            want_r = j.query_range(expr, start=5030, end=5090, step=30)
+            assert json.dumps(t.query_range(expr, start=5030, end=5090,
+                                            step=30), sort_keys=True) == \
+                json.dumps(want_r, sort_keys=True)
+    finally:
+        jr.close()
+        tr.close()
+
+
+def test_positional_signature_matches_jax(tmp_path):
+    """The same positional arguments build the same exporter in both
+    packages (store, cfg, batch_rows, window_seconds, stats, tag_dicts,
+    prom_bucket_stride, prom_bucket_metric); `device` is keyword-only."""
+    import inspect
+    from deepflow_tpu.runtime.stats import StatsRegistry as JStats
+    from deepflow_tpu_torch.runtime.stats import StatsRegistry as TStats
+    jp = list(inspect.signature(jred.AppRedExporter.__init__).parameters)
+    tsig = inspect.signature(tred.AppRedExporter.__init__).parameters
+    assert list(tsig)[:-1] == jp
+    assert tsig["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    (jexp, jreg, jroot), (texp, treg, troot) = _bucket_pair(
+        tmp_path, stride=16, groups=32, batch_rows=256)
+    jstats, tstats = JStats(), TStats()
+    from deepflow_tpu.store import dict_store as jdicts
+    from deepflow_tpu_torch.store import dict_store as tdicts
+    j2 = jred.AppRedExporter(jdb.Store(jroot + "2"), None, 256, 2.5, jstats,
+                             jdicts.TagDictRegistry(None), 16, "m_bucket")
+    t2 = tred.AppRedExporter(tdb.Store(troot + "2"), None, 256, 2.5, tstats,
+                             tdicts.TagDictRegistry(None), 16, "m_bucket",
+                             device="cpu")
+    try:
+        for a, b in ((texp, jexp), (t2, j2)):
+            assert a.batcher.capacity == b.batcher.capacity
+            assert a.window_seconds == b.window_seconds
+            assert a.cfg.groups == b.cfg.groups
+            np.testing.assert_array_equal(a._bucket_idx, b._bucket_idx)
+            assert a._bucket_les == b._bucket_les
+            assert a._bucket_metric_h == b._bucket_metric_h
+        assert [s.module for s in tstats._sources] == \
+            [s.module for s in jstats._sources] == ["exporter.app_red"]
+    finally:
+        for e in (j2, t2):
+            e.close()
+        _close_pair((jexp, jreg, jroot), (texp, treg, troot))
 
 
 def test_kernel_error_is_kept_and_raised(monkeypatch):

@@ -58,11 +58,16 @@ def test_port_files_found():
             "cuda_gate.py", "twinmark.py", "snappy.py", "telemetry_pb2.py",
             "sql.py", "metrics.py", "engine.py", "promql.py", "tempo.py",
             "tracing_adapter.py", "profile.py", "server.py", "cache.py",
-            "tables.py", "anomaly.py"} <= names
-    assert (REPO / "deepflow_tpu_torch" / "wire" / "protos"
-            / "telemetry.proto").is_file()
+            "tables.py", "anomaly.py", "otel_pb2.py", "stats_pb2.py",
+            "packet_sequence.py", "sender.py", "otlp_exporter.py",
+            "ext_metrics.py", "event.py", "droplet.py",
+            "checkpoint.py"} <= names
+    for proto in ("telemetry", "otel", "stats"):
+        assert (REPO / "deepflow_tpu_torch" / "wire" / "protos"
+                / f"{proto}.proto").is_file()
+    assert (REPO / "deepflow_tpu_torch" / "server.py") in PORT_FILES
     for pkg in ("wire", "wire/gen", "decode", "enrich", "serving", "querier",
-                "utils"):
+                "utils", "agent"):
         assert (REPO / "deepflow_tpu_torch" / pkg / "__init__.py") \
             in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
@@ -151,7 +156,8 @@ def test_every_entry_point_defaults_to_cuda():
             "deepflow_tpu_torch.pipelines.ingester.Ingester",
             "deepflow_tpu_torch.querier.engine.QueryEngine",
             "deepflow_tpu_torch.querier.promql.PromEngine",
-            "deepflow_tpu_torch.querier.server.QuerierServer"
+            "deepflow_tpu_torch.querier.server.QuerierServer",
+            "deepflow_tpu_torch.server.Server"
             } <= set(found)
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad

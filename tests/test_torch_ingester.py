@@ -17,8 +17,8 @@ more with the operations surface on (the timeline at its default
 cadence, the Prometheus and debug listeners, a spill and an incident
 directory): its sketch state equals the run with the surface off, and
 the surface answers (a strict /metrics scrape, /healthz, debug round
-trips). `IngesterConfig()`'s defaults build on the CPU; only
-`app_red_prom_buckets` still raises."""
+trips). `IngesterConfig()`'s defaults build on the CPU, and so does every
+field, `app_red_prom_buckets` included."""
 
 import socket
 import time
@@ -40,7 +40,6 @@ from deepflow_tpu.wire.gen import flow_log_pb2
 from deepflow_tpu_torch.models import app_suite as tas
 from deepflow_tpu_torch.pipelines import Ingester, IngesterConfig
 from deepflow_tpu_torch.pipelines import flow_log as tflow_log
-from deepflow_tpu_torch.pipelines.ingester import UNPORTED
 from deepflow_tpu_torch.runtime import faults as tfaults
 from deepflow_tpu_torch.wire import (FlowHeader, MessageType, encode_frame,
                                      pack_pb_records)
@@ -236,8 +235,10 @@ def _run_port(root, frames, counts, probe=None, **kw):
     ing = Ingester(_cfg(IngesterConfig, root, **kw), device="cpu")
     ing.start()
     try:
-        res = _drive(ing, frames, counts, ing.flow_log.decoders)
-        out = res + (_counters(ing, ing.flow_log.decoders),)
+        decs = [d for d in ing.flow_log.decoders
+                if d.stream in ("l4_flow_log", "l7_flow_log")]
+        res = _drive(ing, frames, counts, decs)
+        out = res + (_counters(ing, decs),)
         if probe is not None:
             out += (probe(ing),)
         return out
@@ -375,23 +376,29 @@ def test_counters_equal(runs):
     ("incident_dir", "/nonexistent"), ("timeline_sample_s", 1.0),
     ("app_red_prom_buckets", 4)])
 def test_unported_settings_raise(field, value, tmp_path):
-    """Only the RED exporter's le buckets are still unported: that field
-    raises, naming itself; the others build their subsystem (paths
-    under tmp_path)."""
-    assert {f for f, _, _ in UNPORTED} == {"app_red_prom_buckets"}
+    """Every setting builds its subsystem (paths under tmp_path); the
+    RED exporter's le buckets build its bucket writer over the store's
+    ext_samples table with the reference's retained boundaries."""
+    import deepflow_tpu_torch.pipelines.ingester as ting
+    assert not hasattr(ting, "UNPORTED")
     if isinstance(value, str):
         value = str(tmp_path) + value
     kw = {"timeline_sample_s": 0, "listen_port": 0, field: value}
-    if field in {f for f, _, _ in UNPORTED}:
-        with pytest.raises(NotImplementedError, match=field):
-            Ingester(IngesterConfig(**kw), device="cpu")
-        return
+    if field == "app_red_prom_buckets":
+        kw.update(store_path=str(tmp_path / "store"), app_red_window_s=1.0)
     ing = Ingester(IngesterConfig(**kw), device="cpu")
     try:
         built = {"spill_dir": ing.spill, "prom_port": ing.prom,
                  "debug_port": ing.debug, "incident_dir": ing.incidents,
-                 "timeline_sample_s": ing.timeline}[field]
+                 "timeline_sample_s": ing.timeline,
+                 "app_red_prom_buckets": getattr(
+                     ing.app_red, "bucket_writer", None)}[field]
         assert built is not None or field == "incident_dir"
+        if field == "app_red_prom_buckets":
+            assert built.table.schema.name == "ext_samples"
+            assert list(ing.app_red._bucket_idx[:2]) == [value - 1,
+                                                         2 * value - 1]
+            assert ing.app_red._bucket_les[-1] == "+Inf"
         if field == "incident_dir":
             # the recorder rides the timeline, off in this config
             assert ing.timeline is None and ing.incidents is None
@@ -456,7 +463,8 @@ def test_close_drains_pending_feed_groups(tmp_path):
     """Frames sent and close() called at once: the drain ladder lets the
     decoder, the exporter queue and the feed's groups in flight finish,
     so every row reaches the sketch (the exporter's close flushes the
-    last window); unclaimed message types count as no_handler."""
+    last window); a message type neither package claims (COMPRESS, 0)
+    counts as no_handler in both."""
     frames, counts = _traffic(seed=43)
     ing = Ingester(_cfg(IngesterConfig, str(tmp_path),
                         coalesce_batches=2, drain_deadline_s=20.0),
@@ -469,7 +477,7 @@ def test_close_drains_pending_feed_groups(tmp_path):
     try:
         for f in frames[0] + frames[1]:
             s.sendall(f)
-        s.sendall(encode_frame(MessageType.OPENTELEMETRY, b"x",
+        s.sendall(encode_frame(MessageType.COMPRESS, b"x",
                                FlowHeader(sequence=1, vtap_id=9)))
         _wait(lambda: ing.receiver.rx_frames == len(frames[0])
               + len(frames[1]) + 1, "receive")
@@ -481,3 +489,15 @@ def test_close_drains_pending_feed_groups(tmp_path):
     assert ing.tpu_sketch.rows_in == sum(counts[:2])
     assert sum(int(x[7]) for x in snaps) == sum(counts[:2])
     assert ing.receiver.counters()["no_handler"] == 1
+    jing = JIngester(_cfg(JConfig, str(tmp_path / "jax"),
+                          tpu_sketch_window_s=None, app_red_window_s=None))
+    jing.start()
+    s = socket.create_connection(("127.0.0.1", jing.port))
+    try:
+        s.sendall(encode_frame(MessageType.COMPRESS, b"x",
+                               FlowHeader(sequence=1, vtap_id=9)))
+        _wait(lambda: jing.receiver.rx_frames == 1, "receive")
+    finally:
+        s.close()
+        jing.close()
+    assert jing.receiver.counters()["no_handler"] == 1
