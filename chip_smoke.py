@@ -10,7 +10,9 @@ Phases (any failure raises: the exit code is non-zero and no result line
 is printed):
 
 1. the card's name and power limit (nvidia-smi), then every kernel of
-   deepflow_tpu_torch/csrc built with nvcc for sm_90a;
+   deepflow_tpu_torch/csrc built with nvcc for sm_90a and, beside them,
+   the native TAGGEDFLOW decoder (decode/native_src/decoder.cc, g++);
+   the phase fails if the decoder is not available;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's shapes, bit-exact, with padded batches and saturating
    weights, on uniform and on Zipf(1.1) inputs: hist_add at the
@@ -54,11 +56,14 @@ is printed):
 6. the exporter as the ingester runs it, on the same two windows: the
    dict wire with the overlapped feed (depth 2) and zero-copy staging,
    fed through put() and the exporter's worker thread; the lanes wire
-   with the feed (K=4); the inline dict path; each with a checkpoint
+   with the feed (K=4); the inline dict path; the TensorBatch feed
+   (`zero_copy=False`, K=4) on both wires; each with a checkpoint
    directory and a Store for its writers. Every leaf equal at every
-   window close (dict feed = inline
-   dict, lanes feed = phase 3's inline lanes, the wire-free leaves
-   across wires), recall >= 0.99, no staging buffer back before its
+   window close (dict feed = dict TensorBatch feed = inline dict, lanes
+   feed = lanes TensorBatch feed = phase 3's inline lanes, the wire-free
+   leaves across wires), each run's fused kernels launched, the
+   TensorBatch feeds' records/s beside the zero-copy feeds', recall
+   >= 0.99, no staging buffer back before its
    fence, the topk_flows and window_signals rows read back from the
    segment files equal to every window output (each resolved 5-tuple
    folding to its flow key), and a fresh exporter restores the last
@@ -132,7 +137,8 @@ is printed):
    the dict wire from FlowDictPacker with a replicated table of 2^20
    entries): at each window close the merged CMS, HLL, entropy and rows
    equal flow_suite.update on one device, recall >= 0.99, the table
-   replicas identical, hist launched and the fused kernels not; (b)
+   replicas identical (every shard's leaves and the table kept as phase
+   12's reference), hist launched and the fused kernels not; (b)
    ShardedAppSuite at AppSuiteConfig() over two windows of phase 8's l7
    records: every window output field equal to AppSuite on one device;
    (c) ShardedMetricsSuite at MetricsSuiteConfig() over phase 7's DDoS
@@ -207,10 +213,14 @@ is printed):
    `make_global_mesh` of 4 shards, each fed only its own half of every
    global batch of 2^16 rows (`process_local_batch`, or its half of the
    lane plane) of phase 9's rows: (a) ShardedFlowSuite at
-   FlowSuiteConfig(), columns and lanes forms, over phase 3's two
-   windows: at each window close every merged leaf and every output
-   field in both processes equal to phase 9's single-process 4-shard
-   suite, recall >= 0.99; (b) ShardedAppSuite over phase 9b's two
+   FlowSuiteConfig(), columns, lanes and dict forms, over phase 3's two
+   windows (the dict form: each process runs phase 9's FlowDictPacker
+   over the whole stream and passes the same full news and hits planes):
+   at each window close every merged leaf and every output field in
+   both processes equal to phase 9's single-process 4-shard suite, for
+   the dict form also every shard's leaves equal to phase 9's same shard
+   and every table replica to phase 9's table, recall >= 0.99, records/s
+   per form; (b) ShardedAppSuite over phase 9b's two
    windows, every output field equal; (c) ShardedMetricsSuite at
    MetricsSuiteConfig() over the first 16 windows of the ramp's
    Documents: every shard's integer leaves equal to phase 9c's 4 card
@@ -221,7 +231,10 @@ is printed):
    collectives' wall per flush and the per-update gradient sum
    reported. A child that fails or outlives 150 s fails the phase and is
    killed;
-13. the ingester entry point: the port's `Ingester` (FlowSuiteConfig(),
+13. the ingester entry point: first the TAGGEDFLOW frames' payloads
+   through the Python decoder and the native walker at 1 and 4 threads
+   (columns equal, dtype for dtype and bit for bit; records/s of each,
+   host numbers), then the port's `Ingester` (FlowSuiteConfig(),
    AppSuiteConfig(), the dict wire with the zero-copy feed at depth 2,
    the anomaly plane and the auditor at 1/64, a Store, the operations
    surface on its defaults: the timeline at 1.0 s with its SLO rules,
@@ -232,7 +245,8 @@ is printed):
    the rest as planar COLUMNAR_FLOW frames; the L4_SCHEMA columns phase
    3 does not draw from the seed), 2^17 l7 requests drawn as phase 8
    draws them (PROTOCOLLOG) and 2^17 Documents drawn as phase 10 draws
-   them (METRICS). (a) One decoder, one connection: every sketch leaf at
+   them (METRICS). Every l4 decoder must have registered the native
+   fast path for TAGGEDFLOW. (a) One decoder, one connection: every sketch leaf at
    every window, the anomaly states and alerts, every window and RED
    output equal to a second TpuSketchExporter and AppRedExporter on the
    card fed through put() with the same frames decoded here by the
@@ -1062,6 +1076,14 @@ INGESTER_RUNS = (
      False, ("fused_lane_hists",)),
     ("dict_inline", dict(wire="dict"), False,
      ("fused_news_hists", "fused_lane_hists")),
+    # the TensorBatch feed (zero_copy=False): the feed groups K batches
+    # and packs each group into one pinned staging buffer
+    ("dict_tb_feed", dict(wire="dict", prefetch_depth=2, coalesce_batches=4,
+                          zero_copy=False), False,
+     ("fused_news_hists", "fused_lane_hists")),
+    ("lanes_tb_feed", dict(wire="lanes", prefetch_depth=2,
+                           coalesce_batches=4, zero_copy=False), False,
+     ("fused_lane_hists",)),
 )
 CHUNK = 1 << 16            # records per decoded chunk
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
@@ -1075,10 +1097,12 @@ def mark(torch, dev):
 
 
 def staging_buffers(exp):
-    """The free staging buffers of a feed exporter's stager."""
+    """The free staging buffers of a feed exporter: its stager's, or the
+    TensorBatch feed's pool."""
+    if exp._stager is None:
+        return exp._staging_pool.buffers()
     free = exp._stager._free
-    return free if isinstance(free, list) else [
-        b for bufs in free.values() for b in bufs]
+    return free if isinstance(free, list) else free.buffers()
 
 
 def make_exporter(dev, knobs, checkpoint_dir, store_dir=None):
@@ -1248,9 +1272,20 @@ def run_ingester_paths(torch, dev, windows, card, tmp, lanes_inline_snaps):
                   "lanes_exporter_k4 (phase 3, inline)", "lanes_feed")
     compare_snaps(runs["dict_feed"]["snaps"], runs["lanes_feed"]["snaps"],
                   WIRE_FREE_LEAVES, "dict_feed", "lanes_feed")
-    log("  every leaf equal at every window close: dict_feed = dict_inline, "
-        "lanes_feed = phase 3's inline lanes (K=4); across the wires "
-        f"{sorted(WIRE_FREE_LEAVES)} equal")
+    compare_snaps(runs["dict_inline"]["snaps"], runs["dict_tb_feed"]["snaps"],
+                  None, "dict_inline", "dict_tb_feed")
+    compare_snaps(lanes_inline_snaps, runs["lanes_tb_feed"]["snaps"], None,
+                  "lanes_exporter_k4 (phase 3, inline)", "lanes_tb_feed")
+    log("  every leaf equal at every window close: dict_feed = dict_tb_feed "
+        "= dict_inline, lanes_feed = lanes_tb_feed = phase 3's inline lanes "
+        f"(K=4); across the wires {sorted(WIRE_FREE_LEAVES)} equal")
+    log(f"  the TensorBatch feed on {card}: dict "
+        f"{runs['dict_tb_feed']['records_per_s']:.0f} records/s against the "
+        f"zero-copy feed's {runs['dict_feed']['records_per_s']:.0f} (ratio "
+        f"{runs['dict_tb_feed']['records_per_s'] / runs['dict_feed']['records_per_s']:.3f}"
+        f"), lanes {runs['lanes_tb_feed']['records_per_s']:.0f} against "
+        f"{runs['lanes_feed']['records_per_s']:.0f} (ratio "
+        f"{runs['lanes_tb_feed']['records_per_s'] / runs['lanes_feed']['records_per_s']:.3f})")
     # 6.3: a fresh exporter on dict_feed's checkpoint directory
     fresh = make_exporter(dev, INGESTER_RUNS[0][1],
                           os.path.join(tmp, "dict_feed"))
@@ -2412,7 +2447,7 @@ def check_sharded_flow(torch, dev, windows, card):
             tables = suite.init_dict(DICT_CAP)
             packer = flow_dict.FlowDictPacker(capacity=DICT_CAP,
                                               hits_batch=SHARD_BATCH)
-        snaps, outs = [], []
+        snaps, outs, shards = [], [], []
         for cols in windows:
             for part, mask, n in global_batches(
                     {k: cols[k] for k in FLOW_KEYS}):
@@ -2435,19 +2470,24 @@ def check_sharded_flow(torch, dev, windows, card):
                         else:
                             st = suite.update_hits(st, tables, plane, m)
             snaps.append(snapshot(sharded._merge_axis0(st)))
-            if tables is not None and not all(
-                    torch.equal(t.table, tables[0].table) for t in tables):
-                raise AssertionError("dict table replicas differ")
+            if tables is not None:
+                if not all(torch.equal(t.table, tables[0].table)
+                           for t in tables):
+                    raise AssertionError("dict table replicas differ")
+                # phase 12's reference for the dict form: every shard
+                shards.append({
+                    "shards": [leaf_hashes(snapshot(x)) for x in st],
+                    "table": leaf_hashes([tables[0].table.cpu().numpy()])})
             st, out = suite.flush(st)
             outs.append(out)
-        return snaps, outs
+        return snaps, outs, shards
 
     forms, launches, mesh_ref = {}, {}, {}
     for form in ("cols", "plane", "lanes", "dict"):
         torch.cuda.synchronize()
         zero_launches()
         t0 = time.perf_counter()
-        snaps, outs = run(form)
+        snaps, outs, shards = run(form)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         # the sharded path counts on hist: the fused kernels never run
@@ -2473,6 +2513,8 @@ def check_sharded_flow(torch, dev, windows, card):
             mesh_ref[form] = [{"leaves": leaf_hashes(sn),
                                "out": out_record(o)}
                               for sn, o in zip(snaps, outs)]
+            if shards:
+                mesh_ref[form + "_shards"] = shards
         log(f"  ShardedFlowSuite {form}: {records / dt:.0f} records/s on "
             f"{card}; merged CMS, HLL, entropy, rows = one device at both "
             f"window closes; recall {recalls}; launches {launches[form]}")
@@ -3274,10 +3316,15 @@ def check_flow_metrics(torch, dev, rng, card, querier=None):
                                                          METRICS_TABLE.name),
                                       tier)
         # (d): a 2-minute tier's backfill, one build through advance(),
-        # and one device GROUP BY, each under torch.profiler
-        fresh.add_interval(120)
-        build_prof = profile_call(torch, dev, lambda: fresh.advance(
-            run["now"]))
+        # and one device GROUP BY, each under torch.profiler. A session
+        # the profiler recorded nothing of is run again: each attempt
+        # drops the tier and builds it anew, so the retry repeats the work
+
+        def build_120s():
+            fresh.remove_interval(120)
+            fresh.add_interval(120)
+            fresh.advance(run["now"])
+        build_prof = profile_call(torch, dev, build_120s, attempts=5)
         if len(store.table(db, METRICS_TABLE.name + ".120s")
                .scan(["timestamp"])["timestamp"]) != FM_TUPLES:
             raise AssertionError("the 120 s tier did not build")
@@ -3841,7 +3888,10 @@ def check_pod(torch, dev, windows, card, tmp):
 
 # -- phase 12: the global mesh across processes -------------------------------
 
-MESH_FORMS = ("cols", "lanes")   # phase 9a's forms whose batch splits by rows
+# phase 9a's forms that phase 12 runs across processes: cols and lanes
+# split each global batch by rows; in the dict form every process passes
+# the same full news and hits planes
+MESH_FORMS = ("cols", "lanes", "dict")
 MESH_WINDOWS = 16          # the ramp windows the metrics suite runs (of 28)
 MESH_PROCS, MESH_LOCAL = 2, 2    # processes, shards each: phase 9's 4
 MESH_TIMEOUT_S = 150       # the two gloo processes of phase 12, start to end
@@ -3883,7 +3933,7 @@ def mesh_worker(coord, pid, tmp, device):
     import torch
     import torch.distributed as dist
 
-    from deepflow_tpu_torch.models import app_suite, flow_suite
+    from deepflow_tpu_torch.models import app_suite, flow_dict, flow_suite
     from deepflow_tpu_torch.models.metrics_suite import MetricsSuiteConfig
     from deepflow_tpu_torch.ops import _build
     from deepflow_tpu_torch.parallel import (ShardedAppSuite,
@@ -3929,35 +3979,59 @@ def mesh_worker(coord, pid, tmp, device):
     arrays = {}
     zero_launches()
     # (a) the flow suite: columns through process_local_batch, lanes
-    # through put_lanes of this process's columns (the global count n)
+    # through put_lanes of this process's columns (the global count n),
+    # the dict wire as phase 9 packs it, every process passing the same
+    # full news and hits planes (the packer runs in each process)
     cfg = flow_suite.FlowSuiteConfig()
     for form in MESH_FORMS:
         suite = ShardedFlowSuite(cfg, mesh)
         st = suite.init()
-        wins, ingest_s, flush_s, coll = [], 0.0, 0.0, []
+        box = {}
+        if form == "dict":
+            box["tables"] = suite.init_dict(DICT_CAP)
+            box["packer"] = flow_dict.FlowDictPacker(capacity=DICT_CAP,
+                                                     hits_batch=SHARD_BATCH)
+        wins, shards, ingest_s, flush_s, coll = [], [], 0.0, 0.0, []
         for cols in npz_windows(z, "flow"):
             def ingest(st=st, cols=cols):
                 for part, mask, n in global_batches(cols):
                     if form == "cols":
                         st = suite.update(st, *process_local_batch(
                             local(part), mask[sl], mesh))
-                    else:
+                    elif form == "lanes":
                         lanes = flow_suite.pack_lanes(local(part))
                         st = suite.update_lanes(st, suite.put_lanes(np.stack(
                             [lanes[k] for k in flow_suite.SKETCH_LANE_NAMES]
                         )), n)
+                    else:
+                        packer = box["packer"]
+                        for kind, plane, m in packer.pack(
+                                {k: v[:n] for k, v in part.items()}) \
+                                + packer.flush():
+                            if kind == "news":
+                                st, box["tables"] = suite.update_news(
+                                    st, box["tables"], plane, m)
+                            else:
+                                st = suite.update_hits(st, box["tables"],
+                                                       plane, m)
                 return st
             st, dt = timed(ingest)
             ingest_s += dt
             merged = sharded._merge_axis0(st, suite._comm)
             wins.append({"leaves": leaf_hashes(snapshot(merged))})
+            if form == "dict":
+                shards.append({
+                    "shards": [leaf_hashes(snapshot(x)) for x in st],
+                    "tables": [leaf_hashes([t.table.cpu().numpy()])
+                               for t in box["tables"]]})
             c0 = suite.collectives["seconds"]["flush"]
             (st, out), dt = timed(lambda st=st: suite.flush(st))
             flush_s += dt
             coll.append(suite.collectives["seconds"]["flush"] - c0)
             wins[-1]["out"] = out_record(out)
         rec["flow"][form] = {"windows": wins, "ingest_s": ingest_s,
-                             "flush_s": flush_s, "collective_flush_s": coll}
+                             "flush_s": flush_s, "collective_flush_s": coll,
+                             "shards": shards}
     # (b) the app suite
     acfg = app_suite.AppSuiteConfig()
     asuite = ShardedAppSuite(acfg, mesh)
@@ -4108,6 +4182,17 @@ def check_global_mesh(torch, dev, windows, ref, tmp, card):
                        for wi, cols in zip(got["windows"], windows)]
             if min(recalls) < 0.99:
                 raise AssertionError(f"mesh {form}: recall {recalls}")
+        # the dict form: this process's shards are phase 9's shards
+        # [pid * MESH_LOCAL, (pid + 1) * MESH_LOCAL), leaf for leaf, and
+        # every table replica is phase 9's table
+        for w, (got, want) in enumerate(zip(r["flow"]["dict"]["shards"],
+                                            ref["flow"]["dict_shards"])):
+            if got["shards"] != want["shards"][
+                    pid * MESH_LOCAL:(pid + 1) * MESH_LOCAL] \
+                    or any(t != want["table"] for t in got["tables"]):
+                raise AssertionError(f"mesh worker {pid} dict window {w}: a "
+                                     "shard's leaves or a table replica "
+                                     "differ from phase 9")
         if r["app"]["outs"] != ref["app"]["outs"]:
             raise AssertionError(f"mesh worker {pid}: app outputs differ "
                                  "from phase 9")
@@ -4551,6 +4636,58 @@ def decoder(ing, stream):
     return next(d for d in ing.flow_log.decoders if d.stream == stream)
 
 
+def assert_native_registered(ing, name):
+    """Every l4 decoder of the ingester decodes TAGGEDFLOW frames with the
+    native walker (decode/native.py, built in phase 1)."""
+    from deepflow_tpu_torch.decode import native
+    from deepflow_tpu_torch.wire import MessageType
+    l4 = [d for d in ing.flow_log.decoders if d.stream == "l4_flow_log"]
+    if not l4 or any(d.payload_decode_fns.get(MessageType.TAGGEDFLOW)
+                     is not native.decode_l4_payload for d in l4):
+        raise AssertionError(f"phase 13 {name}: an l4 decoder has no native "
+                             "TAGGEDFLOW fast path")
+
+
+NATIVE_THREADS = (1, 4)
+
+
+def check_native_decode(frames, card):
+    """Phase 13: the TAGGEDFLOW frames' payloads through the Python
+    decoder and the native walker at 1 and 4 threads: columns equal,
+    dtype for dtype and bit for bit, no bad record; records/s of each
+    (host numbers: the card host's CPU)."""
+    from deepflow_tpu_torch.decode import columnar, native
+    from deepflow_tpu_torch.wire import FrameReader
+    from deepflow_tpu_torch.wire.codec import iter_pb_records
+    reader = FrameReader()
+    payloads = [f.payload for raw in frames for f in reader.feed(raw)]
+    t0 = time.perf_counter()
+    want = [columnar.decode_l4_records(list(iter_pb_records(p)))
+            for p in payloads]
+    dt = time.perf_counter() - t0
+    records = sum(len(c["ip_src"]) for c in want)
+    rates = {"python": records / dt}
+    for threads in NATIVE_THREADS:
+        t0 = time.perf_counter()
+        got = [native.decode_l4_payload(p, n_threads=threads)
+               for p in payloads]
+        dt = time.perf_counter() - t0
+        rates[f"native_x{threads}"] = records / dt
+        for (cols, bad), ref in zip(got, want):
+            if bad or sorted(cols) != sorted(ref) or any(
+                    cols[k].dtype != ref[k].dtype
+                    or not np.array_equal(cols[k], ref[k]) for k in ref):
+                raise AssertionError(f"phase 13: the native decoder "
+                                     f"({threads} threads) differs from "
+                                     "the Python decoder")
+    log(f"  TAGGEDFLOW decode of {records} records in {len(payloads)} "
+        f"frames on the host of {card}: native columns = the Python "
+        f"decoder's at 1 and 4 threads; records/s "
+        + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+        + f" (native x1 / python {rates['native_x1'] / rates['python']:.1f})")
+    return {"records": records, "records_per_s": rates}
+
+
 def check_ingester_identity(torch, dev, traffic, windows, tmp, card):
     """Phase 13(a): one decoder, one connection; the socket-fed ingester
     against the directly fed yardstick, hop-by-hop conservation."""
@@ -4566,6 +4703,7 @@ def check_ingester_identity(torch, dev, traffic, windows, tmp, card):
 
     cfg = ingester_config(os.path.join(tmp, "a"), n_decoders=1)
     ing = Ingester(cfg, device=dev)
+    assert_native_registered(ing, "(a)")
     y_sketch, y_red = yardstick(dev, cfg)
     counters = launch_counters()
     i_snaps, y_snaps = bus_snapshots(ing.tpu_sketch), bus_snapshots(y_sketch)
@@ -4751,6 +4889,7 @@ def run_ingester_throughput(torch, dev, name, per_window, profiled, windows,
 
     ing = Ingester(ingester_config(os.path.join(tmp, name), surface=surface,
                                    **knobs), device=dev)
+    assert_native_registered(ing, name)
     exp = ing.tpu_sketch
     snaps = bus_snapshots(exp)
     counters = launch_counters()
@@ -4883,6 +5022,7 @@ def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
         f"{sum(len(b) for _, b in traffic['l4'])} COLUMNAR_FLOW, "
         f"{len(traffic['l7'])} PROTOCOLLOG, {len(traffic['metrics'])} "
         "METRICS")
+    native_decode = check_native_decode(traffic["l4"][0][0], card)
     seqr = traffic["seq"]
     per_window = [seqr.revtap(a + b, ING_VTAPS) for a, b in traffic["l4"]]
     again = traffic["l4"][1][1][:ING_PROFILED_FRAMES]
@@ -4922,7 +5062,8 @@ def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
         f"(a)'s at both windows; ingest stream syncs {b['stream_syncs']} = "
         f"{c['stream_syncs']}; records/s (b) {b['records_per_s']:.0f}, "
         f"(c) {c['records_per_s']:.0f}, phase 6's dict feed through put() "
-        f"{dict_feed_rate:.0f}")
+        f"{dict_feed_rate:.0f} ((b) / dict feed "
+        f"{b['records_per_s'] / dict_feed_rate:.3f})")
     for r in (a, b, off, c):
         r.pop("snaps")
     launches = {}
@@ -4931,6 +5072,7 @@ def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
             launches[k] = launches.get(k, 0) + v
     return {"identity": a, "throughput": b, "surface_off": off,
             "autotune": c, "launches": launches,
+            "native_decode": native_decode,
             "dict_feed_records_per_s": dict_feed_rate, "card": card}
 
 # -- the gate instrument (ops/cuda_gate.py), checked in phase 2 ----------------
@@ -6556,7 +6698,16 @@ def main() -> int:
         log(f"phase {n}: {phase_s[n]:.1f} s")
         t0 = time.perf_counter()
 
+    # the native decoder builds (g++) while nvcc builds the kernels
+    from deepflow_tpu_torch.decode import native
+    native_build = threading.Thread(target=native.available)
+    native_build.start()
     _build.load_all(verbose=True)
+    native_build.join()
+    if not native.available():
+        raise AssertionError("phase 1: the native TAGGEDFLOW decoder did not "
+                             f"build: {native.build_error()}")
+    log(f"  native TAGGEDFLOW decoder: {native.so_path} (g++)")
     for entry in _build.build_log:
         for line in entry.splitlines():
             if "registers" in line or line.endswith(".cu:") \

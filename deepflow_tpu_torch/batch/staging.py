@@ -43,7 +43,7 @@ from deepflow_tpu_torch.runtime.supervisor import default_supervisor
 from deepflow_tpu_torch.utils.u32 import fold_columns_np
 
 __all__ = ["DictWireStager", "LaneStager", "PackPool", "StagedGroup",
-           "StagedWireGroup", "StagingPackError", "alloc_words"]
+           "StagedWireGroup", "StagingPackError", "WordPool", "alloc_words"]
 
 _PACK_COLS = ("ip_src", "ip_dst", "port_src", "port_dst", "proto",
               "packet_tx", "packet_rx")
@@ -56,6 +56,40 @@ def alloc_words(words: int, pinned: bool) -> np.ndarray:
         return np.empty(words, np.uint32)
     return torch.empty(words, dtype=torch.int32,
                        pin_memory=True).numpy().view(np.uint32)
+
+
+class WordPool:
+    """Size-keyed free lists of flat uint32 staging buffers (pinned on a
+    card): at most `cap` buffers per size, and new sizes kept only while
+    at most `MAX_SIZES` are held. Power-of-two plane widths keep the
+    distinct sizes few. Callers serialize get/put."""
+
+    MAX_SIZES = 16
+
+    def __init__(self, cap: int, pinned: bool) -> None:
+        self.cap = max(1, int(cap))
+        self.pinned = bool(pinned)
+        self.free: Dict[int, list] = {}
+        self.hits = 0
+
+    def get(self, words: int) -> np.ndarray:
+        """A free buffer of `words`, else a new one."""
+        try:
+            flat = self.free[words].pop()
+        except (KeyError, IndexError):
+            return alloc_words(words, self.pinned)
+        self.hits += 1
+        return flat
+
+    def put(self, flat: np.ndarray) -> None:
+        """Return a buffer whose last reader is done."""
+        free = self.free.setdefault(flat.size, [])
+        if len(free) < self.cap and len(self.free) <= self.MAX_SIZES:
+            free.append(flat)
+
+    def buffers(self) -> list:
+        """Every free buffer, of every size."""
+        return [b for bufs in self.free.values() for b in bufs]
 
 
 def fence_retired(fence) -> bool:
@@ -436,8 +470,6 @@ class DictWireStager:
         self.epoch = 0
         self._lock = threading.Lock()
         self._pack_pool = pool
-        self._pool_cap = max(1, int(pool_cap))
-        self._pinned = bool(pinned)
         # host key mirror of the device table, fed at stage time so the
         # degraded absorb can gather hit keys (flow_dict.mirror_news_np)
         self.mirror = np.zeros((4, self._packer.capacity), np.uint32)
@@ -447,14 +479,11 @@ class DictWireStager:
         self._wire: list = []    # emitted planes of the open group
         self._batches = 0        # packed batches in the open group
         self._rows = 0           # valid rows packed into the open group
-        # size-keyed free lists: the packer's power-of-two plane widths
-        # keep the distinct sizes few
-        self._free: Dict[int, list] = {}
+        self._free = WordPool(pool_cap, pinned)
         self._pending_group: Optional[int] = None
         self.total_rows = 0
         self.staged_groups = 0
         self.staged_batches = 0
-        self.pool_hits = 0
         self.recycled = 0
         self.recycle_refused = 0
         self.epoch_drops = 0
@@ -502,9 +531,7 @@ class DictWireStager:
             self.recycle_refused += 1
             return
         self.recycled += 1
-        free = self._free.setdefault(group.flat.size, [])
-        if len(free) < self._pool_cap and len(self._free) <= 16:
-            free.append(group.flat)
+        self._free.put(group.flat)
 
     def reset_packer(self) -> int:
         """Device-state restore: a fresh packer generation (the fresh
@@ -525,7 +552,15 @@ class DictWireStager:
 
     def set_pool_cap(self, n: int) -> None:
         """Bound each size's free list at `n` buffers, as in LaneStager."""
-        self._pool_cap = max(1, int(n))
+        self._free.cap = max(1, int(n))
+
+    @property
+    def _pool_cap(self) -> int:
+        return self._free.cap
+
+    @property
+    def pool_hits(self) -> int:
+        return self._free.hits
 
     def set_group_batches(self, n: int) -> None:
         """Retarget the coalesce width; it takes effect when the next
@@ -575,12 +610,7 @@ class DictWireStager:
     def _stage(self, g: StagedWireGroup) -> None:
         wire = g._wire_src
         del g._wire_src
-        words = flow_dict.wire_words(g.sig)
-        try:
-            flat = self._free[words].pop()
-            self.pool_hits += 1
-        except (KeyError, IndexError):
-            flat = alloc_words(words, self._pinned)
+        flat = self._free.get(flow_dict.wire_words(g.sig))
         g.flat = g.buffer = flat
         flow_dict.mirror_news_np(wire, self.mirror)
         if self._pack_pool is None:

@@ -23,9 +23,11 @@ and top-k as in one process. The collectives carry host tensors (gloo;
 one card cannot hold two NCCL ranks). Every process must issue the same
 collectives in the same order: every update of the metrics suite sums
 its PCA statistics across processes, even when this process's rows are
-all masked. The dict form replicates one `FlowDictPacker` table to every
-shard, and a table packed in one process is not another's, so it raises
-on a mesh that spans processes.
+all masked. The dict form is the exception to "its own rows": as in the
+reference's SPMD contract, every process passes the same full news and
+hits planes (one `FlowDictPacker` over the global stream), every replica
+of the key table is fed the same news and stays identical, and each
+process counts only its global shards' records.
 
 Three suites share the pattern (scaffolding in `_ShardedSuiteBase`):
 
@@ -336,13 +338,6 @@ class _ShardedSuiteBase:
         self._attrib_every = 16
         self._puts_traced = 0
 
-    def _single_process(self, what: str) -> None:
-        if self._comm is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh that spans processes is not ported: it "
-                "replicates one FlowDictPacker table to every shard, and a "
-                "table packed by one process is not another's (ROADMAP)")
-
     @property
     def collectives(self) -> Dict[str, Dict[str, float]]:
         """Wall seconds and calls of the cross-process collectives, by
@@ -484,44 +479,58 @@ class ShardedFlowSuite(_ShardedSuiteBase):
     # -- the dictionary wire -------------------------------------------------
     # The key table is replicated, one own copy per shard. News planes go
     # to every replica, so every table stays identical, and each record is
-    # counted by exactly one shard (rows % n_devices == d). Hits planes
-    # split on their pairs axis and gather from the local replica. One
-    # process only.
+    # counted by exactly one shard (rows % n_devices == d, d the GLOBAL
+    # shard index). Hits planes split on their pairs axis and gather from
+    # the local replica. On a mesh that spans processes the contract is
+    # the reference's SPMD one (one jitted call over a multi-process mesh):
+    # every process passes the same full news and hits planes, as one
+    # FlowDictPacker fed the global stream emits them. Every replica in
+    # every process is then fed the same planes and holds the same table;
+    # the tables are never reduced, and the flush all-reduces the sketch
+    # state as the other forms do.
 
     def init_dict(self, capacity: int = 1 << 20) -> list:
-        self._single_process("the dict form")
+        """One replica of an empty key table per local shard."""
         return _replicate_init(
             flow_dict.init_dict(capacity, self.devices[0]), self.devices)
 
     def update_news(self, state: list, dtable: list, plane, n
                     ) -> Tuple[list, list]:
-        """plane (6, C) to every replica; each record counted on one
-        shard."""
-        self._single_process("the dict form")
+        """plane (6, C), the same full plane in every process, to every
+        replica; each record counted on one shard of the whole mesh."""
         plane = _as_tensor(plane)
 
         def run():
             states, tables = [], []
             for d, (s, t, dev) in enumerate(zip(state, dtable,
                                                 self.devices)):
-                s, t = update_news_shard(s, t, plane.to(dev), n, d,
-                                         self.n_devices, self.cfg)
+                s, t = update_news_shard(s, t, plane.to(dev), n,
+                                         self.first + d, self.n_devices,
+                                         self.cfg)
                 states.append(s)
                 tables.append(t)
             return states, tables
         return self._dispatch(run)
 
     def update_hits(self, state: list, dtable: list, plane, n) -> list:
-        """plane: the (3, H) pairs layout (2H records) split on its pairs
-        axis; n is the GLOBAL valid-record count. Shard d's a-lanes hold
-        global positions [d*hp, (d+1)*hp), its b-lanes the same offsets
-        past the global a-half (H = hp * n_devices)."""
-        self._single_process("the dict form")
+        """plane: the (3, H) pairs layout (2H records), the same full plane
+        in every process; n is the GLOBAL valid-record count. This
+        process takes its slice of the pairs axis, then splits it over its
+        shards: global shard g's a-lanes hold global positions
+        [g*hp, (g+1)*hp), its b-lanes the same offsets past the global
+        a-half (H = hp * n_devices)."""
+        plane = _as_tensor(plane)
+        if plane.shape[1] % self.n_devices:
+            raise ValueError(f"pairs axis {plane.shape[1]} is not a "
+                             f"multiple of {self.n_devices} shards")
+        hp = plane.shape[1] // self.n_devices
+        mine = plane[:, self.first * hp:(self.first + len(self.devices))
+                     * hp]
         return self._dispatch(lambda: [
-            update_hits_shard(s, t, p, d * p.shape[1], n, self.n_devices,
-                              self.cfg)
+            update_hits_shard(s, t, p, (self.first + d) * hp, n,
+                              self.n_devices, self.cfg)
             for d, (s, t, p) in enumerate(zip(
-                state, dtable, _split(plane, self.devices, dim=1)))])
+                state, dtable, _split(mine, self.devices, dim=1)))])
 
     def _flush(self, state: list) -> Tuple[list, FlowWindowOutput]:
         _merged, fresh, out = merge_flush(state, self.cfg, self._comm)

@@ -11,7 +11,8 @@ chunk to the exporter registry, and offers it to the reservoir throttler
 in front of the store writer.
 
 Streams: `l4_flow_log` on TAGGEDFLOW (protobuf, the reference agent's
-wire) and COLUMNAR_FLOW (planar, `wire/columnar_wire.py`, decoded per
+wire; decoded per frame by the C++ walker of `decode/native.py` when
+`g++` built it, else by the Python decoder) and COLUMNAR_FLOW (planar, `wire/columnar_wire.py`, decoded per
 frame), `l7_flow_log` on PROTOCOLLOG, `l7_flow_log.otel` on
 OPENTELEMETRY and OPENTELEMETRY_COMPRESSED (OTLP spans into the l7
 table; the stream name keeps exporters of `l7_flow_log` from re-reading
@@ -31,7 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from deepflow_tpu_torch.agent.packet_sequence import decode_blocks
-from deepflow_tpu_torch.decode import columnar
+from deepflow_tpu_torch.decode import columnar, native
 from deepflow_tpu_torch.enrich.platform_data import PlatformDataManager
 from deepflow_tpu_torch.pipelines.schemas import (L4_PACKET_TABLE, L4_TABLE,
                                                   L7_TABLE)
@@ -264,6 +265,12 @@ class FlowLogPipeline:
                 receiver.register_handler(MessageType.COLUMNAR_FLOW, queues)
                 payload_fns[MessageType.COLUMNAR_FLOW] = \
                     columnar_wire.decode_columnar
+                # protobuf frames take the C++ walker when g++ built it
+                # (a failed build is logged once; the Python decoder
+                # gives the same columns)
+                if native.available():
+                    payload_fns[MessageType.TAGGEDFLOW] = \
+                        native.decode_l4_payload
             # the configured cap splits across every consumer of the
             # stream's writer (reference: flow_log.go throttle/queueCount);
             # the l7 table is also fed by the OTel decoder, so its budget

@@ -14,8 +14,16 @@ chunks, its worker thread calls `process(chunks)`, and the window thread
   decoded chunks straight into pinned buffers (`LaneStager`,
   `DictWireStager`), and a supervised feed thread (`DeviceFeed`) copies
   and dispatches each group while the producer stages the next, with up
-  to `prefetch_depth` groups in flight behind fences. The reference's
-  TensorBatch feed (`zero_copy=False` with a feed) is not ported.
+  to `prefetch_depth` groups in flight behind fences.
+- TensorBatch feed (`prefetch_depth>0`, `zero_copy=False`): the producer
+  cuts chunks into TensorBatches as the inline path does and hands them
+  to the feed, which takes up to `coalesce_batches` of them a group and
+  packs the group on the feed thread into one flat staging buffer
+  (pinned on a card, recycled after the group's fence): the lanes wire
+  as K slots of one coalesced update, the dict wire as the packer's
+  wire for each batch in turn (pack + flush per batch, the inline
+  emission order) under one signature-keyed program. Its state equals
+  the inline path's leaf for leaf, whatever the feed's grouping.
 
 Device contract (CUDA). All device work of the exporter runs on its own
 compute stream, entered by every thread that dispatches (the kernels
@@ -154,7 +162,7 @@ from deepflow_tpu_torch.anomaly import AnomalyConfig, AnomalyPlane
 from deepflow_tpu_torch.batch.batcher import (SKETCH_L4_SCHEMA, Batcher,
                                               TensorBatch)
 from deepflow_tpu_torch.batch.staging import (DictWireStager, LaneStager,
-                                              PackPool)
+                                              PackPool, WordPool)
 from deepflow_tpu_torch.models import flow_dict, flow_suite
 from deepflow_tpu_torch.ops._build import KernelError
 from deepflow_tpu_torch.parallel.multihost import (HostPodCoordinator,
@@ -380,10 +388,6 @@ class TpuSketchExporter(QueueWorkerExporter):
                 _LOG.warning("staged=True has no coalesced feed; prefetch "
                              "disabled")
                 prefetch_depth = 0
-        if prefetch_depth > 0 and not zero_copy:
-            raise ValueError("zero_copy=False with prefetch_depth > 0 (the "
-                             "TensorBatch feed) is not ported; the feed "
-                             "stages through LaneStager / DictWireStager")
         self.device = flow_suite.check_device(device)
         cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if cuda else None
@@ -516,10 +520,14 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.coalesce_batches = max(1, int(coalesce_batches))
         self._feed: Optional[DeviceFeed] = None
         self._programs: Dict[Any, Any] = {}
-        self.zero_copy = self.prefetch_depth > 0
+        self.zero_copy = (bool(zero_copy) and wire in ("lanes", "dict")
+                          and not staged and self.prefetch_depth > 0)
         self._stager = None
         self._pack_pool = None
         self.batcher = None
+        # the TensorBatch feed's flat staging buffers, by size, recycled
+        # once their group's fence retired (feed thread only)
+        self._staging_pool = WordPool(self.prefetch_depth + 2, cuda)
         if self.zero_copy:
             if pack_workers > 0:
                 self._pack_pool = PackPool(pack_workers)
@@ -547,7 +555,16 @@ class TpuSketchExporter(QueueWorkerExporter):
                 estimator=self._busy)
         else:
             self.batcher = Batcher(SKETCH_L4_SCHEMA, self.batch_rows)
-            if wire == "lanes" and self._pod is None:
+            if self.prefetch_depth > 0:
+                # the feed groups K TensorBatches (the stager does not)
+                self._feed = DeviceFeed(
+                    "tpu-sketch-feed", self._feed_process_group,
+                    depth=self.prefetch_depth,
+                    coalesce=self.coalesce_batches,
+                    on_fence_error=self._feed_fence_error,
+                    on_restart=self._feed_crash_restart,
+                    estimator=self._busy)
+            elif wire == "lanes" and self._pod is None:
                 # inline lanes: one pageable buffer of coalesce slots
                 self._flat = np.zeros(flow_suite.coalesced_lanes_words(
                     self.coalesce_batches, self.batch_rows), np.uint32)
@@ -665,9 +682,14 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.batcher.recycle(tb)
 
     def _submit_batch_locked(self, tb: TensorBatch) -> None:
-        """One TensorBatch through the inline path (a `kernel` span when
-        the tracer is on)."""
+        """One TensorBatch onto the device path: the TensorBatch feed
+        (the feed thread never takes _state_lock, so a full queue is
+        back-pressure), or the inline path (a `kernel` span when the
+        tracer is on)."""
         tr = self._tracer
+        if self._feed is not None:
+            self._feed.put(tb, tr.current_batch() if tr.enabled else -1)
+            return
         with self._on_stream():
             if not tr.enabled:
                 self._run_batch_locked(tb)
@@ -889,9 +911,7 @@ class TpuSketchExporter(QueueWorkerExporter):
             return
         try:
             self._dispatch_begin()
-            mask = tb.mask()
-            cols = {k: v[mask] for k, v in tb.columns.items()}
-            wire = self._dict_packer.pack(cols) + self._dict_packer.flush()
+            wire = self._batch_wire(tb)
             if not wire:
                 return
             sig = flow_dict.wire_signature(wire)
@@ -907,15 +927,27 @@ class TpuSketchExporter(QueueWorkerExporter):
             # TypeError) reach the worker's counter
             self._on_device_error_locked(int(tb.valid))
 
+    def _batch_wire(self, tb: TensorBatch) -> list:
+        """The dict packer's wire for one batch's valid rows (pack, then
+        flush: the emission order every dict path keeps)."""
+        mask = tb.mask()
+        cols = {k: v[mask] for k, v in tb.columns.items()}
+        return self._dict_packer.pack(cols) + self._dict_packer.flush()
+
+    def _pack_lane_slot(self, flat: np.ndarray, k: int,
+                        tb: TensorBatch) -> None:
+        """Pack one batch into slot k of a coalesced lanes buffer (its
+        valid count first) and recycle the batch."""
+        C = self.batch_rows
+        flow_suite.pack_lanes_into(tb.columns,
+                                   flow_suite.slot_plane(flat, k, C))
+        flat[k * flow_suite.slot_words(C)] = tb.valid
+        self.batcher.recycle(tb)
+
     def _stage_lane_slot_locked(self, tb: TensorBatch) -> None:
         """Inline lanes: pack one batch into the next slot; every
         `coalesce_batches` slots cross in one transfer."""
-        C = self.batch_rows
-        k = self._slots
-        flow_suite.pack_lanes_into(tb.columns,
-                                   flow_suite.slot_plane(self._flat, k, C))
-        self._flat[k * flow_suite.slot_words(C)] = tb.valid
-        self.batcher.recycle(tb)
+        self._pack_lane_slot(self._flat, self._slots, tb)
         self._slots += 1
         if self._slots == self.coalesce_batches:
             self._ship_lanes_locked()
@@ -1086,6 +1118,73 @@ class TpuSketchExporter(QueueWorkerExporter):
         except RuntimeError:
             self._on_device_error_locked(rows)
             return None
+
+    def _feed_process_group(self, group) -> Optional[InFlight]:
+        """The TensorBatch feed: a group of up to `coalesce_batches`
+        (TensorBatch, batch_id) pairs packed into one staging buffer,
+        one copy, one program."""
+        return self._feed_process(group, self._absorb_tensorbatch,
+                                  self._dispatch_group)
+
+    def _absorb_tensorbatch(self, tb: TensorBatch) -> None:
+        """Degraded mode reached a TensorBatch: shed, or the host
+        fallback."""
+        self._host_batch_locked(tb)
+        self.batcher.recycle(tb)
+
+    def _dispatch_group(self, group, rows: int) -> Optional[InFlight]:
+        self._dispatch_begin()
+        before = self.h2d_transfers
+        staged = self._dispatch_dict_group(group, rows) \
+            if self.wire == "dict" else self._dispatch_lanes_group(group,
+                                                                   rows)
+        if staged is None:
+            # the packer emitted no wire (no valid row): nothing was
+            # copied or dispatched, nothing is owed
+            return None
+        fence, flat = staged
+        tr = self._tracer
+        if tr.enabled and self._detailed:
+            tr.gauge("tpu_transfers_per_batch",
+                     (self.h2d_transfers - before) / len(group))
+            tr.gauge("tpu_h2d_coalesced_bytes", float(flat.nbytes))
+        recs = self._take_attribution()
+
+        def release():
+            if recs:
+                self._read_attribution(recs)
+            self._staging_pool.put(flat)
+        return InFlight(fence, rows, release, self._group_programs)
+
+    def _dispatch_lanes_group(self, group, rows: int):
+        """K TensorBatches -> K slots of one flat staging buffer -> one
+        coalesced lanes update (flow_suite.make_coalesced_update)."""
+        K, C = len(group), self.batch_rows
+        pool = self._staging_pool
+        flat = pool.get(flow_suite.coalesced_lanes_words(K, C))
+        for k, (tb, _) in enumerate(group):
+            self._record_key_tuples(tb.columns)
+            self._pack_lane_slot(flat, k, tb)
+        self._apply_lanes(self._to_device(flat, pool.pinned), K, C, rows)
+        return self._fence(), flat
+
+    def _dispatch_dict_group(self, group, rows: int):
+        """K TensorBatches through the packer (pack + flush per batch,
+        the inline emission order) -> the emitted wire staged flat -> one
+        signature-keyed program (flow_dict.make_wire_update)."""
+        wire = []
+        for tb, _ in group:
+            self._record_key_tuples(tb.columns)
+            wire += self._batch_wire(tb)
+            self.batcher.recycle(tb)
+        if not wire:
+            return None
+        sig = flow_dict.wire_signature(wire)
+        pool = self._staging_pool
+        flat = pool.get(flow_dict.wire_words(sig))
+        flow_dict.stage_wire(wire, flat)
+        self._apply_wire(self._to_device(flat, pool.pinned), sig, rows)
+        return self._fence(), flat
 
     def _feed_process_staged(self, group) -> Optional[InFlight]:
         """Zero-copy lanes: items are pre-staged groups; this thread
@@ -1300,7 +1399,11 @@ class TpuSketchExporter(QueueWorkerExporter):
             else:
                 for tb in self.batcher.flush():
                     self._submit_batch_locked(tb)
-                if self._dict_packer is None:
+                if self._feed is not None:
+                    if not self._feed.drain(timeout=60.0):
+                        _LOG.error("feed drain timed out; window flushed "
+                                   "against a possibly advancing state")
+                elif self._dict_packer is None:
                     with self._on_stream():
                         self._ship_lanes_locked()
             self._raise_kernel_error()

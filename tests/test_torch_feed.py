@@ -1,7 +1,8 @@
 """The port's exporter as the ingester runs it, on the CPU: the
-overlapped feed with zero-copy staging on both wires against the JAX
-package's exporter with the same knobs and against the port's own inline
-path, the drain ladder with a group in flight, the device-error ladder,
+overlapped feed with zero-copy staging and the TensorBatch feed
+(`zero_copy=False`) on both wires against the JAX package's exporter
+with the same knobs and against the port's own inline path, the drain
+ladder with a group in flight, the device-error ladder,
 feed-thread crashes and poisoned pack groups, and the exporter contract
 inside the JAX package's `Exporters` registry.
 
@@ -12,6 +13,7 @@ every window close (through each exporter's snapshot bus); float window
 readouts within rtol 1e-5, atol 1e-6 (XLA-CPU and ATen round log/sqrt
 apart in the last ulp). Every exporter is closed in a `finally`."""
 
+import threading
 import time
 
 import numpy as np
@@ -155,18 +157,111 @@ def test_feed_paths_match_inline(wire):
             e.close()
 
 
+@pytest.mark.parametrize("coalesce", [1, 4])
 @pytest.mark.parametrize("wire", ["dict", "lanes"])
-def test_tensorbatch_feed_is_refused(wire):
-    """The reference's TensorBatch feed (a feed without zero-copy
-    staging) is not ported: asking for it raises, never runs another
-    path."""
-    with pytest.raises(ValueError, match="zero_copy"):
-        _port(wire=wire, prefetch_depth=2, zero_copy=False)
-    e = _port(wire=wire, zero_copy=False)      # inline: zero_copy is moot
+def test_tensorbatch_feed_is_refused(wire, coalesce):
+    """The name is historical: the feed was once refused, and this test
+    now checks parity. The TensorBatch feed (a feed without zero-copy
+    staging: the feed thread packs K TensorBatches into one staging
+    buffer) runs: state leaves at every window close and the window outputs
+    equal the JAX exporter's with the same arguments, and equal the
+    port's inline path exactly (the dict table word for word)."""
+    jexp = jts.TpuSketchExporter(
+        store=None, cfg=jfs.FlowSuiteConfig(**_SMALL), batch_rows=B,
+        window_seconds=3600, wire=wire, prefetch_depth=2,
+        coalesce_batches=coalesce, zero_copy=False)
+    texp = _port(wire=wire, prefetch_depth=2, coalesce_batches=coalesce,
+                 zero_copy=False)
+    inline = _port(wire=wire, coalesce_batches=coalesce)
     try:
-        assert e._feed is None and not e.zero_copy
+        assert not texp.zero_copy and texp._stager is None
+        assert texp._feed is not None and texp._feed.coalesce == coalesce
+        assert not jexp.zero_copy and jexp._feed is not None
+        jsnaps = []
+        jexp.snapshot_bus.subscribe(lambda s: jsnaps.append(
+            [np.asarray(a) for a in s.leaves]))
+        tsnaps, isnaps = _subscribe(texp), _subscribe(inline)
+        for chunks in _windows():
+            for c in chunks:
+                jexp.process([("l4_flow_log", 0, c, -1)])
+            _feed(texp, chunks)
+            _feed(inline, chunks)
+            jout, tout, iout = (jexp.flush_window(), texp.flush_window(),
+                                inline.flush_window())
+            _assert_leaves_equal(tsnaps[-1], jsnaps[-1])
+            _assert_leaves_equal(tsnaps[-1], isnaps[-1])
+            _assert_output_equal(tout, jout)
+            for a, b in zip(tout, iout):
+                assert torch.equal(a, b)
+            if wire == "dict":
+                assert torch.equal(texp._dict_state.table,
+                                   inline._dict_state.table)
+        assert len(tsnaps) == len(jsnaps) == 2
+        assert texp.rows_in == jexp.rows_in == inline.rows_in
+        assert texp.counters()["batches"] == jexp.counters()["batches"]
+        assert texp.counters()["feed_groups"] > 0
+        assert texp._staging_pool.buffers()   # recycled at their fences
+    finally:
+        jexp.close()
+        texp.close()
+        inline.close()
+
+
+@pytest.mark.parametrize("wire", ["dict", "lanes"])
+def test_tensorbatch_feed_drain_conservation_with_groups_in_flight(wire):
+    """delivered + lost == sent through close() on the TensorBatch feed,
+    with groups in the prefetch window and a partial batch in the
+    batcher when the drain starts."""
+    e = _port(wire=wire, prefetch_depth=3, coalesce_batches=2,
+              zero_copy=False)
+    try:
+        sent = sum(_feed(e, chunks) for chunks in _windows(n=1))
+        assert e.pending_extra() >= 1
+        assert len(next(iter(e.batcher._buf.values()))) == B
     finally:
         e.close()
+    assert e.rows_in == sent
+    assert int(e.last_output.rows) + e.lost_rows == sent
+    assert e.lost_rows == 0 and e.pending_extra() == 0
+
+
+@pytest.mark.parametrize("wire", ["dict", "lanes"])
+def test_tensorbatch_feed_ladder_sheds_on_the_card(wire, tmp_path):
+    """The TensorBatch feed's device-error ladder as a CUDA device walks
+    it: a rollback, then the second error degrades the lane, the groups
+    still queued and later batches are shed and counted lost, the probe
+    recovers, and close() with groups in flight conserves: delivered +
+    counted loss == sent (the restored snapshot replays window A)."""
+    e = _port(wire=wire, prefetch_depth=2, coalesce_batches=2,
+              zero_copy=False, checkpoint_dir=str(tmp_path))
+    e._host_fallback = False                  # what device="cuda" sets
+    faults = default_faults()
+    try:
+        (a,) = _windows(first=10, n=1)
+        sent = _feed(e, a)
+        out_a = e.flush_window()
+        faults.arm("tpu.device_error", count=2, match=wire)
+        b1, b2 = _windows(first=12, n=2)
+        queued = threading.Event()           # b1's batches all queued
+        _gate(e, queued)
+        sent_b = _feed(e, b1)
+        queued.set()
+        assert e._feed.drain(30)
+        assert e.degraded and e.device_errors == 2
+        sent_b += _feed(e, b2)
+        out_b = e.flush_window()             # sheds what is queued, probes
+        assert e.shed_rows >= sum(len(c["ip_src"]) for c in b2)
+        assert out_b is None and e.recoveries == 1 and not e.degraded
+        assert e.host_rows == 0 and e._host is None
+        assert int(out_a.rows) + e.lost_rows == sent + sent_b
+        (c,) = _windows(first=14, n=1)
+        sent_c = _feed(e, c)
+        assert e.pending_extra() >= 1
+    finally:
+        faults.disarm()
+        e.close()
+    assert e.rows_in == sent + sent_b + sent_c
+    assert int(e.last_output.rows) == sent_c + int(out_a.rows)
 
 
 @pytest.mark.parametrize("wire", ["dict", "lanes"])
@@ -185,15 +280,17 @@ def test_drain_conservation_with_group_in_flight(wire):
     assert e.lost_rows == 0 and e.pending_extra() == 0
 
 
-def _gate(exp):
-    """Hold the feed thread's first group until the feed queue is full,
-    so that several groups are staged before the first one dispatches."""
+def _gate(exp, release=None):
+    """Hold the feed thread's first group until the feed queue is full
+    (or until the `release` event is set), so that several groups are
+    staged before the first one dispatches."""
     orig = exp._feed._process_group
     held = [True]
 
     def gated(group):
         deadline = time.monotonic() + 30
-        while held[0] and not exp._feed._q.full():
+        while held[0] and not (release.is_set() if release is not None
+                               else exp._feed._q.full()):
             assert time.monotonic() < deadline
             time.sleep(0.001)
         held[0] = False

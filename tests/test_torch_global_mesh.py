@@ -25,9 +25,12 @@ all-reduce of 2 against 8 in sequence.
 The worker also takes a step in which process 1's rows are all masked
 (a flow batch and a metrics update): it must neither deadlock (every
 process still issues every collective) nor diverge; builds the 2-D
-("dcn_data", "data") mesh; and calls the dict form, which raises on a
-mesh that spans processes. Workers run under a timeout and are killed
-in a `finally`.
+("dcn_data", "data") mesh; and runs the dict form on a mesh of 2 shards
+per process, every process passing the same full news and hits planes
+(one `FlowDictPacker` over a stream of 100 heavy 5-tuples and 900
+singletons), held against the JAX package's single-process 4-device
+dict form on the same planes. Workers run under a timeout and are
+killed in a `finally`.
 """
 
 import os
@@ -53,6 +56,7 @@ from deepflow_tpu_torch import convert
 from deepflow_tpu_torch.batch.batcher import SKETCH_L4_SCHEMA
 from deepflow_tpu_torch.parallel import (local_shard, make_global_mesh,
                                          process_local_batch)
+from deepflow_tpu_torch.utils.u32 import fold_columns_np
 
 REPO = Path(__file__).resolve().parent.parent
 TIMEOUT_S = 90
@@ -88,6 +92,21 @@ def make_data(schema_columns, metric_names):
     return cols, mwins, acols
 
 
+def make_dict_data(schema_columns):
+    """The dict form's stream: 100 heavy 5-tuples (300, 298, ..., 102
+    rows each) and 900 singletons, shuffled, so that its top-100 is one
+    the Count-Min noise cannot reorder."""
+    rng = np.random.default_rng(0xD1C7)
+    counts = np.concatenate([300 - 2 * np.arange(100),
+                             np.ones(900, np.int64)])
+    flow = rng.permutation(np.repeat(np.arange(len(counts)), counts))
+    # ports and protocol at their wire widths (the dict wire packs them)
+    top = {"port_src": 1 << 16, "port_dst": 1 << 16, "proto": 1 << 8}
+    return {name: rng.integers(0, top.get(name, 2**31), len(counts),
+                               dtype=np.uint64).astype(dt)[flow]
+            for name, dt in schema_columns}
+
+
 def idle_mask():
     """The second half of the rows masked: all of process 1's rows in
     the two-process run."""
@@ -106,7 +125,7 @@ import torch
 
 from deepflow_tpu_torch import convert
 from deepflow_tpu_torch.batch.batcher import SKETCH_L4_SCHEMA
-from deepflow_tpu_torch.models import flow_suite, metrics_suite
+from deepflow_tpu_torch.models import flow_dict, flow_suite, metrics_suite
 from deepflow_tpu_torch.models.app_suite import AppSuiteConfig
 from deepflow_tpu_torch.parallel import (ShardedAppSuite, ShardedFlowSuite,
                                          ShardedMetricsSuite,
@@ -124,6 +143,17 @@ APP_CFG = AppSuiteConfig(groups=16, dd_buckets=128, dd_alpha=0.05)
 
 def host(out):
     return [t.detach().cpu().numpy() for t in out]
+
+
+def dict_wire(cols):
+    """The news and hits planes one FlowDictPacker emits for the whole
+    stream, in 4096-row batches: what every process passes."""
+    packer = flow_dict.FlowDictPacker(capacity=8192, hits_batch=2048,
+                                      news_batch=512)
+    wire = []
+    for s in range(0, len(cols["ip_src"]), 4096):
+        wire += packer.pack({k: v[s:s + 4096] for k, v in cols.items()})
+    return wire + packer.flush()
 
 
 def run(n_proc, pid):
@@ -166,11 +196,23 @@ def run(n_proc, pid):
                             N - 333)
     r["lanes_merged"] = convert.state_to_numpy(
         sharded._merge_axis0(st, suite._comm))
-    try:
-        suite.init_dict(64)
-        r["dict_raised"] = False
-    except NotImplementedError:
-        r["dict_raised"] = True
+    # the dict form on 4 global shards (2 in each of two processes):
+    # every process passes the same full news and hits planes
+    dsuite = ShardedFlowSuite(FLOW_CFG,
+                              make_global_mesh(n_local=4 // n_proc,
+                                               device="cpu"))
+    ds, dt = dsuite.init(), dsuite.init_dict(8192)
+    for kind, dplane, n in dict_wire(make_dict_data(
+            SKETCH_L4_SCHEMA.columns)):
+        if kind == "news":
+            ds, dt = dsuite.update_news(ds, dt, dplane, n)
+        else:
+            ds = dsuite.update_hits(ds, dt, dplane, n)
+    r["dict_state"] = convert.sharded_to_numpy(ds)
+    r["dict_tables"] = [t.table.numpy().view(np.uint32) for t in dt]
+    ds, dout = dsuite.flush(ds)
+    r["dict_out"] = host(dout)
+    r["dict_fresh"] = convert.sharded_to_numpy(ds)
 
     # the metrics suite over the warm-up windows, then one window whose
     # last process's rows are all masked (its per-update sum still runs)
@@ -311,6 +353,21 @@ def jax_run():
     r["app_state"] = _jleaves(ast)
     ast, aout = asuite.flush(ast)
     r["app_out"] = _jleaves(aout)
+    dsuite = jsh.ShardedFlowSuite(cfg, jmake_mesh(4))
+    ds, dt = dsuite.init(), dsuite.init_dict(8192)
+    for kind, plane, n in ns["dict_wire"](ns["make_dict_data"](
+            JSCHEMA.columns)):
+        if kind == "news":
+            ds, dt = dsuite.update_news(ds, dt, jnp.asarray(plane),
+                                        np.uint32(n))
+        else:
+            ds = dsuite.update_hits(ds, dt, jnp.asarray(plane),
+                                    np.uint32(n))
+    r["dict_state"] = _jleaves(ds)
+    r["dict_tables"] = np.asarray(dt)
+    ds, dout = dsuite.flush(ds)
+    r["dict_out"] = _jleaves(dout)
+    r["dict_fresh"] = _jleaves(ds)
     return r
 
 
@@ -455,27 +512,59 @@ def test_two_process_app_suite_matches_one_process(two_processes,
         assert float(req.sum()) == 4096
 
 
-def test_two_process_mesh_layout_and_dict_form(two_processes):
+def test_two_process_mesh_layout_and_dict_form(two_processes, one_process,
+                                               jax_run):
     """The 2-D global mesh has a row per process and a column per local
-    shard; the dict form raises on a mesh that spans processes; the
-    per-update PCA sum ran once per update (11 windows x 1 batch) and the
-    flush sums once per dtype per window; with the tracer on, every
-    collective is a `shard.collective` span beside the suites' update,
-    flush and sampled put spans."""
+    shard; the dict form over two processes x 2 shards (every process
+    passing the same full news and hits planes) equals, in every shard's
+    leaves, the JAX package's single-process 4-device dict form and the
+    port's 4 shards in one process (integer leaves exact), every table
+    replica in both processes is the reference's, the merged window
+    equals it and its top-100 recall is >= 0.99; the per-update PCA sum
+    ran once per update (11 windows x 1 batch) and the flush sums once
+    per dtype per window; with the tracer on, every collective is a
+    `shard.collective` span beside the suites' update, flush and sampled
+    put spans."""
     for r in two_processes:
         assert {"shard.update", "shard.flush", "shard.collective",
                 "shard.h2d"} <= set(r["stages"])
-        # the metrics suite's, 3 for each of the flow suite's 6 merges
+        # the metrics suite's, 3 for each of the flow suite's 7 merges
         # (two windows' checks and flushes, the plane's and the lanes'
-        # checks) and one for the app flush (every leaf int32)
+        # checks, the dict form's flush) and one for the app flush
+        # (every leaf int32)
         assert r["stages"]["shard.collective"]["count"] == \
-            sum(r["m_collectives"]["calls"].values()) + 3 * 6 + 1
+            sum(r["m_collectives"]["calls"].values()) + 3 * 7 + 1
         shape, procs = r["mesh2"]
         assert shape == {"dcn_data": 2, "data": 4}
         assert procs == [[0] * 4, [1] * 4]
-        assert r["dict_raised"]
         calls = r["m_collectives"]["calls"]
         assert calls == {"update": 11, "flush": 22}, calls
+    for base in (jax_run, one_process):
+        for key in ("dict_state", "dict_fresh"):
+            _assert_leaves(_cat(two_processes, key), base[key],
+                           convert.SUITE_LEAVES, key)
+    table = jax_run["dict_tables"][0]
+    assert (jax_run["dict_tables"] == table).all() and table.any()
+    for r in [one_process] + two_processes:
+        assert len(r["dict_tables"]) == (4 if r is one_process else 2)
+        for t in r["dict_tables"]:
+            np.testing.assert_array_equal(t, table)
+        keys, counts, card, ent, rows = r["dict_out"]
+        bkeys, bcounts, bcard, bent, brows = jax_run["dict_out"]
+        np.testing.assert_array_equal(_u32(keys), _u32(bkeys))
+        np.testing.assert_array_equal(counts, bcounts)
+        np.testing.assert_array_equal(rows, brows)
+        np.testing.assert_allclose(card, bcard, rtol=1e-6)
+        np.testing.assert_allclose(ent, bent, rtol=0, atol=1e-6)
+        ns = _namespace()
+        cols = ns["make_dict_data"](SKETCH_L4_SCHEMA.columns)
+        assert int(rows) == len(cols["ip_src"])
+        exact = fold_columns_np([cols[k] for k in (
+            "ip_src", "ip_dst", "port_src", "port_dst", "proto")])
+        uniq, n = np.unique(exact, return_counts=True)
+        top = set(uniq[np.argsort(-n, kind="stable")[:100]].tolist())
+        got = set(_u32(keys).tolist())
+        assert len(got & top) / 100 >= 0.99
 
 
 def test_local_shard_single_process():

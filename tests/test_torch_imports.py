@@ -1,10 +1,12 @@
 """deepflow_tpu_torch, chip_smoke.py and chip_pod_probe.py stand alone: no
 import of jax or of the deepflow_tpu package (host-only helpers are kept
-as the port's own copies), and chip_smoke.py refuses to report a result
-without a card."""
+as the port's own copies), no path to a source or library file under
+deepflow_tpu/ (the native decoder builds the port's own copy), and
+chip_smoke.py refuses to report a result without a card."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -61,7 +63,9 @@ def test_port_files_found():
             "tables.py", "anomaly.py", "otel_pb2.py", "stats_pb2.py",
             "packet_sequence.py", "sender.py", "otlp_exporter.py",
             "ext_metrics.py", "event.py", "droplet.py",
-            "checkpoint.py"} <= names
+            "checkpoint.py", "native.py"} <= names
+    assert (REPO / "deepflow_tpu_torch" / "decode" / "native_src"
+            / "decoder.cc").is_file()
     for proto in ("telemetry", "otel", "stats"):
         assert (REPO / "deepflow_tpu_torch" / "wire" / "protos"
                 / f"{proto}.proto").is_file()
@@ -83,6 +87,44 @@ def test_port_files_found():
 def test_no_jax_or_deepflow_tpu_import(path):
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+# a source or library file of the JAX package, named in a string
+_JAX_PKG_FILE = re.compile(r"(^|[^\w])deepflow_tpu/\S*\.(cc|cpp|c|h|cu|so)\b")
+
+
+def _strings(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.lineno, node.value
+        elif isinstance(node, ast.JoinedStr):
+            yield node.lineno, "".join(
+                v.value for v in node.values
+                if isinstance(v, ast.Constant) and isinstance(v.value, str))
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_path_into_deepflow_tpu(path):
+    """No string of a port file names a source or library file under
+    deepflow_tpu/, nor the package directory as a path component."""
+    bad = [(line, s) for line, s in _strings(path)
+           if _JAX_PKG_FILE.search(s) or s == "deepflow_tpu"]
+    assert not bad, f"{path.relative_to(REPO)} names {bad}"
+
+
+def test_native_decoder_builds_its_own_source():
+    """The native decoder's source and library live in the port's tree
+    and build directory; neither resolves into deepflow_tpu/."""
+    from deepflow_tpu_torch.decode import native
+    from deepflow_tpu_torch.ops import _build
+    jax_pkg = REPO / "deepflow_tpu"
+    assert native.SRC.resolve().is_relative_to(REPO / "deepflow_tpu_torch")
+    assert native.BUILD_DIR == _build.BUILD_DIR
+    for p in (native.SRC.resolve(), native.BUILD_DIR.resolve()):
+        assert not p.is_relative_to(jax_pkg), p
+    assert all(src.suffix == ".cu" for src in _build.sources())
 
 
 def test_port_imports_leave_jax_unloaded():
