@@ -333,6 +333,37 @@ is printed):
    artifact and dictionary equal. Printed: records/s per stream, le
    rows and device-to-host bytes per window against the 2 MB plane,
    flush walls and syncs, the start-to-first-answer time.
+17. an agent's l4 stream into the ingester: one busy node's agent at
+   full width, a FlowMap holding 2^16 concurrent TCP flows, capture
+   batches of 4096 frames, 2^19 packets over 4 one-second ticks (the
+   depth is the cut) from the phase's own generator (a 54-byte header
+   template patched column by column; packets over the live flows by
+   Zipf(1.1); each tick 1/8 of the flows close, 3/4 FIN and 1/4 RST,
+   and as many open with a full handshake, SYNs and SYN/ACKs sometimes
+   twice; payloads 64-1400 B in a request/response cycle, 1% of the
+   segments retransmitted after an RTO, some zero windows). (a) the
+   agent leg: decode_packets, FlowMap(device="cuda").inject per batch,
+   tick_columns each second, the TaggedFlow records, and
+   flows_to_documents(device="cuda") with its METRICS records; the same
+   batches through a CPU twin: every tick's columns, the Documents, the
+   records byte for byte and the maps' state equal; every perf column
+   set somewhere and every close type seen; under torch.profiler the
+   last tick's injects make one sync a batch and flows_to_documents
+   one. Printed: inject packets/s on the card and the CPU, launches,
+   syncs and device time per batch, the tick's wall split. (b) the
+   records into the port's Ingester as phase 13(b) runs it (two
+   decoders, the anomaly plane, the auditor, a Store) through 4 agents'
+   UniformSenders (TAGGEDFLOW and METRICS, 8 connections; the TaggedFlow
+   records first, the window flushed, then the Documents): TaggedFlow
+   records sent = decoded by the native walker = the sketch exporter's
+   rows_in, Documents sent = flow_metrics records, frames sent =
+   received, the partition-free leaves equal a yardstick exporter's fed
+   the same records through put(), no top-K count below its exact
+   count. Printed, not gated: the top-K against an exact GROUP BY of the
+   sent columns (a flow reports at most once a tick, so the exact top-K
+   is a tie among thousands of flows at 4 records; ties count as hits).
+   Printed: TaggedFlow records/s through the socket, Documents/s, the
+   decoder spans over the wall, the stages, the fused and hist launches.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -6661,6 +6692,600 @@ def check_server(torch, dev, rng, windows, card):
             "card_s": r["seconds"], "cpu_s": runs["cpu"]["seconds"]}
 
 
+# -- phase 17: an agent's l4 stream into the ingester --------------------------
+
+AG_FLOWS = 1 << 16         # the FlowMap's table: concurrent flows at most
+AG_TURNOVER = AG_FLOWS // 8   # flows that close (and open) every tick
+AG_BATCH = 4096            # frames per capture batch (the dispatcher's batch)
+AG_PACKETS = 1 << 19       # packets over the run (a cut for time)
+AG_TICKS = 4               # one-second ticks
+AG_SERVERS = 4096          # server endpoints, in 172.16.0.0/12
+AG_PORTS = np.array([80, 443, 3306, 6379, 8080, 9092, 5432, 8443], np.uint32)
+AG_ZIPF = 1.1              # packets over the live flows
+AG_RETRANS = 0.01          # payload segments sent again after an RTO
+AG_ZERO_WIN = 0.005        # ACKs that advertise a zero window
+AG_HS_RETRANS = 0.02       # SYNs, and SYN/ACKs, sent twice
+AG_VTAPS = 4               # (b): agents, each with a TAGGEDFLOW and a METRICS
+#                            sender
+AG_NOW = 5000.0            # (b): the sketch window's stamp
+NS = 1_000_000_000
+MS = 1_000_000
+# eth / ipv4 (no options) / tcp (no options): 54 bytes, the fields that
+# vary patched per packet
+AG_HDR = np.frombuffer(
+    b"\x02" * 6 + b"\x04" * 6 + b"\x08\x00"
+    + b"\x45\x00\x00\x00\x00\x00\x00\x00\x40\x06\x00\x00" + b"\x00" * 8
+    + b"\x00" * 12 + b"\x50\x10\x20\x00\x00\x00\x00\x00", np.uint8)
+_PSH_ACK, _ACK, _SYN, _FIN, _RST = 0x18, 0x10, 0x02, 0x01, 0x04
+
+
+def _run_index(keys):
+    """Position of each row inside its run of equal sorted keys."""
+    n = len(keys)
+    start = np.ones(n, np.bool_)
+    start[1:] = keys[1:] != keys[:-1]
+    pos = np.arange(n)
+    return pos - np.maximum.accumulate(np.where(start, pos, 0))
+
+
+class AgentFlows:
+    """The generator's TCP connections: AG_FLOWS slots, each one live
+    connection (client in 10.0.0.0/8 or 192.168.0.0/16, server one of
+    AG_SERVERS endpoints in 172.16.0.0/12), with its sequence numbers and
+    where it stands in its request/response cycle. Slot i draws packets
+    at Zipf rank rank_of[i]. In tick 0, AG_FLOWS - AG_TURNOVER
+    connections are already established (the capture starts mid-stream)
+    and AG_TURNOVER open; every tick AG_TURNOVER established ones close
+    at its end and as many new ones open in their slots in the next, so
+    the FlowMap never holds more than AG_FLOWS."""
+
+    def __init__(self, rng):
+        n = AG_FLOWS
+        self.rng = rng
+        self.srv_ip = (0xAC100000 + rng.integers(0, 1 << 20, AG_SERVERS)
+                       ).astype(np.uint32)
+        self.srv_port = rng.choice(AG_PORTS, AG_SERVERS)
+        self.cip = np.zeros(n, np.uint32)
+        self.cport = np.zeros(n, np.uint32)
+        self.srv = np.zeros(n, np.int64)
+        self.cseq = np.zeros(n, np.int64)
+        self.sseq = np.zeros(n, np.int64)
+        self.phase = np.zeros(n, np.int64)
+        w = np.arange(1, n + 1, dtype=np.float64) ** -AG_ZIPF
+        self.rank_p = w / w.sum()
+        self.slot_of_rank = rng.permutation(n)
+        self._renew(np.arange(n))
+        self.opening = np.arange(n - AG_TURNOVER, n)
+
+    def _renew(self, slots):
+        rng, k = self.rng, len(slots)
+        self.cip[slots] = np.where(
+            rng.random(k) < 0.75, 0x0A000000 + rng.integers(0, 1 << 24, k),
+            0xC0A80000 + rng.integers(0, 1 << 16, k))
+        self.cport[slots] = rng.integers(1024, 1 << 16, k)
+        self.srv[slots] = rng.integers(0, AG_SERVERS, k)
+        self.cseq[slots] = rng.integers(0, 1 << 32, k)
+        self.sseq[slots] = rng.integers(0, 1 << 32, k)
+        self.phase[slots] = 0
+
+    def tick(self, t, packets):
+        """About `packets` packets of the second starting at t (ns),
+        sorted by time, as columns: slot, up (client to server), flags,
+        payload, seq, ack, win, ts. Handshakes in its first 10 ms, data
+        between 10 and 990 ms (the 4-packet cycle client PSH/ACK, server
+        ACK, server PSH/ACK, client ACK), retransmissions 200-300 ms after
+        their segment, closes (3/4 FIN both ways, 1/4 RST) after 995 ms."""
+        rng, n = self.rng, AG_FLOWS
+        parts = []
+
+        def add(slot, up, flags, payload, seq, ack, ts, win=8192):
+            k = len(slot)
+            parts.append({"slot": slot, "up": np.broadcast_to(up, k),
+                          "flags": np.broadcast_to(flags, k),
+                          "payload": np.broadcast_to(payload, k),
+                          "seq": seq, "ack": ack, "ts": ts,
+                          "win": np.broadcast_to(win, k)})
+        # handshakes
+        o = self.opening
+        m = len(o)
+        t0 = t + rng.integers(0, 3 * MS, m)
+        c, s = self.cseq[o], self.sseq[o]
+        add(o, True, _SYN, 0, c, np.zeros(m, np.int64), t0)
+        d = rng.random(m) < AG_HS_RETRANS
+        add(o[d], True, _SYN, 0, c[d], np.zeros(d.sum(), np.int64),
+            t0[d] + 3 * MS // 2)
+        add(o, False, _SYN | _ACK, 0, s, c + 1, t0 + 4 * MS)
+        d = rng.random(m) < AG_HS_RETRANS
+        add(o[d], False, _SYN | _ACK, 0, s[d], c[d] + 1, t0[d] + 5 * MS)
+        add(o, True, _ACK, 0, c + 1, s + 1, t0 + 7 * MS)
+        self.cseq[o] += 1
+        self.sseq[o] += 1
+        # which close, and how
+        established = np.ones(n, np.bool_)
+        established[o] = False
+        closing = rng.choice(np.nonzero(established)[0], AG_TURNOVER,
+                             replace=False)
+        fin = rng.random(AG_TURNOVER) < 0.75
+        fixed = sum(len(p["slot"]) for p in parts) \
+            + 3 * int(fin.sum()) + int((~fin).sum())
+        # data: the 4-packet cycle, the retransmissions on top
+        n_data = int((packets - fixed) / (1 + AG_RETRANS / 2))
+        slot = self.slot_of_rank[rng.choice(n, n_data, p=self.rank_p)]
+        ts = t + rng.integers(10 * MS, 990 * MS, n_data)
+        order = np.lexsort((ts, slot))
+        slot, ts = slot[order], ts[order]
+        ph = (self.phase[slot] + _run_index(slot)) % 4
+        plen = np.where(ph % 2 == 0, rng.integers(64, 1401, n_data), 0)
+        cpl = np.where(ph == 0, plen, 0)
+        spl = np.where(ph == 2, plen, 0)
+        cin = np.cumsum(cpl)
+        sin = np.cumsum(spl)
+        first = np.ones(n_data, np.bool_)
+        first[1:] = slot[1:] != slot[:-1]
+        # segmented inclusive sums: subtract the running sum before the run
+        run0 = np.maximum.accumulate(np.where(first, np.arange(n_data), 0))
+        cin = cin - (cin - cpl)[run0]
+        sin = sin - (sin - spl)[run0]
+        up = ph % 3 == 0
+        seq = np.where(up, self.cseq[slot] + cin - cpl,
+                       self.sseq[slot] + sin - spl)
+        ack = np.where(up, self.sseq[slot] + sin, self.cseq[slot] + cin)
+        flags = np.where(ph % 2 == 0, _PSH_ACK, _ACK)
+        win = np.where((ph % 2 == 1) & (rng.random(n_data) < AG_ZERO_WIN),
+                       0, 8192)
+        add(slot, up, flags, plen, seq, ack, ts, win)
+        rt = rng.choice(np.nonzero(plen > 0)[0], packets - fixed - n_data,
+                        replace=False)
+        add(slot[rt], up[rt], flags[rt], plen[rt], seq[rt], ack[rt],
+            np.minimum(ts[rt] + rng.integers(200 * MS, 300 * MS, len(rt)),
+                       t + 993 * MS), win[rt])
+        np.add.at(self.cseq, slot, cpl)
+        np.add.at(self.sseq, slot, spl)
+        self.phase += np.bincount(slot, minlength=n)
+        self.phase %= 4
+        # closes
+        f, r = closing[fin], closing[~fin]
+        c, s = self.cseq[f], self.sseq[f]
+        tf = t + 995 * MS + rng.integers(0, MS, len(f))
+        add(f, True, _FIN | _ACK, 0, c, s, tf)
+        add(f, False, _FIN | _ACK, 0, s, c + 1, tf + MS)
+        add(f, True, _ACK, 0, c + 1, s + 1, tf + 2 * MS)
+        side = rng.random(len(r)) < 0.5
+        add(r, side, _RST, 0, np.where(side, self.cseq[r], self.sseq[r]),
+            np.zeros(len(r), np.int64),
+            t + 995 * MS + rng.integers(0, MS, len(r)))
+        cols = {k: np.concatenate([np.asarray(p[k]) for p in parts])
+                for k in parts[0]}
+        order = np.argsort(cols["ts"], kind="stable")
+        cols = {k: v[order] for k, v in cols.items()}
+        sl, upc = cols.pop("slot"), cols["up"]
+        sip, sport = self.srv_ip[self.srv[sl]], self.srv_port[self.srv[sl]]
+        cols["ip_src"] = np.where(upc, self.cip[sl], sip)
+        cols["ip_dst"] = np.where(upc, sip, self.cip[sl])
+        cols["port_src"] = np.where(upc, self.cport[sl], sport)
+        cols["port_dst"] = np.where(upc, sport, self.cport[sl])
+        self._renew(closing)
+        self.opening = closing
+        return cols
+
+
+def agent_frames(cols):
+    """Raw Ethernet frames of a tick's packet columns: AG_HDR patched
+    column by column, zero payload bytes behind it."""
+    n = len(cols["ts"])
+    hdr = np.tile(AG_HDR, (n, 1))
+    plen = cols["payload"].astype(np.int64)
+
+    def put(off, a, dt):
+        hdr[:, off:off + np.dtype(dt).itemsize] = \
+            np.asarray(a).astype(dt).view(np.uint8).reshape(n, -1)
+    put(16, 40 + plen, ">u2")
+    put(26, cols["ip_src"], ">u4")
+    put(30, cols["ip_dst"], ">u4")
+    put(34, cols["port_src"], ">u2")
+    put(36, cols["port_dst"], ">u2")
+    put(38, cols["seq"] & 0xFFFFFFFF, ">u4")
+    put(42, cols["ack"] & 0xFFFFFFFF, ">u4")
+    put(47, cols["flags"], "u1")
+    put(48, cols["win"], ">u2")
+    lens = 54 + plen
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    buf = np.zeros(int(lens.sum()), np.uint8)
+    buf[offs[:, None] + np.arange(54)] = hdr
+    raw = buf.tobytes()
+    return [raw[o:o + k] for o, k in zip(offs.tolist(), lens.tolist())]
+
+
+def same_maps(a, b, what):
+    """Two FlowMaps' host state: every c_* column and TcpPerf array."""
+    from deepflow_tpu_torch.agent.tcp_perf import TcpPerf
+    cols = [k for k in vars(b) if k.startswith("c_")]
+    assert_tables_equal({k: getattr(a, k) for k in cols},
+                        {k: getattr(b, k) for k in cols}, what)
+    assert_tables_equal({k: getattr(a.perf, k) for k in TcpPerf._FIELDS},
+                        {k: getattr(b.perf, k) for k in TcpPerf._FIELDS},
+                        what)
+    if a.counters() != b.counters():
+        raise AssertionError(f"{what}: {a.counters()} != {b.counters()}")
+
+
+AG_NONZERO = ("rtt", "rtt_client", "rtt_server", "srt_sum", "srt_count",
+              "srt_max", "art_sum", "art_count", "art_max", "cit_sum",
+              "cit_count", "cit_max", "zero_win_tx", "zero_win_rx",
+              "syn_count", "synack_count", "retrans_syn", "retrans_synack",
+              "retrans", "retrans_tx", "rtt_client_sum", "rtt_server_sum")
+
+
+def check_agent_leg(torch, dev, rng, card):
+    """Phase 17(a): AG_PACKETS packets over AG_TICKS ticks through
+    decode_packets, FlowMap(device=dev).inject in AG_BATCH-frame
+    batches, tick_columns each second, the TaggedFlow records, and
+    flows_to_documents(device=dev) with its METRICS records; the same
+    decoded batches through a CPU twin, equal at every step. The last
+    tick's card injects and Documents run under torch.profiler (syncs,
+    launches, device time per batch)."""
+    from deepflow_tpu_torch.agent import FlowMap, decode_packets
+    from deepflow_tpu_torch.agent.quadruple import (documents_to_records,
+                                                    flows_to_documents)
+    from deepflow_tpu_torch.agent.trident import columns_to_l4_records
+    flows = AgentFlows(rng)
+    t_data = (int(time.time()) // 3600 + 2) * 3600
+    maps = {"card": FlowMap(vtap_id=1, capacity=AG_FLOWS, device=dev),
+            "cpu": FlowMap(vtap_id=1, capacity=AG_FLOWS, device="cpu")}
+    wall = dict.fromkeys(("generate", "decode", "inject_card", "inject_cpu",
+                          "tick_columns", "records", "documents"), 0.0)
+    timed_packets = doc_ticks = 0
+    warm = True
+    l4, docs, sent, prof = [], [], [], {}
+    packets = 0
+    per_tick = AG_PACKETS // AG_TICKS
+    for k in range(AG_TICKS):
+        t = time.perf_counter()
+        p = flows.tick((t_data + k) * NS, per_tick)
+        frames = agent_frames(p)
+        ts = p["ts"].astype(np.uint64)
+        wall["generate"] += time.perf_counter() - t
+        t = time.perf_counter()
+        batches = [decode_packets(frames[i:i + AG_BATCH], ts[i:i + AG_BATCH])
+                   for i in range(0, len(frames), AG_BATCH)]
+        wall["decode"] += time.perf_counter() - t
+        del frames
+        packets += len(ts)
+
+        def inject(name):
+            for b in batches:
+                maps[name].inject(b)
+        if warm:
+            # the reduction's first launches (lazy module loads) on a
+            # scratch map, outside the timing
+            FlowMap(capacity=AG_FLOWS, device=dev).inject(batches[0])
+            warm = False
+        if k == AG_TICKS - 1 and torch.device(dev).type == "cuda":
+            prof["inject"] = profile_call(torch, dev,
+                                          lambda: inject("card"), attempts=1)
+            prof["inject"]["batches"] = len(batches)
+            t = time.perf_counter()
+            inject("cpu")
+            prof["inject"]["cpu_wall_ms"] = (time.perf_counter() - t) * 1e3
+        else:
+            # the ticks both maps are timed over
+            for name in ("card", "cpu"):
+                t = time.perf_counter()
+                inject(name)
+                wall[f"inject_{name}"] += time.perf_counter() - t
+            timed_packets += len(ts)
+        now = (t_data + k + 1) * NS
+        t = time.perf_counter()
+        cols = maps["card"].tick_columns(now_ns=now)
+        wall["tick_columns"] += time.perf_counter() - t
+        cpu_cols = maps["cpu"].tick_columns(now_ns=now)
+        assert_tables_equal(cpu_cols, cols,
+                            f"phase 17 tick {k}: card vs CPU tick columns")
+        t = time.perf_counter()
+        recs = columns_to_l4_records(cols)
+        wall["records"] += time.perf_counter() - t
+        if recs != columns_to_l4_records(cpu_cols):
+            raise AssertionError(f"phase 17 tick {k}: TaggedFlow records "
+                                 "differ")
+        if k == AG_TICKS - 1 and torch.device(dev).type == "cuda":
+            # flows_to_documents changes no state: a session the profiler
+            # recorded no kernel of is run again
+            d = {}
+            prof["documents"] = profile_call(
+                torch, dev, lambda: d.update(
+                    flows_to_documents(cols, t_data + k, device=dev)))
+            drecs = documents_to_records(d)
+        else:
+            t = time.perf_counter()
+            d = flows_to_documents(cols, t_data + k, device=dev)
+            drecs = documents_to_records(d)
+            wall["documents"] += time.perf_counter() - t
+            doc_ticks += 1
+        dc = flows_to_documents(cpu_cols, t_data + k, device="cpu")
+        assert_tables_equal(dc, d, f"phase 17 tick {k}: card vs CPU "
+                            "Documents")
+        if drecs != documents_to_records(dc):
+            raise AssertionError(f"phase 17 tick {k}: METRICS records "
+                                 "differ")
+        same_maps(maps["card"], maps["cpu"], f"phase 17 tick {k}")
+        l4.append(recs)
+        docs.append(drecs)
+        sent.append(cols)
+    allc = {c: np.concatenate([s[c] for s in sent]) for c in sent[0]}
+    zero = [c for c in AG_NONZERO if not allc[c].any()]
+    if zero:
+        raise AssertionError(f"phase 17: columns never set: {zero}")
+    # forced reports, FIN and RST closes (no flow idles past the timeout
+    # in four seconds)
+    closes = np.bincount(allc["close_type"], minlength=4).tolist()
+    if not all(closes[:3]) or len(maps["card"]) > AG_FLOWS:
+        raise AssertionError(f"phase 17: close types {closes}, "
+                             f"{len(maps['card'])} live flows")
+    rates = {n: timed_packets / wall[f"inject_{n}"] for n in maps}
+    n_l4 = sum(len(r) for r in l4)
+    n_docs = sum(len(r) for r in docs)
+    r = {"packets": packets, "ticks": AG_TICKS, "batch": AG_BATCH,
+         "flows_created": maps["card"].flows_created, "records": n_l4,
+         "documents": n_docs, "close_types": closes,
+         "inject_packets_per_s": rates, "wall_s": wall,
+         "documents_ticks_timed": doc_ticks,
+         "counters": maps["card"].counters(), "t_data": t_data}
+    if prof:
+        pi, pd = prof["inject"], prof["documents"]
+        # the syncs fn made (profile_call's own synchronize is a device
+        # sync between the markers)
+        for x in (pi, pd):
+            x["syncs"] = (x["runtime_calls"]["cudaStreamSynchronize"]
+                          + x["runtime_calls"]["cudaEventSynchronize"])
+        r["inject_profile"] = {
+            "batches": pi["batches"], "syncs": pi["syncs"],
+            "syncs_per_batch": pi["syncs"] / pi["batches"],
+            "launches_per_batch": pi["kernels"] / pi["batches"],
+            "device_ms_per_batch": pi["device_ms"] / pi["batches"],
+            "kernel_ms_per_batch": pi["kernel_ms"] / pi["batches"],
+            "wall_ms": pi["wall_ms"], "cpu_wall_ms": pi["cpu_wall_ms"],
+            "runtime_calls": pi["runtime_calls"]}
+        r["documents_profile"] = {
+            "syncs": pd["syncs"], "launches": pd["kernels"],
+            "device_ms": pd["device_ms"], "wall_ms": pd["wall_ms"],
+            "attempts": pd["attempts"], "runtime_calls": pd["runtime_calls"]}
+        if pi["syncs"] != pi["batches"] or pd["syncs"] != 1:
+            raise AssertionError(
+                f"phase 17: syncs {pi['syncs']} over {pi['batches']} "
+                f"batches, {pd['syncs']} in flows_to_documents (one each "
+                f"expected): {pi['runtime_calls']}, {pd['runtime_calls']}")
+    tick_n = n_l4 / AG_TICKS
+    log(f"  (a) on {card}: {packets} packets over {AG_TICKS} ticks in "
+        f"{AG_BATCH}-frame batches, {maps['card'].flows_created} flows, "
+        f"{n_l4} TaggedFlow records, {n_docs} Documents, close types "
+        f"{closes}; card = CPU twin at every tick (columns, Documents, "
+        f"records, map state); inject packets/s card {rates['card']:.0f}, "
+        f"CPU {rates['cpu']:.0f} (ticks 0-{AG_TICKS - 2})"
+        + ("" if not prof else
+           f"; the last tick under the profiler "
+           f"{r['inject_profile']['wall_ms']:.0f} ms (the CPU twin "
+           f"{r['inject_profile']['cpu_wall_ms']:.0f} ms), per batch "
+           f"{r['inject_profile']['launches_per_batch']:.1f} launches, "
+           f"{r['inject_profile']['syncs_per_batch']:.2f} syncs, "
+           f"{r['inject_profile']['device_ms_per_batch']:.4f} device ms; "
+           f"flows_to_documents {pd['kernels']} launches, {pd['syncs']} "
+           f"sync, {pd['device_ms']:.4f} device ms")
+        + f"; tick wall per tick ({tick_n:.0f} records): tick_columns "
+        f"{wall['tick_columns'] / AG_TICKS * 1e3:.1f} ms, records "
+        f"{wall['records'] / AG_TICKS * 1e3:.1f} ms, Documents "
+        f"{wall['documents'] / doc_ticks * 1e3:.1f} ms; generate "
+        f"{wall['generate']:.1f} s, decode {wall['decode']:.1f} s")
+    return r, l4, docs, allc
+
+
+def topk_against_exact(out, cols, k):
+    """The window's top-K against an exact GROUP BY of the 5-tuples.
+    An agent reports a flow at most once a tick, so the exact top-K of
+    its stream ends in a tie among the flows live in every tick: a
+    reported key counts as a hit when its exact count reaches the K-th
+    largest. Returns (tie-aware recall, K-th count, keys at or above it,
+    strict recall, reported keys whose count is below their exact count
+    (the Count-Min never underestimates), reported keys never sent)."""
+    from deepflow_tpu_torch.utils.u32 import fold_columns_np
+    keys = fold_columns_np([cols["ip_src"], cols["ip_dst"], cols["port_src"],
+                            cols["port_dst"], cols["proto"]])
+    uniq, counts = np.unique(keys, return_counts=True)
+    kth = int(np.sort(counts)[-k])
+    count = dict(zip(uniq.tolist(), counts.tolist()))
+    got = out.topk_keys.cpu().numpy().view(np.uint32).tolist()
+    est = out.topk_counts.cpu().numpy().tolist()
+    hits = sum(count.get(g, 0) >= kth for g in got)
+    under = sum(c < count.get(g, 0) for g, c in zip(got, est))
+    unknown = sum(g not in count for g in got)
+    return (hits / k, kth, int((counts >= kth).sum()),
+            recall(out, cols, k), under, unknown)
+
+
+def check_agent_ingester(torch, dev, l4, docs, allc, card):
+    """Phase 17(b): the records of (a) into the port's Ingester as phase
+    13(b) runs it, through AG_VTAPS agents' UniformSenders (a TAGGEDFLOW
+    and a METRICS sender each, one connection each; each agent ships a
+    quarter of every tick; all agents send their TaggedFlow records at
+    once, the window is flushed, then their Documents), then the same
+    TaggedFlow records decoded here and put straight into a yardstick
+    exporter: the partition-free leaves equal."""
+    from deepflow_tpu_torch.agent.sender import UniformSender
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.pipelines import Ingester
+    from deepflow_tpu_torch.runtime.tracing import default_tracer
+    from deepflow_tpu_torch.wire import MessageType
+    n_l4, n_docs = sum(len(r) for r in l4), sum(len(r) for r in docs)
+    shares = []
+    for v in range(AG_VTAPS):
+        shares.append([(recs[v * len(recs) // AG_VTAPS:
+                             (v + 1) * len(recs) // AG_VTAPS],
+                        drecs[v * len(drecs) // AG_VTAPS:
+                              (v + 1) * len(drecs) // AG_VTAPS])
+                       for recs, drecs in zip(l4, docs)])
+    counters = launch_counters()
+    tr = default_tracer()
+    cuda = torch.device(dev).type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_agent_") as tmp:
+        cfg = ingester_config(tmp)
+        ing = Ingester(cfg, device=dev)
+        assert_native_registered(ing, "phase 17")
+        exp = ing.tpu_sketch
+        snaps = bus_snapshots(exp)
+        senders = []
+        try:
+            ing.start()
+            addr = f"127.0.0.1:{ing.port}"
+            senders = [(UniformSender(MessageType.TAGGEDFLOW, addr,
+                                      vtap_id=v + 1),
+                        UniformSender(MessageType.METRICS, addr,
+                                      vtap_id=v + 1))
+                       for v in range(AG_VTAPS)]
+            tr.reset()
+            if cuda:
+                torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            errs = []
+
+            def agent(v, kind):
+                try:
+                    for tick in shares[v]:
+                        senders[v][kind].send(tick[kind])
+                except Exception as e:  # noqa: BLE001 -- re-raised below
+                    errs.append(e)
+
+            def ship(kind):
+                ts = [threading.Thread(target=agent, args=(v, kind))
+                      for v in range(AG_VTAPS)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join()
+                if errs:
+                    raise errs[0]
+            # the TaggedFlow records first, then the Documents: the l4
+            # rate is phase 13 (b)'s measure, with no Python METRICS
+            # decode holding the interpreter lock beside it
+            t0 = time.perf_counter()
+            ship(0)
+            wait_for(lambda: exp.rows_in == n_l4, "phase 17: the sketch "
+                     "exporter")
+            t_rows = time.perf_counter() - t0
+            out = exp.flush_window(now=AG_NOW)
+            if cuda:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ship(1)
+            wait_for(lambda: ing.flow_metrics.records == n_docs,
+                     "phase 17: the flow_metrics lane")
+            dt_docs = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            lat = tr.latency()
+            busy_s = {s: sk.sum for s, sk in tr.stages().items()}
+            rc, ec = ing.receiver.counters(), ing.exporters.counters()
+            dc = [d.counters() for d in ing.flow_log.decoders
+                  if d.stream == "l4_flow_log"]
+            sc = [(a.counters(), b.counters()) for a, b in senders]
+            fm_records, rows_in = ing.flow_metrics.records, exp.rows_in
+        finally:
+            for pair in senders:
+                for x in pair:
+                    x.close()
+            ing.close()
+            tr.disable()
+        # the yardstick: the TaggedFlow records framed and decoded here
+        y_sketch, y_red = yardstick(dev, cfg)
+        y_snaps = bus_snapshots(y_sketch)
+        try:
+            y_sketch.start()
+            y_red.start()
+            frames = FrameSequencer().pb(MessageType.TAGGEDFLOW,
+                                         [r for recs in l4 for r in recs])
+            t = time.perf_counter()
+            decoded_cols = [c for _, c in decode_frames(frames, ing.platform)]
+            y_decode_s = time.perf_counter() - t
+            t = time.perf_counter()
+            for cols in decoded_cols:
+                y_sketch.put("l4_flow_log", 0, cols)
+            wait_for(lambda: y_sketch.rows_in == n_l4,
+                     "phase 17: the yardstick")
+            y_sketch.flush_window(now=AG_NOW)
+            if cuda:
+                torch.cuda.synchronize()
+            y_export_s = time.perf_counter() - t
+        finally:
+            y_sketch.close()
+            y_red.close()
+    compare_snaps(y_snaps[:1], snaps[:1], WIRE_FREE_LEAVES,
+                  "the yardstick", "phase 17 (b)")
+    sent_l4 = sum(a["sent_records"] for a, _ in sc)
+    sent_docs = sum(b["sent_records"] for _, b in sc)
+    sent_frames = sum(a["sent_frames"] + b["sent_frames"] for a, b in sc)
+    decoded = sum(d["records"] for d in dc)
+    if not (sent_l4 == decoded == rows_in == n_l4) \
+            or not (sent_docs == fm_records == n_docs) \
+            or rc["rx_frames"] != sent_frames \
+            or any(d["decode_errors"] for d in dc) or rc["no_handler"] \
+            or rc["rx_duplicate"] or ec["put_errors"] or ec["shed"] \
+            or any(x["retransmit_shed"] or x["dropped_records"]
+                   for pair in sc for x in pair):
+        raise AssertionError(f"phase 17 (b): sent {sent_l4} TaggedFlow / "
+                             f"{sent_docs} Documents in {sent_frames} "
+                             f"frames, decoded {decoded}, rows_in {rows_in}, "
+                             f"flow_metrics {fm_records}: {rc} {dc} {ec} "
+                             f"{sc}")
+    for k in ("fused_news_hists", "fused_lane_hists"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 17 (b): kernel {k} never launched")
+    k = FlowSuiteConfig().top_k
+    rec, kth, tied, strict, under, unknown = topk_against_exact(out, allc, k)
+    if under or unknown:
+        raise AssertionError(f"phase 17 (b): of the top-{k}, {under} counts "
+                             f"below their exact count, {unknown} keys never "
+                             "sent")
+    decode_share = busy_s["decode"] / dt
+    stages = {st: {"count": lat[st]["count"],
+                   "p50_ms": round(lat[st]["p50_ms"], 4),
+                   "sum_s": round(busy_s[st], 4)}
+              for st in sorted(lat) if st in busy_s}
+    r = {"records": n_l4, "documents": n_docs, "frames": sent_frames,
+         "seconds": dt, "records_per_s": n_l4 / dt,
+         "rows_in_s": t_rows, "documents_s": dt_docs,
+         "documents_per_s": n_docs / dt_docs, "stages": stages,
+         "yardstick_decode_s": y_decode_s, "yardstick_export_s": y_export_s,
+         "decode_share": decode_share, "launches": launches,
+         "tie_recall": rec, "kth_count": kth, "keys_at_kth": tied,
+         "strict_recall": strict}
+    log(f"  (b) on {card}: {n_l4} TaggedFlow records and {n_docs} "
+        f"Documents in {sent_frames} frames over {AG_VTAPS} agents x 2 "
+        f"senders: {n_l4 / dt:.0f} TaggedFlow records/s through the socket "
+        f"(first byte to the window flushed, {dt:.2f} s; rows_in complete "
+        f"at {t_rows:.2f} s), then the Documents at {n_docs / dt_docs:.0f} "
+        f"records/s ({dt_docs:.2f} s to the flow_metrics lane); "
+        f"sent = decoded = "
+        f"rows_in = {n_l4}, Documents sent = flow_metrics records = "
+        f"{n_docs}, frames sent = received; partition-free leaves "
+        f"{sorted(WIRE_FREE_LEAVES)} = the yardstick's; decode spans "
+        f"{busy_s['decode']:.2f} s = {decode_share:.3f} of the wall; "
+        f"launches {launches}; top-{k}: no count below its exact count, "
+        f"recall {rec:.3f} with ties (K-th exact count {kth}, {tied} keys "
+        f"at or above it), strict {strict:.3f}; stages {stages}; the "
+        f"yardstick: Python decode + enrichment {y_decode_s:.2f} s, put() "
+        f"to the window flushed {y_export_s:.2f} s "
+        f"({n_l4 / y_export_s:.0f} records/s)")
+    return r
+
+
+def check_agent(torch, dev, rng, card):
+    """Phase 17: (a) the agent leg on the card and its CPU twin, (b) its
+    records into the ingester."""
+    leg, l4, docs, allc = check_agent_leg(torch, dev, rng, card)
+    ing = check_agent_ingester(torch, dev, l4, docs, allc, card)
+    return {"agent": leg, "ingester": ing, "launches": ing["launches"],
+            "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6795,6 +7420,11 @@ def main() -> int:
     server = check_server(torch, dev, np.random.default_rng((args.seed, 16)),
                           windows, card)
     phase_done(16)
+    log("phase 17: an agent's l4 stream (FlowMap on the card and a CPU "
+        "twin) into the ingester")
+    agent = check_agent(torch, dev, np.random.default_rng((args.seed, 17)),
+                        card)
+    phase_done(17)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -6804,7 +7434,7 @@ def main() -> int:
             + list(detection["launches"].values()) + [red["launches"]] \
             + shard["launches"] + pod["launches"] + [mesh["launches"]] \
             + [ingest["launches"], ops["launches"], serving["launches"],
-               server["launches"]]:
+               server["launches"], agent["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -6821,7 +7451,8 @@ def main() -> int:
         "sharded": shard,
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
         "ingester": ingest, "operations": ops, "querier": querier,
-        "serving": serving, "server": server, "gate": gate,
+        "serving": serving, "server": server, "agent": agent,
+        "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

@@ -63,7 +63,8 @@ def test_port_files_found():
             "tables.py", "anomaly.py", "otel_pb2.py", "stats_pb2.py",
             "packet_sequence.py", "sender.py", "otlp_exporter.py",
             "ext_metrics.py", "event.py", "droplet.py",
-            "checkpoint.py", "native.py"} <= names
+            "checkpoint.py", "native.py", "packet.py", "tcp_perf.py",
+            "flow_map.py", "quadruple.py", "trident.py"} <= names
     assert (REPO / "deepflow_tpu_torch" / "decode" / "native_src"
             / "decoder.cc").is_file()
     for proto in ("telemetry", "otel", "stats"):

@@ -156,6 +156,29 @@ def faults():
         jfaults().disarm(site)
 
 
+# The straggler cases: the merge deadline sits well above an epoch merge
+# on a loaded host (all shards present, whatever the load), and the
+# stalled contribution is held until the test releases it (the stall
+# outlasts the deadline by construction, not by the clock).
+DEADLINE_S = 3.0
+
+
+@pytest.fixture
+def stall_gate():
+    """Both fault registries' `merge.stall` sleep waits on one event
+    instead of its delay; the test sets it once the straggler is
+    excluded (and the fixture sets it on the way out)."""
+    gate = threading.Event()
+    regs = (tfaults(), jfaults())
+    saved = [r._sleep for r in regs]
+    for r in regs:
+        r._sleep = lambda _delay: gate.wait(60)
+    yield gate
+    gate.set()
+    for r, s in zip(regs, saved):
+        r._sleep = s
+
+
 def _close(pods, **kw):
     for p in pods:
         p.close(**kw)
@@ -251,12 +274,12 @@ def test_shard_device_error_rollback_matches_jax(faults):
     assert _assert_counters(t, j)["pod_rows_pending"] == 0
 
 
-def test_straggler_excluded_at_deadline(faults):
+def test_straggler_excluded_at_deadline(faults, stall_gate):
     """A merge.stall straggler past the deadline is excluded, counted and
     tagged, while the other 7 shards merge on time and ingest keeps
     flowing; its contribution merges late next epoch. Once every
     contribution is in, both pods agree."""
-    pods = t, j = _pods(n_shards=8, merge_deadline_s=0.3)
+    pods = t, j = _pods(n_shards=8, merge_deadline_s=DEADLINE_S)
     faults("merge.stall:count=1,delay_s=1.5,match=shard5;seed=7")
     agent = SyntheticAgent(seed=9)
     try:
@@ -265,7 +288,8 @@ def test_straggler_excluded_at_deadline(faults):
         j.close_epoch()
         t0 = time.monotonic()
         tr = t.close_epoch()
-        assert time.monotonic() - t0 < 1.2, "deadline not enforced"
+        assert time.monotonic() - t0 < DEADLINE_S + 0.9, \
+            "deadline not enforced"
         assert tr.missed == [5] and tr.tags["pod_shards_participated"] == 7
         assert 5 in tr.tags["pod_missing"] and tr.tags["lossy"]
         c = _conserve(t)
@@ -275,7 +299,7 @@ def test_straggler_excluded_at_deadline(faults):
         t0 = time.monotonic()
         _feed([t], agent, batches=2)
         assert time.monotonic() - t0 < 0.5, "ingest blocked on a straggler"
-        time.sleep(1.6)             # the stalled contribution posts
+        stall_gate.set()            # the stalled contribution posts
         assert t.drain(30)
         tr2 = t.close_epoch()
         c = _conserve(t)
@@ -396,14 +420,14 @@ def test_degraded_shard_sheds_as_on_cuda(faults):
     assert _conserve(t)["pod_rows_pending"] == 0
 
 
-def test_pod_audit_tags_shard_loss_lossy(faults):
+def test_pod_audit_tags_shard_loss_lossy(faults, stall_gate):
     """The shadow absorbs every row, and an epoch that excluded a shard
     (then the epoch of its late merge) closes the audit lossy; the
     alarm never fires. The window verdicts equal the JAX auditor's."""
     from deepflow_tpu.runtime.audit import ShadowAuditor as JAuditor
     from deepflow_tpu_torch.runtime.audit import ShadowAuditor
 
-    pods = t, j = _pods(n_shards=8, merge_deadline_s=0.3)
+    pods = t, j = _pods(n_shards=8, merge_deadline_s=DEADLINE_S)
     ta = ShadowAuditor(CFG, rate=1.0, trip_windows=1)
     ja = JAuditor(JCFG, rate=1.0, trip_windows=1)
     t.attach_auditor(ta)
@@ -418,7 +442,8 @@ def test_pod_audit_tags_shard_loss_lossy(faults):
             assert a.rows_seen_total == sent
             assert a.lossy_windows == 1 and a.last_window["lossy"]
             assert not a.alarm and a._violations == 0
-        time.sleep(1.1)
+        stall_gate.set()            # the stalled contributions post
+        assert t.drain(30) and j.drain(30)
         t.close_epoch()
         j.close_epoch()
         for a in (ta, ja):
@@ -506,7 +531,7 @@ def test_pod_kernel_error_surfaces_and_is_never_worked_around(monkeypatch):
     _conserve(t)
 
 
-def test_pod_exporter_matches_jax_exporter(faults):
+def test_pod_exporter_matches_jax_exporter(faults, stall_gate):
     """The exporter's pod_shards branch against the JAX exporter's: the
     chunks fan over 8 shard queues, a window flush closes a merge epoch
     whose output and merged bus snapshot (with participation tags) equal
@@ -519,10 +544,10 @@ def test_pod_exporter_matches_jax_exporter(faults):
     from deepflow_tpu_torch.runtime.tpu_sketch import TpuSketchExporter
 
     texp = TpuSketchExporter(cfg=CFG, window_seconds=3600, batch_rows=B,
-                             pod_shards=8, pod_merge_deadline_s=0.4,
+                             pod_shards=8, pod_merge_deadline_s=DEADLINE_S,
                              anomaly=True, device="cpu")
     jexp = JExp(store=None, cfg=JCFG, window_seconds=3600, batch_rows=B,
-                pod_shards=8, pod_merge_deadline_s=0.4, anomaly=True)
+                pod_shards=8, pod_merge_deadline_s=DEADLINE_S, anomaly=True)
     assert texp.pod is not None and texp.snapshot_bus is texp.pod.bus
     assert texp.wire == "lanes" and texp.checkpointer is None
     cache = SnapshotCache(texp.snapshot_bus, max_staleness_s=3600)
@@ -557,7 +582,8 @@ def test_pod_exporter_matches_jax_exporter(faults):
         c = texp.counters()
         assert c["pod_merge_missed"] == 1
         assert c["pod_rows_sent"] == c["rows_in"] == 6 * B
-        time.sleep(1.1)
+        stall_gate.set()            # the stalled contribution posts
+        assert texp.pod.drain(30)
     finally:
         texp.close()
         jexp.close()
