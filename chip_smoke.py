@@ -2,7 +2,7 @@
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
 suites, flow_metrics store lane, pod, global mesh, ingester with its
 operations surface, serving with the querier, and the server process
-with every ingest lane on one CUDA card.
+with every ingest lane, and the agent process, on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -49,8 +49,9 @@ is printed):
    their shapes;
 4. the same small input through both exporters on the card and on the
    CPU (plain versions), state and outputs compared;
-5. one window of each path under torch.profiler: device time, its share
-   of the wall time, and the largest device ops (reported, not checked);
+5. half of one window (2^19 records; the half is the cut) of each path
+   under torch.profiler: device time, its share of the wall time, and
+   the largest device ops (reported, not checked);
    then one full-row batch's device kernels, which must hold exactly two
    hist launches and no float conversion;
 6. the exporter as the ingester runs it, on the same two windows: the
@@ -156,10 +157,10 @@ is printed):
    of each suite under torch.profiler, ingest and flush apart: launches
    per global batch, busy share, a flush's syncs;
 10. the flow_metrics pipeline's store lane and the rollup GROUP BY on
-   the card: 16,384 distinct vtap_flow_port tag tuples (ip over 4096
-   addresses, server_port by Zipf(1.1) over 1024, vtap_id over 64,
-   l3_epc_id with -1) reporting each second for 120 s from an hour
-   boundary ahead of the wall clock (1,966,080 rows of the 66-column
+   the card: 8192 distinct vtap_flow_port tag tuples (cut from 16,384
+   for time; ip over 4096 addresses, server_port by Zipf(1.1) over
+   1024, vtap_id over 64, l3_epc_id with -1) reporting each second
+   for 120 s from an hour boundary ahead of the wall clock (983,040 rows of the 66-column
    METRICS_TABLE, meters from phase 9's signals and seeded log-normals,
    some near 0xFFFFFFFF): (a) every row through
    FlowMetricsPipeline.put() in chunks of 2^14 with 2 unmarshallers, in
@@ -171,7 +172,7 @@ is printed):
    second advance() and a fresh RollupManager on the same root emit
    nothing; the build's steps timed apart; (b) group_reduce over the
    minute buckets without tag_code (keys within u32, l3_epc_id signed)
-   at 2^16, 2^18, 2^20 rows and all of them, by the host and the device
+   at 2^16 and 2^18 rows and all of them, by the host and the device
    path on the card and on the CPU, every array identical, with wall
    and device times of both card paths, and the sync contract (one
    stream sync on the host path, two on the device path); (c) compact()
@@ -243,11 +244,11 @@ is printed):
    frames built by the port's wire modules: phase 3's two windows of
    l4 records (window 0's first 2^16 as TAGGEDFLOW protobuf records,
    the rest as planar COLUMNAR_FLOW frames; the L4_SCHEMA columns phase
-   3 does not draw from the seed), 2^17 l7 requests drawn as phase 8
-   draws them (PROTOCOLLOG) and 2^17 Documents drawn as phase 10 draws
-   them (METRICS). Every l4 decoder must have registered the native
-   fast path for TAGGEDFLOW. (a) One decoder, one connection: every sketch leaf at
-   every window, the anomaly states and alerts, every window and RED
+   3 does not draw from the seed), 2^16 l7 requests drawn as phase 8
+   draws them (PROTOCOLLOG) and 2^16 Documents drawn as phase 10 draws
+   them (METRICS); the depth of both is the cut. Every l4 decoder must
+   have registered the native fast path for TAGGEDFLOW. (a) One
+   decoder, one connection: every sketch leaf at every window, the anomaly states and alerts, every window and RED
    output equal to a second TpuSketchExporter and AppRedExporter on the
    card fed through put() with the same frames decoded here by the
    port's decoders and stamped by the same PlatformDataManager; top-K
@@ -255,8 +256,9 @@ is printed):
    decoded, rows into the sketch, the registry's puts = the chunks its
    exporters processed, stored + sampled-out rows = decoded rows); the
    metrics 1m tier = a numpy GROUP BY. (b) Two decoders, 4 connections
-   with 4 vtap_ids, the tracer on: the l4 frames; the leaves that do not
-   depend on the batch partition equal to (a)'s; records/s from the
+   with 4 vtap_ids, the tracer on: window 0's l4 frames (the one window
+   is the cut); the leaves that do not depend on the batch partition
+   equal to (a)'s; records/s from the
    first byte sent to the last window flushed (beside phase 6's dict
    feed), the stage medians, launches, and one more window's ingest
    under torch.profiler: no stream or device sync, event syncs = fences,
@@ -289,7 +291,7 @@ is printed):
    VALUES) through QueryEngine on the card and on the CPU: identical
    rows; two statements equal a numpy GROUP BY of phase 10's columns;
    per statement the rows grouped, the GROUP BY path taken and the wall
-   p50 of 5 runs each way; one device-path query under torch.profiler
+   p50 of 3 runs each way; one device-path query under torch.profiler
    (kernels, syncs, device-to-host copies). (b) Phase 13 (b)'s ingester
    with SnapshotCache, SketchTables and AnomalyTables mounted on its
    exporter's snapshot bus and anomaly bus and a QuerierServer on port 0
@@ -335,7 +337,7 @@ is printed):
    flush walls and syncs, the start-to-first-answer time.
 17. an agent's l4 stream into the ingester: one busy node's agent at
    full width, a FlowMap holding 2^16 concurrent TCP flows, capture
-   batches of 4096 frames, 2^19 packets over 4 one-second ticks (the
+   batches of 4096 frames, 2^18 packets over 4 one-second ticks (the
    depth is the cut) from the phase's own generator (a 54-byte header
    template patched column by column; packets over the live flows by
    Zipf(1.1); each tick 1/8 of the flows close, 3/4 FIN and 1/4 RST,
@@ -364,6 +366,30 @@ is printed):
    is a tie among thousands of flows at 4 records; ties count as hits).
    Printed: TaggedFlow records/s through the socket, Documents/s, the
    decoder spans over the wall, the stages, the fused and hist launches.
+18. the agent process: phase 17's generator with payloads in the
+   protocol of each server port (HTTP/1.1 requests and responses, TLS
+   ClientHello and ServerHello, MySQL, Redis, Kafka, PostgreSQL) and
+   2048 DNS queries a tick over UDP, 2^18 packets over 4 ticks (the cut
+   from 2^19 is for the per-packet L7 parse on the host), a FlowMap of
+   2^16 flows, 4096-frame batches. (a) the same batches through
+   Agent(device="cuda") and Agent(device="cpu") on the defaults
+   (columnar wire, L7 on) with packet_sequence on, ticked by hand,
+   each agent's senders into a loopback receiver: every stream byte
+   for byte and the counters equal; sessions merged (paired and
+   unpaired) = sent + throttled. Printed: packets/s per agent, the
+   sessions, the tick's wall split. (b) the packets written to a pcap
+   with the port's PcapWriter (restamped by whole seconds from now),
+   phase 16's server.Server on the card in this process (its l4
+   throttle raised), `python -m deepflow_tpu_torch.agent -f
+   <bootstrap.json>` (engine pcap, packet_sequence and self-telemetry
+   on) until every valid packet is in the server's l4 rows, then
+   SIGTERM: exit 0; the packets and bytes of the l4 rows and of the
+   Documents in flow_metrics = the pcap's valid packets', l4 rows =
+   the sketch's rows_in, l7 rows = (a)'s sessions sent (a gap past 1%
+   fails), l4_packet rows and the agent's DFSTATS in deepflow_system;
+   the server leg launches hist and both fused kernels. Printed:
+   packets/s through the process, frames and records per stream, the
+   Guard's breach count.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -2899,12 +2925,14 @@ def check_sharded(torch, dev, rng, args, windows, card):
 
 # -- phase 10: the store's read half, the rollup GROUP BY, flow_metrics ------
 
-FM_TUPLES = 16_384        # distinct vtap_flow_port tag tuples
+FM_TUPLES = 8192          # distinct vtap_flow_port tag tuples (cut from
+#                            16,384 for time)
 FM_SECONDS = 120          # one report per tuple per second: two minutes
 FM_CHUNK = 1 << 14        # rows per decoded chunk put into the pipeline
 FM_INTERVAL = 60
 FM_WAVES = 4              # the writer flushed after each 30 s of reports
-GROUPBY_SIZES = (1 << 16, 1 << 18, 1 << 20)   # then every row of both minutes
+GROUPBY_SIZES = (1 << 16, 1 << 18, 1 << 20)   # those below every row, then
+#                                                 every row
 GROUPBY_REPEATS = 3
 
 
@@ -3196,7 +3224,7 @@ def compare_groupby(torch, dev, cols, card):
         * np.uint32(FM_INTERVAL)
     rows = []
     n_all = len(cols["timestamp"])
-    for n in GROUPBY_SIZES + (n_all,):
+    for n in tuple(x for x in GROUPBY_SIZES if x < n_all) + (n_all,):
         part = {k: work[k][:n] for k in keys + list(aggs)}
         outs = {}
         for where, method in (("card", "host"), ("card", "device"),
@@ -4309,13 +4337,15 @@ def check_global_mesh(torch, dev, windows, ref, tmp, card):
 # -- phase 13: the ingester entry point --------------------------------------
 
 ING_TAGGED = 1 << 16       # window 0's first records, as TAGGEDFLOW protobuf
-ING_L7 = 1 << 17           # phase 8's l7 requests, as PROTOCOLLOG
-ING_DOC_TUPLES = 2048      # phase 10's tag tuples x seconds: 2^17 Documents,
-ING_DOC_SECONDS = 64       # as METRICS
+ING_L7 = 1 << 16           # phase 8's l7 requests, as PROTOCOLLOG (cut
+#                            from 2^17 for time)
+ING_DOC_TUPLES = 2048      # phase 10's tag tuples x seconds: 2^16 Documents,
+ING_DOC_SECONDS = 32       # as METRICS (cut from 64 s for time)
 ING_PB_PER_FRAME = 1024    # protobuf records per frame
 ING_COL_PER_FRAME = 1024   # planar L4 rows per COLUMNAR_FLOW frame (~459 KB)
 ING_VTAPS = 4              # (b), (c): connections, one vtap_id each
-ING_PROFILED_FRAMES = 256  # (b), (c): window 1's first planar frames, profiled
+ING_PROFILED_FRAMES = 128  # (b), (c): window 1's first planar frames, profiled
+#                            (cut from 256 for time; phase 15 (b) too)
 ING_AUTOTUNE_S = 0.25
 ING_STAGES = ("receiver", "decode", "queue.ingest.l4_flow_log",
               "queue.exporter.tpu_sketch", "kernel.h2d", "kernel.dispatch",
@@ -5062,14 +5092,14 @@ def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ing_") as tmp:
         a = check_ingester_identity(torch, dev, traffic, windows, tmp, card)
         del traffic
-        b = run_ingester_throughput(torch, dev, "(b)", per_window, profiled,
-                                    windows, a["snaps"], tmp, card)
-        off = run_ingester_throughput(
-            torch, dev, "(b) surface off", per_window, profiled, windows,
-            a["snaps"], tmp, card, surface=False)
+        # (b), (c) and (b) off over window 0 (cut from both windows
+        # for time); (a) runs both
+        one = (per_window[:1], profiled, windows[:1], a["snaps"][:1])
+        b = run_ingester_throughput(torch, dev, "(b)", *one, tmp, card)
+        off = run_ingester_throughput(torch, dev, "(b) surface off", *one,
+                                      tmp, card, surface=False)
         c = run_ingester_throughput(
-            torch, dev, "(c) autotune", per_window, profiled, windows,
-            a["snaps"], tmp, card, autotune=True,
+            torch, dev, "(c) autotune", *one, tmp, card, autotune=True,
             autotune_interval_s=ING_AUTOTUNE_S)
     if c["stream_syncs"] != b["stream_syncs"] \
             or c["device_syncs"] != b["device_syncs"]:
@@ -5090,7 +5120,7 @@ def check_ingester(torch, dev, rng, windows, card, dict_feed_rate):
         f"{b['device_syncs']} = {off['device_syncs']}, event syncs = fences "
         f"in both")
     log(f"  (b), (c): the partition-free leaves {sorted(WIRE_FREE_LEAVES)} = "
-        f"(a)'s at both windows; ingest stream syncs {b['stream_syncs']} = "
+        f"(a)'s at window 0; ingest stream syncs {b['stream_syncs']} = "
         f"{c['stream_syncs']}; records/s (b) {b['records_per_s']:.0f}, "
         f"(c) {c['records_per_s']:.0f}, phase 6's dict feed through put() "
         f"{dict_feed_rate:.0f} ((b) / dict feed "
@@ -5459,7 +5489,8 @@ def check_ops(torch, dev, rng, windows, card):
 
 # -- phase 15: serving and the querier --------------------------------------
 
-QUERY_RUNS = 5             # wall p50 over this many runs per statement
+QUERY_RUNS = 3             # wall p50 over this many runs per statement
+#                            (cut from 5 for time)
 SERVE_RPS = 20.0           # (b)'s client: requests a second over HTTP
 SERVE_MIN_S = 3.0          # (b)'s client runs at least this long
 SERVE_CMS_KEYS = 1 << 16   # keys of the CMS multiget against ops/cms.query
@@ -6697,7 +6728,7 @@ def check_server(torch, dev, rng, windows, card):
 AG_FLOWS = 1 << 16         # the FlowMap's table: concurrent flows at most
 AG_TURNOVER = AG_FLOWS // 8   # flows that close (and open) every tick
 AG_BATCH = 4096            # frames per capture batch (the dispatcher's batch)
-AG_PACKETS = 1 << 19       # packets over the run (a cut for time)
+AG_PACKETS = 1 << 18       # packets over the run (a cut for time)
 AG_TICKS = 4               # one-second ticks
 AG_SERVERS = 4096          # server endpoints, in 172.16.0.0/12
 AG_PORTS = np.array([80, 443, 3306, 6379, 8080, 9092, 5432, 8443], np.uint32)
@@ -6739,9 +6770,13 @@ class AgentFlows:
     at its end and as many new ones open in their slots in the next, so
     the FlowMap never holds more than AG_FLOWS."""
 
-    def __init__(self, rng):
+    def __init__(self, rng, l7=False):
         n = AG_FLOWS
         self.rng = rng
+        # l7: payloads in the protocol of the server's port (phase 18);
+        # they draw nothing from rng, so phase 17's stream is the same
+        self.l7 = l7
+        self.payloads = []
         self.srv_ip = (0xAC100000 + rng.integers(0, 1 << 20, AG_SERVERS)
                        ).astype(np.uint32)
         self.srv_port = rng.choice(AG_PORTS, AG_SERVERS)
@@ -6778,13 +6813,14 @@ class AgentFlows:
         rng, n = self.rng, AG_FLOWS
         parts = []
 
-        def add(slot, up, flags, payload, seq, ack, ts, win=8192):
+        def add(slot, up, flags, payload, seq, ack, ts, win=8192, pidx=-1):
             k = len(slot)
             parts.append({"slot": slot, "up": np.broadcast_to(up, k),
                           "flags": np.broadcast_to(flags, k),
                           "payload": np.broadcast_to(payload, k),
                           "seq": seq, "ack": ack, "ts": ts,
-                          "win": np.broadcast_to(win, k)})
+                          "win": np.broadcast_to(win, k),
+                          "pidx": np.broadcast_to(pidx, k)})
         # handshakes
         o = self.opening
         m = len(o)
@@ -6816,6 +6852,18 @@ class AgentFlows:
         slot, ts = slot[order], ts[order]
         ph = (self.phase[slot] + _run_index(slot)) % 4
         plen = np.where(ph % 2 == 0, rng.integers(64, 1401, n_data), 0)
+        pidx = np.full(n_data, -1, np.int64)
+        if self.l7:
+            # a request on the client's PSH/ACK, a response on the
+            # server's, each as long as its bytes
+            data = np.nonzero(ph % 2 == 0)[0]
+            base = len(self.payloads)
+            ports = self.srv_port[self.srv[slot[data]]].tolist()
+            self.payloads += [l7_payload(port, resp, base + j)
+                              for j, (port, resp) in enumerate(
+                                  zip(ports, (ph[data] == 2).tolist()))]
+            pidx[data] = base + np.arange(len(data))
+            plen[data] = [len(b) for b in self.payloads[base:]]
         cpl = np.where(ph == 0, plen, 0)
         spl = np.where(ph == 2, plen, 0)
         cin = np.cumsum(cpl)
@@ -6833,12 +6881,12 @@ class AgentFlows:
         flags = np.where(ph % 2 == 0, _PSH_ACK, _ACK)
         win = np.where((ph % 2 == 1) & (rng.random(n_data) < AG_ZERO_WIN),
                        0, 8192)
-        add(slot, up, flags, plen, seq, ack, ts, win)
+        add(slot, up, flags, plen, seq, ack, ts, win, pidx)
         rt = rng.choice(np.nonzero(plen > 0)[0], packets - fixed - n_data,
                         replace=False)
         add(slot[rt], up[rt], flags[rt], plen[rt], seq[rt], ack[rt],
             np.minimum(ts[rt] + rng.integers(200 * MS, 300 * MS, len(rt)),
-                       t + 993 * MS), win[rt])
+                       t + 993 * MS), win[rt], pidx[rt])
         np.add.at(self.cseq, slot, cpl)
         np.add.at(self.sseq, slot, spl)
         self.phase += np.bincount(slot, minlength=n)
@@ -6869,9 +6917,10 @@ class AgentFlows:
         return cols
 
 
-def agent_frames(cols):
+def agent_frames(cols, payloads=None):
     """Raw Ethernet frames of a tick's packet columns: AG_HDR patched
-    column by column, zero payload bytes behind it."""
+    column by column, zero payload bytes behind it, or a packet's bytes
+    from `payloads` where its `pidx` names one."""
     n = len(cols["ts"])
     hdr = np.tile(AG_HDR, (n, 1))
     plen = cols["payload"].astype(np.int64)
@@ -6892,6 +6941,14 @@ def agent_frames(cols):
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
     buf = np.zeros(int(lens.sum()), np.uint8)
     buf[offs[:, None] + np.arange(54)] = hdr
+    if payloads is not None:
+        has = np.nonzero(cols["pidx"] >= 0)[0]
+        body = np.frombuffer(b"".join(payloads[i] for i in
+                                      cols["pidx"][has].tolist()), np.uint8)
+        ln = plen[has]
+        first = np.repeat(np.cumsum(ln) - ln, ln)
+        buf[np.repeat(offs[has] + 54, ln) + np.arange(len(body)) - first] = \
+            body
     raw = buf.tobytes()
     return [raw[o:o + k] for o, k in zip(offs.tolist(), lens.tolist())]
 
@@ -7286,6 +7343,571 @@ def check_agent(torch, dev, rng, card):
             "card": card}
 
 
+
+# -- phase 18: the agent process on the card --------------------------------
+
+AP_PACKETS = 1 << 18       # packets over AG_TICKS ticks: cut from phase 17's
+#                            2^19 for the per-packet L7 parse on the host
+AP_DNS = 2048              # DNS queries a tick over UDP, 9/10 answered
+AP_DNS_SERVERS = 4         # resolvers, in 172.31.0.0/24
+AP_WAIT_S = 120            # (b): the longest wait for the server to take in
+#                            the pcap's packets
+
+
+def l7_payload(port, resp, i):
+    """A request (or, `resp`, a response) in the protocol of the server
+    port: HTTP/1.1 on 80 and 8080, a TLS ClientHello / ServerHello on
+    443 and 8443, MySQL, Redis, Kafka and PostgreSQL on theirs."""
+    if port in (80, 8080):
+        if resp:
+            return (f"HTTP/1.1 {(200, 200, 200, 404, 503)[i % 5]} X\r\n"
+                    f"Content-Length: {i % 997}\r\n\r\n").encode()
+        return (f"GET /api/v{i % 3}/items/{i % 4099}?page={i % 7} HTTP/1.1"
+                f"\r\nHost: svc{i % 61}.prod\r\nUser-Agent: curl/8\r\n"
+                f"X-Request-Id: {i:x}\r\n\r\n").encode()
+    if port in (443, 8443):
+        if resp:
+            body = b"\x03\x03" + bytes(32) + b"\x00\x13\x01\x00"
+            hs = b"\x02" + len(body).to_bytes(3, "big") + body
+            return b"\x16\x03\x03" + len(hs).to_bytes(2, "big") + hs
+        sni = f"api{i % 97}.example.com".encode()
+        ext = (b"\x00\x00" + (len(sni) + 5).to_bytes(2, "big")
+               + (len(sni) + 3).to_bytes(2, "big") + b"\x00"
+               + len(sni).to_bytes(2, "big") + sni)
+        body = (b"\x03\x03" + bytes(32) + b"\x00\x00\x02\x13\x01\x01\x00"
+                + len(ext).to_bytes(2, "big") + ext)
+        hs = b"\x01" + len(body).to_bytes(3, "big") + body
+        return b"\x16\x03\x01" + len(hs).to_bytes(2, "big") + hs
+    if port == 3306:
+        if resp:
+            body = b"\x00\x00\x00\x02\x00\x00\x00" if i % 9 else \
+                b"\xff\x15\x04#28000denied"
+            return len(body).to_bytes(3, "little") + b"\x01" + body
+        q = f"\x03SELECT id, name FROM t{i % 13} WHERE id = {i}".encode()
+        return len(q).to_bytes(3, "little") + b"\x00" + q
+    if port == 6379:
+        if resp:
+            return b"$5\r\nvalue\r\n" if i % 11 else b"-ERR wrong type\r\n"
+        key = f"session:{i % 100003}".encode()
+        return (b"*2\r\n$3\r\nGET\r\n$" + str(len(key)).encode() + b"\r\n"
+                + key + b"\r\n")
+    if port == 9092:
+        corr = (21 + i % 30000).to_bytes(4, "big")
+        if resp:
+            return (10).to_bytes(4, "big") + corr + bytes(6)
+        client = f"producer-{i % 5}".encode()
+        body = ((i % 4).to_bytes(2, "big") + (7).to_bytes(2, "big") + corr
+                + len(client).to_bytes(2, "big") + client + bytes(8))
+        return len(body).to_bytes(4, "big") + body
+    # 5432: a simple query; RowDescription, or an ErrorResponse
+    if resp:
+        return (b"T\x00\x00\x00\x06\x00\x00" if i % 7 else
+                b"E\x00\x00\x00\x0cSERROR\x00\x00\x00")
+    q = f"SELECT a, b FROM t{i % 17} WHERE x = {i} AND y = 'v'\x00".encode()
+    return b"Q" + (len(q) + 4).to_bytes(4, "big") + q
+
+
+def udp_frame(src, dst, sport, dport, payload):
+    ip = (b"\x45\x00" + (28 + len(payload)).to_bytes(2, "big")
+          + b"\x00\x00\x00\x00\x40\x11\x00\x00" + src.to_bytes(4, "big")
+          + dst.to_bytes(4, "big"))
+    return (b"\x02" * 6 + b"\x04" * 6 + b"\x08\x00" + ip
+            + sport.to_bytes(2, "big") + dport.to_bytes(2, "big")
+            + (8 + len(payload)).to_bytes(2, "big") + b"\x00\x00" + payload)
+
+
+def dns_packets(rng, flows, t, n):
+    """n DNS queries over UDP in the second starting at t (ns), from the
+    generator's clients to AP_DNS_SERVERS resolvers, 9/10 answered 1-5 ms
+    later: (stamps, frames)."""
+    cli = flows.cip[rng.integers(0, AG_FLOWS, n)].tolist()
+    cport = rng.integers(1024, 1 << 16, n).tolist()
+    srv = (0xAC1F0000 + 1 + rng.integers(0, AP_DNS_SERVERS, n)).tolist()
+    ts = t + rng.integers(0, 990 * MS, n)
+    rtt = rng.integers(1 * MS, 5 * MS, n)
+    answered = (rng.random(n) < 0.9).tolist()
+    stamps, frames = [], []
+    for j in range(n):
+        name = b"".join(bytes([len(p)]) + p for p in (
+            f"svc{j % 251}".encode(), b"prod", b"example", b"com")) + b"\x00"
+        q = name + b"\x00\x01\x00\x01"
+        head = j.to_bytes(2, "big")
+        frames.append(udp_frame(cli[j], srv[j], cport[j], 53, head
+                                + b"\x01\x00\x00\x01\x00\x00\x00\x00\x00\x00"
+                                + q))
+        stamps.append(int(ts[j]))
+        if answered[j]:
+            rcode = 3 if j % 13 == 0 else 0
+            frames.append(udp_frame(
+                srv[j], cli[j], 53, cport[j], head
+                + bytes([0x81, 0x80 | rcode]) + b"\x00\x01\x00\x01\x00\x00"
+                + b"\x00\x00" + q + b"\xc0\x0c\x00\x01\x00\x01\x00\x00\x00"
+                b"\x3c\x00\x04" + bytes([10, 0, j >> 8 & 255, j & 255])))
+            stamps.append(int(ts[j] + rtt[j]))
+    return np.asarray(stamps, np.int64), frames
+
+
+def agent_process_traffic(rng, t_data):
+    """AG_TICKS one-second ticks of about AP_PACKETS // AG_TICKS packets
+    each: phase 17's TCP generator with protocol payloads, and DNS over
+    UDP; per tick (frames, stamps) in stamp order."""
+    flows = AgentFlows(rng, l7=True)
+    ticks = []
+    for k in range(AG_TICKS):
+        t = (t_data + k) * NS
+        d_ts, d_frames = dns_packets(rng, flows, t, AP_DNS)
+        cols = flows.tick(t, AP_PACKETS // AG_TICKS - len(d_frames))
+        frames = agent_frames(cols, flows.payloads) + d_frames
+        ts = np.concatenate([cols["ts"], d_ts])
+        order = np.argsort(ts, kind="stable")
+        ticks.append(([frames[i] for i in order.tolist()],
+                      ts[order].astype(np.uint64)))
+    return ticks
+
+
+class LoopbackSink:
+    """A TCP receiver on localhost for one agent's senders: every
+    connection's bytes, by message type."""
+
+    def __init__(self):
+        import socket
+        self.srv = socket.create_server(("127.0.0.1", 0))
+        self.port = self.srv.getsockname()[1]
+        self.conns = []
+        self._lock = threading.Lock()
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        while True:
+            try:
+                c, _ = self.srv.accept()
+            except OSError:
+                return
+            buf, eof = bytearray(), threading.Event()
+            with self._lock:
+                self.conns.append((buf, eof))
+            threading.Thread(target=self._read, args=(c, buf, eof),
+                             daemon=True).start()
+
+    @staticmethod
+    def _read(c, buf, eof):
+        with c:
+            while True:
+                chunk = c.recv(1 << 20)
+                if not chunk:
+                    break
+                buf += chunk
+        eof.set()
+
+    def drain(self, senders, timeout=120):
+        """Close the senders, wait for their connections' end; returns
+        {message type: the bytes of every frame of that type, in order}."""
+        want = 0
+        for x in senders.values():
+            x.close()
+            want += x.sent_frames > 0
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                conns = list(self.conns)
+            if len(conns) >= want and all(e.is_set() for _, e in conns):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 18: an agent's senders never "
+                                     "closed")
+            time.sleep(0.01)
+        out = {}
+        for buf, _ in conns:
+            if buf:
+                out.setdefault(buf[4], []).append(bytes(buf))
+        return {k: b"".join(v) for k, v in out.items()}
+
+    def close(self):
+        self.srv.close()
+
+
+def _timed(obj, name, acc, key):
+    """Replace obj.name by a wrapper that adds its wall time to acc[key]."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[key] += time.perf_counter() - t
+    setattr(obj, name, timed)
+
+
+def run_agent_inline(torch, dev, ticks, t_data):
+    """Phase 18 (a), one agent: Agent(device=dev) on the defaults
+    (columnar wire, L7 on) with packet_sequence on, fed every tick's
+    frames in AG_BATCH-frame batches, ticked by hand; its senders into a
+    LoopbackSink. Returns the streams, counters, rates and the tick's
+    wall split."""
+    from deepflow_tpu_torch.agent import trident
+    from deepflow_tpu_torch.wire import MessageType
+    sink = LoopbackSink()
+    agent = trident.Agent(trident.AgentConfig(
+        ingester_addr=f"127.0.0.1:{sink.port}", packet_sequence=True),
+        device=dev)
+    split = dict.fromkeys(("tick_columns", "columnar_flow", "documents",
+                           "metrics_records", "protocollog",
+                           "packet_sequence"), 0.0)
+    valid = {"packets": 0, "bytes": 0}
+    dispatch = agent.dispatcher.dispatch
+
+    def counted(frames, stamps):
+        pkt = dispatch(frames, stamps)
+        valid["packets"] += int(pkt["valid"].sum())
+        valid["bytes"] += int(pkt["pkt_len"][pkt["valid"]].sum())
+        return pkt
+    agent.dispatcher.dispatch = counted
+    _timed(agent.flow_map, "tick_columns", split, "tick_columns")
+    _timed(agent.senders[MessageType.COLUMNAR_FLOW], "send_columns", split,
+           "columnar_flow")
+    _timed(agent.senders[MessageType.METRICS], "send", split,
+           "metrics_records")
+    _timed(agent.senders[MessageType.PROTOCOLLOG], "send", split,
+           "protocollog")
+    _timed(agent.senders[MessageType.PACKETSEQUENCE], "send_raw_batch",
+           split, "packet_sequence")
+    module = {n: getattr(trident, n) for n in ("flows_to_documents",
+                                               "documents_to_records")}
+    _timed(trident, "flows_to_documents", split, "documents")
+    _timed(trident, "documents_to_records", split, "metrics_records")
+    feed_s = tick_s = 0.0
+    packets = 0
+    try:
+        for k, (frames, stamps) in enumerate(ticks):
+            t = time.perf_counter()
+            for i in range(0, len(frames), AG_BATCH):
+                packets += agent.feed(frames[i:i + AG_BATCH],
+                                      stamps[i:i + AG_BATCH])
+            feed_s += time.perf_counter() - t
+            t = time.perf_counter()
+            agent.tick((t_data + k + 1) * NS, final=k == len(ticks) - 1)
+            tick_s += time.perf_counter() - t
+        streams = sink.drain(agent.senders)
+        r = {"streams": streams, "counters": agent.counters(),
+             "unpaired": agent.sessions.unpaired, "valid": valid,
+             "packets_per_s": packets / feed_s, "feed_s": feed_s,
+             "tick_s": tick_s, "tick_split_s": split,
+             "stream_bytes": {MessageType(mt).name: len(b)
+                              for mt, b in streams.items()}}
+    finally:
+        for n, fn in module.items():
+            setattr(trident, n, fn)
+        agent.close()
+        sink.close()
+    return r
+
+
+class L4Tally:
+    """An exporter that sums what the server's l4 decoder puts: rows,
+    packets and bytes (phase 18 (b)'s conservation count)."""
+
+    name = "phase18_l4_tally"
+
+    def __init__(self):
+        self.rows = self.packets = self.bytes = 0
+        self._lock = threading.Lock()
+
+    def start(self):
+        pass
+
+    def close(self):
+        pass
+
+    def is_export_data(self, stream, cols):
+        return stream == "l4_flow_log"
+
+    def put(self, stream, decoder_index, cols):
+        with self._lock:
+            self.rows += len(cols["packet_tx"])
+            self.packets += int(np.asarray(cols["packet_tx"], np.int64).sum()
+                                + np.asarray(cols["packet_rx"],
+                                             np.int64).sum())
+            self.bytes += int(np.asarray(cols["byte_tx"], np.int64).sum()
+                              + np.asarray(cols["byte_rx"], np.int64).sum())
+
+
+def _column_sum(table, *cols):
+    rows = table.scan()
+    return sum(int(np.asarray(rows[c], np.int64).sum()) for c in cols)
+
+
+def start_agent_process(torch, dev, tmp):
+    """Phase 18 (b), first half: phase 16's server.Server on `dev` in this
+    process (its l4 throttle raised: conservation is the check), an
+    L4Tally on its registry, then `python -m deepflow_tpu_torch.agent`
+    (engine pcap, packet sequence and self-telemetry on) reading its
+    capture from a FIFO: its start-up runs beside (a), and its replay
+    begins when replay_agent_process writes the pcap. Returns the run's
+    state; the caller closes it with stop_agent_process."""
+    from deepflow_tpu_torch.server import Server
+    os.makedirs(os.path.join(tmp, "server"))
+    path = server_config(os.path.join(tmp, "server"))
+    with open(path) as f:
+        cfg = json.load(f)
+    # the ingest throttle samples l4 rows past 50,000 a second; this
+    # agent ships up to AG_FLOWS a tick, and conservation is the check
+    cfg["ingester"]["throttle_per_s"] = 1 << 24
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    fifo = os.path.join(tmp, "capture.pcap")
+    os.mkfifo(fifo)
+    boot = os.path.join(tmp, "agent.json")
+    run = {"srv": Server(path, device=dev), "tally": L4Tally(),
+           "fifo": fifo, "proc": None}
+    run["srv"].ingester.exporters.register(run["tally"])
+    run["srv"].start()
+    with open(boot, "w") as f:
+        json.dump({"ingester_addr": f"127.0.0.1:{run['srv'].ingester.port}",
+                   "packet_sequence": True, "self_telemetry": True,
+                   "host": "phase18-node",
+                   "capture": {"engine": "pcap", "path": fifo}}, f)
+    run["t_spawn"] = time.perf_counter()
+    run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "deepflow_tpu_torch.agent", "-f", boot,
+         "--device", torch.device(dev).type],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return run
+
+
+def stop_agent_process(run):
+    proc = run["proc"]
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    run["srv"].close()
+
+
+def replay_agent_process(torch, dev, run, ticks, t_data, inline, card):
+    """Phase 18 (b), second half: the packets written into the FIFO with
+    the port's PcapWriter, restamped by whole seconds from now (the
+    per-second L7 budget and the session merge see (a)'s stamps, and the
+    agent's wall-clock ticks meet live flows); once every valid packet is
+    in the server's l4 rows, SIGTERM; then the conservation checks."""
+    from deepflow_tpu_torch.agent.pcap import PcapWriter
+    srv, tally, proc = run["srv"], run["tally"], run["proc"]
+    ing = srv.ingester
+    want = inline["valid"]
+    sent_l7 = inline["counters"]["sent_protocollog"]
+    if proc.poll() is not None:
+        raise AssertionError(f"phase 18 (b): the agent process exited "
+                             f"{proc.returncode} before the replay: "
+                             f"{proc.stderr.read()[-3000:]}")
+    zero_launches()
+    t_b = int(time.time()) + 1
+    shift = np.uint64((t_b - t_data) * NS)
+    errs = []
+
+    def write():
+        try:
+            w = PcapWriter(run["fifo"])      # opens once the agent reads
+            for frames, stamps in ticks:
+                w.write(frames, (stamps + shift).tolist())
+            w.close()
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            errs.append(e)
+    t0 = time.perf_counter()
+    writer = threading.Thread(target=write, daemon=True)
+    writer.start()
+    t_first = None
+    deadline = time.monotonic() + AP_WAIT_S
+    while tally.packets < want["packets"] and proc.poll() is None \
+            and time.monotonic() < deadline:
+        if t_first is None and tally.rows:
+            t_first = time.perf_counter()
+        time.sleep(0.01)
+    t_all = time.perf_counter()
+    writer.join(timeout=60)
+    if errs:
+        raise errs[0]
+    log(f"  (b) the l4 tally {t_all - t0:.2f} s after the pcap's first "
+        f"byte ({t0 - run['t_spawn']:.2f} s after the spawn): "
+        f"{tally.packets} of {want['packets']} packets")
+    proc.send_signal(15)
+    out, err = proc.communicate(timeout=120)
+    t_exit = time.perf_counter()
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 18 (b): the agent process exited "
+                             f"{proc.returncode}: {err[-3000:]}")
+    # the final tick's frames in, every ingest queue empty, then each
+    # exporter has taken what the decoders put
+    queues = list(ing._own_queues().values())
+    last, still = -1, 0
+    while still < 20:
+        rx = ing.receiver.counters()["rx_frames"]
+        busy = rx != last or any(len(q) for q in queues)
+        still = 0 if busy else still + 1
+        last = rx
+        time.sleep(0.05)
+
+    def decoded(stream):
+        return sum(d.counters()["records"] for d in ing.flow_log.decoders
+                   if d.stream == stream)
+    wait_for(lambda: ing.tpu_sketch.rows_in == tally.rows
+             and ing.app_red.rows_in == decoded("l7_flow_log"),
+             "phase 18 (b): the server's exporters", timeout=120)
+    # the windows closed by hand, as phase 16 closes them: the partial
+    # batches go through the kernels
+    ing.tpu_sketch.flush_window(now=float(t_b + AG_TICKS + 1))
+    ing.app_red.flush_window(now=float(t_b + AG_TICKS + 1))
+    ing.flush()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    t_drained = time.perf_counter()
+    launches = read_launches("phase 18 (b)", wants=(
+        "hist", "fused_lane_hists", "fused_news_hists"))
+    store = ing.store
+    l4 = store.table("flow_log", "l4_flow_log")
+    got = {"packets": _column_sum(l4, "packet_tx", "packet_rx"),
+           "bytes": _column_sum(l4, "byte_tx", "byte_rx")}
+    docs = store.table("flow_metrics", "vtap_flow_port")
+    got_docs = {"packets": _column_sum(docs, "packet_tx", "packet_rx"),
+                "bytes": _column_sum(docs, "byte_tx", "byte_rx")}
+    l4_rows = l4.row_count()
+    rows_in = ing.tpu_sketch.rows_in
+    l7_rows = store.table("flow_log", "l7_flow_log").row_count()
+    pseq_rows = store.table("flow_log", "l4_packet").row_count()
+    system = store.table("deepflow_system", "ext_samples").scan()
+    names = ing.tag_dicts.get("metric_name")
+    agent_metrics = {}
+    for h, v in zip(system["metric"].tolist(), system["value"].tolist()):
+        name = names.decode(h) or ""
+        if name.startswith("agent."):
+            agent_metrics[name] = max(v, agent_metrics.get(name, v))
+    streams = {}
+    for d in ing.flow_log.decoders:
+        streams[d.stream] = streams.get(d.stream, 0) + d.counters()["records"]
+    streams["flow_metrics"] = ing.flow_metrics.records
+    rc = ing.receiver.counters()
+    if got != want or got_docs != want or tally.packets != want["packets"] \
+            or not (tally.rows == l4_rows == rows_in):
+        raise AssertionError(
+            f"phase 18 (b): the pcap's valid {want}, the l4 rows {got} "
+            f"({l4_rows} rows, tally {tally.rows} rows / {tally.packets} "
+            f"packets, sketch rows_in {rows_in}), the Documents {got_docs}")
+    if l7_rows != sent_l7:
+        # the wall-clock expiry of pending requests is the one input (a)
+        # does not share: bounded by the requests in flight at a tick
+        gap = l7_rows - sent_l7
+        log(f"  (b) l7 rows {l7_rows} against (a)'s {sent_l7} sessions: "
+            f"gap {gap}")
+        if abs(gap) > sent_l7 // 100:
+            raise AssertionError(f"phase 18 (b): l7 rows {l7_rows}, (a) "
+                                 f"sent {sent_l7}")
+    if not pseq_rows or not any(n.startswith("agent.flow_map")
+                                for n in agent_metrics):
+        raise AssertionError(f"phase 18 (b): {pseq_rows} l4_packet rows, "
+                             f"agent metrics {sorted(agent_metrics)[:8]}")
+    breaches = [v for n, v in agent_metrics.items()
+                if n.startswith("agent.guard") and "breaches" in n]
+    wall = t_all - t0
+    r = {"packets": want["packets"], "bytes": want["bytes"],
+         "seconds_to_all_packets": wall,
+         "seconds_first_row_to_all": (t_all - t_first) if t_first else None,
+         "spawn_to_replay_s": t0 - run["t_spawn"],
+         "packets_per_s": want["packets"] / wall,
+         "exit_s": t_exit - t_all, "drain_s": t_drained - t_exit,
+         "l4_rows": l4_rows, "l7_rows": l7_rows,
+         "l4_packet_rows": pseq_rows, "records_per_stream": streams,
+         "rx_frames": rc["rx_frames"], "agent_metrics": len(agent_metrics),
+         "guard_breaches": max(breaches) if breaches else None,
+         "launches": launches}
+    log(f"  (b) on {card}: python -m deepflow_tpu_torch.agent over a pcap of "
+        f"{sum(len(f) for f, _ in ticks)} frames ({want['packets']} valid) "
+        f"through a FIFO into server.Server: every valid packet in the l4 "
+        f"rows {wall:.2f} s after the pcap's first byte "
+        f"({want['packets'] / wall:.0f} packets/s through the process"
+        + (f"; {t_all - t_first:.2f} s from the first l4 row"
+           if t_first else "")
+        + f"), SIGTERM to exit 0 in {t_exit - t_all:.2f} s, the server "
+        f"drained and its windows closed {t_drained - t_exit:.2f} s later; "
+        f"l4 rows {l4_rows} = sketch rows_in, packets and bytes {got} = "
+        f"the pcap's valid = the Documents' {got_docs}; l7 rows {l7_rows} "
+        f"((a) sent {sent_l7}); {pseq_rows} l4_packet rows; "
+        f"{len(agent_metrics)} agent DFSTATS series; frames received "
+        f"{rc['rx_frames']}, records per stream {streams}; the Guard's "
+        f"breaches {r['guard_breaches']}; launches {launches}")
+    return r
+
+
+def check_agent_process(torch, dev, rng, card):
+    """Phase 18: the agent process on the card. (b)'s server and agent
+    process start first; (a) the same batches through
+    Agent(device="cuda") and Agent(device="cpu"); (b) the packets as a
+    pcap through the agent process into the server."""
+    from deepflow_tpu_torch.agent import FlowMap, decode_packets
+    t0 = time.perf_counter()
+    t_data = int(time.time())
+    ticks = agent_process_traffic(rng, t_data)
+    gen_s = time.perf_counter() - t0
+    first = ticks[0]
+    # the reduction's first launches (lazy module loads), outside (a)
+    FlowMap(capacity=AG_FLOWS, device=dev).inject(
+        decode_packets(first[0][:AG_BATCH], first[1][:AG_BATCH]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_agentproc_") as tmp:
+        run = start_agent_process(torch, dev, tmp)
+        try:
+            runs = {name: run_agent_inline(torch, d, ticks, t_data)
+                    for name, d in (("card", dev), ("cpu", "cpu"))}
+            a = check_agent_inline(runs, gen_s, card)
+            proc = replay_agent_process(torch, dev, run, ticks, t_data, a,
+                                        card)
+        finally:
+            stop_agent_process(run)
+    return {"inline": {n: {k: v for k, v in r.items() if k != "streams"}
+                       for n, r in runs.items()},
+            "process": proc, "launches": proc["launches"],
+            "generate_s": gen_s}
+
+
+def check_agent_inline(runs, gen_s, card):
+    """Phase 18 (a)'s checks: the card agent's streams and counters =
+    the CPU agent's, sessions conserved. Returns the card run."""
+    from deepflow_tpu_torch.wire import MessageType
+    a, b = runs["card"], runs["cpu"]
+    if sorted(a["streams"]) != sorted(b["streams"]):
+        raise AssertionError(f"phase 18 (a): message types "
+                             f"{sorted(a['streams'])} != "
+                             f"{sorted(b['streams'])}")
+    for mt in b["streams"]:
+        if a["streams"][mt] != b["streams"][mt]:
+            raise AssertionError(f"phase 18 (a): the {MessageType(mt).name} "
+                                 "bytes differ, card against CPU")
+    if a["counters"] != b["counters"] or a["valid"] != b["valid"]:
+        raise AssertionError(f"phase 18 (a): counters {a['counters']} != "
+                             f"{b['counters']}")
+    c = a["counters"]
+    # every response the aggregator takes yields a session: paired ones
+    # are `sessions_merged`, a response with no request pending
+    # (retransmitted, or its request before the capture) is unpaired
+    sessions = c["sessions_merged"] + a["unpaired"]
+    if sessions != c["sent_protocollog"] + c["l7_throttled"] \
+            or not c["sessions_merged"] or not c["sent_packetsequence"]:
+        raise AssertionError(f"phase 18 (a): sessions {c['sessions_merged']}"
+                             f" merged + {a['unpaired']} unpaired, sent "
+                             f"{c['sent_protocollog']}, throttled "
+                             f"{c['l7_throttled']}: {c}")
+    split = {k: round(v / AG_TICKS * 1e3, 1)
+             for k, v in a["tick_split_s"].items()}
+    log(f"  (a) on {card}: {a['valid']['packets']} valid packets over "
+        f"{AG_TICKS} ticks (generated in {gen_s:.1f} s); card agent "
+        f"{a['packets_per_s']:.0f} packets/s, CPU agent "
+        f"{b['packets_per_s']:.0f} (feed: decode, FlowMap, L7 parse); every "
+        f"stream byte-equal ({a['stream_bytes']} bytes) and the counters "
+        f"equal; "
+        f"sessions {c['sessions_merged']} merged + {a['unpaired']} unpaired "
+        f"= {c['sent_protocollog']} sent + {c['l7_throttled']} throttled; "
+        f"tick wall per tick {a['tick_s'] / AG_TICKS * 1e3:.1f} ms, split "
+        f"(ms) {split}")
+    return a
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7359,8 +7981,11 @@ def main() -> int:
     check_small_against_cpu(torch, dev, rng)
     phase_done(4)
 
-    log("phase 5: one window of each path under torch.profiler")
-    profiles = profile_paths(torch, runners, windows[:1])
+    log("phase 5: half a window of each path under torch.profiler")
+    # half of window 0 (cut from the whole window for time: the trace's
+    # post-processing grows with its events)
+    profiles = profile_paths(torch, runners, [
+        {k: v[:len(v) // 2] for k, v in windows[0].items()}])
     update_kernels = profile_full_row_update(torch, dev, rng)
     phase_done(5)
 
@@ -7425,6 +8050,11 @@ def main() -> int:
     agent = check_agent(torch, dev, np.random.default_rng((args.seed, 17)),
                         card)
     phase_done(17)
+    log("phase 18: the agent process (Agent on the card and a CPU twin, "
+        "then python -m deepflow_tpu_torch.agent into server.Server)")
+    agent_proc = check_agent_process(
+        torch, dev, np.random.default_rng((args.seed, 18)), card)
+    phase_done(18)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -7434,7 +8064,8 @@ def main() -> int:
             + list(detection["launches"].values()) + [red["launches"]] \
             + shard["launches"] + pod["launches"] + [mesh["launches"]] \
             + [ingest["launches"], ops["launches"], serving["launches"],
-               server["launches"], agent["launches"]]:
+               server["launches"], agent["launches"],
+               agent_proc["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -7452,7 +8083,7 @@ def main() -> int:
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
         "ingester": ingest, "operations": ops, "querier": querier,
         "serving": serving, "server": server, "agent": agent,
-        "gate": gate,
+        "agent_process": agent_proc, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from deepflow_tpu_torch.utils.u32 import as_u32, mix32, mul32, splitmix32_seeds
+from deepflow_tpu_torch.utils.u32 import (as_u32, mix32, mul32,
+                                          splitmix32_seeds, to_bits)
 
 
 def make_seeds(depth: int, seed: int = 0xDEC0DE,
@@ -32,3 +33,9 @@ def multi_bucket(keys, seeds: torch.Tensor, log2_width: int) -> torch.Tensor:
     salt = as_u32(seeds[:, 1])[:, None]
     x = mix32(as_u32(keys)[None, :] ^ salt)
     return (mul32(x, mult) >> (32 - log2_width)).to(torch.int32)
+
+
+def fingerprint(keys, salt: int = 0xF1A9E12) -> torch.Tensor:
+    """Secondary 32-bit fingerprint, independent of bucket hashes: the
+    u32 bits in an int32 tensor (the JAX version's uint32 values)."""
+    return to_bits(mix32(as_u32(keys) ^ (salt & 0xFFFFFFFF)))

@@ -19,7 +19,7 @@ and records each drained batch as an `export` span.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Protocol, Sequence
 
 import numpy as np
 
@@ -32,6 +32,26 @@ from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
 from deepflow_tpu_torch.runtime.tracing import default_tracer
 
+
+
+class Exporter(Protocol):
+    """The plugin contract (reference: exporters.go:35-48)."""
+
+    def start(self) -> None: ...
+
+    def close(self) -> None: ...
+
+    def is_export_data(self, stream: str, cols: Dict[str, Any]) -> bool:
+        """Cheap filter before enqueue (reference: IsExportData signal-source
+        bit filter, otlp_exporter/exporter.go:120)."""
+        ...
+
+    def put(self, stream: str, decoder_index: int,
+            cols: Dict[str, Any]) -> None:
+        """Hand one decoded columnar chunk to the exporter. Must not
+        block. Batch causality rides the process tracer's thread-local
+        batch id (tracing.Tracer.set_batch), not the signature."""
+        ...
 
 class Exporters:
     """Registry and fan-out; one instance sits after the decode stage.

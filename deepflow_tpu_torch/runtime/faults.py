@@ -52,6 +52,7 @@ import time
 from typing import Dict, List, Optional
 
 __all__ = ["FaultSite", "FaultRegistry", "InjectedFault", "default_faults",
+           "ALL_FAULT_SITES",
            "FAULT_RECEIVER_TRUNCATE", "FAULT_QUEUE_STALL",
            "FAULT_EXPORTER_RAISE", "FAULT_DEVICE_ERROR", "FAULT_CHECKPOINT_TORN",
            "FAULT_SPILL_WRITE", "FAULT_SENDER_DISCONNECT",
@@ -75,6 +76,12 @@ FAULT_SHARD_LOST = "shard.lost"
 FAULT_HOST_LOST = "host.lost"
 FAULT_DCN_PARTITION = "dcn.partition"
 FAULT_DCN_MARKER_LOSS = "dcn.marker_loss"
+
+# every registered site string in one tuple, derived (never hand-listed)
+# from the FAULT_* constants above
+ALL_FAULT_SITES = tuple(sorted(
+    v for k, v in list(globals().items())
+    if k.startswith("FAULT_") and isinstance(v, str)))
 
 
 class InjectedFault(RuntimeError):

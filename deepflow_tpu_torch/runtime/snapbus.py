@@ -54,6 +54,10 @@ class SketchSnapshot:
     tags: Dict[str, Any] = field(default_factory=dict)
     path: Optional[str] = None
 
+    @property
+    def age_s(self) -> float:
+        return max(0.0, time.time() - self.wall_time)
+
 
 def _fsync_dir(directory: str) -> None:
     """Persist a rename: fsync the directory entry."""
@@ -154,6 +158,11 @@ class SnapshotBus:
         for fn in subs:
             self._notify_one(fn, snap)
         return snap
+
+    def save(self, state: Any, step: int) -> str:
+        """The checkpointer surface: publish to disk, return the path
+        ("" when the bus has no directory)."""
+        return self.publish(state, step).path or ""
 
     def _write(self, snap: SketchSnapshot) -> SketchSnapshot:
         path = os.path.join(self.directory,

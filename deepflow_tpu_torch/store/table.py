@@ -132,3 +132,11 @@ class TableSchema:
             aliases=tuple(tuple(a) for a in d.get("aliases", ())),
         )
 
+
+def schema_from_batch_schema(batch_schema, aggs: Dict[str, AggKind],
+                             **kw) -> TableSchema:
+    """Lift a batch.schema.Schema (decode-stage layout) into a store table."""
+    cols = tuple(
+        ColumnSpec(name, np.dtype(dt), aggs.get(name, AggKind.LAST))
+        for name, dt in batch_schema.columns)
+    return TableSchema(name=batch_schema.name, columns=cols, **kw)
