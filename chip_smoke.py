@@ -2,7 +2,8 @@
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
 suites, flow_metrics store lane, pod, global mesh, ingester with its
 operations surface, serving with the querier, and the server process
-with every ingest lane, and the agent process, on one CUDA card.
+with every ingest lane, the agent process, and a node managed by the
+controller, on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -73,7 +74,8 @@ is printed):
    device-error ladder with `tpu.device_error` armed: rollback from a
    snapshot, then (no host fallback runs for a CUDA device) the rows
    shed and counted lost, probe recovery, delivered + lost == sent.
-   Then one window of each run under torch.profiler, ingest and flush
+   Then half a window of each run (the first 2^19 records of window 1;
+   the half is the cut) under torch.profiler, ingest and flush
    apart: device busy share, host-to-device copy time and its overlap
    with kernels, and the CUDA runtime's copy and synchronizing calls
    between two marker calls that bracket the measured range (so the
@@ -157,10 +159,11 @@ is printed):
    of each suite under torch.profiler, ingest and flush apart: launches
    per global batch, busy share, a flush's syncs;
 10. the flow_metrics pipeline's store lane and the rollup GROUP BY on
-   the card: 8192 distinct vtap_flow_port tag tuples (cut from 16,384
+   the card: 4096 distinct vtap_flow_port tag tuples (cut from 16,384
    for time; ip over 4096 addresses, server_port by Zipf(1.1) over
    1024, vtap_id over 64, l3_epc_id with -1) reporting each second
-   for 120 s from an hour boundary ahead of the wall clock (983,040 rows of the 66-column
+   for 120 s from an hour boundary ahead of the wall clock (491,520
+   rows of the 66-column
    METRICS_TABLE, meters from phase 9's signals and seeded log-normals,
    some near 0xFFFFFFFF): (a) every row through
    FlowMetricsPipeline.put() in chunks of 2^14 with 2 unmarshallers, in
@@ -314,7 +317,7 @@ is printed):
    the RED lane's Prometheus le buckets every 8th gamma bound, a Store)
    on the card, fed over one loopback connection stream after stream:
    phase 3's window 0 cut to 2^18 records as planar frames; 4 RED
-   windows of 2^15 PROTOCOLLOG requests over all 1024 services
+   windows of 2^14 PROTOCOLLOG requests over all 1024 services
    (log-normal rrt_us, a median per service); 2^14 OTel spans, half in
    zlib-compressed frames; PACKETSEQUENCE blocks of 2^12 flows;
    Prometheus remote write (1,024 series x 60 samples, one frame bare
@@ -390,6 +393,43 @@ is printed):
    the server leg launches hist and both fused kernels. Printed:
    packets/s through the process, frames and records per stream, the
    Guard's breach count.
+19. a managed node on the reference's defaults: `server.Server` on the
+   card from a JSON config that leaves the controller on (its trident
+   gRPC bridge on where grpcio is installed), every port 0, the store
+   and the lease in a temporary directory, the l4 throttle raised.
+   The ingester's address and a 1 s sync interval are posted to the
+   controller, then `python -m deepflow_tpu_torch.agent` starts with a
+   bootstrap that names only controller_url, ctrl_ip and host (and its
+   pcap FIFO). Meanwhile 255 synthetic agents sync over /v1/sync with
+   the body Agent.sync_once sends (their process as the GPIDSync leg),
+   and a filereader domain goes in through /v1/cloud/domains and
+   /v1/domains/<d>/refresh: 1 VPC, subnets over 172.16.0.0/12 and
+   10.0.0.0/8, 64 pod nodes, 4,096 pods (one on each server address of
+   phase 18's generator, the rest elsewhere in 172.16.0.0/12) and 256
+   services; resource_count and the ingester's platform version =
+   model.version. Two first syncs against that model are timed on a
+   second controller. Asserted: 256 vtaps with unique ids, all assigned
+   the ingester. Then 2^16 packets (one tick of phase 18's generator:
+   the depth is the cut) through the FIFO into the process: the pcap's
+   valid packets and bytes = the l4 rows' = the tally's, rows = the
+   sketch's rows_in; on both sides of every l4 row the KnowledgeGraph
+   columns (region, az, subnet, l3 device, pod node, namespace, group,
+   pod, cluster, epc, tag_source; the service on side 1) equal a plain
+   lookup of compile_platform_data's tables (a pod's id and subnet on
+   its address, the CIDR's subnet elsewhere in the domain, the
+   reference's zeros outside it); a GROUP BY pod_id_1 through the
+   querier's HTTP route = a numpy GROUP BY, with the pods' names from
+   the TagRecorder. A pushed group config (l7_log_rate, a 0.25 s sync
+   interval) reaches the process's next sync, and its syncs come at the
+   pushed interval from then on. The bridge's Sync and NTP Query answer
+   for a registered vtap (printed: `trident_grpc: present` or
+   `absent`). controller.recorder, .genesis and .fleet land in
+   deepflow_system (fleet vtaps 256). The windows closed by hand: hist,
+   lane and news launched. SIGTERM: the process exits 0; Server.close()
+   returns. Printed: start to the first answer, the registration wave's
+   wall, the first syncs against the whole model, the process's spawn
+   to first sync, packets/s through the process, rows on a pod, by CIDR
+   and unresolved per side, the push-to-sync time, the sync gaps.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -2925,7 +2965,7 @@ def check_sharded(torch, dev, rng, args, windows, card):
 
 # -- phase 10: the store's read half, the rollup GROUP BY, flow_metrics ------
 
-FM_TUPLES = 8192          # distinct vtap_flow_port tag tuples (cut from
+FM_TUPLES = 4096          # distinct vtap_flow_port tag tuples (cut from
 #                            16,384 for time)
 FM_SECONDS = 120          # one report per tuple per second: two minutes
 FM_CHUNK = 1 << 14        # rows per decoded chunk put into the pipeline
@@ -4344,7 +4384,7 @@ ING_DOC_SECONDS = 32       # as METRICS (cut from 64 s for time)
 ING_PB_PER_FRAME = 1024    # protobuf records per frame
 ING_COL_PER_FRAME = 1024   # planar L4 rows per COLUMNAR_FLOW frame (~459 KB)
 ING_VTAPS = 4              # (b), (c): connections, one vtap_id each
-ING_PROFILED_FRAMES = 128  # (b), (c): window 1's first planar frames, profiled
+ING_PROFILED_FRAMES = 64   # (b), (c): window 1's first planar frames, profiled
 #                            (cut from 256 for time; phase 15 (b) too)
 ING_AUTOTUNE_S = 0.25
 ING_STAGES = ("receiver", "decode", "queue.ingest.l4_flow_log",
@@ -5950,7 +5990,7 @@ def check_serving(torch, dev, rng, windows, card):
 
 SRV_L4 = 1 << 18           # phase 3's window 0, cut, as planar frames
 SRV_RED_WINDOWS = 4
-SRV_RED_RECORDS = 1 << 15  # l7 requests per RED window (cut from 2^18)
+SRV_RED_RECORDS = 1 << 14  # l7 requests per RED window (cut from 2^18)
 SRV_RED_STEP = 15          # seconds between the RED windows' stamps
 SRV_PROM_BUCKETS = 8       # le bounds every 8th gamma bucket (g^8 ~ 1.38)
 SRV_OTEL_SPANS = 1 << 14   # half of them in zlib-compressed frames
@@ -7447,13 +7487,14 @@ def dns_packets(rng, flows, t, n):
     return np.asarray(stamps, np.int64), frames
 
 
-def agent_process_traffic(rng, t_data):
-    """AG_TICKS one-second ticks of about AP_PACKETS // AG_TICKS packets
-    each: phase 17's TCP generator with protocol payloads, and DNS over
-    UDP; per tick (frames, stamps) in stamp order."""
-    flows = AgentFlows(rng, l7=True)
-    ticks = []
-    for k in range(AG_TICKS):
+def agent_process_traffic(rng, t_data, ticks=AG_TICKS, flows=None):
+    """`ticks` one-second ticks of about AP_PACKETS // AG_TICKS packets
+    each: phase 17's TCP generator with protocol payloads (`flows`, made
+    here unless given), and DNS over UDP; per tick (frames, stamps) in
+    stamp order."""
+    flows = AgentFlows(rng, l7=True) if flows is None else flows
+    n_ticks, ticks = ticks, []
+    for k in range(n_ticks):
         t = (t_data + k) * NS
         d_ts, d_frames = dns_packets(rng, flows, t, AP_DNS)
         cols = flows.tick(t, AP_PACKETS // AG_TICKS - len(d_frames))
@@ -7908,6 +7949,585 @@ def check_agent_inline(runs, gen_s, card):
     return a
 
 
+# phase 19: a managed node on the reference's defaults
+CT_PODS = 4096             # pods: one per server address of the generator
+CT_NODES = 64              # pod nodes
+CT_SERVICES = 256          # services, on pods' addresses and ports
+CT_AGENTS = 256            # vtaps: 255 synthetic agents and the process
+CT_TICKS = 1               # one tick of phase 18's generator: 2^16 packets
+CT_WAIT_S = 120            # the longest wait for the process or the server
+CT_SUBNETS = (("pods", 101, "172.16.0.0/12"), ("hosts", 102, "10.0.0.0/8"))
+CT_HOST = "phase19-node"   # the agent process's host name
+CT_PUSH_INTERVAL_S = 0.25  # the pushed sync interval (the first push: 1 s)
+CT_PROBE_SYNCS = 2         # first syncs timed against the whole model
+# the KnowledgeGraph columns checked on both sides of every l4 row
+CT_KG = ("region_id", "az_id", "subnet_id", "l3_device_type",
+         "l3_device_id", "pod_node_id", "pod_ns_id", "pod_group_id",
+         "pod_id", "pod_cluster_id")
+
+
+def _ip(u):
+    return ".".join(str(int(u) >> s & 255) for s in (24, 16, 8, 0))
+
+
+def cluster_doc(rng, flows):
+    """Phase 19's filereader document: 1 region, 2 azs, 1 VPC, the two
+    CT_SUBNETS, a cluster of CT_NODES pod nodes, 16 namespaces and 256
+    groups, CT_PODS pods (one on each distinct server address of
+    `flows`, the rest on other addresses of 172.16.0.0/12 that are not
+    phase 18's resolvers) and CT_SERVICES services, each on a pod's
+    address and its server port. The agent stamps l3_epc_id 0 on every
+    flow, so every row carries epc_id 0, the key the ingester joins on;
+    the VPC is each subnet's and cluster's vpc link."""
+    srv, first = np.unique(flows.srv_ip, return_index=True)
+    taken = set(srv.tolist()) | {0xAC1F0000 + 1 + k
+                                 for k in range(AP_DNS_SERVERS)}
+    extra = []
+    while len(srv) + len(extra) < CT_PODS:
+        a = int(0xAC100000 + rng.integers(0, 1 << 20))
+        if a not in taken:
+            taken.add(a)
+            extra.append(a)
+    ips = srv.tolist() + extra
+    ports = flows.srv_port[first].tolist()
+    doc = {"regions": [{"name": "region-1"}],
+           "azs": [{"name": f"az-{i}", "region": "region-1"}
+                   for i in range(2)],
+           "vpcs": [{"name": "vpc-1", "region": "region-1"}],
+           "subnets": [{"name": name, "id": sid, "vpc": "vpc-1",
+                        "az": f"az-{i}", "region": "region-1",
+                        "cidr": cidr, "epc_id": 0}
+                       for i, (name, sid, cidr) in enumerate(CT_SUBNETS)],
+           "pod_clusters": [{"name": "cluster-1", "vpc": "vpc-1"}],
+           "pod_nodes": [{"name": f"node-{i:02d}", "pod_cluster":
+                          "cluster-1", "ip": f"10.255.{i}.1"}
+                         for i in range(CT_NODES)],
+           "pod_namespaces": [{"name": f"ns-{i:02d}",
+                               "pod_cluster": "cluster-1"}
+                              for i in range(16)],
+           "pod_groups": [{"name": f"group-{i:03d}",
+                           "pod_ns": f"ns-{i % 16:02d}"}
+                          for i in range(256)],
+           "pods": [{"name": f"pod-{k:04d}", "ip": _ip(a),
+                     "pod_node": f"node-{k % CT_NODES:02d}",
+                     "pod_ns": f"ns-{k % 16:02d}",
+                     "pod_group": f"group-{k % 256:03d}",
+                     "az": "az-0", "region": "region-1",
+                     "subnet_id": CT_SUBNETS[0][1], "epc_id": 0}
+                    for k, a in enumerate(ips)],
+           "services": [{"name": f"svc-{k:03d}", "ip": _ip(ips[k]),
+                         "port": int(ports[k]), "protocol": 6, "epc_id": 0}
+                        for k in range(CT_SERVICES)]}
+    return doc
+
+
+def managed_config(root):
+    """Phase 19's deployment: the controller at the reference's default
+    (on, its trident gRPC bridge on), every port 0, the store and the
+    lease in `root`, the querier and self-telemetry on, one decoder a
+    stream, the sketch and RED windows closed by hand, the l4 throttle
+    raised (conservation is a check), incident bundles beside the
+    store."""
+    cfg = {"controller": {"port": 0, "grpc_port": 0,
+                          "lease_path": os.path.join(root, "lease.json")},
+           "ingester": {"port": 0, "store_path": os.path.join(root, "store"),
+                        "n_decoders": 1, "tpu_sketch_window_s": 3600,
+                        "app_red_window_s": 3600,
+                        "throttle_per_s": 1 << 24,
+                        "incident_dir": os.path.join(root, "incidents")},
+           "querier": {"port": 0},
+           "self_telemetry": True}
+    path = os.path.join(root, "server.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def ctl_call(base, path, body=None):
+    """One controller route: GET, or POST `body` as JSON."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def sync_body(ctrl_ip, host, pid):
+    """The body deepflow_tpu_torch.agent's Agent.sync_once sends on its
+    first sync (boot), with its own process as the GPIDSync leg."""
+    return {"ctrl_ip": ctrl_ip, "host": host,
+            "revision": "deepflow-tpu-agent", "boot": True,
+            "processes": [{"pid": pid, "name": "deepflow-agent",
+                           "start_time": 1000 + pid}]}
+
+
+def expected_kg(compiled, ip, port, proto):
+    """A plain lookup of compile_platform_data's tables for one side of
+    the rows (epc 0): the interface on the address, else the longest
+    CIDR that holds it, else nothing; the service on (address, port,
+    TCP). Returns {column: array}."""
+    ifaces, cidrs, services, _ = compiled
+    by_ip = {i.ip: i for i in ifaces if i.epc_id == 0}
+    nets = sorted((c for c in cidrs if c.epc_id == 0),
+                  key=lambda c: -c.mask_len)
+    svc = {(s.ip, s.port): s.service_id for s in services
+           if s.epc_id == 0 and s.protocol == 6}
+    uniq, inv = np.unique(ip.astype(np.int64), return_inverse=True)
+    vals = {f: np.zeros(len(uniq), np.int64) for f in CT_KG}
+    src = np.zeros(len(uniq), np.int64)
+    for j, a in enumerate(uniq.tolist()):
+        i = by_ip.get(a)
+        if i is not None:
+            for f in CT_KG:
+                vals[f][j] = getattr(i, f)
+            src[j] = 1
+            continue
+        for c in nets:
+            if a >> (32 - c.mask_len) == c.prefix >> (32 - c.mask_len):
+                vals["region_id"][j] = c.region_id
+                vals["az_id"][j] = c.az_id
+                vals["subnet_id"][j] = c.subnet_id
+                src[j] = 2
+                break
+    out = {f: v[inv] for f, v in vals.items()}
+    out["tag_source"] = src[inv]
+    out["epc_id"] = np.zeros(len(ip), np.int64)
+    if port is not None:
+        out["service_id"] = np.array(
+            [svc.get((a, p), 0) if t == 6 else 0 for a, p, t in zip(
+                ip.tolist(), port.tolist(), proto.tolist())], np.int64)
+    return out
+
+
+def check_managed_kg(rows, compiled, pods):
+    """Every l4 row, both sides: the KnowledgeGraph columns equal the
+    plain lookup of compile_platform_data's tables; rows on a pod carry
+    its id. Returns (rows on a pod, rows resolved by CIDR only, rows
+    unresolved) of side 1, and of side 0."""
+    counts = {}
+    for side, ip_col in (("0", "ip_src"), ("1", "ip_dst")):
+        want = expected_kg(compiled, rows[ip_col],
+                           rows["port_dst"] if side == "1" else None,
+                           rows["proto"])
+        for f, w in want.items():
+            got = np.asarray(rows[f"{f}_{side}"]).astype(np.int64)
+            bad = np.nonzero(got != w)[0]
+            if len(bad):
+                j = bad[0]
+                raise AssertionError(
+                    f"phase 19: {len(bad)} l4 rows' {f}_{side} differ from "
+                    f"the compiled platform data, e.g. {_ip(rows[ip_col][j])}"
+                    f": {got[j]} != {w[j]}")
+        on_pod = np.isin(rows[ip_col], list(pods))
+        if not np.array_equal(rows[f"pod_id_{side}"][on_pod].astype(
+                np.int64), np.array([pods[a] for a in
+                                     rows[ip_col][on_pod].tolist()],
+                                    np.int64)):
+            raise AssertionError(f"phase 19: a row on a pod lacks its id "
+                                 f"(side {side})")
+        src = want["tag_source"]
+        counts[side] = [int(on_pod.sum()), int((src == 2).sum()),
+                        int((src == 0).sum())]
+    return counts
+
+
+def probe_first_syncs(root, doc, n=CT_PROBE_SYNCS):
+    """What the fleet's order avoids: `n` first syncs with a process each
+    against a controller that already holds the cluster, built as the
+    server builds it (a model and a registry on disk, the TagRecorder,
+    a PlatformPusher), called in this thread. Returns the seconds of
+    each."""
+    from deepflow_tpu_torch.controller import (ControllerServer,
+                                               ResourceModel, VTapRegistry)
+    from deepflow_tpu_torch.controller.cloud import parse_resource_doc
+    from deepflow_tpu_torch.controller.platform_compiler import \
+        PlatformPusher
+    from deepflow_tpu_torch.controller.tagrecorder import TagRecorder
+    from deepflow_tpu_torch.enrich.platform_data import PlatformDataManager
+    os.makedirs(root)
+    model = ResourceModel(os.path.join(root, "model.json"))
+    reg = VTapRegistry(os.path.join(root, "vtaps.json"))
+    ctl = ControllerServer(model, reg, tagrecorder=TagRecorder(
+        model, root=root), port=0)
+    try:
+        PlatformPusher(model, PlatformDataManager())
+        ctl.recorder.reconcile("k8s-prod", parse_resource_doc(doc,
+                                                              "k8s-prod"))
+        out = []
+        for i in range(n):
+            t = time.perf_counter()
+            ctl._post("/v1/sync", {}, sync_body(f"10.253.0.{1 + i}",
+                                               f"probe-{i}", 100 + i))
+            out.append(time.perf_counter() - t)
+        return out
+    finally:
+        ctl._httpd.server_close()
+
+
+def check_managed_node(torch, dev, rng, card):
+    """Phase 19: server.Server on the reference's defaults with a
+    managed agent process. Returns the phase's record."""
+    import ipaddress
+
+    from deepflow_tpu_torch.agent import decode_packets
+    from deepflow_tpu_torch.agent.pcap import PcapWriter
+    from deepflow_tpu_torch.controller.platform_compiler import \
+        compile_platform_data
+    from deepflow_tpu_torch.server import Server
+    r = {}
+    t_phase = time.perf_counter()
+    t_data = int(time.time())
+    flows = AgentFlows(rng, l7=True)
+    ticks = agent_process_traffic(rng, t_data, ticks=CT_TICKS, flows=flows)
+    frames = [f for fr, _ in ticks for f in fr]
+    stamps = np.concatenate([s for _, s in ticks])
+    pk = decode_packets(frames, stamps)
+    want = {"packets": int(pk["valid"].sum()),
+            "bytes": int(pk["pkt_len"][pk["valid"]].sum())}
+    doc = cluster_doc(rng, flows)
+    r["generate_s"] = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_managed_") as tmp:
+        path = managed_config(tmp)
+        doc_path = os.path.join(tmp, "cluster.json")
+        with open(doc_path, "w") as f:
+            json.dump(doc, f)
+        fifo = os.path.join(tmp, "capture.pcap")
+        os.mkfifo(fifo)
+        zero_launches()
+        t0 = time.perf_counter()
+        srv = Server(path, device=dev)
+        tally = L4Tally()
+        srv.ingester.exporters.register(tally)
+        proc = None
+        try:
+            srv.start()
+            ing = srv.ingester
+            base = f"http://127.0.0.1:{srv.controller.port}"
+            ctl_call(base, "/v1/health")
+            r["start_to_controller_s"] = time.perf_counter() - t0
+            http_json(f"http://127.0.0.1:{srv.querier.port}/v1/query",
+                      form={"db": "flow_log",
+                            "sql": "SELECT Count(*) AS n FROM l4_flow_log"})
+            r["start_to_first_answer_s"] = time.perf_counter() - t0
+            if srv.controller is None or srv.election is None \
+                    or not srv.election.is_leader:
+                raise AssertionError("phase 19: the controller is not up "
+                                     "and leading on the default config")
+            # every registry sync, by host: (monotonic, config_version)
+            synclog, real_sync = {}, srv.registry.sync
+
+            def logged(ctrl_ip, host, *a, **k):
+                out = real_sync(ctrl_ip, host, *a, **k)
+                synclog.setdefault(host, []).append(
+                    (time.monotonic(), out["config_version"]))
+                return out
+            srv.registry.sync = logged
+            ing_addr = f"127.0.0.1:{ing.port}"
+            ctl_call(base, "/v1/ingesters", {"addrs": [ing_addr]})
+            ctl_call(base, "/v1/vtap-group-config?group=default",
+                     {"sync_interval_s": 1})
+            # the agent process, whose bootstrap names only the
+            # controller; it starts (torch, the card) while the fleet
+            # registers and the cluster is posted
+            boot = os.path.join(tmp, "agent.json")
+            with open(boot, "w") as f:
+                json.dump({"controller_url": base, "ctrl_ip": "10.254.0.1",
+                           "host": CT_HOST,
+                           "capture": {"engine": "pcap", "path": fifo}}, f)
+            m_spawn = time.monotonic()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "deepflow_tpu_torch.agent", "-f",
+                 boot, "--device", torch.device(dev).type],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            # (2) the fleet registers: 255 synthetic agents' first syncs,
+            # before the cluster (each first sync that carries a process
+            # saves the whole model and compiles the platform data twice,
+            # so at 4,096 pods the wave would outlast the phase's budget;
+            # probe_first_syncs times such syncs)
+            agents = [(f"10.254.{1 + i // 250}.{1 + i % 250}", f"agent-{i:03d}")
+                      for i in range(CT_AGENTS - 1)]
+            t = time.perf_counter()
+            first = []
+            for i, (ip, h) in enumerate(agents):
+                first.append(ctl_call(base, "/v1/sync",
+                                      sync_body(ip, h, 100 + i)))
+            r["fleet_first_syncs_s"] = time.perf_counter() - t
+            # (1) the cluster at a real size, through the cloud routes
+            t = time.perf_counter()
+            added = ctl_call(base, "/v1/cloud/domains", {
+                "domain": "k8s-prod", "platform": "filereader",
+                "path": doc_path, "interval_s": 3600})
+            refresh = ctl_call(base, "/v1/domains/k8s-prod/refresh", {})
+            r["cluster_refresh_s"] = time.perf_counter() - t
+            n_res = sum(len(doc[k]) for k in doc)
+            if added.get("auth_failed") or not refresh["ok"] \
+                    or refresh["resource_count"] != n_res:
+                raise AssertionError(f"phase 19: the domain gathered "
+                                     f"{refresh} ({n_res} resources sent)")
+            # the pusher has compiled the domain into the ingester (the
+            # process's first sync and genesis report may bump the model
+            # again meanwhile: each is pushed too)
+            wait_for(lambda: ing.platform.info.version == srv.model.version
+                     >= refresh["version"],
+                     "phase 19: the platform data in the ingester",
+                     timeout=CT_WAIT_S)
+            domain_pods = srv.model.list(type="pod", domain="k8s-prod")
+            pods = {int(ipaddress.IPv4Address(p.attr("ip"))): p.id
+                    for p in domain_pods}
+            names = {p.id: p.name for p in domain_pods}
+            if len(pods) != CT_PODS:
+                raise AssertionError(f"phase 19: {len(pods)} pods")
+            # while the process starts: what a first sync costs against
+            # the whole model (on another controller)
+            r["first_sync_full_model_s"] = probe_first_syncs(
+                os.path.join(tmp, "probe"), doc)
+            deadline = time.monotonic() + CT_WAIT_S
+            while len(synclog.get(CT_HOST, ())) < 2:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    err = proc.stderr.read()[-3000:] \
+                        if proc.poll() is not None else ""
+                    raise AssertionError(
+                        f"phase 19: the agent process made "
+                        f"{len(synclog.get(CT_HOST, ()))} syncs (exit "
+                        f"{proc.poll()}): {err}")
+                time.sleep(0.01)
+            r["spawn_to_first_sync_s"] = synclog[CT_HOST][0][0] - m_spawn
+            vtaps = ctl_call(base, "/v1/vtaps")
+            ids = [v["vtap_id"] for v in vtaps]
+            assign = ctl_call(base, "/v1/assignments")
+            if len(vtaps) != CT_AGENTS or len(set(ids)) != CT_AGENTS \
+                    or sorted(assign) != [ing_addr] \
+                    or len(assign[ing_addr]) != CT_AGENTS \
+                    or any(x["ingester"] != ing_addr for x in first):
+                raise AssertionError(
+                    f"phase 19: {len(vtaps)} vtaps, {len(set(ids))} ids, "
+                    f"assignments {({k: len(v) for k, v in assign.items()})}")
+            # (3) the packets through the managed agent
+            zero_launches()
+            t_b = int(time.time()) + 1
+            shift = np.uint64((t_b - t_data) * NS)
+            errs = []
+
+            def write():
+                try:
+                    w = PcapWriter(fifo)
+                    for fr, st in ticks:
+                        w.write(fr, (st + shift).tolist())
+                    w.close()
+                except Exception as e:  # noqa: BLE001 -- re-raised below
+                    errs.append(e)
+            t_replay = time.perf_counter()
+            writer = threading.Thread(target=write, daemon=True)
+            writer.start()
+            deadline = time.monotonic() + CT_WAIT_S
+            while tally.packets < want["packets"] and proc.poll() is None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            r["replay_s"] = time.perf_counter() - t_replay
+            writer.join(timeout=60)
+            if errs:
+                raise errs[0]
+            # the bootstrap named no ingester (the agent's default is
+            # :30033, not this server's ephemeral port): rows arrive only
+            # through the controller's assignment
+            if tally.packets != want["packets"] or ing.port == 30033:
+                raise AssertionError(
+                    f"phase 19: {tally.packets} packets reached the l4 "
+                    f"rows of {want} (exit {proc.poll()})")
+            r["packets_per_s"] = want["packets"] / r["replay_s"]
+            # quiet: no new frame, every queue empty, the exporters caught
+            # up; then the writers flushed
+            queues = list(ing._own_queues().values())
+            last, still = -1, 0
+            while still < 20:
+                rx = ing.receiver.counters()["rx_frames"]
+                busy = rx != last or any(len(q) for q in queues)
+                still = 0 if busy else still + 1
+                last = rx
+                time.sleep(0.05)
+            wait_for(lambda: ing.tpu_sketch.rows_in == tally.rows,
+                     "phase 19: the sketch exporter", timeout=CT_WAIT_S)
+            ing.flush()
+            l4 = ing.store.table("flow_log", "l4_flow_log")
+            rows = l4.scan()
+            got = {"packets": int(rows["packet_tx"].astype(np.int64).sum()
+                                  + rows["packet_rx"].astype(np.int64).sum()),
+                   "bytes": int(rows["byte_tx"].astype(np.int64).sum()
+                                + rows["byte_rx"].astype(np.int64).sum())}
+            if got != want or len(rows["packet_tx"]) != tally.rows:
+                raise AssertionError(
+                    f"phase 19: the l4 rows hold {got} in "
+                    f"{len(rows['packet_tx'])} rows (tally {tally.rows}), "
+                    f"the pcap's valid {want}")
+            compiled = compile_platform_data(srv.model)
+            for i in compiled[0]:
+                if i.pod_id and (names.get(i.pod_id) is None
+                                 or i.subnet_id != CT_SUBNETS[0][1]):
+                    raise AssertionError(f"phase 19: compiled {i}")
+            kg = check_managed_kg(rows, compiled, pods)
+            if not kg["1"][0] or not kg["0"][2]:
+                raise AssertionError(f"phase 19: rows on pods, by CIDR, "
+                                     f"unresolved: {kg}")
+            # the querier's HTTP route groups the rows by pod and names
+            # them through the TagRecorder
+            t = time.perf_counter()
+            ans = http_json(
+                f"http://127.0.0.1:{srv.querier.port}/v1/query", form={
+                    "db": "flow_log", "sql":
+                    "SELECT pod_id_1, Count(*) AS n, Sum(byte_rx) AS b "
+                    "FROM l4_flow_log GROUP BY pod_id_1"})
+            r["sql_s"] = time.perf_counter() - t
+            ids1, inv = np.unique(rows["pod_id_1"].astype(np.int64),
+                                  return_inverse=True)
+            n_ref = np.bincount(inv)
+            b_ref = np.bincount(inv, rows["byte_rx"].astype(np.float64))
+            want_sql = {names.get(int(i), int(i)): (int(n), int(b))
+                        for i, n, b in zip(ids1, n_ref, b_ref)}
+            got_sql = {v[0]: (int(v[1]), int(v[2]))
+                       for v in ans["result"]["values"]}
+            if got_sql != want_sql or not any(
+                    isinstance(k, str) for k in got_sql):
+                raise AssertionError(f"phase 19: the pods' GROUP BY over "
+                                     f"HTTP answered {len(got_sql)} groups, "
+                                     f"a numpy GROUP BY {len(want_sql)}")
+            r["pods_named"] = sum(isinstance(k, str) for k in got_sql)
+            # (4) a config push: the process's next sync takes it, and
+            # syncs at the pushed interval from then on
+            before = [b - a for (a, _), (b, _) in zip(
+                synclog[CT_HOST], synclog[CT_HOST][1:])]
+            pushed = ctl_call(base, "/v1/vtap-group-config?group=default", {
+                "l7_log_rate": 5000, "sync_interval_s": CT_PUSH_INTERVAL_S})
+            v = pushed["config_version"]
+            t_push = time.monotonic()
+            deadline = t_push + CT_WAIT_S
+            while True:
+                seen = [x for x in synclog[CT_HOST] if x[1] == v]
+                if len(seen) >= 5 or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+            after = [b[0] - a[0] for a, b in zip(seen, seen[1:])]
+            if len(seen) < 5 or not np.median(after) < 0.6 \
+                    or srv.registry.get_config()["l7_log_rate"] != 5000:
+                raise AssertionError(
+                    f"phase 19: after the push the process synced "
+                    f"{len(seen)} times, gaps {after} (before {before})")
+            r["push_to_sync_s"] = seen[0][0] - t_push
+            r["sync_gap_s"] = {"before": float(np.median(before[-4:])),
+                               "after": float(np.median(after))}
+            # (5) the trident gRPC bridge, where grpcio is installed
+            try:
+                import grpc
+            except ImportError:
+                grpc = None
+            r["trident_grpc"] = "present" if grpc is not None else "absent"
+            log(f"  trident_grpc: {r['trident_grpc']}")
+            if grpc is not None:
+                from deepflow_tpu_torch.wire.gen import trident_pb2 as pb
+                chan = grpc.insecure_channel(
+                    f"127.0.0.1:{srv.trident_grpc[1]}")
+                try:
+                    def call(m, req, cls):
+                        return chan.unary_unary(
+                            f"/trident.Synchronizer/{m}",
+                            request_serializer=lambda x:
+                            x.SerializeToString(),
+                            response_deserializer=cls.FromString)(
+                                req, timeout=30)
+                    ip, h = agents[7]
+                    resp = call("Sync", pb.SyncRequest(
+                        ctrl_ip=ip, host=h, revision="deepflow-tpu-agent"),
+                        pb.SyncResponse)
+                    pkt = bytearray(48)
+                    pkt[0] = (3 << 3) | 3
+                    ntp = call("Query", pb.NtpRequest(
+                        ctrl_ip=ip, request=bytes(pkt)), pb.NtpResponse)
+                finally:
+                    chan.close()
+                if resp.config.vtap_id != first[7]["vtap_id"] \
+                        or f"{resp.config.analyzer_ip}:" \
+                        f"{resp.config.analyzer_port}" != ing_addr \
+                        or len(ntp.response) != 48 \
+                        or ntp.response[0] & 7 != 4:
+                    raise AssertionError(f"phase 19: the bridge answered "
+                                         f"{resp.config} and {ntp}")
+            elif srv.trident_grpc is not None:
+                raise AssertionError("phase 19: a bridge without grpcio")
+            # (6) the controller's DFSTATS in deepflow_system
+            ing.stats.collect()
+            srv.stats_shipper.flush()
+            md = ing.tag_dicts.get("metric_name")
+            system = ing.store.table("deepflow_system", "ext_samples")
+            found = {}
+
+            def landed():
+                ing.flush()
+                sc = system.scan()
+                for h, val in zip(sc["metric"].tolist(),
+                                  sc["value"].tolist()):
+                    name = md.decode(int(h)) or ""
+                    if name.startswith("controller."):
+                        found[name] = max(val, found.get(name, val))
+                return all(any(n.startswith(p) for n in found) for p in (
+                    "controller.recorder.", "controller.genesis.",
+                    "controller.fleet."))
+            wait_for(landed, "phase 19: the controller's DFSTATS",
+                     timeout=CT_WAIT_S)
+            if found.get("controller.fleet.vtaps") != CT_AGENTS:
+                raise AssertionError(f"phase 19: controller.fleet.vtaps "
+                                     f"{found.get('controller.fleet.vtaps')}")
+            r["controller_series"] = len(found)
+            # (7) the kernels: the windows closed by hand
+            ing.tpu_sketch.flush_window(now=float(t_b + CT_TICKS + 1))
+            ing.app_red.flush_window(now=float(t_b + CT_TICKS + 1))
+            ing.flush()
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            r["launches"] = read_launches("phase 19", wants=(
+                "hist", "fused_lane_hists", "fused_news_hists"))
+            # (8) shutdown
+            t = time.perf_counter()
+            proc.send_signal(15)
+            out, err = proc.communicate(timeout=CT_WAIT_S)
+            r["agent_exit_s"] = time.perf_counter() - t
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 19: the agent process exited "
+                                     f"{proc.returncode}: {err[-3000:]}")
+            proc = None
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            t = time.perf_counter()
+            srv.close()
+            r["close_s"] = time.perf_counter() - t
+    r.update(packets=want["packets"], bytes=want["bytes"],
+             resources=n_res, vtaps=CT_AGENTS, kg_rows=kg,
+             l4_rows=tally.rows, seconds=time.perf_counter() - t_phase)
+    log(f"  on {card}: server.Server on the reference's defaults (controller "
+        f"and trident bridge on) up in {r['start_to_controller_s']:.2f} s, "
+        f"first querier answer {r['start_to_first_answer_s']:.2f} s; "
+        f"{n_res} resources through the filereader domain in "
+        f"{r['cluster_refresh_s']:.2f} s (platform version "
+        f"{srv.model.version} in the ingester); {CT_AGENTS - 1} first syncs "
+        f"{r['fleet_first_syncs_s']:.2f} s, a first sync against the whole "
+        f"model (another controller) "
+        f"{[round(x, 3) for x in r['first_sync_full_model_s']]} s; the "
+        f"process's first sync {r['spawn_to_first_sync_s']:.2f} s after "
+        f"its spawn; "
+        f"{want['packets']} packets through the managed agent "
+        f"{r['replay_s']:.2f} s ({r['packets_per_s']:.0f} packets/s), "
+        f"{tally.rows} l4 rows, side 1 on a pod / by CIDR / unresolved "
+        f"{kg['1']}, side 0 {kg['0']}; {r['pods_named']} pods named over "
+        f"HTTP in {r['sql_s'] * 1e3:.1f} ms; pushed config synced after "
+        f"{r['push_to_sync_s']:.2f} s, sync gap {r['sync_gap_s']}; "
+        f"{r['controller_series']} controller DFSTATS series; launches "
+        f"{r['launches']}; agent exit {r['agent_exit_s']:.2f} s, server "
+        f"close {r['close_s']:.2f} s")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7994,10 +8614,15 @@ def main() -> int:
         ingester = run_ingester_paths(torch, dev, windows, card, tmp,
                                       paths["lanes_exporter_k4"]["snaps"])
         ladder = walk_ladder(torch, dev, rng, tmp)
-        ingester_profiles = profile_ingester_paths(torch, dev, windows, tmp,
-                                                   card)
+        # each run's profiled window is the first half of window 1 (the
+        # half is the cut: the trace's post-processing grows with its
+        # events), after the whole of window 0 as its warm-up
+        prof_windows = [windows[0], {k: v[:len(v) // 2]
+                                     for k, v in windows[1].items()}]
+        ingester_profiles = profile_ingester_paths(torch, dev, prof_windows,
+                                                   tmp, card)
         attribution = {"dict_feed": traced_profile(
-            torch, dev, windows, tmp, card,
+            torch, dev, prof_windows, tmp, card,
             ("dict_feed_traced",) + INGESTER_RUNS[0][1:],
             ingester_profiles["dict_feed"])}
         phase_done(6)
@@ -8055,6 +8680,12 @@ def main() -> int:
     agent_proc = check_agent_process(
         torch, dev, np.random.default_rng((args.seed, 18)), card)
     phase_done(18)
+    log("phase 19: a managed node on the reference's defaults (server.Server "
+        "with the controller, python -m deepflow_tpu_torch.agent managed by "
+        "it)")
+    managed = check_managed_node(
+        torch, dev, np.random.default_rng((args.seed, 19)), card)
+    phase_done(19)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -8065,7 +8696,7 @@ def main() -> int:
             + shard["launches"] + pod["launches"] + [mesh["launches"]] \
             + [ingest["launches"], ops["launches"], serving["launches"],
                server["launches"], agent["launches"],
-               agent_proc["launches"]]:
+               agent_proc["launches"], managed["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -8083,7 +8714,7 @@ def main() -> int:
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
         "ingester": ingest, "operations": ops, "querier": querier,
         "serving": serving, "server": server, "agent": agent,
-        "agent_process": agent_proc, "gate": gate,
+        "agent_process": agent_proc, "managed_node": managed, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

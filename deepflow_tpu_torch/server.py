@@ -1,29 +1,34 @@
-"""The server process: the ingester and querier roles in one process.
+"""All-in-one server: controller + ingester + querier in one process.
 
 A copy of the JAX package's `server.py` (reference:
-server/cmd/server/main.go, one binary behind one config file, with a
-config watcher that rebuilds on change, ingester/config/watcher.go) for
-the ingester and querier roles:
+server/cmd/server/main.go, one binary that starts the controller
+(election -> resource model -> trisolaris), the ingester (receiver +
+pipelines) and the querier behind one config file, with a config
+watcher that rebuilds on change, ingester/config/watcher.go):
 `Server(config_path, device="cuda").start()`, or
 
-    python -m deepflow_tpu_torch.server -f server.json [--device cuda]
-
-The controller role (`controller/`, the trident gRPC bridge, the
-platform pusher) is control plane and is not ported: a config that
-enables it raises NotImplementedError naming `controller.enabled`. The
-JAX package's server enables it by default, so a config for this one
-says `controller: {enabled: false}`.
+    python -m deepflow_tpu_torch.server [-f server.json] [--device cuda]
 
 Config (YAML where PyYAML is installed, else JSON; JSON is a subset of
-YAML, so a JSON file reads the same either way):
+YAML, so a JSON file reads the same either way; every key optional):
 
-    {"controller": {"enabled": false},
+    {"controller": {"enabled": true, "port": 20417,
+                    "lease_path": "/tmp/df-lease.json",
+                    "grpc_enabled": true, "grpc_port": 30035},
      "ingester": {"port": 30033, "store_path": "/var/lib/deepflow-tpu",
                   "debug_port": 30035, "throttle_per_s": 50000,
                   "tpu_sketch_window_s": 1.0, "app_red_window_s": 1.0,
                   "app_red_prom_buckets": 8},
      "querier": {"enabled": true, "port": 20416},
      "self_telemetry": true}
+
+The controller keeps its state files (`model.json`, `vtaps.json`,
+`lease.json`, `tagrecorder/`) under `ingester.store_path`, or
+<tmp>/deepflow-tpu without one (the JAX package's server: /tmp, here the
+temporary directory, /tmp unless TMPDIR names another); its trident gRPC
+bridge is skipped where grpcio is not installed. Its default `grpc_port`
+30035 is also the `debug_port` above: a config with both on that port
+fails to start.
 
 The `ingester` keys the JAX package's server reads (`port`, `host`,
 `store_path`, `debug_port`, `n_decoders`, `throttle_per_s`,
@@ -45,6 +50,7 @@ import json
 import os
 import signal
 import sys
+import tempfile
 import threading
 from typing import Optional
 
@@ -114,21 +120,63 @@ class Server:
 
     # -- construction --------------------------------------------------------
     def _build(self) -> None:
+        from deepflow_tpu_torch.controller import (ControllerServer,
+                                                   ResourceModel,
+                                                   VTapRegistry)
+        from deepflow_tpu_torch.controller.election import Election
+        from deepflow_tpu_torch.controller.monitor import FleetMonitor
+        from deepflow_tpu_torch.controller.platform_compiler import \
+            PlatformPusher
+        from deepflow_tpu_torch.controller.tagrecorder import TagRecorder
         from deepflow_tpu_torch.pipelines import Ingester
         from deepflow_tpu_torch.querier.server import QuerierServer
         from deepflow_tpu_torch.runtime.stats import StatsShipper
 
         c = self.cfg
-        if c.get("controller", {}).get("enabled", True):
-            raise NotImplementedError(
-                "controller.enabled: the controller role (controller/, "
-                "the trident gRPC bridge, the platform pusher) is not "
-                "ported to deepflow_tpu_torch; set controller: "
-                "{enabled: false}")
         ing_cfg = c.get("ingester", {})
+        store_path = ing_cfg.get("store_path")
+
+        ctl_cfg = c.get("controller", {})
         self.controller = None
+        self.election = None
+        self.tagrecorder = None
+        if ctl_cfg.get("enabled", True):
+            state_dir = store_path or os.path.join(tempfile.gettempdir(),
+                                                   "deepflow-tpu")
+            os.makedirs(state_dir, exist_ok=True)
+            self.model = ResourceModel(os.path.join(state_dir, "model.json"))
+            self.registry = VTapRegistry(
+                os.path.join(state_dir, "vtaps.json"))
+            self.monitor = FleetMonitor(self.registry)
+            self.election = Election(
+                ctl_cfg.get("lease_path",
+                            os.path.join(state_dir, "lease.json")))
+            self.tagrecorder = TagRecorder(self.model, root=state_dir)
+            self.controller = ControllerServer(
+                self.model, self.registry, self.monitor,
+                election=self.election, tagrecorder=self.tagrecorder,
+                port=ctl_cfg.get("port", 20417),
+                host=ctl_cfg.get("host", "127.0.0.1"))
+
         self.ingester = Ingester(ingester_config(ing_cfg),
                                  device=self.device)
+        if self.controller is not None:
+            # the in-process ingester enriches from this controller's model
+            PlatformPusher(self.model, self.ingester.platform)
+        # the trident gRPC bridge: the reference agent's control plane
+        # (message/trident.proto Synchronizer) over the same registry.
+        # grpc_port 0 = ephemeral; no grpcio = skipped
+        self.trident_grpc = None
+        self._grpc_parts = None
+        if self.controller is not None and \
+                ctl_cfg.get("grpc_enabled", True):
+            try:
+                from deepflow_tpu_torch.controller import trident_grpc
+                self._grpc_parts = (trident_grpc,
+                                    ctl_cfg.get("grpc_port", 30035),
+                                    ctl_cfg.get("host", "127.0.0.1"))
+            except ImportError:
+                pass          # grpcio not installed: JSON sync only
 
         q_cfg = c.get("querier", {})
         self.querier = None
@@ -165,7 +213,7 @@ class Server:
                 self.ingester.store, self.ingester.tag_dicts,
                 port=q_cfg.get("port", 20416),
                 host=q_cfg.get("host", "127.0.0.1"),
-                tagrecorder=None,
+                tagrecorder=self.tagrecorder,
                 external_apm=q_cfg.get("external_apm", []),
                 sketch=self.sketch_tables,
                 anomaly=self.anomaly_tables,
@@ -176,10 +224,45 @@ class Server:
             # the server monitors itself through its own firehose
             addr = f"127.0.0.1:{ing_cfg.get('port', 30033)}"
             self.stats_shipper = StatsShipper(self.ingester.stats, addr)
+            if self.controller is not None:
+                # the controller's self-report rides the same DFSTATS
+                # loop (reference: controller statsd -> deepflow_system)
+                stats = self.ingester.stats
+                stats.register("controller.recorder",
+                               self.controller.recorder.counters)
+                stats.register("controller.genesis",
+                               self.controller.genesis_sync.counters)
+                stats.register(
+                    "controller.fleet",
+                    lambda: {"vtaps": len(self.registry.list()),
+                             "ingesters": len(self.monitor.ingesters()),
+                             "resources": len(self.model.list()),
+                             "model_version": self.model.version,
+                             "is_leader": int(self.election.is_leader)
+                             if self.election else 1})
 
     # -- lifecycle -----------------------------------------------------------
     def _start_components(self) -> None:
         """The one start sequence of start() and reload()."""
+        if self.election is not None:
+            self.election.start()
+        if self.controller is not None:
+            self.controller.start()
+        if self._grpc_parts is not None:
+            mod, port, host = self._grpc_parts
+            server, bound, svc = mod.serve(
+                self.registry, self.controller.package_bytes,
+                platform_version=lambda: self.model.version,
+                genesis_report=self.controller.genesis_report,
+                assign=self.monitor.assign,
+                host=host, port=port)
+            if bound == 0:
+                # grpc's add_insecure_port reports a bind failure as 0,
+                # and start() would otherwise go on deaf
+                server.stop(grace=0)
+                raise OSError(
+                    f"trident gRPC bridge failed to bind {host}:{port}")
+            self.trident_grpc = (server, bound, svc)
         self.ingester.start()
         if self.stats_shipper is not None:
             # the shipper targets the bound port (the config's may be 0)
@@ -206,6 +289,9 @@ class Server:
             self._close_components()
 
     def _close_components(self) -> None:
+        if self.trident_grpc is not None:
+            self.trident_grpc[0].stop(grace=1).wait()
+            self.trident_grpc = None
         if self.querier is not None:
             self.querier.close()
         if self.anomaly_tables is not None:
@@ -222,6 +308,10 @@ class Server:
             self.ingester.stats.stop()
             self.stats_shipper.close()
         self.ingester.close()
+        if self.controller is not None:
+            self.controller.close()
+        if self.election is not None:
+            self.election.close()
 
     # -- config watcher ------------------------------------------------------
     def _watch_config(self) -> None:
@@ -269,6 +359,8 @@ def main(argv=None) -> int:
     server = Server(args.config, device=args.device)
     server.start()
     print(f"deepflow-tpu-torch server up: ingester :{server.ingester.port}"
+          + (f", controller :{server.controller.port}"
+             if server.controller else "")
           + (f", querier :{server.querier.port}" if server.querier else ""),
           flush=True)
     stop = threading.Event()

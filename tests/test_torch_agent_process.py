@@ -13,8 +13,10 @@ the protobuf wire, `l4_log_aggr_s` 60 and a hot switch 0 -> 60 -> 0
 through `_apply_config`, packet sequence on, a throttling L7 cap, and
 a pushed policy with NPB (VXLAN over UDP), PCAP and DROP actions.
 
-Managed mode runs both agents against the JAX package's
-`ControllerServer` over HTTP (the port never imports it). The bootstrap
+Managed mode runs each agent against its own package's
+`ControllerServer` over HTTP, the JAX agent against the JAX controller
+and the port's against the port's, and every step must be equal. The
+bootstrap
 cases hold both packages' `load_bootstrap` and `main` to the same
 answers and messages. The process case runs `python -m
 deepflow_tpu_torch.agent --device cpu` over a pcap into the port's
@@ -370,15 +372,18 @@ def test_agent_sends_reference_bytes(case, batches, tmp_path):
 
 
 # -- managed mode ----------------------------------------------------------------
-def _controller():
-    from deepflow_tpu.controller import (ControllerServer, ResourceModel,
-                                         VTapRegistry)
-    from deepflow_tpu.controller.monitor import FleetMonitor
+def _controller(package):
+    """A started ControllerServer of `package` ("jax" or "port") with one
+    ingester, and its registry."""
+    import importlib
+    pkg = "deepflow_tpu" if package == "jax" else "deepflow_tpu_torch"
+    ctl = importlib.import_module(f"{pkg}.controller")
+    mon_mod = importlib.import_module(f"{pkg}.controller.monitor")
 
-    reg = VTapRegistry()
-    mon = FleetMonitor(reg)
+    reg = ctl.VTapRegistry()
+    mon = mon_mod.FleetMonitor(reg)
     mon.set_ingesters(["127.0.0.1:39999"])
-    srv = ControllerServer(ResourceModel(), reg, mon, port=0)
+    srv = ctl.ControllerServer(ctl.ResourceModel(), reg, mon, port=0)
     srv.start()
     return srv, reg
 
@@ -387,7 +392,7 @@ def _managed_run(package, tmp):
     """One agent against a fresh controller: registration, pushes, a
     bad upgrade, a plugin push, then the controller gone and the escape
     timer. Returns what each step showed."""
-    srv, reg = _controller()
+    srv, reg = _controller(package)
     mod = jtrident if package == "jax" else ttrident
     pol = jpolicy if package == "jax" else tpolicy
     cfg = mod.AgentConfig(controller_url=f"http://127.0.0.1:{srv.port}",
@@ -445,7 +450,7 @@ def test_managed_mode_matches_reference(tmp_path):
 def test_pushed_plugins_fail_the_sync_round(tmp_path):
     """A pushed plugin list the port cannot load fails the round: the
     synchronizer counts it in sync_errors as it counts any failed round."""
-    srv, reg = _controller()
+    srv, reg = _controller("port")
     agent = ttrident.Agent(ttrident.AgentConfig(
         controller_url=f"http://127.0.0.1:{srv.port}", self_telemetry=False),
         device="cpu")

@@ -19,6 +19,11 @@ PORT_FILES = sorted((REPO / "deepflow_tpu_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py", REPO / "chip_pod_probe.py"]
 
 
+# every module of the JAX package's controller/, each with its copy here
+CONTROLLER = sorted(p.name for p in
+                    (REPO / "deepflow_tpu" / "controller").glob("*.py"))
+
+
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
     return root in ("jax", "jaxlib", "deepflow_tpu")
@@ -65,14 +70,19 @@ def test_port_files_found():
             "ext_metrics.py", "event.py", "droplet.py",
             "checkpoint.py", "native.py", "packet.py", "tcp_perf.py",
             "flow_map.py", "quadruple.py", "trident.py"} <= names
+    controller = {p.name for p in PORT_FILES
+                  if p.parent.name == "controller"}
+    assert set(CONTROLLER) <= controller
+    assert (REPO / "deepflow_tpu_torch" / "wire" / "gen"
+            / "trident_pb2.py") in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "decode" / "native_src"
             / "decoder.cc").is_file()
-    for proto in ("telemetry", "otel", "stats"):
+    for proto in ("telemetry", "otel", "stats", "trident"):
         assert (REPO / "deepflow_tpu_torch" / "wire" / "protos"
                 / f"{proto}.proto").is_file()
     assert (REPO / "deepflow_tpu_torch" / "server.py") in PORT_FILES
     for pkg in ("wire", "wire/gen", "decode", "enrich", "serving", "querier",
-                "utils", "agent"):
+                "utils", "agent", "controller"):
         assert (REPO / "deepflow_tpu_torch" / pkg / "__init__.py") \
             in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
@@ -88,6 +98,33 @@ def test_port_files_found():
 def test_no_jax_or_deepflow_tpu_import(path):
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("name", CONTROLLER)
+def test_controller_is_host_only(name):
+    """The controller is host code: no controller module imports torch
+    (nor jax or deepflow_tpu, checked above for every port file)."""
+    path = REPO / "deepflow_tpu_torch" / "controller" / name
+    bad = [(line, mod) for line, mod in _imports(path)
+           if mod.split(".")[0] == "torch"]
+    assert not bad, f"{name} imports {bad}"
+
+
+def test_controller_imports_without_torch():
+    """Importing every controller module (the trident bridge and the six
+    vendor clients included) loads neither torch nor jax nor the JAX
+    package."""
+    mods = ", ".join(f"deepflow_tpu_torch.controller.{n[:-3]}"
+                     for n in CONTROLLER if n != "__init__.py")
+    code = (f"import sys, {mods}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'deepflow_tpu'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 # a source or library file of the JAX package, named in a string

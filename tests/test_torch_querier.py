@@ -6,9 +6,9 @@ once a second for 30 s) is written twice: by the port's StoreWriter and
 RollupManager into one store, by the JAX package's into another. Each
 statement goes through the JAX `QueryEngine` over the JAX store and the
 port's `QueryEngine(device="cpu")` over the port's store; columns and
-rows must be equal, exactly. Resource names resolve through one JAX
-`TagRecorder` given to both engines (duck-typed: the port has no
-controller). Every GROUP BY the port's engine issues is also run with
+rows must be equal, exactly. Resource names resolve through each
+package's own `TagRecorder` over the same resources: the JAX engine
+reads the JAX one, the port's engine the port's. Every GROUP BY the port's engine issues is also run with
 `method="device"` on CPU tensors and held against `method="host"`.
 """
 
@@ -24,6 +24,10 @@ from deepflow_tpu.store import db as jdb
 from deepflow_tpu.store import dict_store as jdicts
 from deepflow_tpu.store import rollup as jrollup
 from deepflow_tpu.store import writer as jwriter
+from deepflow_tpu_torch.controller import ResourceModel as TModel
+from deepflow_tpu_torch.controller.model import make_resource as tmake
+from deepflow_tpu_torch.controller.tagrecorder import \
+    TagRecorder as TTagRecorder
 from deepflow_tpu_torch.pipelines.schemas import METRICS_TABLE
 from deepflow_tpu_torch.querier import QueryEngine
 from deepflow_tpu_torch.querier import engine as tengine
@@ -103,6 +107,10 @@ def engines(tmp_path_factory):
     model.update_domain("d", [make_resource("pod", i, name, "d")
                               for i, name in PODS.items()])
     recorder = TagRecorder(model)
+    tmodel = TModel()
+    tmodel.update_domain("d", [tmake("pod", i, name, "d")
+                               for i, name in PODS.items()])
+    trecorder = TTagRecorder(tmodel)
     jstore, jreg, cols = write_store((jdb, jdicts, jrollup, jwriter),
                                      str(tmp_path_factory.mktemp("jax")),
                                      raw, ep_idx)
@@ -112,7 +120,7 @@ def engines(tmp_path_factory):
     np.testing.assert_array_equal(cols["endpoint_hash"],
                                   tcols["endpoint_hash"])
     j = JEngine(jstore, jreg, tagrecorder=recorder)
-    t = QueryEngine(tstore, treg, tagrecorder=recorder, device="cpu")
+    t = QueryEngine(tstore, treg, tagrecorder=trecorder, device="cpu")
     yield j, t, cols
     jreg.close()
     treg.close()

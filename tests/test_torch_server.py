@@ -1,14 +1,18 @@
 """The port's server process (deepflow_tpu_torch/server.py) against the
-JAX package's `Server`, on the CPU, with the controller off.
+JAX package's `Server`, on the CPU.
 
 Both servers read one config file and take the same frames over
 loopback TCP, one after the other (l7 PROTOCOLLOG, OTel, PROMETHEUS and
 TELEGRAF, made from a seed with numpy); the same SQL and PromQL requests
 through each querier's HTTP routes answer with the same JSON, and the
 port's answers equal its engines queried directly on the same store.
-Also: reload rebuilds and answers again; a config with the controller on
-(or the JAX default, which enables it) raises NotImplementedError naming
-`controller.enabled`; the config reads as JSON where PyYAML is missing;
+Also: reload rebuilds and answers again; with the controller on (the JAX
+default: no `controller` block, an empty one, or enabled: true) both
+servers build and start, answer the same controller routes and register
+the same DFSTATS sources, which land in deepflow_system, and a reload
+with the controller on reopens its state and the Store;
+`Server()` with no config builds and starts on the reference's defaults;
+the config reads as JSON where PyYAML is missing;
 the StatsShipper puts the same DFSTATS bytes on the wire as the JAX one
 and its loop lands in deepflow_system; `python -m
 deepflow_tpu_torch.server -f <json> --device cpu` serves and stops on
@@ -189,22 +193,189 @@ def test_reload_rebuilds_and_answers(tmp_path):
     assert res["port"]["result"]["values"][0][0] == 50
 
 
+# the controller routes both servers answer, in order (the JAX
+# package's tests/test_controller.py drives the same surface)
+CTL_CALLS = [
+    ("GET", "/v1/health", None),
+    ("GET", "/v1/election", None),
+    ("POST", "/v1/ingesters", {"addrs": ["127.0.0.1:30033"]}),
+    ("POST", "/v1/vtap-group-config?group=default", {"l7_log_rate": 9}),
+    ("POST", "/v1/sync", {"ctrl_ip": "10.9.9.9", "host": "n1", "boot": True,
+                          "processes": [{"pid": 7, "name": "p",
+                                         "start_time": 3}]}),
+    ("POST", "/v1/domains/k8s/resources", {"resources": [
+        {"type": "pod", "id": 10, "name": "web-0", "ip": "10.0.0.5",
+         "epc_id": 3}]}),
+    ("POST", "/v1/genesis", {"ctrl_ip": "10.9.9.9", "host": "n1",
+                             "interfaces": [{"name": "eth0",
+                                             "ip": "10.9.9.9"}]}),
+    ("GET", "/v1/vtaps", None),
+    ("GET", "/v1/resources", None),
+    ("GET", "/v1/platform-data", None),
+    ("GET", "/v1/recorder", None),
+    ("GET", "/v1/assignments", None),
+    ("GET", "/v1/vtap-group-config?group=default", None),
+]
+_CTL_SOURCES = ("controller.recorder", "controller.genesis",
+                "controller.fleet")
+_MASK = ("server_time_ns", "created_at", "last_seen", "identity")
+
+
+def _masked(x):
+    if isinstance(x, dict):
+        return {k: ("*" if k in _MASK else _masked(v)) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_masked(v) for v in x]
+    return x
+
+
+def _ctl(port, method, path, body):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return _masked(json.load(r))
+
+
+def _controller_answers(srv):
+    """The controller routes, the DFSTATS sources the server registered
+    and their values, and what the in-process ingester and querier took
+    from the controller."""
+    answers = [_ctl(srv.controller.port, *c) for c in CTL_CALLS]
+    samples = {x.module: x.values for x in srv.ingester.stats.collect()}
+    return {"routes": answers,
+            "sources": {k: _masked(samples.get(k)) for k in _CTL_SOURCES},
+            "platform_version": [srv.ingester.platform.info.version,
+                                 srv.model.version],
+            "tagrecorder": srv.querier.engine.tagrecorder
+            is srv.tagrecorder,
+            "grpc": srv.trident_grpc is not None
+            and srv.trident_grpc[1] > 0,
+            "files": sorted(p.name for p in Path(
+                srv.ingester.cfg.store_path).iterdir()
+                if p.suffix == ".json")}
+
+
 @pytest.mark.parametrize("controller", [None, {}, {"enabled": True}])
-def test_controller_on_raises(tmp_path, controller):
-    """The controller role is not ported: the JAX default (no
-    `controller` block, or one without `enabled`) and an explicit
-    enabled: true raise NotImplementedError naming controller.enabled."""
-    path = _config(tmp_path, "ctl")
-    cfg = json.loads(Path(path).read_text())
-    if controller is None:
-        del cfg["controller"]
-    else:
-        cfg["controller"] = controller
-    Path(path).write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="controller.enabled"):
-        tserver.Server(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="controller.enabled"):
-        tserver.Server(None, device="cpu")
+def test_controller_on_matches_jax(tmp_path, controller):
+    """The controller on, as the JAX package's server runs by default (no
+    `controller` block, an empty one, enabled: true): both servers build
+    and start the controller, the platform pusher, the trident bridge and
+    the querier over the TagRecorder, answer the same controller routes,
+    register the same controller DFSTATS sources, and those land in
+    deepflow_system. Without a `controller` block the ports are the
+    reference's defaults (20417, the bridge on 30035); otherwise 0."""
+    out = {}
+    for package, mod, kw in (("jax", jserver, {}),
+                             ("port", tserver, {"device": "cpu"})):
+        over = {"self_telemetry": True}
+        if controller is not None:
+            over["controller"] = {**controller, "port": 0, "grpc_port": 0,
+                                  "lease_path": str(tmp_path / package
+                                                    / "lease.json")}
+        path = _config(tmp_path, package, **over)
+        cfg = json.loads(Path(path).read_text())
+        if controller is None:
+            del cfg["controller"]
+            Path(path).write_text(json.dumps(cfg))
+        srv = mod.Server(path, **kw)
+        srv.start()
+        try:
+            assert srv.controller is not None
+            out[package] = _controller_answers(srv)
+            srv.stats_shipper.flush()
+            table = srv.ingester.store.table("deepflow_system",
+                                             "ext_samples")
+            md = srv.ingester.tag_dicts.get("metric_name")
+            found = set()
+
+            def landed():
+                srv.ingester.flush()
+                found.update(md.decode(int(h))
+                             for h in set(table.scan()["metric"].tolist()))
+                return {"controller.fleet.vtaps",
+                        "controller.recorder.model_version",
+                        "controller.genesis.local_domains"} <= found
+            tp.wait(landed, "the controller's DFSTATS rows")
+        finally:
+            srv.close()
+    assert out["port"] == out["jax"]
+    t = out["port"]
+    assert t["routes"][4]["vtap_id"] == 1
+    assert t["routes"][4]["ingester"] == "127.0.0.1:30033"
+    assert t["platform_version"][0] == t["platform_version"][1] > 1
+    assert all(t["sources"].values()) and t["grpc"] and t["tagrecorder"]
+
+
+def test_reload_with_controller_on_matches_jax(tmp_path):
+    """A reload with the controller on closes and rebuilds it over its
+    state files under the store root (model.json, vtaps.json and
+    tagrecorder/ beside the Store's databases): the model, the fleet and
+    the names come back, the Store reopens, and the rebuilt querier
+    names the pods, in both packages."""
+    res = {}
+    for package, mod, kw in (("jax", jserver, {}),
+                             ("port", tserver, {"device": "cpu"})):
+        path = _config(tmp_path, package, controller={
+            "port": 0, "grpc_port": 0,
+            "lease_path": str(tmp_path / package / "lease.json")})
+        srv = mod.Server(path, **kw)
+        srv.start()
+        try:
+            answers = [_ctl(srv.controller.port, *c) for c in CTL_CALLS]
+            tp.drive(srv.ingester, [(l7_frames(
+                np.random.default_rng(104), 40),
+                lambda i: tp.offered(i, "l7_flow_log") == 40)])
+            srv.ingester.flush()
+            cfg = json.loads(Path(path).read_text())
+            cfg["ingester"]["throttle_per_s"] = 9000
+            Path(path).write_text(json.dumps(cfg))
+            ctl = srv.controller
+            srv.reload()
+            assert srv.reload_error is None and srv.controller is not ctl
+            again = [_ctl(srv.controller.port, "GET", p, None)
+                     for p in ("/v1/vtaps", "/v1/resources",
+                               "/v1/platform-data")]
+            q = _req(f"http://127.0.0.1:{srv.querier.port}/v1/query",
+                     form={"db": "flow_log",
+                           "sql": "SELECT Count(*) AS n FROM l7_flow_log"})
+            res[package] = {
+                "before": answers, "after": again, "query": q,
+                "names": srv.tagrecorder.column_name("pod_id_1", 10),
+                "version": [srv.model.version,
+                            srv.ingester.platform.info.version],
+                "root": sorted(p.name for p in Path(
+                    srv.ingester.cfg.store_path).iterdir())}
+        finally:
+            srv.close()
+    assert res["port"] == res["jax"]
+    t = res["port"]
+    assert t["names"] == "web-0" and t["query"]["result"]["values"][0][0] \
+        == 40
+    assert len(t["after"][0]) == 1 and t["version"][0] == t["version"][1]
+
+
+def test_server_builds_and_starts_on_its_defaults(tmp_path, monkeypatch):
+    """`Server()` with no config on the CPU: the controller on its
+    default port 20417 with the trident bridge on 30035, the ingester on
+    30033, no store (so no querier), the controller's state under the
+    temporary directory; then it closes and its threads stop."""
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    srv = tserver.Server(device="cpu")
+    srv.start()
+    try:
+        assert (srv.controller.port, srv.ingester.port) == (20417, 30033)
+        assert srv.querier is None and srv.ingester.store is None
+        if srv._grpc_parts is not None:
+            assert srv.trident_grpc[1] == 30035
+        assert srv.election.lease_path == str(tmp_path / "deepflow-tpu"
+                                              / "lease.json")
+        assert _ctl(20417, "GET", "/v1/health", None)["ok"] is True
+    finally:
+        srv.close()
+    assert (tmp_path / "deepflow-tpu" / "tagrecorder").is_dir()
 
 
 def test_json_config_without_yaml(tmp_path, monkeypatch):
