@@ -2,8 +2,9 @@
 """Drive the deepflow_tpu_torch l4 sketch step, L7 RED lane, sharded
 suites, flow_metrics store lane, pod, global mesh, ingester with its
 operations surface, serving with the querier, and the server process
-with every ingest lane, the agent process, and a node managed by the
-controller, on one CUDA card.
+with every ingest lane, the agent process, a node managed by the
+controller, and a node whose L7 plugins the controller pushes, on one
+CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -142,8 +143,9 @@ is printed):
    equal flow_suite.update on one device, recall >= 0.99, the table
    replicas identical (every shard's leaves and the table kept as phase
    12's reference), hist launched and the fused kernels not; (b)
-   ShardedAppSuite at AppSuiteConfig() over two windows of phase 8's l7
-   records: every window output field equal to AppSuite on one device;
+   ShardedAppSuite at AppSuiteConfig() over two windows of 2^19 l7
+   records drawn as phase 8 draws them (cut from 2^20): every window
+   output field equal to AppSuite on one device;
    (c) ShardedMetricsSuite at MetricsSuiteConfig() over phase 7's DDoS
    ramp, one flow_metrics Document per l4 row (`metric_documents`): 4
    shards on the card against 4 shards on the CPU (histograms exact,
@@ -247,8 +249,8 @@ is printed):
    frames built by the port's wire modules: phase 3's two windows of
    l4 records (window 0's first 2^16 as TAGGEDFLOW protobuf records,
    the rest as planar COLUMNAR_FLOW frames; the L4_SCHEMA columns phase
-   3 does not draw from the seed), 2^16 l7 requests drawn as phase 8
-   draws them (PROTOCOLLOG) and 2^16 Documents drawn as phase 10 draws
+   3 does not draw from the seed), 2^15 l7 requests drawn as phase 8
+   draws them (PROTOCOLLOG) and 2^15 Documents drawn as phase 10 draws
    them (METRICS); the depth of both is the cut. Every l4 decoder must
    have registered the native fast path for TAGGEDFLOW. (a) One
    decoder, one connection: every sketch leaf at every window, the anomaly states and alerts, every window and RED
@@ -430,6 +432,46 @@ is printed):
    wall, the first syncs against the whole model, the process's spawn
    to first sync, packets/s through the process, rows on a pod, by CIDR
    and unresolved per side, the push-to-sync time, the sync gaps.
+20. a plugin-managed node: phase 19's `server.Server` (controller on)
+   with a TCP relay in front of its ingester as the assigned ingester
+   (every stream of the agent read back as it arrived). The memcached
+   sample plugin, built with g++ from the port's native_src, and the
+   wasm sample (build_memcached_wasm) are uploaded as upgrade packages;
+   `python -m deepflow_tpu_torch.agent` starts on a bootstrap with the
+   controller, a fake apiserver's URL (phase 19's cluster as 64 nodes,
+   16 namespaces, 4,096 pods and 256 services, listed in pages and
+   watched in chunked streams) and, where perf_event_open works, a busy
+   child to profile; the node registers ahead of its process, so a CPU
+   twin runs beside its start. (a) Three pushes, each applied (two
+   syncs at its version) before its replay through a FIFO: so_plugins
+   [pkg://...so] with one tick of phase 18's generator plus 2^11
+   memcached sessions on pods' addresses, then wasm_plugins
+   [pkg://...wasm] with so_plugins [] and a second tick with 2^11 more,
+   then [] for both and 2^11 sessions alone (each replay a whole number
+   of the process's 4096-frame batches; the L7 log uncapped). Asserted:
+   the process's PROTOCOLLOG records equal, byte for byte, those of the
+   port's Agent on the CPU fed the same frames with the same pushed
+   configs (its own pkg:// fetches); 2^11 sessions of protocol 201 in
+   the first tick, 2^11 of 202 in the second, none in the third, and
+   the same counts in the store's l7 rows; the process's plugin cache
+   holds both packages' bytes; every valid packet in the l4 rows. (b)
+   Every object the apiserver lists in the controller's model, in the
+   ingester's platform data; every l4 row's KnowledgeGraph columns as
+   phase 19 checks them; a watched add and delete in the model within
+   two platform-sync intervals; a 410 Expired relists every resource.
+   (b) and (c) run before the replay, the agent idle. (c) PROFILE rows
+   from the busy child (else from the agent itself; where a process
+   beside it may use perf_event_open, probed first); an
+   IntegrationCollector forwards a snappy remote-write (8 series) and a
+   gzip OTel upload (16 spans) into the ext_metrics and l7 decoders; once
+   the node is down, a BpfFilter on a raw socket on lo counts 2^12 UDP
+   datagrams, accepted twice (lo's egress and ingress) for its port and
+   rejected twice for the other (where bpf(2) works). hist launched on
+   the server. Printed: whether perf and bpf ran, push to applied, the
+   ticks' replay times, the wasm plugin's sessions/s (the CPU twin's),
+   the apiserver's objects to the model, the watch's latency, the
+   relists, rows on pods, the launches. No XDP here: a redirect on lo
+   consumes its ingress, the node's TCP included (the tests hold it).
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -2173,6 +2215,7 @@ def check_detection(torch, dev, rng, args, card, tmp):
 RED_ENDPOINTS = 4096       # server (ip_dst, port_dst, protocol) pool
 RED_WINDOWS = 4
 RED_RECORDS = 1 << 20      # l7 request records per window
+SH_APP_RECORDS = 1 << 19   # phase 9b's l7 records a window (cut from 2^20)
 RED_CHUNK = 1 << 16        # records per decoded chunk
 # HTTP 200 / 3xx / 404 / 500 and enum-style codes 0-10 (0 ok)
 RED_CODES = np.array([200, 301, 304, 404, 500] + list(range(11)), np.uint32)
@@ -2638,7 +2681,7 @@ def check_sharded_app(torch, dev, rng, card):
 
     cfg = app_suite.AppSuiteConfig()
     pool, p = red_pool(rng)
-    windows = [red_window(rng, pool, p, RED_RECORDS) for _ in range(2)]
+    windows = [red_window(rng, pool, p, SH_APP_RECORDS) for _ in range(2)]
     single, wants = app_suite.init(cfg, dev), []
     for cols in windows:
         for part, mask, _ in global_batches(cols):
@@ -4377,10 +4420,10 @@ def check_global_mesh(torch, dev, windows, ref, tmp, card):
 # -- phase 13: the ingester entry point --------------------------------------
 
 ING_TAGGED = 1 << 16       # window 0's first records, as TAGGEDFLOW protobuf
-ING_L7 = 1 << 16           # phase 8's l7 requests, as PROTOCOLLOG (cut
-#                            from 2^17 for time)
-ING_DOC_TUPLES = 2048      # phase 10's tag tuples x seconds: 2^16 Documents,
-ING_DOC_SECONDS = 32       # as METRICS (cut from 64 s for time)
+ING_L7 = 1 << 15           # phase 8's l7 requests, as PROTOCOLLOG (cut
+#                            from 2^17, then 2^16, for time)
+ING_DOC_TUPLES = 2048      # phase 10's tag tuples x seconds: 2^15 Documents,
+ING_DOC_SECONDS = 16       # as METRICS (cut from 64 s, then 32 s, for time)
 ING_PB_PER_FRAME = 1024    # protobuf records per frame
 ING_COL_PER_FRAME = 1024   # planar L4 rows per COLUMNAR_FLOW frame (~459 KB)
 ING_VTAPS = 4              # (b), (c): connections, one vtap_id each
@@ -8065,8 +8108,10 @@ def sync_body(ctrl_ip, host, pid):
 def expected_kg(compiled, ip, port, proto):
     """A plain lookup of compile_platform_data's tables for one side of
     the rows (epc 0): the interface on the address, else the longest
-    CIDR that holds it, else nothing; the service on (address, port,
-    TCP). Returns {column: array}."""
+    CIDR that holds it, else nothing; over TCP, the service on (address,
+    port), else the address's any-port service (port 0: the apiserver's
+    services), else the port's any-address one. Returns {column:
+    array}."""
     ifaces, cidrs, services, _ = compiled
     by_ip = {i.ip: i for i in ifaces if i.epc_id == 0}
     nets = sorted((c for c in cidrs if c.epc_id == 0),
@@ -8095,12 +8140,13 @@ def expected_kg(compiled, ip, port, proto):
     out["epc_id"] = np.zeros(len(ip), np.int64)
     if port is not None:
         out["service_id"] = np.array(
-            [svc.get((a, p), 0) if t == 6 else 0 for a, p, t in zip(
+            [svc.get((a, p)) or svc.get((a, 0)) or svc.get((0, p)) or 0
+             if t == 6 else 0 for a, p, t in zip(
                 ip.tolist(), port.tolist(), proto.tolist())], np.int64)
     return out
 
 
-def check_managed_kg(rows, compiled, pods):
+def check_managed_kg(rows, compiled, pods, phase="phase 19"):
     """Every l4 row, both sides: the KnowledgeGraph columns equal the
     plain lookup of compile_platform_data's tables; rows on a pod carry
     its id. Returns (rows on a pod, rows resolved by CIDR only, rows
@@ -8116,7 +8162,7 @@ def check_managed_kg(rows, compiled, pods):
             if len(bad):
                 j = bad[0]
                 raise AssertionError(
-                    f"phase 19: {len(bad)} l4 rows' {f}_{side} differ from "
+                    f"{phase}: {len(bad)} l4 rows' {f}_{side} differ from "
                     f"the compiled platform data, e.g. {_ip(rows[ip_col][j])}"
                     f": {got[j]} != {w[j]}")
         on_pod = np.isin(rows[ip_col], list(pods))
@@ -8124,7 +8170,7 @@ def check_managed_kg(rows, compiled, pods):
                 np.int64), np.array([pods[a] for a in
                                      rows[ip_col][on_pod].tolist()],
                                     np.int64)):
-            raise AssertionError(f"phase 19: a row on a pod lacks its id "
+            raise AssertionError(f"{phase}: a row on a pod lacks its id "
                                  f"(side {side})")
         src = want["tag_source"]
         counts[side] = [int(on_pod.sum()), int((src == 2).sum()),
@@ -8528,6 +8574,892 @@ def check_managed_node(torch, dev, rng, card):
     return r
 
 
+# -- phase 20: a plugin-managed node -----------------------------------------
+
+PL_SESSIONS = 1 << 11      # memcached sessions in each plugin tick
+PL_LAST = 1 << 11          # the last burst's sessions: one capture batch
+PL_BATCH = 4096            # the process's pcap batch: ticks end on one
+PL_MC_SERVERS = 16         # memcached servers, on pods of the cluster
+PL_HOST = "phase20-node"   # the agent process's host name
+PL_CTRL_IP = "10.254.0.1"
+PL_DOMAIN = "k8s-prod"     # the cluster's domain at the controller
+PL_PLATFORM_S = 2.0        # the agent's platform-sync interval
+PL_LEAD_S = 10             # the replay's stamps begin this far ahead
+PL_DGRAMS = 1 << 12        # UDP datagrams through the socket filter
+PL_WAIT_S = 120            # the longest wait for the process or the server
+PL_SO, PL_WASM = "memcached_plugin.so", "memcached.wasm"   # package names
+
+
+def k8s_obj(kind, name, rv, ns=None, ip=None, node=None):
+    """One object as the apiserver lists it: a pod (podIP, nodeName), a
+    node (InternalIP), a namespace or a service (clusterIP)."""
+    meta = {"name": name, "uid": f"uid-{kind}-{name}",
+            "resourceVersion": str(rv)}
+    if ns is not None:
+        meta["namespace"] = ns
+    if kind == "pods":
+        return {"metadata": meta, "status": {"podIP": ip},
+                "spec": {"nodeName": node}}
+    if kind == "nodes":
+        return {"metadata": meta, "status": {"addresses": [
+            {"type": "InternalIP", "address": ip}]}}
+    if kind == "services":
+        return {"metadata": meta, "spec": {"clusterIP": ip}}
+    return {"metadata": meta}
+
+
+def cluster_objects(doc):
+    """Phase 19's cluster document as apiserver objects by resource:
+    its nodes, namespaces, pods and services (each service in ns-00 on
+    its pod's address)."""
+    out = {"nodes": [k8s_obj("nodes", n["name"], 1, ip=n["ip"])
+                     for n in doc["pod_nodes"]],
+           "namespaces": [k8s_obj("namespaces", n["name"], 1)
+                          for n in doc["pod_namespaces"]],
+           "pods": [k8s_obj("pods", p["name"], 1, ns=p["pod_ns"],
+                            ip=p["ip"], node=p["pod_node"])
+                    for p in doc["pods"]],
+           "services": [k8s_obj("services", s["name"], 1, ns="ns-00",
+                                ip=s["ip"]) for s in doc["services"]]}
+    return out
+
+
+class FakeApiserver:
+    """A Kubernetes apiserver for the agent's list/watch
+    (agent/k8s_watch.py) on localhost: LIST /api/v1/<resource> with
+    `limit`/`continue` pages at the collection's resourceVersion; WATCH
+    (chunked, one JSON event a line) from a resourceVersion: every event
+    after it, then each new one as it comes, until `hold_s` (the
+    reference's timeoutSeconds, capped). `add` (ADDED, or MODIFIED for a
+    known uid) and `delete` write events;
+    `expire()` answers the next watch of each resource and client (its
+    bearer token) with a 410 Expired ERROR. Counts the LISTs (a list is
+    its first page) and watches per resource."""
+
+    def __init__(self, objects, hold_s=1.0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+        self.rv = 1
+        self.hold_s = hold_s
+        self.objs = {r: {o["metadata"]["uid"]: o for o in objs}
+                     for r, objs in objects.items()}
+        self.events = {r: [] for r in objects}
+        self.lists = dict.fromkeys(objects, 0)
+        self.watches = dict.fromkeys(objects, 0)
+        self.clients = {r: set() for r in objects}
+        self.expiring = {r: set() for r in objects}
+        self.cond = threading.Condition()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                url = urlparse(self.path)
+                qs = {k: v[0] for k, v in parse_qs(url.query).items()}
+                res = url.path.rsplit("/", 1)[-1]
+                if not url.path.startswith("/api/v1/") \
+                        or res not in outer.objs:
+                    self.send_error(404)
+                    return
+                client = self.headers.get("Authorization", "")
+                if qs.get("watch"):
+                    outer._watch(self, res, client,
+                                 int(qs.get("resourceVersion", "0")),
+                                 float(qs.get("timeoutSeconds", "60")))
+                else:
+                    outer._list(self, res, client, qs)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    @property
+    def url(self):
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def _list(self, h, res, client, qs):
+        limit = int(qs.get("limit", "500"))
+        start, rv = 0, None
+        if qs.get("continue"):
+            start, rv = (int(x) for x in qs["continue"].split(":"))
+        with self.cond:
+            self.clients[res].add(client)
+            if not start:
+                self.lists[res] += 1
+                rv = self.rv
+            items = sorted(self.objs[res].values(),
+                           key=lambda o: o["metadata"]["uid"])
+        page = items[start:start + limit]
+        meta = {"resourceVersion": str(rv)}
+        if start + limit < len(items):
+            meta["continue"] = f"{start + limit}:{rv}"
+        data = json.dumps({"items": page, "metadata": meta}).encode()
+        h.send_response(200)
+        h.send_header("Content-Type", "application/json")
+        h.send_header("Content-Length", str(len(data)))
+        h.end_headers()
+        h.wfile.write(data)
+
+    def _watch(self, h, res, client, rv, timeout_s):
+        h.send_response(200)
+        h.send_header("Content-Type", "application/json")
+        h.send_header("Transfer-Encoding", "chunked")
+        h.end_headers()
+
+        def chunk(data):
+            h.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+            h.wfile.flush()
+        deadline = time.monotonic() + min(timeout_s, self.hold_s)
+        try:
+            with self.cond:
+                self.watches[res] += 1
+                self.clients[res].add(client)
+                expired = client in self.expiring[res]
+                self.expiring[res].discard(client)
+            if expired:
+                chunk(json.dumps({"type": "ERROR", "object": {
+                    "code": 410, "reason": "Expired"}}).encode() + b"\n")
+            else:
+                while True:
+                    with self.cond:
+                        todo = [e for v, e in self.events[res] if v > rv]
+                        if not todo:
+                            left = deadline - time.monotonic()
+                            if left <= 0:
+                                break
+                            self.cond.wait(left)
+                            continue
+                    for e in todo:
+                        chunk(json.dumps(e).encode() + b"\n")
+                    rv = int(todo[-1]["object"]["metadata"]
+                             ["resourceVersion"])
+            h.wfile.write(b"0\r\n\r\n")
+        except OSError:
+            pass                     # the watcher went away
+
+    def _event(self, res, etype, obj):
+        with self.cond:
+            self.rv += 1
+            obj["metadata"]["resourceVersion"] = str(self.rv)
+            uid = obj["metadata"]["uid"]
+            if etype == "DELETED":
+                self.objs[res].pop(uid)
+            else:
+                if uid in self.objs[res]:
+                    etype = "MODIFIED"
+                self.objs[res][uid] = obj
+            self.events[res].append((self.rv, {"type": etype,
+                                               "object": obj}))
+            self.cond.notify_all()
+
+    def add(self, res, obj):
+        self._event(res, "ADDED", obj)
+
+    def delete(self, res, uid):
+        self._event(res, "DELETED", dict(self.objs[res][uid]))
+
+    def expire(self):
+        """The next watch of every resource by every client seen so far
+        answers 410 Expired."""
+        with self.cond:
+            for res, seen in self.clients.items():
+                self.expiring[res] |= seen
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+class TeeProxy(LoopbackSink):
+    """A LoopbackSink that relays every connection to an ingester at
+    `upstream`, so the agent's streams can be read back as they reached
+    it."""
+
+    def __init__(self, upstream):
+        self.upstream = upstream         # before the accept thread starts
+        super().__init__()
+
+    @property
+    def addr(self):
+        return f"127.0.0.1:{self.port}"
+
+    def _read(self, c, buf, eof):
+        import socket
+        host, port = self.upstream.rsplit(":", 1)
+        with c, socket.create_connection((host, int(port))) as up:
+            while True:
+                try:
+                    chunk = c.recv(1 << 20)
+                except OSError:
+                    break
+                if not chunk:
+                    break
+                buf += chunk
+                up.sendall(chunk)
+        eof.set()
+
+    def records(self, msg_type):
+        """The records of every `msg_type` frame received, each frame
+        once by its sequence number (a reconnecting sender re-sends its
+        ring), in sequence order. A connection carries one sender's
+        type: only those whose first frame is `msg_type` are read."""
+        with self._lock:
+            bufs = [bytes(b) for b, _ in self.conns
+                    if len(b) > 4 and b[4] == int(msg_type)]
+        return stream_frames(bufs, msg_type, dedup=True)
+
+    def wait_closed(self, timeout):
+        """Until every connection so far has reached its end."""
+        deadline = time.monotonic() + timeout
+        while not all(e.is_set() for _, e in list(self.conns)):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 20: a relayed connection never "
+                                     "closed")
+            time.sleep(0.01)
+
+
+def stream_frames(bufs, msg_type, dedup=False):
+    """The record payloads of every `msg_type` frame in the connections'
+    byte streams `bufs`, in order (by sequence number when `dedup`)."""
+    from deepflow_tpu_torch.wire.codec import iter_pb_records
+    from deepflow_tpu_torch.wire.framing import FrameReader
+    frames = []
+    for buf in bufs:
+        for f in FrameReader().feed(buf):
+            if f.msg_type == msg_type:
+                frames.append((f.flow_header.sequence, f.payload))
+    if dedup:
+        frames = sorted(dict(frames).items())
+    return [r for _, p in frames for r in iter_pb_records(p)]
+
+
+def tcp_frame(src, dst, sport, dport, seq, payload):
+    """An Ethernet/IPv4/TCP frame (PSH|ACK) carrying `payload`."""
+    ip = (b"\x45\x00" + (40 + len(payload)).to_bytes(2, "big")
+          + b"\x00\x00\x00\x00\x40\x06\x00\x00" + src.to_bytes(4, "big")
+          + dst.to_bytes(4, "big"))
+    return (b"\x02" * 6 + b"\x04" * 6 + b"\x08\x00" + ip
+            + sport.to_bytes(2, "big") + dport.to_bytes(2, "big")
+            + (seq & 0xFFFFFFFF).to_bytes(4, "big") + bytes(4)
+            + b"\x50\x18\x20\x00\x00\x00\x00\x00" + payload)
+
+
+_MC_REQ = ("get", "gets", "set", "add", "delete", "touch")
+_MC_RESP = {"get": ("VALUE {k} 0 3\r\nabc\r\nEND", "END"),
+            "gets": ("VALUE {k} 0 3 9\r\nabc\r\nEND", "END"),
+            "set": ("STORED", "NOT_STORED"), "delete": ("DELETED",
+                                                        "NOT_FOUND"),
+            "add": ("STORED", "NOT_STORED"),
+            "touch": ("TOUCHED", "SERVER_ERROR busy")}
+
+
+def memcached_sessions(rng, flows, servers, t, n):
+    """n memcached text-protocol sessions on port 11211 in the second
+    starting at t (ns): a request from one of the generator's clients to
+    one of `servers`, its response 0.2-2 ms later, 1 in 8 a miss or an
+    error; (stamps, frames)."""
+    cli = flows.cip[rng.integers(0, len(flows.cip), n)].tolist()
+    cport = rng.integers(1024, 1 << 16, n).tolist()
+    srv = [servers[i] for i in rng.integers(0, len(servers), n).tolist()]
+    ts = t + rng.integers(0, 990 * MS, n)
+    rtt = rng.integers(MS // 5, 2 * MS, n)
+    cmd = rng.integers(0, len(_MC_REQ), n).tolist()
+    miss = (rng.random(n) < 1 / 8).tolist()
+    stamps, frames = [], []
+    for j in range(n):
+        c, key = _MC_REQ[cmd[j]], f"user:{j % 4099}"
+        req = f"{c} {key}" + (" 0 60 3\r\nabc" if c in ("set", "add")
+                              else "")
+        resp = _MC_RESP[c][int(miss[j])].format(k=key)
+        frames.append(tcp_frame(cli[j], srv[j], cport[j], 11211, j,
+                                f"{req}\r\n".encode()))
+        frames.append(tcp_frame(srv[j], cli[j], 11211, cport[j], j,
+                                f"{resp}\r\n".encode()))
+        stamps += [int(ts[j]), int(ts[j] + rtt[j])]
+    return np.asarray(stamps, np.int64), frames
+
+
+def plugin_ticks(rng, flows, servers, t_data):
+    """Phase 20's replay: two ticks of phase 18's generator, each with
+    PL_SESSIONS memcached sessions, then a burst of PL_LAST sessions
+    alone; per tick (frames, stamps) in stamp order, each a whole number
+    of the process's capture batches."""
+    gen = agent_process_traffic(rng, t_data, ticks=2, flows=flows)
+    out = []
+    for k in range(3):
+        t = (t_data + k) * NS
+        m_ts, m_frames = memcached_sessions(
+            rng, flows, servers, t, PL_LAST if k == 2 else PL_SESSIONS)
+        frames, ts = (list(gen[k][0]) + m_frames,
+                      np.concatenate([gen[k][1].astype(np.int64), m_ts])) \
+            if k < 2 else (m_frames, m_ts)
+        order = np.argsort(ts, kind="stable")
+        if len(order) % PL_BATCH:
+            raise AssertionError(f"phase 20: tick {k} holds {len(order)} "
+                                 f"packets, not whole batches")
+        out.append(([frames[i] for i in order.tolist()],
+                    ts[order].astype(np.uint64)))
+    return out
+
+
+def run_plugin_twin(torch, ticks, configs, base, tmp, vtap_id, out):
+    """Phase 20 (a)'s CPU twin: the port's Agent on the CPU, not started,
+    given each tick's pushed group config through _apply_config (its
+    pkg:// plugins fetched from the controller into its own cache), fed
+    the tick's frames in PL_BATCH batches and ticked by hand, its
+    senders into a LoopbackSink. Fills `out`: the PROTOCOLLOG records
+    and, per tick, how many there were by its end; the wasm plugin's
+    check and parse time; it stamps `vtap_id`, the process's."""
+    from deepflow_tpu_torch.agent import trident
+    from deepflow_tpu_torch.wire import MessageType
+    sink = LoopbackSink()
+    agent = trident.Agent(trident.AgentConfig(
+        ingester_addr=f"127.0.0.1:{sink.port}", controller_url=base,
+        upgrade_dir=os.path.join(tmp, "twin"), self_telemetry=False),
+        device="cpu")
+    try:
+        agent.set_vtap_id(vtap_id)
+        counts = []
+        for k, ((frames, stamps), cfg) in enumerate(zip(ticks, configs)):
+            agent._apply_config(cfg)
+            if agent.plugin_fetch_errors:
+                raise AssertionError(f"phase 20: the twin's plugin fetch "
+                                     f"failed ({cfg})")
+            for p in agent.wasm_plugins.values():
+                out["wasm"] = p
+            for i in range(0, len(frames), PL_BATCH):
+                agent.feed(frames[i:i + PL_BATCH], stamps[i:i + PL_BATCH])
+            agent.tick(int(stamps[-1]) + NS, final=k == len(ticks) - 1)
+            counts.append(agent.senders[MessageType.PROTOCOLLOG]
+                          .sent_records)
+            out["counts"] = list(counts)
+        streams = sink.drain(agent.senders)
+        out["records"] = stream_frames(
+            [streams.get(int(MessageType.PROTOCOLLOG), b"")],
+            MessageType.PROTOCOLLOG)
+        out["counters"] = agent.counters()
+    except BaseException as e:  # noqa: BLE001 -- re-raised by the caller
+        out["error"] = e
+    finally:
+        agent.close()
+        sink.close()
+
+
+def wait_until(fn, what, timeout=PL_WAIT_S, period=0.05):
+    """Poll fn every `period` s (it may take locks the node's threads
+    need) until it holds; fail after `timeout` s."""
+    deadline = time.monotonic() + timeout
+    while not fn():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(period)
+
+
+def upload_package(base, name, data):
+    import base64
+    return ctl_call(base, "/v1/upgrade-package", {
+        "name": name, "data_b64": base64.b64encode(data).decode()})
+
+
+def l7_protocols(rows):
+    protos, n = np.unique(np.asarray(rows["l7_protocol"], np.int64),
+                          return_counts=True)
+    return dict(zip(protos.tolist(), n.tolist()))
+
+
+PERF_PROBE = """
+import json, os, sys, threading
+from deepflow_tpu_torch.agent import profiler
+out = {}
+spin = threading.Event()
+threading.Thread(target=lambda: [0 for _ in iter(spin.is_set, True)],
+                 daemon=True).start()
+for name, pid in (("busy", int(sys.argv[1])), ("self", os.getpid())):
+    if not profiler.available():
+        out[name] = "no perf_event_open syscall on this architecture"
+        continue
+    try:
+        prof = profiler.OnCpuProfiler(pid, freq_hz=99)
+    except OSError as e:
+        out[name] = f"perf_event_open refused: {e}"
+        continue
+    try:
+        folded = prof.run(0.3)
+    finally:
+        prof.close()
+    out[name] = None if folded else "perf_event_open gave no samples"
+spin.set()
+print(json.dumps(out))
+"""
+
+
+def perf_probe(pid):
+    """What the agent process's profile loop can sample, tried from a
+    process beside it (as the agent stands to `pid`: not its parent) and
+    on itself: {"busy": None or why not, "self": None or why not}."""
+    out = subprocess.run(
+        [sys.executable, "-c", PERF_PROBE, str(pid)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=120)
+    if out.returncode:
+        raise AssertionError(f"phase 20: the perf probe failed: "
+                             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def check_socket_filter():
+    """Phase 20 (c): a BpfFilter (UDP, one port) on a raw socket on lo,
+    PL_DGRAMS datagrams half to its port and half to another: its kernel
+    verdicts must count every datagram twice (lo's egress and ingress),
+    accepted for the port's, not for the other's. Returns the counts, or
+    the reason the host refused (bpf(2) or a raw socket)."""
+    import socket
+
+    from deepflow_tpu_torch.agent import bpf
+    from deepflow_tpu_torch.agent.afpacket import AfPacketSource
+    if not bpf.available():
+        return {"refused": "bpf(2) socket filters"}
+    probe = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(2)]
+    for s in probe:
+        s.bind(("127.0.0.1", 0))
+    hit, miss = (s.getsockname()[1] for s in probe)
+    filt = bpf.BpfFilter(proto=17, port=hit)
+    try:
+        src = AfPacketSource("lo", batch_size=256, poll_ms=50,
+                             prepare=filt.attach_socket)
+    except OSError as e:
+        filt.close()
+        for s in probe:
+            s.close()
+        return {"refused": f"a raw socket on lo ({e})"}
+    try:
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        half = PL_DGRAMS // 2
+        for i in range(half):
+            tx.sendto(b"hit-%d" % i, ("127.0.0.1", hit))
+            tx.sendto(b"miss-%d" % i, ("127.0.0.1", miss))
+        tx.close()
+        time.sleep(0.2)
+        c = filt.counters()
+    finally:
+        src.close()
+        filt.close()
+        for s in probe:
+            s.close()
+    want = {"bpf_accepted": 2 * half, "rejected": 2 * half}
+    got = {"bpf_accepted": c["bpf_accepted"],
+           "rejected": c["bpf_seen"] - c["bpf_accepted"]}
+    if got != want:
+        raise AssertionError(f"phase 20 (c): the socket filter counted "
+                             f"{c} for {half} datagrams to its port and "
+                             f"{half} to another")
+    return {"sent": PL_DGRAMS, **c}
+
+
+def check_plugin_node(torch, dev, rng, card):
+    """Phase 20: phase 19's server.Server with the controller on, a
+    managed agent process whose L7 plugins the controller pushes, whose
+    cluster comes from an apiserver watch and which profiles a busy
+    process; an integration collector into the same ingester; a kernel
+    socket filter. Returns the phase's record."""
+    import gzip
+    import ipaddress
+    import urllib.request
+
+    from deepflow_tpu_torch.agent.integration import IntegrationCollector
+    from deepflow_tpu_torch.agent.pcap import PcapWriter
+    from deepflow_tpu_torch.agent.plugin import build_sample_plugin
+    from deepflow_tpu_torch.agent.wasm_samples import build_memcached_wasm
+    from deepflow_tpu_torch.controller.platform_compiler import \
+        compile_platform_data
+    from deepflow_tpu_torch.server import Server
+    from deepflow_tpu_torch.utils import snappy
+    from deepflow_tpu_torch.wire import MessageType
+    from deepflow_tpu_torch.wire.gen import telemetry_pb2
+    r = {}
+    t_phase = time.perf_counter()
+    t_data = int(time.time()) + PL_LEAD_S
+    flows = AgentFlows(rng, l7=True)
+    doc = cluster_doc(rng, flows)
+    objects = cluster_objects(doc)
+    used = set(flows.srv_ip.tolist())
+    ips = [int(ipaddress.IPv4Address(p["ip"])) for p in doc["pods"]]
+    # memcached runs on pods that serve the generator too; a pod with no
+    # traffic is the one the watch deletes (added if the draw left none)
+    servers = ips[:PL_MC_SERVERS]
+    quiet = next((o for o, a in zip(objects["pods"], ips) if a not in used),
+                 None)
+    if quiet is None:
+        quiet = k8s_obj("pods", "pod-quiet", 1, ns="ns-00",
+                        ip="172.31.254.1", node="node-00")
+        objects["pods"].append(quiet)
+    ticks = plugin_ticks(rng, flows, servers, t_data)
+    r["generate_s"] = time.perf_counter() - t_phase
+    so_path = build_sample_plugin()
+    with open(so_path, "rb") as f:
+        so_bytes = f.read()
+    wasm_bytes = build_memcached_wasm()
+    busy = subprocess.Popen([sys.executable, "-c", "while True: pass"])
+    # the agent profiles the busy child where a process beside it may,
+    # else itself (busy parsing), else nothing
+    perf = perf_probe(busy.pid)
+    pids = [busy.pid] if perf["busy"] is None else \
+        [0] if perf["self"] is None else []
+    perf_ok = bool(pids)
+    log(f"  perf_event_open: the busy child "
+        f"{perf['busy'] or 'sampled'}, the agent itself "
+        f"{perf['self'] or 'sampled'}: the agent profiles "
+        + ("the busy child" if pids and pids[0] else "itself" if pids
+           else "nothing (the profile check did not run)"))
+    apiserver = FakeApiserver(objects)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plugin_") as tmp:
+        path = managed_config(tmp)
+        fifo = os.path.join(tmp, "capture.pcap")
+        os.mkfifo(fifo)
+        zero_launches()
+        srv = Server(path, device=dev)
+        tally = L4Tally()
+        srv.ingester.exporters.register(tally)
+        proc = tee = twin = coll = None
+        twin_out = {}
+        try:
+            srv.start()
+            ing = srv.ingester
+            base = f"http://127.0.0.1:{srv.controller.port}"
+            synclog, real_sync = {}, srv.registry.sync
+
+            def logged(ctrl_ip, host, *a, **k):
+                out = real_sync(ctrl_ip, host, *a, **k)
+                synclog.setdefault(host, []).append(
+                    (time.monotonic(), out["config_version"]))
+                return out
+            # the node registers ahead of its process: the twin stamps
+            # its vtap id and runs beside the process's start
+            vtap = ctl_call(base, "/v1/sync", sync_body(
+                PL_CTRL_IP, PL_HOST, os.getpid()))["vtap_id"]
+            srv.registry.sync = logged
+            tee = TeeProxy(f"127.0.0.1:{ing.port}")
+            ctl_call(base, "/v1/ingesters", {"addrs": [tee.addr]})
+            for name, data in ((PL_SO, so_bytes), (PL_WASM, wasm_bytes)):
+                upload_package(base, name, data)
+            # every push: the plugins, an uncapped L7 log (every plugin
+            # session is a row) and a 0.25 s sync
+            common = {"l7_log_rate": 0, "sync_interval_s": 0.25}
+            configs = [
+                {**common, "so_plugins": [f"pkg://{PL_SO}"],
+                 "wasm_plugins": []},
+                {**common, "so_plugins": [], "wasm_plugins":
+                 [f"pkg://{PL_WASM}"]},
+                {**common, "so_plugins": [], "wasm_plugins": []}]
+
+            def push(k):
+                v = ctl_call(base, "/v1/vtap-group-config?group=default",
+                             configs[k])["config_version"]
+                return ctl_call(base, "/v1/vtap-group-config?group=default"
+                                ), v
+            pushed = [push(0)]
+            # the twin takes each push as the group's whole config
+            twin = threading.Thread(target=run_plugin_twin, args=(
+                torch, ticks, [{**pushed[0][0], **c} for c in configs],
+                base, tmp, vtap, twin_out), daemon=True)
+            twin.start()
+            boot = os.path.join(tmp, "agent.json")
+            with open(boot, "w") as f:
+                json.dump({
+                    "controller_url": base, "ctrl_ip": PL_CTRL_IP,
+                    "host": PL_HOST, "upgrade_dir": os.path.join(tmp, "up"),
+                    "k8s_apiserver_url": apiserver.url,
+                    "k8s_cluster_domain": PL_DOMAIN,
+                    "platform_sync_interval_s": PL_PLATFORM_S,
+                    "profile_pids": pids,
+                    "profile_interval_s": 1.0, "profile_duration_s": 0.5,
+                    "capture": {"engine": "pcap", "path": fifo}}, f)
+            m_spawn = time.monotonic()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "deepflow_tpu_torch.agent", "-f",
+                 boot, "--device", torch.device(dev).type],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+            def synced(v, n=2):
+                """Until the process has made n syncs at config version v
+                (the first of them applied it)."""
+                deadline = time.monotonic() + PL_WAIT_S
+                while sum(x[1] == v for x in synclog.get(PL_HOST, ())) < n:
+                    if proc.poll() is not None \
+                            or time.monotonic() > deadline:
+                        err = proc.stderr.read()[-3000:] \
+                            if proc.poll() is not None else ""
+                        raise AssertionError(
+                            f"phase 20: the agent process never synced "
+                            f"config {v} (exit {proc.poll()}): {err}")
+                    time.sleep(0.01)
+                return synclog[PL_HOST][0][0]
+            # (b) the cluster through the apiserver watch: every object
+            # in the controller's model, compiled into the ingester
+            first = synced(pushed[0][1])
+            r["spawn_to_first_sync_s"] = first - m_spawn
+            got_id = next(x["vtap_id"] for x in ctl_call(base, "/v1/vtaps")
+                          if x["host"] == PL_HOST)
+            if got_id != vtap:
+                raise AssertionError(f"phase 20: the process synced as vtap "
+                                     f"{got_id}, registered as {vtap}")
+            names = {("pod", "pods"), ("pod_node", "nodes"),
+                     ("pod_ns", "namespaces"), ("service", "services")}
+
+            def model_names(rtype):
+                return {x.name for x in srv.model.list(type=rtype,
+                                                       domain=PL_DOMAIN)}
+
+            def model_holds():
+                return all(model_names(t) == {o["metadata"]["name"]
+                                              for o in objects[res]}
+                           for t, res in names)
+            t = time.perf_counter()
+            wait_until(model_holds, "phase 20 (b): the apiserver's objects "
+                       "in the controller's model")
+            wait_until(lambda: ing.platform.info.version
+                       == srv.model.version,
+                       "phase 20 (b): the platform data in the ingester")
+            r["apiserver_to_model_s"] = time.perf_counter() - t
+            pods = {int(ipaddress.IPv4Address(p.attr("ip"))): p.id
+                    for p in srv.model.list(type="pod", domain=PL_DOMAIN)}
+
+            def watch_and_push():
+                """(b) one pod added and one without traffic deleted
+                reach the model within two platform-sync intervals, a 410
+                relists every resource; (c) the integration push. Run
+                before the replay: the watch's latency is the idle
+                agent's (a parsing agent's interpreter lock delays its
+                platform thread)."""
+                t = time.monotonic()
+                apiserver.add("pods", k8s_obj(
+                    "pods", "pod-added", 0, ns="ns-00", ip="172.31.255.1",
+                    node="node-00"))
+                apiserver.delete("pods", quiet["metadata"]["uid"])
+                gone = quiet["metadata"]["name"]
+                wait_until(lambda: "pod-added" in model_names("pod")
+                           and gone not in model_names("pod"),
+                           "phase 20 (b): the watched add and delete")
+                r["watch_to_model_s"] = time.monotonic() - t
+                if r["watch_to_model_s"] > 2 * PL_PLATFORM_S:
+                    raise AssertionError(
+                        f"phase 20 (b): a watched change took "
+                        f"{r['watch_to_model_s']:.2f} s to reach the model")
+                lists = dict(apiserver.lists)
+                apiserver.expire()
+                wait_until(lambda: all(apiserver.lists[res] > n
+                                       for res, n in lists.items()),
+                           "phase 20 (b): the relists after 410 Expired")
+                r["relists"] = {res: apiserver.lists[res] - n
+                                for res, n in lists.items()}
+                # (c) a snappy remote-write and a gzip OTel upload
+                wr = telemetry_pb2.WriteRequest()
+                for i in range(8):
+                    ts = wr.timeseries.add()
+                    ts.labels.add(name="__name__",
+                                  value=f"phase20_metric_{i}")
+                    ts.samples.add(value=float(i), timestamp=t_data * 1000)
+                otel = otel_payloads(rng, 1, 16, t_data)[0]
+                s0, o0 = ing.ext_metrics.samples, \
+                    decoder(ing, "l7_flow_log.otel").counters()["records"]
+                for p, body, enc in (
+                        ("/api/v1/prometheus", snappy.compress(
+                            wr.SerializeToString()), "snappy"),
+                        ("/v1/traces", gzip.compress(otel), "gzip")):
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{coll.port}{p}", data=body,
+                        headers={"Content-Encoding": enc})
+                    with urllib.request.urlopen(req, timeout=30) as resp:
+                        if resp.status != 204:
+                            raise AssertionError(f"phase 20 (c): {p} "
+                                                 f"answered {resp.status}")
+                wait_until(lambda: ing.ext_metrics.samples - s0 == 8
+                           and decoder(ing, "l7_flow_log.otel").counters()
+                           ["records"] - o0 == 16,
+                           "phase 20 (c): the integration push")
+            coll = IntegrationCollector(f"127.0.0.1:{ing.port}",
+                                        vtap_id=vtap, port=0)
+            coll.start()
+            watch_and_push()
+            # (a) the plugins: each tick once the process applied its push
+            w = PcapWriter(fifo)
+            rates = []
+            for k in range(3):
+                if k:
+                    pushed.append(push(k))
+                t_push = time.monotonic()
+                synced(pushed[k][1])
+                r.setdefault("push_to_applied_s", []).append(
+                    time.monotonic() - t_push)
+                frames, stamps = ticks[k]
+                t = time.perf_counter()
+                w.write(frames, stamps.tolist())
+                w.flush()
+                if k < 2:
+                    # the tick's sessions reach the ingester (the twin
+                    # counted them; the process ships each second)
+                    wait_until(lambda: len(twin_out.get("counts", ()))
+                               > k or "error" in twin_out,
+                               "phase 20 (a): the twin")
+                    if "error" in twin_out:
+                        raise twin_out["error"]
+                    want_k = twin_out["counts"][k]
+                    wait_until(lambda: len(tee.records(
+                        MessageType.PROTOCOLLOG)) >= want_k
+                        or proc.poll() is not None,
+                        f"phase 20 (a): tick {k}'s sessions")
+                    rates.append(time.perf_counter() - t)
+            w.close()
+            valid = 0
+            from deepflow_tpu_torch.agent import decode_packets
+            for frames, stamps in ticks:
+                pk = decode_packets(frames, stamps)
+                valid += int(pk["valid"].sum())
+            wait_until(lambda: tally.packets == valid
+                       or proc.poll() is not None,
+                       "phase 20 (a): every packet in the l4 rows")
+            if tally.packets != valid:
+                raise AssertionError(f"phase 20 (a): {tally.packets} of "
+                                     f"{valid} packets in the l4 rows "
+                                     f"(exit {proc.poll()})")
+            r["tick_s"] = rates
+            # the process fetched both packages (pkg://) into its cache
+            for name, data in ((PL_SO, so_bytes), (PL_WASM, wasm_bytes)):
+                with open(os.path.join(tmp, "up", "plugins", name),
+                          "rb") as f:
+                    if f.read() != data:
+                        raise AssertionError(f"phase 20 (a): the process's "
+                                             f"cached {name} differs")
+            # (b) the l4 rows of (a)'s pods carry their pod ids (the
+            # deleted pod carried none)
+            ing.flush()
+            l4 = ing.store.table("flow_log", "l4_flow_log").scan()
+            kg = check_managed_kg(l4, compile_platform_data(srv.model),
+                                  pods, "phase 20 (b)")
+            if not kg["1"][0]:
+                raise AssertionError(f"phase 20 (b): rows on pods, by CIDR, "
+                                     f"unresolved: {kg}")
+            # the profiler's records, where perf sampling runs
+            if perf_ok:
+                wait_until(lambda: ing.profile.profiles > 0,
+                         "phase 20 (c): the busy process's profile",
+                         timeout=PL_WAIT_S)
+            r["profiles"] = ing.profile.profiles
+            r["perf"] = perf
+            if perf_ok:
+                ing.flush()
+                r["profile_rows"] = ing.store.table(
+                    "profile", "in_process_profile").row_count()
+                if not r["profile_rows"]:
+                    raise AssertionError("phase 20 (c): no profile rows")
+            # SIGTERM: the process's last tick, then its streams
+            t = time.perf_counter()
+            proc.send_signal(15)
+            out, err = proc.communicate(timeout=PL_WAIT_S)
+            r["agent_exit_s"] = time.perf_counter() - t
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 20: the agent process exited "
+                                     f"{proc.returncode}: {err[-3000:]}")
+            proc = None
+            twin.join(timeout=PL_WAIT_S)
+            if "error" in twin_out or twin.is_alive():
+                raise AssertionError(f"phase 20 (a): the twin failed: "
+                                     f"{twin_out.get('error')}")
+            tee.wait_closed(PL_WAIT_S)
+            got = tee.records(MessageType.PROTOCOLLOG)
+            want = twin_out["records"]
+            if got != want:
+                bad = next((i for i, (a, b) in enumerate(zip(got, want))
+                            if a != b), min(len(got), len(want)))
+                raise AssertionError(
+                    f"phase 20 (a): the process's PROTOCOLLOG ({len(got)} "
+                    f"records) differs from the CPU twin's ({len(want)}) "
+                    f"from record {bad}")
+            from deepflow_tpu_torch.wire.gen import flow_log_pb2
+
+            def by_proto(recs):
+                out = {}
+                for x in recs:
+                    p = flow_log_pb2.AppProtoLogsData.FromString(
+                        x).base.head.proto
+                    out[p] = out.get(p, 0) + 1
+                return out
+            c = twin_out["counts"]
+            sent = [by_proto(want[:c[0]]), by_proto(want[c[0]:c[1]]),
+                    by_proto(want[c[1]:])]
+            if sent[0].get(201) != PL_SESSIONS or 202 in sent[0] \
+                    or sent[1].get(202) != PL_SESSIONS or 201 in sent[1] \
+                    or 201 in sent[2] or 202 in sent[2]:
+                raise AssertionError(f"phase 20 (a): plugin sessions sent "
+                                     f"per tick {sent}")
+            # the store's l7 rows: the plugins' protocols in the sent
+            # counts (the twin's, equal to the process's), none after []
+            ing.flush()
+            rows = ing.store.table("flow_log", "l7_flow_log").scan()
+            in_store = l7_protocols(rows)
+            if in_store.get(201) != PL_SESSIONS \
+                    or in_store.get(202) != PL_SESSIONS:
+                raise AssertionError(f"phase 20 (a): l7 rows by protocol "
+                                     f"{in_store}")
+            wasm = twin_out["wasm"]
+            r["wasm_sessions_per_s"] = PL_SESSIONS / (wasm.exe_ns / 1e9)
+            # the kernels: the windows closed by hand
+            ing.tpu_sketch.flush_window(now=float(t_data + 4))
+            ing.app_red.flush_window(now=float(t_data + 4))
+            ing.flush()
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            r["launches"] = read_launches("phase 20", wants=("hist",))
+            r.update(records=len(got), sent=sent, l7_rows=in_store,
+                     kg_rows=kg, l4_rows=tally.rows, packets=valid)
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if coll is not None:
+                coll.close()
+            if tee is not None:
+                tee.close()
+            t = time.perf_counter()
+            srv.close()
+            r["close_s"] = time.perf_counter() - t
+            apiserver.close()
+            busy.kill()
+            busy.wait()
+    # (c) the socket filter, once the node is down (lo is quiet)
+    sock = check_socket_filter()
+    if "refused" in sock:
+        log(f"  bpf: refused ({sock['refused']}): the socket filter check "
+            f"did not run")
+    else:
+        log("  bpf: available")
+    r["socket_filter"] = sock
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"  on {card}: {PL_SESSIONS} memcached sessions a tick through the "
+        f"pushed .so (201) then wasm (202) plugin and {PL_LAST} with none, "
+        f"beside {2 << 16} generator packets: PROTOCOLLOG {r['records']} "
+        f"records = the CPU twin's, byte for byte; sent per tick "
+        f"{r['sent']}; l7 rows by protocol {r['l7_rows']}; push to applied "
+        f"{[round(x, 2) for x in r['push_to_applied_s']]} s, tick replays "
+        f"{[round(x, 2) for x in r['tick_s']]} s; wasm plugin (twin, this "
+        f"host's CPU) {r['wasm_sessions_per_s']:.0f} sessions/s; the "
+        f"apiserver's {sum(len(v) for v in objects.values())} objects in "
+        f"the model {r['apiserver_to_model_s']:.2f} s after the first sync "
+        f"({r['spawn_to_first_sync_s']:.2f} s after the spawn), a watched "
+        f"add and delete in {r['watch_to_model_s']:.2f} s, {r['relists']} "
+        f"relists after 410; l4 rows side 1 on a pod / by CIDR / "
+        f"unresolved {r['kg_rows']['1']}; {r['profiles']} profiles; "
+        f"socket filter {sock}; launches {r['launches']}; agent exit "
+        f"{r['agent_exit_s']:.2f} s, server close {r['close_s']:.2f} s; "
+        f"{r['seconds']:.1f} s")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8686,6 +9618,12 @@ def main() -> int:
     managed = check_managed_node(
         torch, dev, np.random.default_rng((args.seed, 19)), card)
     phase_done(19)
+    log("phase 20: a plugin-managed node (the controller pushes .so and "
+        "wasm L7 plugins, an apiserver watch names the pods, a profiled "
+        "process, an integration push, a kernel socket filter)")
+    plugin_node = check_plugin_node(
+        torch, dev, np.random.default_rng((args.seed, 20)), card)
+    phase_done(20)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -8696,7 +9634,8 @@ def main() -> int:
             + shard["launches"] + pod["launches"] + [mesh["launches"]] \
             + [ingest["launches"], ops["launches"], serving["launches"],
                server["launches"], agent["launches"],
-               agent_proc["launches"], managed["launches"]]:
+               agent_proc["launches"], managed["launches"],
+               plugin_node["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -8714,7 +9653,8 @@ def main() -> int:
         "flow_metrics": flow_metrics, "pod": pod, "global_mesh": mesh,
         "ingester": ingest, "operations": ops, "querier": querier,
         "serving": serving, "server": server, "agent": agent,
-        "agent_process": agent_proc, "managed_node": managed, "gate": gate,
+        "agent_process": agent_proc, "managed_node": managed,
+        "plugin_node": plugin_node, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

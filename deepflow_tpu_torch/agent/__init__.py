@@ -10,9 +10,13 @@ with `tcp_perf.TcpPerf`, each batch's segment reduction on the card;
 per-packet header collector; `sender.UniformSender` ships everything to
 the ingester. `trident.Agent` wires them with the controller sync loop,
 and `python -m deepflow_tpu_torch.agent -f agent.yaml` runs it over a
-capture source (`afpacket`, `pcap`). The eBPF, uprobe, plugin, wasm and
-profiler modules are not ported: configuring them raises
-NotImplementedError.
+capture source (`afpacket`, `xdp`, `pcap`; `bpf.BpfFilter` filters a
+socket in the kernel). `plugin` and `wasm_plugin` (over `wasm_vm`) load
+.so and sandboxed wasm L7 parsers into `l7`'s registry, `k8s_watch`
+lists and watches a Kubernetes apiserver, `profiler` samples OnCPU
+stacks with perf events, and `integration` forwards third-party pushes
+onto the firehose. The eBPF tracer front (socket and uprobe tracing, the
+debug server) is not ported: configuring it raises NotImplementedError.
 """
 
 from deepflow_tpu_torch.agent.packet import decode_packets

@@ -9,14 +9,18 @@ the packet source; everything else arrives through the sync loop
 (trident.py Agent.sync_once -> _apply_config). The file is read as YAML
 where PyYAML is installed and as JSON otherwise.
 
-Capture sources (agent/afpacket.py, agent/pcap.py):
+Capture sources (agent/afpacket.py, agent/xdp.py, agent/pcap.py):
   capture: {engine: ring,  iface: eth0}     TPACKET_V3 mmap ring
+  capture: {engine: xdp,   iface: eth0}     AF_XDP (XDP redirect into
+                                            XSK rings; CONSUMES the
+                                            queue's ingress -- analyzer
+                                            deployments)
   capture: {engine: raw,   iface: eth0}     batched raw socket
   capture: {engine: pcap,  path: x.pcap}    replay a capture file
   capture: {engine: none}                   control-plane only
-The `xdp` engine and the `bpf:` socket filter are validated as the
-reference validates them, but building them raises NotImplementedError
-(agent/xdp.py and agent/bpf.py are not ported).
+A `bpf:` block (BpfFilter's keywords: proto, port, sample_shift)
+attaches a kernel-side socket filter to a ring or raw socket before it
+binds (agent/bpf.py); its verdict counters ride the source.
 
 `--device` places the flow map's batch reduction and the tick's Document
 rollup (default cuda; without a card the process exits non-zero unless
@@ -142,27 +146,45 @@ def build_source(capture: dict):
             # the error would only be swallowed) -- fail at startup
             raise OSError(f"pcap not found: {capture['path']}")
         return PcapFrameSource(capture["path"])
-    from deepflow_tpu_torch.agent.trident import not_ported
-    if "bpf" in capture:
-        raise not_ported("the capture bpf filter", "bpf.py")
     kw = {}
     for k in ("batch_size", "poll_ms"):
         if k in capture:
             kw[k] = capture[k]
-    if engine == "ring":
-        from deepflow_tpu_torch.agent.afpacket import TpacketV3Source
-        for k in ("block_size", "block_count"):
-            if k in capture:
-                kw[k] = capture[k]
-        return TpacketV3Source(capture.get("iface"), **kw)
-    if engine == "raw":
-        from deepflow_tpu_torch.agent.afpacket import AfPacketSource
-        if "snaplen" in capture:
-            kw["snaplen"] = capture["snaplen"]
-        return AfPacketSource(capture.get("iface"), **kw)
-    if engine == "xdp":
-        raise not_ported("capture engine xdp", "xdp.py")
-    raise ValueError(f"unknown capture engine {engine!r}")
+    filt = None
+    if "bpf" in capture:
+        # kernel-side filter on the capture socket (recv_engine BPF
+        # injection): attached BEFORE the socket binds (prepare hook)
+        # so no packet ever reaches userspace unfiltered
+        from deepflow_tpu_torch.agent.bpf import BpfFilter
+        filt = BpfFilter(**(capture["bpf"] or {}))
+        kw["prepare"] = filt.attach_socket
+    try:
+        if engine == "ring":
+            from deepflow_tpu_torch.agent.afpacket import TpacketV3Source
+            for k in ("block_size", "block_count"):
+                if k in capture:
+                    kw[k] = capture[k]
+            src = TpacketV3Source(capture.get("iface"), **kw)
+        elif engine == "raw":
+            from deepflow_tpu_torch.agent.afpacket import AfPacketSource
+            if "snaplen" in capture:
+                kw["snaplen"] = capture["snaplen"]
+            src = AfPacketSource(capture.get("iface"), **kw)
+        elif engine == "xdp":
+            from deepflow_tpu_torch.agent.xdp import XdpSource
+            for k in ("queue", "frame_count"):
+                if k in capture:
+                    kw[k] = capture[k]
+            src = XdpSource(capture["iface"], **kw)
+        else:
+            raise ValueError(f"unknown capture engine {engine!r}")
+    except BaseException:
+        if filt is not None:
+            filt.close()
+        raise
+    if filt is not None:
+        src.bpf = filt          # counters + lifecycle ride the source
+    return src
 
 
 def main(argv=None) -> int:
@@ -212,9 +234,6 @@ def main(argv=None) -> int:
         source = build_source(capture)
     except (OSError, ValueError, KeyError) as e:
         print(f"bad capture config: {e}", file=sys.stderr)
-        return 2
-    except NotImplementedError as e:
-        print(f"not ported: {e}", file=sys.stderr)
         return 2
 
     from deepflow_tpu_torch.agent.trident import Agent

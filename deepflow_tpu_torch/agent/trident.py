@@ -13,10 +13,10 @@ onto the firehose.
 batch's `FlowMap.inject` segment reduction and each tick's
 `flows_to_documents` rollup (CUDA by default, the CPU only when named).
 The wire half (`columns_to_l4_schema`, `columns_to_l4_records`,
-`l7_session_message`) is host code. Branches whose modules are not
-ported (.so and wasm plugins, the OnCPU profiler, the TLS uprobes, the
-k8s apiserver watch, the debug server) raise NotImplementedError when
-configured.
+`l7_session_message`) is host code, as are the .so and wasm L7 plugins,
+the k8s apiserver watch and the OnCPU profiler. Branches whose modules
+are not ported (the TLS uprobes and the debug server with its eBPF
+dump) raise NotImplementedError when configured.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def not_ported(what: str, module: str) -> NotImplementedError:
     """The error a branch outside the port raises when configured."""
     return NotImplementedError(
         f"{what} needs deepflow_tpu_torch/agent/{module}, which is not "
-        f"ported yet (ROADMAP Queue 1 item 1)")
+        f"ported yet (ROADMAP Queue 1 item 1: the eBPF tracer front)")
 
 
 @dataclass
@@ -81,16 +81,18 @@ class AgentConfig:
     platform_sync_interval_s: float = 60.0
     k8s_resource_file: Optional[str] = None
     k8s_cluster_domain: str = "k8s-cluster"
-    # live apiserver list/watch (agent/k8s_watch.py, not ported); takes
+    # live apiserver list/watch (agent/k8s_watch.py); takes
     # precedence over the file lister when set
     k8s_apiserver_url: Optional[str] = None
     k8s_apiserver_token: Optional[str] = None
     # KVM host: libvirt qemu domain-XML directory to extract guest
     # NICs from (reference: libvirt_xml_extractor.rs); None = off
     libvirt_xml_dir: Optional[str] = None
-    # shared-object L7 plugins (agent/plugin.py, not ported)
+    # shared-object L7 plugins (agent/plugin.py): .so paths loaded at
+    # startup and hot-loadable via pushed config (reference: rpc Plugin)
     so_plugins: tuple = ()
-    # sandboxed wasm L7 plugins (agent/wasm_plugin.py, not ported)
+    # sandboxed wasm L7 plugins (agent/wasm_plugin.py): .wasm paths,
+    # same lifecycle as so_plugins but fuel/memory-confined
     wasm_plugins: tuple = ()
     # packet-sequence collection (agent/packet_sequence.py): per-packet
     # TCP headers -> l4_packet rows. Off by default like the reference's
@@ -104,8 +106,10 @@ class AgentConfig:
     # agent-side L7 session rate cap per second (reference:
     # l7_log_collect_nps_threshold, default 10000); 0 = uncapped
     l7_log_rate: int = 10_000
-    # continuous OnCPU profiling (agent/profiler.py, not ported): pids
-    # to sample. Empty = off.
+    # continuous OnCPU profiling (agent/profiler.py, the perf_profiler.c
+    # role): pids to sample (0 = the agent's own process). Each cycle
+    # samples `profile_duration_s` at `profile_freq_hz` and ships the
+    # folded stacks as Profile records on the firehose. Empty = off.
     profile_pids: tuple = ()
     profile_interval_s: float = 10.0
     profile_duration_s: float = 1.0
@@ -260,14 +264,6 @@ class Agent:
 
     def __init__(self, cfg: AgentConfig, *, device="cuda") -> None:
         # refuse what this package cannot build before any socket opens
-        if cfg.so_plugins:
-            raise not_ported("so_plugins", "plugin.py")
-        if cfg.wasm_plugins:
-            raise not_ported("wasm_plugins", "wasm_plugin.py")
-        if cfg.profile_pids:
-            raise not_ported("profile_pids", "profiler.py")
-        if cfg.k8s_apiserver_url:
-            raise not_ported("k8s_apiserver_url", "k8s_watch.py")
         if cfg.debug_port is not None:
             raise not_ported("debug_port (its ebpf dump)",
                              "bpf.py, socket_trace.py and uprobe_trace.py")
@@ -317,6 +313,8 @@ class Agent:
         # real deployments exec the staged binary here; None = revision
         # swap in place (process and firehose sockets stay up)
         self.on_upgrade = None
+        if cfg.profile_pids:
+            sender_types.append(MessageType.PROFILE)
         self.senders: Dict[MessageType, UniformSender] = {
             mt: UniformSender(mt, cfg.ingester_addr)
             for mt in sender_types
@@ -329,11 +327,18 @@ class Agent:
         self.config_version = 0
         self.platform_watcher = None
         self.k8s_watcher = None
+        self.api_watcher = None
         self.ntp_offset_ns = 0
         self._capture_source = None   # set via attach_source()
         self._l7_rate_sec = -1        # L7 rate-cap window (epoch second)
         self._l7_rate_used = 0
         self.l7_throttled = 0
+        self.so_plugins: Dict[str, object] = {}
+        for path in cfg.so_plugins:
+            self._load_plugin(path)
+        self.wasm_plugins: Dict[str, object] = {}
+        for path in cfg.wasm_plugins:
+            self._load_wasm(path)
         # one Countable registry for the DFSTATS self-telemetry loop
         # (reference: utils/stats.rs -- the agent monitors itself with
         # the same pipeline it feeds)
@@ -355,6 +360,33 @@ class Agent:
             self.stats.register("agent.packet_sequence",
                                 self.pseq.counters)
         self.stats_shipper = None
+
+    def _load_plugin(self, path: str) -> bool:
+        """dlopen + register one L7 plugin; a broken .so must not take
+        the agent down (reference: load_plugin error path just logs)."""
+        from deepflow_tpu_torch.agent.plugin import load_so_plugin
+        if path in self.so_plugins:
+            return True
+        try:
+            self.so_plugins[path] = load_so_plugin(path)
+            return True
+        except (OSError, ValueError):
+            return False
+
+    def _load_wasm(self, path: str) -> bool:
+        """Instantiate + register one sandboxed wasm parser; a broken
+        module must not take the agent down."""
+        from deepflow_tpu_torch.agent.wasm_plugin import load_wasm_plugin
+        if path in self.wasm_plugins:
+            return True
+        try:
+            self.wasm_plugins[path] = load_wasm_plugin(path)
+            return True
+        except Exception:
+            # hostile bytes can fail in arbitrary ways before the
+            # sandbox's own trap conversion is armed; none of them may
+            # take the agent down
+            return False
 
     def attach_source(self, source) -> None:
         """Declare the live capture source feeding this agent (the
@@ -488,13 +520,6 @@ class Agent:
 
     def _apply_config(self, cfg: dict) -> None:
         """Hot-apply pushed RuntimeConfig (reference: ConfigHandler)."""
-        # a pushed plugin list this package cannot load fails the round
-        # before anything is applied (the synchronizer counts it in
-        # sync_errors); absent, None or [] leaves nothing to load
-        if cfg.get("so_plugins"):
-            raise not_ported("pushed so_plugins", "plugin.py")
-        if cfg.get("wasm_plugins"):
-            raise not_ported("pushed wasm_plugins", "wasm_plugin.py")
         self.guard.set_limits(cfg.get("max_memory_mb", 768),
                               cfg.get("max_cpus", 1))
         self.cfg.l7_enabled = bool(cfg.get("l7_log_enabled", True))
@@ -555,6 +580,92 @@ class Agent:
             self.policy.update(rules_from_flow_acls(cfg["flow_acls"]),
                                int(cfg.get("acl_version", 0) or 0)
                                or self.policy.version + 1)
+        # absent or None = plugins not managed by this push; a LIST is
+        # authoritative (pushing [] must actually stop a plugin)
+        if cfg.get("so_plugins") is not None:
+            self._sync_plugins(cfg["so_plugins"])
+        if cfg.get("wasm_plugins") is not None:
+            self._sync_wasm_plugins(cfg["wasm_plugins"])
+
+    def _resolve_plugin_path(self, entry: str) -> Optional[str]:
+        """A pushed plugin entry is a local path, or `pkg://<name>` —
+        a controller-DISTRIBUTED binary (the reference's rpc Plugin
+        stream role): fetched from the upgrade-package store, sha256-
+        verified, cached under upgrade_dir/plugins. A cache hit is
+        validated against the store's metadata (a re-uploaded package
+        under the same name must reach every agent, not just fresh
+        ones); when the controller is unreachable the cache is trusted
+        (offline tolerance). Returns the local path to load, or None
+        on failure (counted)."""
+        if not entry.startswith("pkg://"):
+            return entry
+        import base64
+        import hashlib
+        name = entry[len("pkg://"):]
+        if not name or "/" in name or name.startswith("."):
+            self.plugin_fetch_errors += 1
+            return None
+        cache_dir = os.path.join(self.cfg.upgrade_dir or "/tmp",
+                                 "plugins")
+        cached = os.path.join(cache_dir, name)
+        base = (f"{self.cfg.controller_url}/v1/upgrade-package?name="
+                + urllib.parse.quote(name)
+                ) if self.cfg.controller_url else None
+        if os.path.exists(cached):
+            if base is None:
+                return cached
+            try:
+                with urllib.request.urlopen(base + "&meta=1",
+                                            timeout=10) as resp:
+                    meta = json.load(resp)
+                with open(cached, "rb") as f:
+                    local = hashlib.sha256(f.read()).hexdigest()
+                if local == meta.get("sha256"):
+                    return cached
+                # stale: fall through to refetch
+            except Exception:
+                return cached           # controller unreachable: trust
+        if base is None:
+            self.plugin_fetch_errors += 1
+            return None
+        try:
+            with urllib.request.urlopen(base, timeout=30) as resp:
+                doc = json.load(resp)
+            data = base64.b64decode(doc["data_b64"])
+            if hashlib.sha256(data).hexdigest() != doc.get("sha256"):
+                raise ValueError("package sha256 mismatch")
+            os.makedirs(cache_dir, exist_ok=True)
+            with open(cached + ".tmp", "wb") as f:
+                f.write(data)
+            os.replace(cached + ".tmp", cached)
+            return cached
+        except Exception:
+            self.plugin_fetch_errors += 1
+            return None
+
+    def _converge_plugins(self, paths, loaded: dict, load_fn,
+                          unload_fn) -> None:
+        """ONE converge discipline for .so and wasm plugin sets: resolve
+        (local or pkg://), unload what's no longer wanted (pushing []
+        must actually stop a plugin), load the rest."""
+        resolved = [p for p in (self._resolve_plugin_path(e)
+                                for e in paths) if p is not None]
+        want = set(resolved)
+        for path in list(loaded):
+            if path not in want:
+                unload_fn(loaded.pop(path))
+        for path in resolved:
+            load_fn(path)
+
+    def _sync_plugins(self, paths) -> None:
+        from deepflow_tpu_torch.agent.plugin import unload_so_plugin
+        self._converge_plugins(paths, self.so_plugins,
+                               self._load_plugin, unload_so_plugin)
+
+    def _sync_wasm_plugins(self, paths) -> None:
+        from deepflow_tpu_torch.agent.wasm_plugin import unload_wasm_plugin
+        self._converge_plugins(paths, self.wasm_plugins,
+                               self._load_wasm, unload_wasm_plugin)
 
     def _on_escape(self) -> None:
         """Controller silent too long: fall back to conservative defaults
@@ -763,7 +874,21 @@ class Agent:
                 lister=lister,
                 interval_s=self.cfg.platform_sync_interval_s)
             self.platform_watcher.start()
-            if self.cfg.k8s_resource_file:
+            if self.cfg.k8s_apiserver_url:
+                # the real list/watch protocol: the live cache is the
+                # lister, SnapshotWatcher pushes it on change
+                from deepflow_tpu_torch.agent.k8s_watch import ApiWatcher
+                self.api_watcher = ApiWatcher(
+                    self.cfg.k8s_apiserver_url,
+                    token=self.cfg.k8s_apiserver_token)
+                self.api_watcher.start()
+                self.k8s_watcher = k8s_watcher(
+                    self.cfg.controller_url,
+                    self.cfg.k8s_cluster_domain,
+                    self.api_watcher.snapshot,
+                    interval_s=self.cfg.platform_sync_interval_s)
+                self.k8s_watcher.start()
+            elif self.cfg.k8s_resource_file:
                 self.k8s_watcher = k8s_watcher(
                     self.cfg.controller_url,
                     self.cfg.k8s_cluster_domain,
@@ -771,10 +896,19 @@ class Agent:
                     interval_s=self.cfg.platform_sync_interval_s)
                 self.k8s_watcher.start()
         self._threads.append(sup.spawn("flow-tick", self._tick_loop))
+        if self.cfg.profile_pids:
+            from deepflow_tpu_torch.agent import profiler as prof_mod
+            if prof_mod.available():
+                # deadman off: a sampling cycle legitimately blocks for
+                # profile_duration_s at a stretch
+                self._threads.append(sup.spawn(
+                    "oncpu-profiler", self._profile_loop,
+                    deadman_s=None))
 
     def close(self) -> None:
         self._stop.set()
-        for w in (self.platform_watcher, self.k8s_watcher):
+        for w in (self.platform_watcher, self.k8s_watcher,
+                  self.api_watcher):
             if w is not None:
                 w.close()
         for t in self._threads:
@@ -792,6 +926,10 @@ class Agent:
         self.guard.close()
         for s in self.senders.values():
             s.close()
+        # unregister our plugins from the process-global parser set: a
+        # successor Agent in this process would otherwise double-register
+        self._sync_plugins(())
+        self._sync_wasm_plugins(())
 
     def _sync_loop(self) -> None:
         from deepflow_tpu_torch.runtime.supervisor import default_supervisor
@@ -816,6 +954,46 @@ class Agent:
         while not self._stop.wait(1.0):
             sup.beat()
             self.tick()
+
+    def _profile_loop(self) -> None:
+        """Continuous OnCPU profiling cycle: sample each configured pid
+        for profile_duration_s, ship folded stacks on the firehose. A
+        target that exits or refuses perf is counted, never fatal."""
+        from deepflow_tpu_torch.agent.profiler import (
+            OnCpuProfiler, Symbolizer, folded_to_profile_records)
+        # symbolizers cached per pid across cycles, invalidated when the
+        # process's mappings change — re-parsing every mapped ELF's
+        # symtab each 10s cycle would burn steady multi-MB IO for maps
+        # that almost never change
+        sym_cache: Dict[int, tuple] = {}
+        while not self._stop.wait(self.cfg.profile_interval_s):
+            for pid in self.cfg.profile_pids:
+                target = int(pid) or os.getpid()
+                try:
+                    with open(f"/proc/{target}/maps") as f:
+                        maps_txt = f.read()
+                    cached = sym_cache.get(target)
+                    if cached is None or cached[0] != maps_txt:
+                        cached = (maps_txt, Symbolizer(target))
+                        sym_cache[target] = cached
+                    prof = OnCpuProfiler(target,
+                                         freq_hz=self.cfg.profile_freq_hz)
+                    try:
+                        folded = prof.run(self.cfg.profile_duration_s,
+                                          symbolizer=cached[1])
+                    finally:
+                        prof.close()
+                except OSError:
+                    self.profile_errors += 1
+                    sym_cache.pop(target, None)   # e.g. target exited
+                    continue
+                if not folded:
+                    continue
+                recs = folded_to_profile_records(
+                    folded, app_service=self.cfg.host, pid=target,
+                    vtap_id=self.vtap_id)
+                self.profiles_sent += self.senders[
+                    MessageType.PROFILE].send(recs)
 
     def _aggr_sets_match(self, a: dict, b: dict) -> bool:
         """True when two aggregated-column dicts share an identical key

@@ -15,10 +15,13 @@ a pushed policy with NPB (VXLAN over UDP), PCAP and DROP actions.
 
 Managed mode runs each agent against its own package's
 `ControllerServer` over HTTP, the JAX agent against the JAX controller
-and the port's against the port's, and every step must be equal. The
-bootstrap
-cases hold both packages' `load_bootstrap` and `main` to the same
-answers and messages. The process case runs `python -m
+and the port's against the port's, and every step must be equal; so
+must the controller-distributed plugins (`pkg://` .so and wasm pushes,
+each fetch failure, `[]`, the cache with the controller down) with
+their PROTOCOLLOG bytes, and the apiserver watch taking precedence over
+the resource file. The bootstrap cases hold both packages'
+`load_bootstrap`, `main` and `build_source` (the bpf filter, the xdp
+engine) to the same answers and messages. The process case runs `python -m
 deepflow_tpu_torch.agent --device cpu` over a pcap into the port's
 `Server` on the CPU and stops it with SIGTERM.
 """
@@ -35,6 +38,8 @@ import subprocess
 import sys
 import threading
 import time
+import types
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -448,35 +453,40 @@ def test_managed_mode_matches_reference(tmp_path):
 
 
 def test_pushed_plugins_fail_the_sync_round(tmp_path):
-    """A pushed plugin list the port cannot load fails the round: the
-    synchronizer counts it in sync_errors as it counts any failed round."""
-    srv, reg = _controller("port")
-    agent = ttrident.Agent(ttrident.AgentConfig(
-        controller_url=f"http://127.0.0.1:{srv.port}", self_telemetry=False),
-        device="cpu")
-    try:
-        assert agent.sync_once()
-        for key in ("so_plugins", "wasm_plugins"):
-            reg.set_config("default", {key: ["/nonexistent/p.plugin"]})
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                agent.sync_once()
-        before = agent.sync_errors
-        agent.cfg.sync_interval_s = 0.05     # the default push set 60
-        th = threading.Thread(target=agent._sync_loop, daemon=True)
-        th.start()
-        deadline = time.time() + 10
-        while agent.sync_errors < before + 2 and time.time() < deadline:
-            time.sleep(0.02)
-        agent._stop.set()
-        th.join(timeout=5)
-        assert agent.sync_errors >= before + 2
-        reg.set_config("default", {"so_plugins": [], "wasm_plugins": []})
-        agent._stop.clear()
-        assert agent.sync_once()      # an empty list loads nothing
-    finally:
-        agent._stop.set()
-        srv.close()
-        agent.close()
+    """A pushed plugin path neither package can load does not fail the
+    sync round (the JAX package's contract: a broken plugin only logs):
+    both agents sync, load nothing and count no sync error; [] loads
+    nothing either."""
+    out = {}
+    for package in ("jax", "port"):
+        srv, reg = _controller(package)
+        mod = jtrident if package == "jax" else ttrident
+        cfg = mod.AgentConfig(controller_url=f"http://127.0.0.1:{srv.port}",
+                              self_telemetry=False)
+        agent = mod.Agent(cfg) if package == "jax" else \
+            mod.Agent(cfg, device="cpu")
+        steps = []
+        try:
+            assert agent.sync_once()
+            for key in ("so_plugins", "wasm_plugins"):
+                reg.set_config("default", {key: ["/nonexistent/p.plugin"]})
+                steps.append((agent.sync_once(), dict(agent.so_plugins),
+                              dict(agent.wasm_plugins), agent.sync_errors))
+            reg.set_config("default", {"so_plugins": [],
+                                       "wasm_plugins": []})
+            steps.append((agent.sync_once(), dict(agent.so_plugins),
+                          dict(agent.wasm_plugins), agent.sync_errors))
+        finally:
+            srv.close()
+            agent.close()
+        out[package] = steps
+    assert out["port"] == out["jax"] == [(True, {}, {}, 0)] * 3
+
+
+# the fields the plugin, profiler and watch modules build: an Agent with
+# them constructs as the JAX package's does; debug_port (its eBPF dump)
+# still raises
+_BUILT = ("so_plugins", "wasm_plugins", "profile_pids", "k8s_apiserver_url")
 
 
 @pytest.mark.parametrize("field,value", [
@@ -484,14 +494,216 @@ def test_pushed_plugins_fail_the_sync_round(tmp_path):
     ("profile_pids", (0,)), ("k8s_apiserver_url", "https://k8s:6443"),
     ("debug_port", 0)])
 def test_unported_branches_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ttrident.Agent(ttrident.AgentConfig(**{field: value}), device="cpu")
+    """debug_port and enable_tls_uprobes raise NotImplementedError naming
+    ROADMAP Queue 1's next item (the eBPF tracer front); the fields this
+    package now builds give the JAX Agent's senders and plugin sets."""
+    if field in _BUILT:
+        t = ttrident.Agent(ttrident.AgentConfig(**{field: value}),
+                           device="cpu")
+        j = jtrident.Agent(jtrident.AgentConfig(**{field: value}))
+        try:
+            assert sorted(int(m) for m in t.senders) == \
+                sorted(int(m) for m in j.senders)
+            assert (t.so_plugins, t.wasm_plugins, t.api_watcher) == \
+                (j.so_plugins, j.wasm_plugins, j.api_watcher) == ({}, {},
+                                                                   None)
+        finally:
+            t.close()
+            j.close()
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 1: the eBPF tracer"):
+            ttrident.Agent(ttrident.AgentConfig(**{field: value}),
+                           device="cpu")
     agent = ttrident.Agent(ttrident.AgentConfig(), device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 1: the eBPF tracer"):
             agent.enable_tls_uprobes(["/lib/libssl.so"])
     finally:
         agent.close()
+
+
+# -- controller-distributed plugins (pkg://) ------------------------------------
+MC_SERVER, MC_CLIENT = ip4(172, 20, 0, 7), ip4(10, 9, 0, 1)
+
+
+def _memcached_frames(rng, n, t0):
+    """n memcached sessions on 11211 beside HTTP ones: (frames, stamps)."""
+    frames, stamps = [], []
+    for i in range(n):
+        cport = 20000 + i
+        key = f"k{int(rng.integers(1 << 20))}"
+        req, resp = rng.choice([("get", f"VALUE {key} 0 1\r\nx\r\nEND"),
+                                ("delete", "NOT_FOUND"),
+                                ("set", "STORED")])
+        body = f"{req} {key}" + (" 0 0 1\r\nx" if req == "set" else "")
+        t = t0 + i * 3_000_000
+        frames += [eth_ipv4_tcp(MC_CLIENT, MC_SERVER, cport, 11211, ACK,
+                                f"{body}\r\n".encode(), seq=i),
+                   eth_ipv4_tcp(MC_SERVER, MC_CLIENT, 11211, cport, ACK,
+                                f"{resp}\r\n".encode(), seq=i),
+                   eth_ipv4_tcp(MC_CLIENT, MC_SERVER, cport + 1, 80, ACK,
+                                b"GET /x HTTP/1.1\r\n\r\n", seq=i),
+                   eth_ipv4_tcp(MC_SERVER, MC_CLIENT, 80, cport + 1, ACK,
+                                b"HTTP/1.1 200 OK\r\n\r\n", seq=i)]
+        stamps += [t, t + 1_000_000, t + 1_500_000, t + 2_000_000]
+    return frames, np.asarray(stamps, np.uint64)
+
+
+def _plugin_run(package, tmp, so_bytes, wasm, batches):
+    """One agent managed by its own package's controller: plugins pushed
+    as pkg:// packages, a batch under each, the fetch failures (a bad
+    name, a missing package, a sha256 mismatch in transit, the controller
+    down with and without a cache), then []. Returns what each step
+    showed and the PROTOCOLLOG stream."""
+    import base64
+    import importlib
+    pkg = "deepflow_tpu" if package == "jax" else "deepflow_tpu_torch"
+    ctl = importlib.import_module(f"{pkg}.controller")
+    mod = jtrident if package == "jax" else ttrident
+    sink = Sink()
+    reg = ctl.VTapRegistry()
+    srv = ctl.ControllerServer(ctl.ResourceModel(), reg, port=0)
+    srv.monitor.set_ingesters([f"127.0.0.1:{sink.port}"])
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    for name, data in (("mc.so", so_bytes), ("mc.wasm", wasm),
+                       ("tampered.so", so_bytes)):
+        urllib.request.urlopen(urllib.request.Request(
+            f"{base}/v1/upgrade-package", data=json.dumps({
+                "name": name, "data_b64": base64.b64encode(data).decode()
+            }).encode(), headers={"Content-Type": "application/json"}),
+            timeout=10).read()
+    cfg = mod.AgentConfig(controller_url=base, ctrl_ip="10.6.6.6",
+                          host="plugin-host", self_telemetry=False,
+                          upgrade_dir=str(tmp / package))
+    agent = mod.Agent(cfg) if package == "jax" else \
+        mod.Agent(cfg, device="cpu")
+    steps = []
+
+    def step(push, frames=None):
+        reg.set_config("default", push)
+        ok = agent.sync_once()
+        if frames is not None:
+            agent.feed(*frames)
+            agent.tick(int(frames[1][-1]) + NS)
+        steps.append((ok, sorted(os.path.basename(p)
+                                 for p in agent.so_plugins),
+                      sorted(os.path.basename(p) for p in agent.wasm_plugins),
+                      agent.plugin_fetch_errors, agent.sync_errors))
+    real = urllib.request.urlopen
+
+    def tampering(req, *a, **k):
+        resp = real(req, *a, **k)
+        url = req if isinstance(req, str) else req.full_url
+        if "name=tampered.so" not in url or "meta=1" in url:
+            return resp
+        doc = json.load(resp)
+        doc["sha256"] = "0" * 64
+        return io.BytesIO(json.dumps(doc).encode())
+    try:
+        step({"so_plugins": ["pkg://mc.so"], "wasm_plugins": [],
+              "l7_log_rate": 0}, batches[0])
+        step({"so_plugins": [], "wasm_plugins": ["pkg://mc.wasm"],
+              "l7_log_rate": 0}, batches[1])
+        step({"so_plugins": ["pkg://", "pkg://../x.so", "pkg://nope.so"]})
+        urllib.request.urlopen = tampering
+        try:
+            step({"so_plugins": ["pkg://tampered.so"]})
+        finally:
+            urllib.request.urlopen = real
+        step({"so_plugins": [], "wasm_plugins": []}, batches[2])
+    finally:
+        srv.close()
+    # the controller down: the cache is trusted, no cache is an error
+    steps.append((os.path.basename(agent._resolve_plugin_path("pkg://mc.so")),
+                  agent._resolve_plugin_path("pkg://never.so"),
+                  agent.plugin_fetch_errors))
+    agent.tick(final=True)
+    streams = sink.drain(agent.senders)
+    agent.close()
+    sink.close()
+    return steps, streams.get(int(ttrident.MessageType.PROTOCOLLOG), b"")
+
+
+def test_distributed_plugins_match_reference(tmp_path):
+    from deepflow_tpu_torch.agent.plugin import build_sample_plugin
+    from deepflow_tpu_torch.agent.wasm_samples import build_memcached_wasm
+    with open(build_sample_plugin(), "rb") as f:
+        so_bytes = f.read()
+    wasm = build_memcached_wasm()
+    rng = np.random.default_rng(0xC3)
+    batches = [_memcached_frames(rng, 12, T0 + k * NS) for k in range(3)]
+    j = _plugin_run("jax", tmp_path, so_bytes, wasm, batches)
+    t = _plugin_run("port", tmp_path, so_bytes, wasm, batches)
+    assert t[0] == j[0]
+    assert t[1] == j[1] and len(j[1]) > 0
+    assert [s[1:3] for s in j[0][:2]] == [(["mc.so"], []), ([], ["mc.wasm"])]
+    # a bad name (empty, a path) x2 and a missing package, then the
+    # sha256 mismatch; [] unloads; offline: cache trusted, none counted
+    assert [s[3] for s in j[0][2:5]] == [3, 4, 4]
+    assert j[0][4][1:3] == ([], [])
+    assert j[0][5] == ("mc.so", None, 5)
+    from deepflow_tpu.wire.gen import flow_log_pb2
+    protos = []
+    for rec in stream_records(j[1]):
+        protos.append(flow_log_pb2.AppProtoLogsData.FromString(
+            rec).base.head.proto)
+    assert protos.count(201) == 12 and protos.count(202) == 12
+
+
+def stream_records(stream):
+    from deepflow_tpu_torch.wire.codec import iter_pb_records
+    from deepflow_tpu_torch.wire.framing import FrameReader
+    return [r for f in FrameReader().feed(stream)
+            for r in iter_pb_records(f.payload)]
+
+
+def test_apiserver_watch_preferred_over_the_file(tmp_path):
+    """k8s_apiserver_url and k8s_resource_file both set: each package's
+    agent lists the apiserver, and its controller's model holds the
+    apiserver's pods, not the file's."""
+    import chip_smoke
+    objects = {"pods": [chip_smoke.k8s_obj("pods", f"api-{i}", 1, ns="ns",
+                                           ip=f"10.1.0.{i + 1}", node="n1")
+                        for i in range(5)],
+               "nodes": [chip_smoke.k8s_obj("nodes", "n1", 1,
+                                            ip="10.255.0.1")],
+               "namespaces": [chip_smoke.k8s_obj("namespaces", "ns", 1)],
+               "services": []}
+    api = chip_smoke.FakeApiserver(objects, hold_s=0.3)
+    path = tmp_path / "k8s.json"
+    path.write_text(json.dumps([{"type": "pod", "name": "file-pod",
+                                 "ip": "10.2.0.1"}]))
+    out = {}
+    try:
+        for package in ("jax", "port"):
+            srv, _ = _controller(package)
+            mod = jtrident if package == "jax" else ttrident
+            cfg = mod.AgentConfig(
+                controller_url=f"http://127.0.0.1:{srv.port}",
+                k8s_apiserver_url=api.url, k8s_resource_file=str(path),
+                platform_sync_interval_s=0.2, self_telemetry=False)
+            agent = mod.Agent(cfg) if package == "jax" else \
+                mod.Agent(cfg, device="cpu")
+            agent.start()
+            try:
+                deadline = time.time() + 30
+                names = set()
+                while time.time() < deadline and len(names) < 5:
+                    names = {r.name for r in srv.model.list(type="pod")}
+                    time.sleep(0.05)
+                out[package] = (sorted(names), agent.api_watcher is not None,
+                                agent.k8s_watcher.lister ==
+                                agent.api_watcher.snapshot)
+            finally:
+                agent.close()
+                srv.close()
+    finally:
+        api.close()
+    assert out["port"] == out["jax"] == (
+        [f"api-{i}" for i in range(5)], True, True)
 
 
 # -- the bootstrap -----------------------------------------------------------------
@@ -570,8 +782,59 @@ def test_bootstrap_reads_json_without_pyyaml(tmp_path, monkeypatch):
     {"engine": "xdp", "iface": "eth0"},
     {"engine": "raw", "iface": "eth0", "bpf": {"proto": 6}}])
 def test_unported_capture_raises(capture):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tmain.build_source(capture)
+    """The xdp engine and the bpf filter are built now: on an interface
+    this host may lack, both packages' build_source end alike (the
+    source, or the same error with the filter closed)."""
+    out = []
+    for mod in (jmain, tmain):
+        try:
+            src = mod.build_source(dict(capture))
+        except Exception as e:  # noqa: BLE001 -- the answer compared
+            out.append((type(e).__name__, str(e)))
+        else:
+            out.append(type(src).__name__)
+            if getattr(src, "bpf", None) is not None:
+                src.bpf.close()
+            src.close()
+    assert out[1] == out[0]
+
+
+def test_build_source_builds_filter_and_xdp(monkeypatch):
+    """capture.bpf builds a BpfFilter that rides the source (attached
+    before bind); engine xdp builds an XdpSource with the block's
+    keywords: as the JAX package's build_source does."""
+    from deepflow_tpu.agent import bpf as jbpf
+    from deepflow_tpu.agent import xdp as jxdp
+    from deepflow_tpu_torch.agent import bpf as tbpf
+    from deepflow_tpu_torch.agent import xdp as txdp
+    if not tbpf.available():
+        pytest.skip("bpf(2) socket filters refused here")
+    capture = {"engine": "raw", "iface": "lo", "snaplen": 256,
+               "poll_ms": 5, "bpf": {"proto": 17, "port": 5353,
+                                     "sample_shift": 1}}
+    got = []
+    for mod, bpf in ((jmain, jbpf), (tmain, tbpf)):
+        src = mod.build_source(dict(capture))
+        try:
+            assert isinstance(src.bpf, bpf.BpfFilter)
+            got.append((type(src).__name__, src.bpf.spec, src.snaplen,
+                        src.bpf.counters()))
+        finally:
+            src.close()
+            src.bpf.close()
+    assert got[1] == got[0]
+    # the XDP source is recorded, not attached (a redirect on lo consumes
+    # its ingress while the suite runs)
+    calls = []
+    for mod, xdp in ((jmain, jxdp), (tmain, txdp)):
+        monkeypatch.setattr(xdp, "XdpSource",
+                            lambda iface, **kw: calls.append((iface, kw))
+                            or types.SimpleNamespace())
+        mod.build_source({"engine": "xdp", "iface": "lo", "queue": 1,
+                          "frame_count": 128, "batch_size": 64,
+                          "poll_ms": 7})
+    assert calls[1] == calls[0] == ("lo", {"queue": 1, "frame_count": 128,
+                                           "batch_size": 64, "poll_ms": 7})
 
 
 # -- the process -------------------------------------------------------------------

@@ -69,7 +69,17 @@ def test_port_files_found():
             "packet_sequence.py", "sender.py", "otlp_exporter.py",
             "ext_metrics.py", "event.py", "droplet.py",
             "checkpoint.py", "native.py", "packet.py", "tcp_perf.py",
-            "flow_map.py", "quadruple.py", "trident.py"} <= names
+            "flow_map.py", "quadruple.py", "trident.py", "plugin.py",
+            "wasm_vm.py", "wasm_asm.py", "wasm_samples.py", "wasm_plugin.py",
+            "k8s_watch.py", "integration.py", "bpf.py",
+            "xdp.py"} <= names
+    agent = {p.name for p in PORT_FILES if p.parent.name == "agent"}
+    assert {"plugin.py", "wasm_vm.py", "wasm_asm.py", "wasm_samples.py",
+            "wasm_plugin.py", "k8s_watch.py", "profiler.py",
+            "integration.py", "bpf.py", "xdp.py"} <= agent
+    for src in ("df_plugin.h", "memcached_plugin.cc"):
+        assert (REPO / "deepflow_tpu_torch" / "agent" / "native_src"
+                / src).is_file()
     controller = {p.name for p in PORT_FILES
                   if p.parent.name == "controller"}
     assert set(CONTROLLER) <= controller

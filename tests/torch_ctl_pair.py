@@ -137,3 +137,42 @@ def reference_tests(path, skip=()):
     exec(compile(port_source(path), str(path), "exec"), mod.__dict__)
     return {k: v for k, v in vars(mod).items()
             if k.startswith("test_") and k not in skip}, mod
+
+
+def adopt_reference_tests(namespace, path, only=None, skip=()):
+    """Put a JAX-package test file's tests, compiled against the port
+    (port_source), into a test module's `namespace` as `test_ref_<name>`,
+    with the file's fixtures under their own names and its module-level
+    marks (`pytestmark`) on each test, so pytest collects and runs them
+    there. `only` names the tests to take (all, minus `skip`, when None).
+    Returns the compiled module."""
+    tests, mod = reference_tests(path, skip=skip)
+    if only is not None:
+        missing = set(only) - set(tests)
+        assert not missing, f"{Path(path).name} has no {sorted(missing)}"
+        tests = {k: v for k, v in tests.items() if k in only}
+    marks = getattr(mod, "pytestmark", [])
+    marks = marks if isinstance(marks, list) else [marks]
+    for name, obj in vars(mod).items():
+        if hasattr(obj, "_pytestfixturefunction") or \
+                type(obj).__name__ == "FixtureFunctionDefinition":
+            namespace[name] = obj
+    for name, fn in sorted(tests.items()):
+        for mark in marks:
+            fn = mark(fn)
+        namespace[f"test_ref_{name[len('test_'):]}"] = fn
+    return mod
+
+
+def reference_function(path, name):
+    """One test function of a JAX-package test file, compiled against
+    the port (port_source) with the file's imports and nothing else of
+    its module-level code (no marks, no probes run at import)."""
+    import ast
+    tree = ast.parse(port_source(path), str(path))
+    tree.body = [n for n in tree.body
+                 if isinstance(n, (ast.Import, ast.ImportFrom))
+                 or (isinstance(n, ast.FunctionDef) and n.name == name)]
+    ns = {"__file__": str(path)}
+    exec(compile(tree, str(path), "exec"), ns)
+    return ns[name]
