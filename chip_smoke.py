@@ -3,8 +3,8 @@
 suites, flow_metrics store lane, pod, global mesh, ingester with its
 operations surface, serving with the querier, and the server process
 with every ingest lane, the agent process, a node managed by the
-controller, and a node whose L7 plugins the controller pushes, on one
-CUDA card.
+controller, a node whose L7 plugins the controller pushes, and a node
+fed by the eBPF tracer front, on one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -187,7 +187,8 @@ is printed):
    one stream sync;
 11. the pod fault domains and the cross-host pod at FlowSuiteConfig():
    (a) TpuSketchExporter(pod_shards=4, batch_rows 2^15: 2^13 rows a
-   shard) through put() over phase 3's two windows: at each window close
+   shard) through put() over the first half of each of phase 3's two
+   windows (the half is the cut): at each window close
    every leaf of the pod's merged bus snapshot and every output field
    equal to the sharded suite's lanes form on 4 shards over the same
    planes, recall >= 0.99, the pod-wide ledger closed (sent = delivered
@@ -246,8 +247,9 @@ is printed):
    surface on its defaults: the timeline at 1.0 s with its SLO rules,
    `prom_port=0`, `debug_port=0`, a spill and an incident directory;
    windows closed by `flush_window(now)`) fed over loopback TCP with
-   frames built by the port's wire modules: phase 3's two windows of
-   l4 records (window 0's first 2^16 as TAGGEDFLOW protobuf records,
+   frames built by the port's wire modules: the first half of each of
+   phase 3's two windows of l4 records (the half is the cut; window 0's
+   first 2^16 as TAGGEDFLOW protobuf records,
    the rest as planar COLUMNAR_FLOW frames; the L4_SCHEMA columns phase
    3 does not draw from the seed), 2^15 l7 requests drawn as phase 8
    draws them (PROTOCOLLOG) and 2^15 Documents drawn as phase 10 draws
@@ -472,6 +474,34 @@ is printed):
    the apiserver's objects to the model, the watch's latency, the
    relists, rows on pods, the launches. No XDP here: a redirect on lo
    consumes its ingress, the node's TCP included (the tests hold it).
+21. an eBPF-traced node: phase 19's `server.Server` (controller on).
+   (a) 2^14 two-hop conversations (client -> svc-a -> svc-b -> svc-a ->
+   client, four syscall records each: 2^16 records, 12 MiB of 192-byte
+   SOCK_DATA images) over 64 processes x 8 threads, phase 18's payloads
+   in its server ports' protocols, in-kernel trace ids (the ingress
+   request parks one that the egress call consumes), one conversation
+   in 16 from the OpenSSL uprobe source, process 0's goroutines moving
+   across its threads. The 64 processes register through the
+   controller's GPID sync; the records, packed with pack_record, go
+   through EbpfTracer.feed_raw with a /proc-style resolver, and its
+   wires through a UniformSender as PROTOCOLLOG. Asserted: two sessions
+   a conversation; the eBPF rows (signal_source 3) = the wires sent;
+   every row's gprocess_id_0 = the controller's allocation; is_tls on
+   exactly the uprobe-sourced rows and the TLS handshakes; 256 seeded
+   conversations reassembled, both sessions and nothing else, from
+   either row through /v1/l7_tracing and through the port's `df-ctl
+   trace expand`; the RED lane's requests per service (the window
+   closed by hand) = the generator's count; hist launched. (b) 1,024
+   slow file-IO records on files the phase holds open cross the IO gate:
+   1,024 PROC_EVENT rows with their latencies and file names. (c)
+   `python -m deepflow_tpu_torch.agent` with a debug port and no capture:
+   `df-ctl agent ping`, `plugins` and `rpc` answer; its `ebpf` dump
+   gives bpf_available and both attach reasons; enable_tls_uprobes on an
+   in-process Agent (OSError where bpf(2) is refused: printed); where
+   kprobes attach, the socket_trace suite on read/write captures one
+   loopback HTTP exchange through BpfOutputReader into feed_raw
+   (otherwise printed why not); SIGTERM: exit 0. Printed: the tracer's
+   records/s, feed to rows landed, the tracing wall, the launches.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -9460,6 +9490,473 @@ def check_plugin_node(torch, dev, rng, card):
     return r
 
 
+# -- phase 21: an eBPF-traced node --------------------------------------------
+
+EB_PROCS = 64              # traced processes
+EB_THREADS = 8             # threads of each
+EB_CONVERSATIONS = 1 << 14  # two-hop conversations: 2^16 records
+EB_UPSTREAMS = 32          # upstream services the processes call
+EB_TLS_SHARE = 16          # one conversation in 16 from a TLS uprobe
+EB_TRACED = 256            # conversations reassembled through l7_tracing
+EB_IO = 1024               # slow file-IO records through the IO gate
+EB_FILES = 8               # files the phase holds open for them
+EB_SLOT_NS = 4 * MS        # one conversation's slot on its thread
+EB_WAIT_S = 120            # the longest wait for the server or the process
+
+
+def ebpf_conversations(rng, t0_ns):
+    """Phase 21's syscall stream: EB_CONVERSATIONS two-hop conversations
+    (client -> svc-a -> svc-b -> svc-a -> client, the shape of the JAX
+    tests' _svc_a_conversation) over EB_PROCS processes x EB_THREADS
+    threads, each thread's conversations in sequence, the threads
+    interleaved in time (process 0's goroutines move across its threads
+    within a conversation). A process serves on one of AG_PORTS and calls
+    upstream services on theirs; the payloads are phase 18's
+    (l7_payload), each session with its own index. The in-kernel trace
+    ids are the socket_trace programs' discipline: the ingress request
+    parks a fresh id that the egress call consumes, the upstream's
+    response parks another that the answer consumes. One conversation
+    in EB_TLS_SHARE comes from the
+    OpenSSL uprobe source. Returns (records as pack_record keywords in
+    time order, the (pid, fd) -> (local, remote, local port, remote
+    port) table a /proc resolver would give, per conversation: (pid,
+    inbound server (ip, port), upstream server (ip, port), tagged))."""
+    from deepflow_tpu_torch.agent.socket_trace import (SOURCE_OPENSSL_UPROBE,
+                                                       SOURCE_SYSCALL,
+                                                       T_EGRESS, T_INGRESS)
+    n = EB_CONVERSATIONS
+    pids = 30000 + np.arange(EB_PROCS)
+    ports = AG_PORTS[np.arange(EB_PROCS) % len(AG_PORTS)]
+    up_ip = 0xAC150000 + 1 + np.arange(EB_UPSTREAMS)
+    up_port = AG_PORTS[rng.permutation(EB_UPSTREAMS) % len(AG_PORTS)]
+    tagged = np.zeros(n, bool)
+    tagged[rng.permutation(n)[:n // EB_TLS_SHARE]] = True
+    upstream = rng.integers(0, EB_UPSTREAMS, n)
+    jitter = rng.integers(0, EB_SLOT_NS // 4, n)
+    records, sockets, convs = [], {}, []
+    for c in range(n):
+        p, k = c % EB_PROCS, c // EB_PROCS      # k: the process's k-th
+        pid, tid = int(pids[p]), int(pids[p]) + 1 + k % EB_THREADS
+        me, port = 0xAC140000 + 1 + p, int(ports[p])
+        client, cport = 0x0A640000 + c, 40000 + c % 20000
+        b = int(upstream[c])
+        bip, bport = int(up_ip[b]), int(up_port[b])
+        eph = 20000 + k
+        fd_in, fd_up = 100 + 2 * k, 101 + 2 * k
+        sockets[(pid, fd_in)] = (me, client, port, cport)
+        sockets[(pid, fd_up)] = (me, bip, eph, bport)
+        t = t0_ns + (k // EB_THREADS) * EB_SLOT_NS + int(jitter[c])
+        src = SOURCE_OPENSSL_UPROBE if tagged[c] else SOURCE_SYSCALL
+        x, y = 2 * c + 1, 2 * c + 2
+        common = dict(pid=pid, comm=f"svc-{p}", source=src)
+        for j, (dt, d, fd, payload, tr, seq) in enumerate((
+                (0, T_INGRESS, fd_in, l7_payload(port, False, 2 * c), x, 1),
+                (MS // 2, T_EGRESS, fd_up, l7_payload(bport, False,
+                                                      2 * c + 1), x, 2),
+                (3 * MS // 2, T_INGRESS, fd_up, l7_payload(bport, True,
+                                                           2 * c + 1), y, 3),
+                (2 * MS, T_EGRESS, fd_in, l7_payload(port, True, 2 * c),
+                 y, 4))):
+            # process 0 is a Go process: the goid-keyed programs chain a
+            # goroutine's ids while it moves across OS threads
+            records.append(dict(
+                common, tid=pid + 1 + (k + j) % EB_THREADS if p == 0
+                else tid, direction=d, ts_ns=t + dt, fd=fd,
+                payload=payload, trace_id=tr, cap_seq=seq))
+        convs.append((pid, (me, port), (bip, bport), bool(tagged[c])))
+    records.sort(key=lambda r: (r["ts_ns"], r["pid"], r["tid"]))
+    return records, sockets, convs
+
+
+def ebpf_io_records(rng, pid, fds, t0_ns):
+    """EB_IO slow file-IO records (writes and reads of 1-120 bytes,
+    1-20 ms) on `fds`, files this process holds open, each inside a
+    trace (a nonzero in-kernel id: collect mode 1's condition)."""
+    from deepflow_tpu_torch.agent.socket_trace import T_EGRESS, T_INGRESS
+    lat = rng.integers(MS, 20 * MS, EB_IO)
+    size = rng.integers(1, 121, EB_IO)
+    return [dict(pid=pid, tid=pid, direction=(T_EGRESS, T_INGRESS)[i % 2],
+                 ts_ns=t0_ns + i * 1000, payload=b"l" * int(size[i]),
+                 fd=fds[i % len(fds)], trace_id=1 << 40 | i,
+                 comm="phase21-io", latency_ns=int(lat[i]))
+            for i in range(EB_IO)]
+
+
+def expand_ids(out):
+    """The _ID column of `df-ctl trace expand`'s table."""
+    lines = out.strip().splitlines()
+    if not lines or not lines[0].startswith("_ID"):
+        raise AssertionError(f"phase 21: trace expand printed {out!r}")
+    return {int(line.split()[0]) for line in lines[1:]}
+
+
+def live_socket_trace():
+    """Phase 21 (c), where kprobes attach: the socket_trace suite on
+    read/write, one HTTP request and its response written and read over
+    a loopback TCP pair with write(2)/read(2) in this process, its
+    records drained from the perf rings (BpfOutputReader) into a fresh
+    EbpfTracer (feed_raw with a /proc resolver). Returns what merged."""
+    import socket
+
+    from deepflow_tpu_torch.agent import perf_ring
+    from deepflow_tpu_torch.agent.ebpf_source import (EbpfTracer,
+                                                      ProcFdResolver)
+    from deepflow_tpu_torch.agent.socket_trace import SocketTraceSuite
+    suite = SocketTraceSuite()
+    probes, reader = [], None
+    srv = socket.socket()
+    try:
+        reader = perf_ring.BpfOutputReader(suite.maps.events)
+        progs = suite.programs()
+        for name in ("read", "write"):
+            enter, exit_ = progs[name]
+            probes.append(perf_ring.attach_kprobe(enter, f"__x64_sys_{name}"))
+            probes.append(perf_ring.attach_kprobe(exit_, f"__x64_sys_{name}",
+                                                  retprobe=True))
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(1)
+        cli = socket.create_connection(srv.getsockname())
+        conn, _ = srv.accept()
+        req = b"GET /phase21/live HTTP/1.1\r\nHost: lo\r\n\r\n"
+        resp = b"HTTP/1.1 200 OK\r\nContent-Length: 0\r\n\r\n"
+        os.write(cli.fileno(), req)
+        os.read(conn.fileno(), 4096)
+        os.write(conn.fileno(), resp)
+        os.read(cli.fileno(), 4096)
+        time.sleep(0.1)
+        mine = [raw for raw in reader.drain()
+                if int.from_bytes(raw[4:8], "little") == os.getpid()]
+        tracer, resolver = EbpfTracer(), ProcFdResolver()
+        wires = [w for raw in mine
+                 if (w := tracer.feed_raw(raw, resolver=resolver))]
+        cli.close()
+        conn.close()
+    finally:
+        srv.close()
+        for pr in probes:
+            pr.close()
+        if reader is not None:
+            reader.close()
+        suite.close()
+    if len(mine) < 4 or not any(b"/phase21/live" in w for w in wires):
+        raise AssertionError(f"phase 21 (c): {len(mine)} records of this "
+                             f"process, {len(wires)} merged sessions")
+    return {"records": len(mine), "sessions": len(wires)}
+
+
+def check_ebpf_node(torch, dev, rng, card):
+    """Phase 21: phase 19's server.Server (controller on) fed by the eBPF
+    tracer front: (a) the syscall tracer's PROTOCOLLOG, (b) its IO gate's
+    PROC_EVENT, (c) an agent process with a debug port. Returns the
+    phase's record."""
+    import contextlib
+    import io
+    import socket
+
+    from deepflow_tpu_torch import cli
+    from deepflow_tpu_torch.agent.ebpf_source import EbpfTracer
+    from deepflow_tpu_torch.agent.sender import UniformSender
+    from deepflow_tpu_torch.agent.socket_trace import pack_record
+    from deepflow_tpu_torch.agent.trident import Agent, AgentConfig
+    from deepflow_tpu_torch.models.app_suite import service_group
+    from deepflow_tpu_torch.runtime.debug import debug_request
+    from deepflow_tpu_torch.server import Server
+    from deepflow_tpu_torch.wire import MessageType
+    r = {}
+    t_phase = time.perf_counter()
+    t0_ns = int(time.time()) * NS
+    records, sockets, convs = ebpf_conversations(rng, t0_ns)
+    n_rec = len(records)
+    r["generate_s"] = time.perf_counter() - t_phase
+
+    def run_cli(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(list(argv))
+        if rc != 0:
+            raise AssertionError(f"phase 21: df-ctl {' '.join(argv)} "
+                                 f"exited {rc}: {out.getvalue()[-500:]}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ebpf_") as tmp:
+        files = []
+        for i in range(EB_FILES):
+            with open(os.path.join(tmp, f"io-{i}.log"), "wb") as f:
+                f.write(b"x" * 64)
+            files.append(open(os.path.join(tmp, f"io-{i}.log"), "rb"))
+        fds = [f.fileno() for f in files]
+        io_recs = ebpf_io_records(rng, os.getpid(), fds,
+                                  t0_ns + 200 * MS)
+        path = managed_config(tmp)
+        srv = Server(path, device=dev)
+        proc = None
+        try:
+            srv.start()
+            ing = srv.ingester
+            ing.stats.stop()
+            base = f"http://127.0.0.1:{srv.controller.port}"
+            qurl = f"http://127.0.0.1:{srv.querier.port}"
+            ctl_call(base, "/v1/health")
+            # (c)'s agent process starts (torch, the card) while (a) and
+            # (b) run; a thread times its debug port's first answer
+            probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            probe.bind(("127.0.0.1", 0))
+            dport = probe.getsockname()[1]
+            probe.close()
+            boot = os.path.join(tmp, "agent.json")
+            with open(boot, "w") as f:
+                json.dump({"controller_url": base, "ctrl_ip": "10.254.0.22",
+                           "host": "phase21-node", "debug_port": dport,
+                           "capture": {"engine": "none"}}, f)
+            t_spawn = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "deepflow_tpu_torch.agent", "-f",
+                 boot, "--device", torch.device(dev).type],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            ready = {}
+
+            def first_answer():
+                deadline = time.monotonic() + EB_WAIT_S
+                while proc.poll() is None and time.monotonic() < deadline:
+                    try:
+                        if debug_request("ping", port=dport,
+                                         timeout=0.5).get("ok"):
+                            ready["s"] = time.perf_counter() - t_spawn
+                            return
+                    except OSError:
+                        time.sleep(0.05)
+            poller = threading.Thread(target=first_answer, daemon=True)
+            poller.start()
+            # (a) the processes through the controller's GPID sync
+            procs = {}
+            for rec in records:
+                procs.setdefault(rec["pid"], {
+                    "pid": rec["pid"], "name": rec["comm"],
+                    "start_time": rec["ts_ns"]})
+            sync = ctl_call(base, "/v1/sync", {
+                "ctrl_ip": "10.254.0.21", "host": "phase21-tracer",
+                "revision": "deepflow-tpu-agent", "boot": True,
+                "processes": list(procs.values())})
+            alloc = {int(k): int(v) for k, v in sync["gpids"].items()}
+            if sorted(alloc) != sorted(procs) or len(set(
+                    alloc.values())) != EB_PROCS or 0 in alloc.values():
+                raise AssertionError(f"phase 21: the controller allocated "
+                                     f"{len(alloc)} gpids for {EB_PROCS} "
+                                     f"processes")
+            tracer = EbpfTracer(vtap_id=sync["vtap_id"])
+            tracer.gpid_map = dict(alloc)
+
+            def resolver(pid, fd):
+                return sockets.get((pid, fd))
+            t = time.perf_counter()
+            raw = [pack_record(**rec) for rec in records]
+            r["pack_s"] = time.perf_counter() - t
+            zero_launches()
+            t_feed = time.perf_counter()
+            wires = [w for b in raw
+                     if (w := tracer.feed_raw(b, resolver=resolver))]
+            r["feed_s"] = time.perf_counter() - t_feed
+            r["records_per_s"] = n_rec / r["feed_s"]
+            if len(wires) != 2 * EB_CONVERSATIONS \
+                    or tracer.counters()["parse_failed"]:
+                raise AssertionError(f"phase 21 (a): {len(wires)} sessions "
+                                     f"from {EB_CONVERSATIONS} two-hop "
+                                     f"conversations: {tracer.counters()}")
+            sender = UniformSender(MessageType.PROTOCOLLOG,
+                                   f"127.0.0.1:{ing.port}",
+                                   vtap_id=sync["vtap_id"])
+            try:
+                sender.send(wires)
+            finally:
+                sender.close()
+            l7 = ing.store.table("flow_log", "l7_flow_log")
+
+            def landed():
+                ing.flush()
+                return l7.row_count() >= len(wires) \
+                    and ing.app_red.rows_in >= len(wires)
+            wait_until(landed, "phase 21 (a): the tracer's rows",
+                       timeout=EB_WAIT_S)
+            r["feed_to_rows_s"] = time.perf_counter() - t_feed
+            rows = l7.scan()
+            ebpf = np.asarray(rows["signal_source"]) == 3
+            if len(ebpf) != len(wires) or ebpf.sum() != len(wires):
+                raise AssertionError(f"phase 21 (a): {int(ebpf.sum())} eBPF "
+                                     f"rows of {len(ebpf)}, {len(wires)} "
+                                     f"wires sent")
+            pid_col = np.asarray(rows["process_id_0"], np.int64)
+            want_g = np.array([alloc.get(int(p), 0) for p in pid_col])
+            if not np.array_equal(np.asarray(rows["gprocess_id_0"],
+                                             np.int64), want_g):
+                raise AssertionError("phase 21 (a): a row's gprocess_id_0 "
+                                     "is not the controller's allocation")
+            # the sessions by conversation: the two trace ids are 2c+1
+            # and 2c+2 on both of its sessions
+            conv = (np.asarray(rows["syscall_trace_id_request"],
+                               np.int64) - 1) // 2
+            if not np.array_equal(np.bincount(conv, minlength=len(convs)),
+                                  np.full(len(convs), 2)) \
+                    or not np.array_equal(
+                        np.asarray(rows["syscall_trace_id_response"],
+                                   np.int64), 2 * conv + 2):
+                raise AssertionError("phase 21 (a): the rows' syscall trace "
+                                     "ids do not pair each conversation's "
+                                     "two sessions")
+            tagged = np.array([c[3] for c in convs])[conv]
+            tls_port = np.isin(np.asarray(rows["port_dst"]), (443, 8443))
+            is_tls = np.asarray(rows["is_tls"]) != 0
+            if not np.array_equal(is_tls, tagged | tls_port):
+                raise AssertionError(
+                    f"phase 21 (a): {int(is_tls.sum())} rows flagged is_tls, "
+                    f"{int((tagged | tls_port).sum())} from TLS sources or "
+                    f"handshakes ({int(tagged.sum())} uprobe-sourced)")
+            r["tls_rows"] = int(is_tls.sum())
+            # 256 conversations reassembled from either of their rows
+            ids = np.asarray(rows["_id"], np.int64)
+            t = time.perf_counter()
+            picks = []
+            for c in rng.choice(len(convs), EB_TRACED, replace=False):
+                both = set(ids[conv == c].tolist())
+                picks.append((c, both, int(rng.choice(sorted(both)))))
+            for c, both, seed in picks:
+                spans = http_json(f"{qurl}/v1/l7_tracing?_id={seed}")
+                got = {s["attributes"]["_id"] for s in spans["spans"]}
+                ctl_ids = expand_ids(run_cli("--querier", qurl, "trace",
+                                             "expand", "--id", str(seed)))
+                if got != both or ctl_ids != both:
+                    raise AssertionError(
+                        f"phase 21 (a): conversation {c} from row {seed}: "
+                        f"l7_tracing {sorted(got)}, df-ctl {sorted(ctl_ids)},"
+                        f" its rows {sorted(both)}")
+            r["traced_s"] = time.perf_counter() - t
+            # the RED lane: requests per service = the generator's count
+            out = ing.app_red.flush_window(now=float(t0_ns // NS + 2))
+            ing.flush()
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            servers = np.array([s for c in convs for s in (c[1], c[2])],
+                               np.int64)
+            key = {"ip_dst": torch.from_numpy(servers[:, 0]),
+                   "port_dst": torch.from_numpy(servers[:, 1]),
+                   "protocol": torch.full((len(servers),), 6,
+                                          dtype=torch.int64)}
+            groups = ing.app_red.cfg.groups
+            want_red = np.bincount(service_group(key, groups).numpy(),
+                                   minlength=groups)
+            got_red = out.requests.cpu().numpy().astype(np.int64)
+            if not np.array_equal(got_red, want_red):
+                raise AssertionError(
+                    f"phase 21 (a): the RED lane counted "
+                    f"{int(got_red.sum())} requests over "
+                    f"{int((got_red > 0).sum())} services, the generator "
+                    f"{int(want_red.sum())} over {int((want_red > 0).sum())}")
+            r["red_services"] = int((want_red > 0).sum())
+            r["launches"] = read_launches("phase 21 (a)", wants=("hist",))
+            # (b) slow file IO through the gate into PROC_EVENT
+            t = time.perf_counter()
+            for rec in io_recs:
+                if tracer.feed_raw(pack_record(**rec),
+                                   resolver=resolver) is not None:
+                    raise AssertionError("phase 21 (b): a file-IO record "
+                                         "became a session")
+            evs, tracer.io_events = tracer.io_events, []
+            if len(evs) != EB_IO:
+                raise AssertionError(f"phase 21 (b): {len(evs)} IO events "
+                                     f"from {EB_IO} slow file-IO records")
+            sender = UniformSender(MessageType.PROC_EVENT,
+                                   f"127.0.0.1:{ing.port}",
+                                   vtap_id=sync["vtap_id"])
+            try:
+                sender.send(evs)
+            finally:
+                sender.close()
+            perf = ing.store.table("event", "perf_event")
+
+            def events_landed():
+                ing.flush()
+                return perf.row_count() >= EB_IO
+            wait_until(events_landed, "phase 21 (b): the PROC_EVENT rows",
+                       timeout=EB_WAIT_S)
+            ev_rows = perf.scan()
+            names = ing.tag_dicts.get("event_strings")
+            paths = {names.decode(int(h)) for h in ev_rows["filename"]}
+            want_lat = sorted(rec["latency_ns"] for rec in io_recs)
+            if len(ev_rows["pid"]) != EB_IO \
+                    or sorted(np.asarray(ev_rows["duration_ns"],
+                                         np.int64).tolist()) != want_lat \
+                    or paths != {f.name for f in files}:
+                raise AssertionError(
+                    f"phase 21 (b): {len(ev_rows['pid'])} perf_event rows "
+                    f"for {EB_IO} IO events, files {sorted(paths)}")
+            r["io_s"] = time.perf_counter() - t
+            # (c) the agent process with a debug port
+            poller.join(timeout=EB_WAIT_S)
+            if "s" not in ready:
+                raise AssertionError(
+                    f"phase 21 (c): the agent's debug port never answered "
+                    f"(exit {proc.poll()})")
+            r["spawn_to_debug_s"] = ready["s"]
+            for cmd in ("ping", "plugins", "rpc"):
+                ans = json.loads(run_cli("--debug-port", str(dport),
+                                         "agent", cmd))
+                if not ans.get("ok"):
+                    raise AssertionError(f"phase 21 (c): df-ctl agent {cmd} "
+                                         f"answered {ans}")
+            dump = debug_request("ebpf", port=dport)
+            need = ("bpf_available", "socket_trace_attach_capable",
+                    "socket_trace_attach_reason", "tls_uprobe_attach_capable",
+                    "tls_uprobe_attach_reason")
+            if not dump.get("ok") or any(k not in dump["data"] for k in need):
+                raise AssertionError(f"phase 21 (c): the ebpf dump {dump}")
+            r["ebpf_dump"] = {k: dump["data"][k] for k in need}
+            log(f"  the agent process's ebpf dump: {r['ebpf_dump']}")
+            agent = Agent(AgentConfig(), device=dev)
+            try:
+                r["tls_uprobes"] = agent.enable_tls_uprobes(
+                    pids=[os.getpid()])
+            except OSError as e:
+                r["tls_uprobes"] = f"OSError: {e}"
+            finally:
+                agent.close()
+            log(f"  enable_tls_uprobes: {r['tls_uprobes']}")
+            if r["ebpf_dump"]["socket_trace_attach_capable"]:
+                r["live_socket_trace"] = live_socket_trace()
+            else:
+                r["live_socket_trace"] = (
+                    "not run: " + r["ebpf_dump"]["socket_trace_attach_reason"])
+            log(f"  live socket_trace: {r['live_socket_trace']}")
+            proc.send_signal(15)
+            _, err = proc.communicate(timeout=EB_WAIT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 21 (c): the agent process "
+                                     f"exited {proc.returncode}: "
+                                     f"{err[-3000:]}")
+            proc = None
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            srv.close()
+            for f in files:
+                f.close()
+    r.update(records=n_rec, sessions=len(wires), io_events=EB_IO,
+             seconds=time.perf_counter() - t_phase)
+    log(f"  on {card}: {n_rec} syscall records ({EB_CONVERSATIONS} two-hop "
+        f"conversations, {EB_PROCS} processes x {EB_THREADS} threads) packed "
+        f"in {r['pack_s']:.2f} s, through EbpfTracer.feed_raw in "
+        f"{r['feed_s']:.2f} s ({r['records_per_s']:.0f} records/s); "
+        f"{len(wires)} sessions as PROTOCOLLOG, feed to rows landed "
+        f"{r['feed_to_rows_s']:.2f} s; {r['tls_rows']} rows is_tls; "
+        f"{EB_TRACED} conversations reassembled through /v1/l7_tracing and "
+        f"df-ctl trace expand in {r['traced_s']:.2f} s; "
+        f"{r['red_services']} services' RED counts exact; {EB_IO} IO events "
+        f"to perf_event in {r['io_s']:.2f} s; the agent's debug port "
+        f"{r['spawn_to_debug_s']:.2f} s after its spawn; launches "
+        f"{r['launches']}")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9574,9 +10071,12 @@ def main() -> int:
         check_querier_sql(torch, dev, root, db, cols, t0, card))
     log(f"phase 15 (a): {querier['seconds']:.1f} s (inside phase 10)")
     phase_done(10)
+    # phases 11 and 13 run the first half of each window (the cut for
+    # the time budget: every check and path stays)
+    halves = [{k: v[:len(v) // 2] for k, v in w.items()} for w in windows]
     log("phase 11: the pod fault domains and the cross-host pod")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
-        pod = check_pod(torch, dev, windows, card, tmp)
+        pod = check_pod(torch, dev, halves, card, tmp)
     phase_done(11)
     log("phase 12: the global mesh across processes")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
@@ -9585,7 +10085,7 @@ def main() -> int:
     phase_done(12)
     log("phase 13: the ingester entry point over loopback TCP")
     ingest = check_ingester(torch, dev, np.random.default_rng((args.seed, 13)),
-                            windows, card,
+                            halves, card,
                             ingester["dict_feed"]["records_per_s"])
     phase_done(13)
     log("phase 14: the operations surface under injected faults")
@@ -9624,6 +10124,12 @@ def main() -> int:
     plugin_node = check_plugin_node(
         torch, dev, np.random.default_rng((args.seed, 20)), card)
     phase_done(20)
+    log("phase 21: an eBPF-traced node (the syscall tracer's PROTOCOLLOG and "
+        "IO events into server.Server with the controller on, an agent "
+        "process with a debug port answering df-ctl)")
+    ebpf_node = check_ebpf_node(
+        torch, dev, np.random.default_rng((args.seed, 21)), card)
+    phase_done(21)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -9635,7 +10141,7 @@ def main() -> int:
             + [ingest["launches"], ops["launches"], serving["launches"],
                server["launches"], agent["launches"],
                agent_proc["launches"], managed["launches"],
-               plugin_node["launches"]]:
+               plugin_node["launches"], ebpf_node["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -9654,7 +10160,7 @@ def main() -> int:
         "ingester": ingest, "operations": ops, "querier": querier,
         "serving": serving, "server": server, "agent": agent,
         "agent_process": agent_proc, "managed_node": managed,
-        "plugin_node": plugin_node, "gate": gate,
+        "plugin_node": plugin_node, "ebpf_node": ebpf_node, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

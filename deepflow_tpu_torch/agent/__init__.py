@@ -15,8 +15,15 @@ socket in the kernel). `plugin` and `wasm_plugin` (over `wasm_vm`) load
 .so and sandboxed wasm L7 parsers into `l7`'s registry, `k8s_watch`
 lists and watches a Kubernetes apiserver, `profiler` samples OnCPU
 stacks with perf events, and `integration` forwards third-party pushes
-onto the firehose. The eBPF tracer front (socket and uprobe tracing, the
-debug server) is not ported: configuring it raises NotImplementedError.
+onto the firehose. The eBPF tracer front: `ebpf_source.EbpfTracer`
+turns syscall records (SOCK_DATA images, `socket_trace.parse_record`)
+into merged l7 wire records with thread-session trace ids and slow
+file-IO events; `socket_trace`, `uprobe_trace` (OpenSSL and Go TLS) and
+`http2_trace` author their kernel program suites in the in-tree
+assembler, `perf_ring` attaches them over the PMU and drains their
+per-CPU rings, `btf` and `x86_decode` find Go's g pointer and exit
+sites. `AgentConfig.debug_port` opens the UDP debug server that
+`python -m deepflow_tpu_torch.cli agent ...` queries.
 """
 
 from deepflow_tpu_torch.agent.packet import decode_packets

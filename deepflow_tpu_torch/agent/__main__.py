@@ -237,16 +237,12 @@ def main(argv=None) -> int:
         return 2
 
     from deepflow_tpu_torch.agent.trident import Agent
-    try:
-        agent = Agent(cfg, device=device)
-    except NotImplementedError as e:
-        print(f"not ported: {e}", file=sys.stderr)
-        return 2
+    agent = Agent(cfg, device=device)
     loop = None
     agent.start()
     if source is not None and not stop.is_set():
         from deepflow_tpu_torch.agent.afpacket import CaptureLoop
-        agent.attach_source(source)
+        agent.attach_source(source)       # ebpf debug dump reads it
         loop = CaptureLoop(source, agent, stats=agent.stats)
         loop.start()
     stop.wait()

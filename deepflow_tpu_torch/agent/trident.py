@@ -14,9 +14,9 @@ batch's `FlowMap.inject` segment reduction and each tick's
 `flows_to_documents` rollup (CUDA by default, the CPU only when named).
 The wire half (`columns_to_l4_schema`, `columns_to_l4_records`,
 `l7_session_message`) is host code, as are the .so and wasm L7 plugins,
-the k8s apiserver watch and the OnCPU profiler. Branches whose modules
-are not ported (the TLS uprobes and the debug server with its eBPF
-dump) raise NotImplementedError when configured.
+the k8s apiserver watch, the OnCPU profiler, the eBPF tracer front (the
+syscall-record tracer, the TLS uprobe suite) and the UDP debug server
+with its eBPF dump.
 """
 
 from __future__ import annotations
@@ -52,14 +52,7 @@ from deepflow_tpu_torch.wire.framing import MessageType
 from deepflow_tpu_torch.wire.gen import flow_log_pb2
 
 __all__ = ["AgentConfig", "Agent", "columns_to_l4_schema",
-           "columns_to_l4_records", "l7_session_message", "not_ported"]
-
-
-def not_ported(what: str, module: str) -> NotImplementedError:
-    """The error a branch outside the port raises when configured."""
-    return NotImplementedError(
-        f"{what} needs deepflow_tpu_torch/agent/{module}, which is not "
-        f"ported yet (ROADMAP Queue 1 item 1: the eBPF tracer front)")
+           "columns_to_l4_records", "l7_session_message"]
 
 
 @dataclass
@@ -114,7 +107,8 @@ class AgentConfig:
     profile_interval_s: float = 10.0
     profile_duration_s: float = 1.0
     profile_freq_hz: int = 99
-    # agent-side UDP debug server (not ported). None disables
+    # agent-side UDP debug server (reference: agent/src/debug/ serving
+    # per-subsystem dumps to deepflow-ctl). None disables; 0 = ephemeral
     debug_port: Optional[int] = None
     # where controller-pushed upgrade packages are staged (rpc Upgrade
     # role); None = /tmp
@@ -214,8 +208,11 @@ def columns_to_l4_records(cols: Dict[str, np.ndarray]) -> List[bytes]:
 
 def l7_session_message(flow, rec_dict: dict, ts_ns: int,
                        vtap_id: int) -> "flow_log_pb2.AppProtoLogsData":
-    """Merged l7 session -> AppProtoLogsData message. ts_ns is the merge
-    (response) time; start backs off by the measured round trip."""
+    """Merged l7 session -> AppProtoLogsData message. ONE builder for
+    every front end (packet capture here, syscall records in
+    agent/ebpf_source.py) so session orientation and wire fields cannot
+    drift between sources. ts_ns is the merge (response) time; start
+    backs off by the measured round trip."""
     m = flow_log_pb2.AppProtoLogsData()
     b = m.base
     b.start_time = max(ts_ns - rec_dict["rrt_us"] * 1000, 0)
@@ -246,7 +243,8 @@ def l7_session_message(flow, rec_dict: dict, ts_ns: int,
     m.ext_info.http_referer = rec_dict.get("referer", "")
     # packet-path TLS detection: a session the TLS parser recognized
     # (handshake metadata -- SNI/version; the payload itself stays
-    # encrypted) carries the is_tls bit, so "WHERE is_tls = 1" finds it
+    # encrypted) carries the same is_tls bit the uprobe sources set,
+    # so "WHERE is_tls = 1" covers both observation modes
     if rec_dict["proto"] == L7_TLS:
         m.flags = m.flags | 1
     return m
@@ -263,10 +261,6 @@ class Agent:
     map's batch reduction and the tick's Document rollup run."""
 
     def __init__(self, cfg: AgentConfig, *, device="cuda") -> None:
-        # refuse what this package cannot build before any socket opens
-        if cfg.debug_port is not None:
-            raise not_ported("debug_port (its ebpf dump)",
-                             "bpf.py, socket_trace.py and uprobe_trace.py")
         self.device = check_device(device)
         self.cfg = cfg
         self.vtap_id = 0
@@ -339,9 +333,9 @@ class Agent:
         self.wasm_plugins: Dict[str, object] = {}
         for path in cfg.wasm_plugins:
             self._load_wasm(path)
-        # one Countable registry for the DFSTATS self-telemetry loop
-        # (reference: utils/stats.rs -- the agent monitors itself with
-        # the same pipeline it feeds)
+        # one Countable registry for BOTH the debug surface and the
+        # DFSTATS self-telemetry loop (reference: utils/stats.rs -- the
+        # agent monitors itself with the same pipeline it feeds)
         from deepflow_tpu_torch.runtime.stats import StatsRegistry
 
         self.stats = StatsRegistry()
@@ -360,6 +354,70 @@ class Agent:
             self.stats.register("agent.packet_sequence",
                                 self.pseq.counters)
         self.stats_shipper = None
+        self.debug = None
+        if cfg.debug_port is not None:
+            self._build_debug(cfg.debug_port)
+
+    def _build_debug(self, port: int) -> None:
+        """Agent-side debug protocol (reference: agent/src/debug/ --
+        per-subsystem dumps over UDP for deepflow-ctl). Shares the
+        server-side protocol/CLI plumbing (runtime/debug.py)."""
+        from deepflow_tpu_torch.runtime.debug import DebugServer
+
+        self.debug = DebugServer(self.stats, port=port)
+        self.debug.register("policy", lambda req: {
+            "rules": [vars(r) for r in self.policy.rules],
+            "enforcer": self.enforcer.counters()})
+        self.debug.register("rpc", lambda req: {
+            "vtap_id": self.vtap_id,
+            "config_version": self.config_version,
+            "escaped": self.escaped,
+            "ntp_offset_ns": self.ntp_offset_ns,
+            "controller_url": self.cfg.controller_url})
+        from deepflow_tpu_torch.agent.platform import local_interfaces
+        self.debug.register("platform", lambda req: {
+            "interfaces": local_interfaces(),
+            "k8s_watcher": (self.k8s_watcher.counters()
+                            if self.k8s_watcher is not None else None)})
+        self.debug.register("plugins", lambda req: {
+            "so": [p.counters() for p in self.so_plugins.values()],
+            "wasm": [p.counters() for p in self.wasm_plugins.values()]})
+
+        def _ebpf_dump(req: dict) -> dict:
+            # the reference's `deepflow-ctl agent ebpf` dump: what the
+            # kernel side is doing -- loader availability, attached
+            # capture filters (kernel verdict counters), and the
+            # syscall-tracer state machine if one is wired
+            from deepflow_tpu_torch.agent import bpf as bpf_mod
+            from deepflow_tpu_torch.agent import socket_trace as st_mod
+            from deepflow_tpu_torch.agent import uprobe_trace as up_mod
+            attach_ok, attach_why = st_mod.attach_available()
+            up_ok, up_why = up_mod.attach_available()
+            out: dict = {"bpf_available": bpf_mod.available(),
+                         # CAPABILITY of the in-tree socket_trace
+                         # kprobe suite: could programs attach on this
+                         # host (and why not). The agent sources
+                         # syscall records from the replay path either
+                         # way -- this flag is the prerequisite, not
+                         # the switch.
+                         "socket_trace_attach_capable": attach_ok,
+                         "socket_trace_attach_reason": attach_why,
+                         # TLS uprobe suite: live when the uprobe PMU
+                         # is visible AND enable_tls_uprobes ran
+                         "tls_uprobe_attach_capable": up_ok,
+                         "tls_uprobe_attach_reason": up_why}
+            tls = getattr(self, "tls_uprobes", None)
+            if tls is not None:
+                out["tls_uprobes"] = tls.counters()
+            tracer = getattr(self, "ebpf_tracer", None)
+            if tracer is not None:
+                out["tracer"] = tracer.counters()
+            src = self._capture_source
+            filt = getattr(src, "bpf", None) if src is not None else None
+            if filt is not None:
+                out["capture_filter"] = {**filt.counters(), **filt.spec}
+            return out
+        self.debug.register("ebpf", _ebpf_dump)
 
     def _load_plugin(self, path: str) -> bool:
         """dlopen + register one L7 plugin; a broken .so must not take
@@ -390,7 +448,8 @@ class Agent:
 
     def attach_source(self, source) -> None:
         """Declare the live capture source feeding this agent (the
-        CaptureLoop's source)."""
+        CaptureLoop's source) so the debug surface can introspect it
+        (ebpf dump: attached filter spec + kernel verdict counters)."""
         self._capture_source = source
 
     def set_vtap_id(self, vtap_id: int) -> None:
@@ -412,9 +471,9 @@ class Agent:
                            "host": self.cfg.host,
                            "revision": self.cfg.revision,
                            "boot": self.vtap_id == 0,
-                           # GPIDSync leg: processes this agent observes;
-                           # the controller returns globally-unique
-                           # gprocess ids
+                           # GPIDSync leg: processes this agent observes
+                           # (its own + eBPF-seen); the controller
+                           # returns globally-unique gprocess ids
                            "processes": self._local_processes()}).encode()
         req = urllib.request.Request(
             f"{self.cfg.controller_url}/v1/sync", data=body,
@@ -445,6 +504,9 @@ class Agent:
         if r.get("gpids"):
             self.gpid_map = {int(k): int(v)
                              for k, v in r["gpids"].items()}
+            tracer = getattr(self, "ebpf_tracer", None)
+            if tracer is not None:
+                tracer.gpid_map = self.gpid_map
         if r.get("upgrade"):
             self._apply_upgrade(r["upgrade"])
         self.escape.on_sync_ok()
@@ -452,10 +514,14 @@ class Agent:
         return True
 
     def _local_processes(self) -> list:
-        """Processes this agent reports for GPIDSync: itself (the eBPF
-        tracer that would add the pids it sees is not ported)."""
-        return [{"pid": os.getpid(), "name": "deepflow-agent",
-                 "start_time": self._self_start_time()}]
+        """Processes this agent reports for GPIDSync: itself plus any
+        pids the eBPF tracer has seen records from."""
+        procs = [{"pid": os.getpid(), "name": "deepflow-agent",
+                  "start_time": self._self_start_time()}]
+        tracer = getattr(self, "ebpf_tracer", None)
+        if tracer is not None:
+            procs.extend(tracer.seen_processes())
+        return procs
 
     @staticmethod
     def _self_start_time() -> int:
@@ -765,9 +831,48 @@ class Agent:
 
     def enable_tls_uprobes(self, paths: Optional[List[str]] = None,
                            pids: Optional[List[int]] = None) -> dict:
-        """Live encrypted-traffic capture: not ported."""
-        raise not_ported("enable_tls_uprobes",
-                         "ebpf_source.py and uprobe_trace.py")
+        """Live encrypted-traffic capture (reference: the ssl/go
+        tracer lifecycles): load the uprobe suite, attach the given
+        libssl/Go-binary images and/or discover per-pid, and pump
+        captured plaintext records through the EbpfTracer into the
+        normal l7 export every tick. Raises OSError where the uprobe
+        PMU is masked (callers gate on
+        uprobe_trace.attach_available)."""
+        from deepflow_tpu_torch.agent.ebpf_source import (EbpfTracer,
+                                                          ProcFdResolver)
+        from deepflow_tpu_torch.agent.uprobe_trace import (TlsUprobeSource,
+                                                           go_version)
+        if getattr(self, "ebpf_tracer", None) is None:
+            self.ebpf_tracer = EbpfTracer(vtap_id=self.vtap_id)
+            self.ebpf_tracer.gpid_map = self.gpid_map
+        if getattr(self, "tls_uprobes", None) is None:
+            self.tls_uprobes = TlsUprobeSource()
+            self._fd_resolver = ProcFdResolver()
+        src = self.tls_uprobes
+        for p in paths or []:
+            if go_version(p):
+                src.attach_go(p)
+            else:
+                src.attach_ssl(p)
+        for pid in pids or []:
+            src.attach_pid(pid)
+        return src.counters()
+
+    def _pump_tls_uprobes(self) -> int:
+        """Kernel ring -> EbpfTracer -> _l7_out (ships with the next
+        tick's PROTOCOLLOG batch like every other l7 record)."""
+        src = getattr(self, "tls_uprobes", None)
+        if src is None:
+            return 0
+        tracer = self.ebpf_tracer
+
+        def _feed(raw: bytes) -> None:
+            rec = tracer.feed_raw(raw, resolver=self._fd_resolver)
+            if rec:
+                with self._lock:
+                    self._l7_out.append(rec)
+
+        return src.pump(_feed)
 
     def tick(self, now_ns: Optional[int] = None,
              final: bool = False) -> dict:
@@ -776,6 +881,7 @@ class Agent:
         packet-sequence collector (shutdown: blocks younger than the
         5s budget must not be dropped)."""
         now_ns = int(time.time() * 1e9) if now_ns is None else now_ns
+        self._pump_tls_uprobes()
         pseq_blocks: List[bytes] = []
         with self._lock:
             # vectorized tick: oriented wire-ready columns, no per-flow
@@ -833,6 +939,13 @@ class Agent:
         if l7_records:
             sent["l7"] = self.senders[MessageType.PROTOCOLLOG].send(
                 l7_records)
+        tracer = getattr(self, "ebpf_tracer", None)
+        if tracer is not None and tracer.io_events:
+            # slow file-IO spans the tracer's IO gate extracted
+            # (reference: io_event -> PROC_EVENT -> perf_event table)
+            evs, tracer.io_events = tracer.io_events, []
+            sent["proc_events"] = self.senders[
+                MessageType.PROC_EVENT].send(evs)
         if pseq_blocks:
             # packet-sequence blocks are self-delimited by their
             # leading u32 block_size, so frames carry blocks
@@ -845,6 +958,8 @@ class Agent:
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
         self.guard.start()
+        if self.debug is not None:
+            self.debug.start()
         if self.cfg.self_telemetry and self.cfg.ingester_addr:
             from deepflow_tpu_torch.runtime.stats import StatsShipper
             self.stats_shipper = StatsShipper(
@@ -916,6 +1031,12 @@ class Agent:
         for t in self._threads:
             t.join(timeout=2)
         self.tick(final=True)  # final flush incl. young pseq blocks
+        tls = getattr(self, "tls_uprobes", None)
+        if tls is not None:    # detach probes + perf rings + maps
+            tls.close()
+            self.tls_uprobes = None
+        if self.debug is not None:
+            self.debug.close()
         if self.stats_shipper is not None:
             # final scrape: an agent shorter-lived than the 10s cadence
             # (or counters updated since the last tick) must still land

@@ -484,9 +484,18 @@ def test_pushed_plugins_fail_the_sync_round(tmp_path):
 
 
 # the fields the plugin, profiler and watch modules build: an Agent with
-# them constructs as the JAX package's does; debug_port (its eBPF dump)
-# still raises
+# them constructs as the JAX package's does
 _BUILT = ("so_plugins", "wasm_plugins", "profile_pids", "k8s_apiserver_url")
+
+
+def _tls_outcome(agent):
+    """enable_tls_uprobes on a library that is not there: the exception
+    type where the uprobe PMU is masked (or the image unreadable), else
+    the counters."""
+    try:
+        return agent.enable_tls_uprobes(["/nonexistent/libssl.so.3"])
+    except Exception as e:  # noqa: BLE001 -- the outcome is compared
+        return type(e).__name__
 
 
 @pytest.mark.parametrize("field,value", [
@@ -494,34 +503,81 @@ _BUILT = ("so_plugins", "wasm_plugins", "profile_pids", "k8s_apiserver_url")
     ("profile_pids", (0,)), ("k8s_apiserver_url", "https://k8s:6443"),
     ("debug_port", 0)])
 def test_unported_branches_raise(field, value):
-    """debug_port and enable_tls_uprobes raise NotImplementedError naming
-    ROADMAP Queue 1's next item (the eBPF tracer front); the fields this
-    package now builds give the JAX Agent's senders and plugin sets."""
-    if field in _BUILT:
-        t = ttrident.Agent(ttrident.AgentConfig(**{field: value}),
-                           device="cpu")
-        j = jtrident.Agent(jtrident.AgentConfig(**{field: value}))
-        try:
-            assert sorted(int(m) for m in t.senders) == \
-                sorted(int(m) for m in j.senders)
+    """Every branch the JAX Agent builds, the port's builds alike: the
+    plugin, profiler and watch fields give the JAX Agent's senders and
+    plugin sets; `debug_port` opens a debug server with the JAX one's
+    handlers, whose `ebpf` dump has the JAX one's keys and values;
+    `enable_tls_uprobes` ends as the JAX Agent's does (the same exception
+    type where the uprobe PMU is masked, the same counters where not)."""
+    t = ttrident.Agent(ttrident.AgentConfig(**{field: value}), device="cpu")
+    j = jtrident.Agent(jtrident.AgentConfig(**{field: value}))
+    try:
+        assert sorted(int(m) for m in t.senders) == \
+            sorted(int(m) for m in j.senders)
+        if field in _BUILT:
             assert (t.so_plugins, t.wasm_plugins, t.api_watcher) == \
                 (j.so_plugins, j.wasm_plugins, j.api_watcher) == ({}, {},
                                                                    None)
-        finally:
-            t.close()
-            j.close()
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 1: the eBPF tracer"):
-            ttrident.Agent(ttrident.AgentConfig(**{field: value}),
-                           device="cpu")
-    agent = ttrident.Agent(ttrident.AgentConfig(), device="cpu")
-    try:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 1: the eBPF tracer"):
-            agent.enable_tls_uprobes(["/lib/libssl.so"])
+            assert t.debug is None and j.debug is None
+        else:
+            assert sorted(t.debug._handlers) == sorted(j.debug._handlers)
+            assert {"policy", "rpc", "platform", "plugins", "ebpf"} <= \
+                set(t.debug._handlers)
+            dump = t.debug._handlers["ebpf"]({})
+            assert dump == j.debug._handlers["ebpf"]({})
+            assert {"bpf_available", "socket_trace_attach_capable",
+                    "socket_trace_attach_reason", "tls_uprobe_attach_capable",
+                    "tls_uprobe_attach_reason"} <= set(dump)
+        tls = _tls_outcome(t)
+        assert tls == _tls_outcome(j)
+        if not isinstance(tls, str):
+            # the TLS source now rides the ebpf dump (and the tracer)
+            for a in (t, j):
+                if a.debug is not None:
+                    got = a.debug._handlers["ebpf"]({})
+                    assert {"tls_uprobes", "tracer"} <= set(got)
     finally:
-        agent.close()
+        t.close()
+        j.close()
+
+
+def test_managed_agent_reports_tracer_processes():
+    """A managed Agent whose eBPF tracer has seen records reports those
+    processes in its GPIDSync leg beside its own, as the JAX Agent does,
+    and the controller's allocation comes back into the tracer."""
+    from deepflow_tpu.agent.ebpf_source import (EbpfTracer as JTracer,
+                                                SyscallRecord as JRec)
+    from deepflow_tpu_torch.agent.ebpf_source import (EbpfTracer as TTracer,
+                                                      SyscallRecord as TRec)
+    t0 = 1_700_000_000 * 10**9
+    req = b"GET /x HTTP/1.1\r\nHost: a\r\n\r\n"
+    out = {}
+    for name, trident, tracer_cls, rec_cls in (
+            ("jax", jtrident, JTracer, JRec),
+            ("port", ttrident, TTracer, TRec)):
+        srv, _reg = _controller(name)
+        kw = {} if name == "jax" else {"device": "cpu"}
+        agent = trident.Agent(trident.AgentConfig(
+            controller_url=f"http://127.0.0.1:{srv.port}",
+            ctrl_ip="10.1.2.3", host="traced"), **kw)
+        try:
+            agent.ebpf_tracer = tracer_cls(vtap_id=1)
+            for pid in (4242, 4343):
+                agent.ebpf_tracer.feed(rec_cls(
+                    pid, pid + 1, 0, t0 + pid, 0x0A000001, 0x0A000002,
+                    5000 + pid % 7, 80, payload=req,
+                    process_kname=f"svc-{pid}"))
+            procs = agent._local_processes()
+            assert agent.sync_once()
+            assert agent.ebpf_tracer.gpid_map is agent.gpid_map
+            out[name] = (procs, dict(agent.gpid_map))
+        finally:
+            agent.close()
+            srv.close()
+    assert out["port"] == out["jax"]
+    pids = [p["pid"] for p in out["port"][0]]
+    assert pids[0] == os.getpid() and sorted(pids[1:]) == [4242, 4343]
+    assert {4242, 4343} <= set(out["port"][1])
 
 
 # -- controller-distributed plugins (pkg://) ------------------------------------

@@ -72,11 +72,16 @@ def test_port_files_found():
             "flow_map.py", "quadruple.py", "trident.py", "plugin.py",
             "wasm_vm.py", "wasm_asm.py", "wasm_samples.py", "wasm_plugin.py",
             "k8s_watch.py", "integration.py", "bpf.py",
-            "xdp.py"} <= names
+            "xdp.py", "x86_decode.py", "btf.py", "socket_trace.py",
+            "perf_ring.py", "ebpf_source.py", "uprobe_trace.py",
+            "http2_trace.py", "cli.py"} <= names
     agent = {p.name for p in PORT_FILES if p.parent.name == "agent"}
     assert {"plugin.py", "wasm_vm.py", "wasm_asm.py", "wasm_samples.py",
             "wasm_plugin.py", "k8s_watch.py", "profiler.py",
-            "integration.py", "bpf.py", "xdp.py"} <= agent
+            "integration.py", "bpf.py", "xdp.py", "x86_decode.py", "btf.py",
+            "socket_trace.py", "perf_ring.py", "ebpf_source.py",
+            "uprobe_trace.py", "http2_trace.py"} <= agent
+    assert (REPO / "deepflow_tpu_torch" / "cli.py") in PORT_FILES
     for src in ("df_plugin.h", "memcached_plugin.cc"):
         assert (REPO / "deepflow_tpu_torch" / "agent" / "native_src"
                 / src).is_file()

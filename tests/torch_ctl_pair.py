@@ -106,12 +106,13 @@ class FrozenClock:
         self.now += s
 
 
-# what the JAX package's controller tests reach that the port holds,
-# rewritten to the port's module; everything else (the CLI, the eBPF
-# test tracer) stays the JAX package's, which talks to the port over
-# HTTP or hands it plain records
+# what the JAX package's tests reach that the port holds, rewritten to
+# the port's module; everything else (the pipelines' Ingester, helpers
+# imported from other JAX test files such as test_ebpf_source's tracer)
+# stays the JAX package's, which talks to the port over the wire or
+# hands it plain records
 _PORT_PREFIXES = ("controller", "wire.gen", "enrich", "server", "agent",
-                  "querier", "store", "decode")
+                  "querier", "store", "decode", "cli")
 
 
 def port_source(path):
