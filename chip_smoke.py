@@ -3,8 +3,9 @@
 suites, flow_metrics store lane, pod, global mesh, ingester with its
 operations surface, serving with the querier, and the server process
 with every ingest lane, the agent process, a node managed by the
-controller, a node whose L7 plugins the controller pushes, and a node
-fed by the eBPF tracer front, on one CUDA card.
+controller, a node whose L7 plugins the controller pushes, a node fed
+by the eBPF tracer front, and a node driven by the replay generator, on
+one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
 
@@ -95,8 +96,8 @@ is printed):
 7. the detection lanes (the anomaly plane at AnomalyConfig() and the
    shadow auditor at 1/64) over a DDoS ramp on the reference generator's
    schedule (12 baseline windows, 3 ramp windows to an attack share of
-   0.9 at 2x rate, 5 sustained at 3x, 8 recovery; 2^18 records per 1x
-   window, benign rows from phase 3's Zipf pool, attack rows spoofed
+   0.9 at 2x rate, 5 sustained at 3x, 8 recovery; 2^15 records per 1x
+   window (cut from 2^18 for time), benign rows from phase 3's Zipf pool, attack rows spoofed
    over a /12 onto one victim): (a) the dict feed with both lanes on,
    (b) the same with both off, (c) the dict inline path with both on.
    The first entropy_ddos alert must come at most 2 windows after the
@@ -502,6 +503,30 @@ is printed):
    loopback HTTP exchange through BpfOutputReader into feed_raw
    (otherwise printed why not); SIGTERM: exit 0. Printed: the tracer's
    records/s, feed to rows landed, the tracing wall, the launches.
+22. a replay-driven node: the port's `replay.ddos_ramp(seed=0xDD05,
+   rows_per_window=2^13)` (28 windows, 335,872 l4 rows), each window's
+   columns through the port's `SyntheticAgent` into TAGGEDFLOW frames
+   and its `metric_documents` into METRICS frames, over TCP into phase
+   16's `server.Server` on the card with the anomaly plane on, one
+   exporter window per ramp window; then one RED window of phase 16's
+   l7 generator (2^12 requests: the replay's streams launch no hist).
+   (a) Asserted: sent = decoded = rows_in, no counted loss, every row
+   stored; each window's l4 rows' packet and byte sums and its
+   flow_metrics Document = the generator's; the first entropy_ddos
+   alert within 2 windows of the onset; every sketch leaf of every
+   window = a CPU run of the port's exporter fed the same frames
+   (integer leaves exact, float readouts within 1e-5); the RED requests
+   per service exact; hist, lane and news launched. Printed: records/s
+   from the first frame to the last row landed, top-K recall against
+   the exact top-K (not gated: ties). (b) `python -m
+   deepflow_tpu_torch.cli lint --baseline <the port's baseline>` and
+   `verify` as subprocesses beside (a), both exit 0 (every model
+   proven, conformance clean), and the server's debug `lint` answers
+   `total`, `by_rule`, `findings`; each one's seconds. (c) the native
+   decoder's TSan harness built with -fsanitize=thread and run on
+   50,000 generated records (every 97th garbage, every 193rd from the
+   31st without a Flow field, min-bad 500): exit 0; where the card
+   host's g++ cannot link a sanitized probe, that and why are printed.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -2932,13 +2957,17 @@ def level_documents(rng, n, level, victim):
 
 # the warm pass: an EWMA that settles within the 10 windows before the
 # alarm may fire and 8-window subsequences, scored from window 15 on
+# phase 9c's ramp depth, kept when phase 7's was cut (`--ramp-records`):
+# its warm pass draws from the same generator after the ramp, and its
+# data must not move with phase 7's depth
+METRICS_RAMP_RECORDS = 1 << 18
 WARM_CFG = dict(ewma_alpha=0.3, mp_length=32, mp_m=8)
 WARM_WINDOWS, WARM_STEP, WARM_RECORDS = 20, 12, 1 << 17
 
 
-def check_sharded_metrics(torch, dev, rng, args, card):
+def check_sharded_metrics(torch, dev, rng, card):
     """Phase 9c: ShardedMetricsSuite at MetricsSuiteConfig() over phase
-    7's DDoS ramp, then at WARM_CFG over WARM_WINDOWS windows of
+    7's DDoS ramp schedule at METRICS_RAMP_RECORDS, then at WARM_CFG over WARM_WINDOWS windows of
     Documents with a destination concentration step at WARM_STEP, where
     the alarm branch and the matrix profile's scores run: 4 shards on
     the card against 4 shards on the CPU and 1 shard on the card."""
@@ -2947,7 +2976,7 @@ def check_sharded_metrics(torch, dev, rng, args, card):
 
     cfg = MetricsSuiteConfig()
     t0 = time.perf_counter()
-    ramp = ramp_windows(rng, args.ramp_records)
+    ramp = ramp_windows(rng, METRICS_RAMP_RECORDS)
     docs = (metric_documents(rng, cols) for _phase, cols in ramp)
     log(f"  ramp: {len(ramp)} windows ({time.perf_counter() - t0:.1f} s to "
         "draw)")
@@ -3023,11 +3052,11 @@ def check_sharded_metrics(torch, dev, rng, args, card):
             "launches": launches, "profile": prof, "mesh_ref": r["kept"]}
 
 
-def check_sharded(torch, dev, rng, args, windows, card):
+def check_sharded(torch, dev, rng, windows, card):
     """Phase 9: the three sharded suites on a 4-shard mesh of the card."""
     flow = check_sharded_flow(torch, dev, windows, card)
     app = check_sharded_app(torch, dev, rng, card)
-    metrics = check_sharded_metrics(torch, dev, rng, args, card)
+    metrics = check_sharded_metrics(torch, dev, rng, card)
     launches = [f["launches"] for f in flow["forms"].values()] \
         + [app["launches"], metrics["launches"]]
     mesh_ref = {"flow": flow.pop("mesh_ref"), "app": app.pop("mesh_ref"),
@@ -9957,11 +9986,494 @@ def check_ebpf_node(torch, dev, rng, card):
     return r
 
 
+# -- phase 22: a replay-driven node -------------------------------------------
+
+RP_SEED = 0xDD05           # the reference generator's DDoS ramp and its seed
+RP_ROWS = 1 << 13          # l4 rows per 1x window: 28 windows, 335,872 rows
+RP_NOW = 7000.0            # the first window's close stamp (one a second)
+RP_RED = 1 << 12           # l7 requests of the node's one RED window
+RP_TSAN_RECORDS = 50_000   # (c): the harness's payload, as the JAX CI sizes it
+RP_TSAN_MIN_BAD = 500
+RP_WAIT_S = 300
+RP_BUILDERS = 4            # processes that build the ramp's TaggedFlow frames
+RP_LINT_BASELINE = "deepflow_tpu_torch/analysis/stores/lint-baseline.json"
+RP_RTOL = 1e-5             # float readouts, the card against the CPU run
+
+
+def replay_config(root):
+    """Phase 16's deployment for the replay: one decoder, the sketch and
+    RED windows closed by hand, the anomaly plane on (phase 7's
+    AnomalyConfig() and the auditor at 1/64), the storage throttle
+    above the stream's rate (every l4 row lands in the store), the debug
+    port on an ephemeral port; the controller and the querier off."""
+    cfg = {"controller": {"enabled": False},
+           "ingester": {"port": 0, "store_path": os.path.join(root, "store"),
+                        "n_decoders": 1, "tpu_sketch_window_s": 3600,
+                        "app_red_window_s": 3600, "anomaly_enabled": True,
+                        "throttle_per_s": 1 << 24, "debug_port": 0,
+                        "incident_dir": os.path.join(root, "incidents")},
+           "querier": {"enabled": False}}
+    path = os.path.join(root, "server.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def ramp_frames(seq_starts):
+    """{window: (TAGGEDFLOW frames, METRICS frames)} of the ramp windows
+    in `seq_starts`, each built by the port's SyntheticAgent with its
+    sequence continuing after the window's start (a worker of
+    replay_traffic: TaggedFlow serialization is a per-row protobuf
+    loop)."""
+    from deepflow_tpu_torch.replay import SyntheticAgent, generator
+    from deepflow_tpu_torch.wire import MessageType
+    ramp = generator.ddos_ramp(seed=RP_SEED, rows_per_window=RP_ROWS)
+    agent = SyntheticAgent(seed=RP_SEED)
+    out = {}
+    for w, seq in seq_starts.items():
+        _, cols = ramp.window_cols(w)
+        agent._seq = seq
+        recs = [agent.l4_record(cols, i) for i in range(len(cols["ip_src"]))]
+        out[w] = (list(agent.frames(recs, MessageType.TAGGEDFLOW)),
+                  list(agent.frames(ramp.metric_documents(w),
+                                    MessageType.METRICS)))
+    return out
+
+
+def replay_traffic(rng):
+    """The ramp's windows through the port's SyntheticAgent: per window
+    its columns, its TAGGEDFLOW frames and its golden-signal Document as
+    a METRICS frame, one agent's sequence across them (RP_BUILDERS
+    processes build the windows, each from the sequence number the
+    windows before it end on); then one RED window of phase 16's l7
+    generator (the replay's streams launch no hist on the card: the
+    dict wire runs the fused kernels)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from deepflow_tpu_torch.models.app_suite import AppSuiteConfig
+    from deepflow_tpu_torch.replay import generator
+    from deepflow_tpu_torch.wire import MessageType
+    t0 = time.perf_counter()
+    ramp = generator.ddos_ramp(seed=RP_SEED, rows_per_window=RP_ROWS)
+    seq, starts = 0, {}
+    for w in range(ramp.n_windows):
+        starts[w] = seq
+        n = max(1, int(ramp.rows_per_window * ramp.phase_of(w)[0].rate_mult))
+        seq += -(-n // 64) + 1     # frames(per_frame=64), one Document
+    built = {}
+    with ProcessPoolExecutor(RP_BUILDERS, mp_context=multiprocessing
+                             .get_context("spawn")) as ex:
+        for part in ex.map(ramp_frames, [
+                {w: s for w, s in starts.items() if w % RP_BUILDERS == k}
+                for k in range(RP_BUILDERS)]):
+            built.update(part)
+    windows = []
+    for w, phase, cols in ramp.windows():
+        l4, metrics = built[w]
+        windows.append({"phase": phase, "cols": cols, "l4": l4,
+                        "metrics": metrics,
+                        "golden": ramp.golden_traffic(cols)})
+    # one agent's sequence, 1..N over the stream (FlowHeader.sequence)
+    seqs = [int.from_bytes(f[9:17], "little") for w in windows
+            for f in w["l4"] + w["metrics"]]
+    if seqs != list(range(1, seq + 1)):
+        raise AssertionError("phase 22: the ramp's frames do not carry one "
+                             "agent's sequence")
+    pool, group = red_services(rng, AppSuiteConfig())
+    cols, pick = red_server_window(rng, pool, RP_RED)
+    red = FrameSequencer().pb(MessageType.PROTOCOLLOG,
+                              l7_pb_records(rng, cols, int(RP_NOW)))
+    return {"ramp": ramp, "windows": windows, "red": red,
+            "red_groups": group[pick], "build_s": time.perf_counter() - t0}
+
+
+def replay_yardstick(dev, cfg, platform, windows):
+    """The port's exporter on `dev` at the ingester's configuration, fed
+    the same frames decoded here (the native walker, the ingester's
+    platform data and row ids), one window closed per ramp window:
+    (bus snapshots, window outputs as host tensors)."""
+    from deepflow_tpu_torch.decode import native
+    from deepflow_tpu_torch.pipelines.flow_log import stamp_row_ids
+    from deepflow_tpu_torch.wire import FrameReader, MessageType
+    sketch, red = yardstick(dev, cfg)
+    red.close()
+    snaps, outs = bus_snapshots(sketch), []
+    try:
+        sketch.start()
+        n = 0
+        for w, win in enumerate(windows):
+            reader = FrameReader()
+            for raw in win["l4"]:
+                for f in reader.feed(raw):
+                    if f.msg_type != MessageType.TAGGEDFLOW:
+                        raise AssertionError("phase 22: a non-l4 frame")
+                    cols, bad = native.decode_l4_payload(f.payload)
+                    if bad:
+                        raise AssertionError("phase 22: the CPU run could "
+                                             "not decode a frame")
+                    sketch.put("l4_flow_log", 0,
+                               stamp_row_ids(platform.stamp_l4(cols)))
+            n += len(win["cols"]["ip_src"])
+            wait_for(lambda: sketch.rows_in == n, "the CPU run", RP_WAIT_S)
+            out = sketch.flush_window(now=RP_NOW + w)
+            outs.append(type(out)(*[x.cpu() for x in out]))
+        c = sketch.counters()
+    finally:
+        sketch.close()
+    if c["lost_rows"] or c["device_errors"]:
+        raise AssertionError(f"phase 22: the CPU run's counters {c}")
+    return snaps[:len(windows)], outs
+
+
+def compare_readouts(a_outs, b_outs, a_name, b_name):
+    """Window outputs: integer readouts exact, float readouts within
+    RP_RTOL."""
+    import torch
+    for w, (a, b) in enumerate(zip(a_outs, b_outs)):
+        for name in a._fields:
+            x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+            ok = (torch.allclose(x.double(), y.double(), rtol=RP_RTOL,
+                                 atol=0) if x.is_floating_point()
+                  else x.dtype == y.dtype and torch.equal(x, y))
+            if not ok:
+                raise AssertionError(f"phase 22 window {w}: output {name} "
+                                     f"differs between {a_name} and "
+                                     f"{b_name}")
+
+
+def start_analyzers():
+    """(b): `df-ctl lint` on the port's baseline and `df-ctl verify` as
+    subprocesses of this checkout, each with the wall time to its exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = {}
+    for name, argv in (("lint", ["lint", "--baseline", RP_LINT_BASELINE]),
+                       ("verify", ["verify"])):
+        r = runs[name] = {"argv": argv, "t0": time.perf_counter()}
+        r["proc"] = subprocess.Popen(
+            [sys.executable, "-m", "deepflow_tpu_torch.cli", *argv],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+        def reap(r=r):
+            r["out"], _ = r["proc"].communicate()
+            r["seconds"] = time.perf_counter() - r["t0"]
+        r["thread"] = threading.Thread(target=reap, daemon=True)
+        r["thread"].start()
+    return runs
+
+
+def join_analyzers(runs):
+    """Wait for (b)'s subprocesses; each must exit 0, verify with every
+    model proven and the conformance gate clean."""
+    for name, r in runs.items():
+        r["thread"].join(RP_WAIT_S)
+        if r["thread"].is_alive():
+            r["proc"].kill()
+            raise AssertionError(f"phase 22 (b): df-ctl {name} did not end")
+        if r["proc"].returncode != 0:
+            raise AssertionError(
+                f"phase 22 (b): df-ctl {' '.join(r['argv'])} exited "
+                f"{r['proc'].returncode}: {r['out'][-2000:]}")
+    out = runs["verify"]["out"]
+    if out.count("result: OK") != 4 \
+            or "conformance: models and code agree" not in out:
+        raise AssertionError(f"phase 22 (b): df-ctl verify said {out[-2000:]}")
+    if "deepflow-lint: clean" not in runs["lint"]["out"]:
+        raise AssertionError(f"phase 22 (b): df-ctl lint said "
+                             f"{runs['lint']['out'][-2000:]}")
+    return {name: {"seconds": r["seconds"],
+                   "last_line": r["out"].strip().splitlines()[-1]}
+            for name, r in runs.items()}
+
+
+def tsan_probe(gxx="g++"):
+    """None where g++ links a -fsanitize=thread program, else why not."""
+    import shutil
+    if shutil.which(gxx) is None:
+        return f"{gxx} not found"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tsan_") as tmp:
+        src = os.path.join(tmp, "probe.cc")
+        with open(src, "w") as f:
+            f.write("#include <thread>\nint main() { int x = 0; "
+                    "std::thread t([&] { x = 1; }); t.join(); "
+                    "return x - 1; }\n")
+        proc = subprocess.run([gxx, "-fsanitize=thread", "-std=c++17", src,
+                               "-o", os.path.join(tmp, "probe"),
+                               "-lpthread"],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            return (proc.stderr.strip().splitlines() or
+                    [f"g++ exit {proc.returncode}"])[-1]
+        run = subprocess.run([os.path.join(tmp, "probe")],
+                             capture_output=True, text=True, timeout=60)
+        if run.returncode != 0:
+            return (run.stderr.strip().splitlines() or
+                    [f"the probe exited {run.returncode}"])[-1]
+    return None
+
+
+def run_tsan(r):
+    """(c): the harness built with -fsanitize=thread from the port's
+    decoder.cc and run on RP_TSAN_RECORDS generated records with the
+    JAX CI's corruption and min-bad RP_TSAN_MIN_BAD: exit 0. Where the
+    card host's g++ cannot link a sanitized probe, that and why."""
+    from deepflow_tpu_torch.decode import tsan
+    t0 = time.perf_counter()
+    r["refused"] = tsan_probe()
+    if r["refused"] is None:
+        binary = tsan.build_harness()
+        r["build_s"] = time.perf_counter() - t0
+        proc = tsan.run_harness(tsan.make_payload(RP_TSAN_RECORDS),
+                                RP_TSAN_MIN_BAD, binary=binary)
+        r["rc"], r["stdout"] = proc.returncode, proc.stdout
+        r["stderr"] = proc.stderr[-3000:]
+    r["seconds"] = time.perf_counter() - t0
+
+
+def drive_replay_node(torch, dev, rng, card):
+    """Phase 22 (a): the ramp's frames into phase 16's server on `dev`,
+    one exporter window per ramp window, then the RED window; the CPU
+    run, the debug port's lint and every check of (a). Returns the
+    run's record."""
+    import socket
+
+    from deepflow_tpu_torch.models.flow_suite import FlowSuiteConfig
+    from deepflow_tpu_torch.pipelines.flow_log import _ID_NEXT
+    from deepflow_tpu_torch.runtime.debug import debug_request
+    from deepflow_tpu_torch.server import Server
+    from deepflow_tpu_torch.store.db import Store
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replay_") as tmp:
+        _ID_NEXT[0] = 1
+        srv = Server(replay_config(tmp), device=dev)
+        asker = None
+        try:
+            srv.start()
+            ing = srv.ingester
+            exp = ing.tpu_sketch
+            if exp.device != torch.device(dev):
+                raise AssertionError(f"phase 22: the exporter is on "
+                                     f"{exp.device}, not {dev}")
+            ing.stats.stop()
+            # the debug port's lint (the raw self-scan, no baseline): its
+            # Python AST pass runs in the server's debug thread while
+            # the ramp's frames are built in other processes
+            lint = {}
+
+            def ask_lint():
+                t0 = time.perf_counter()
+                lint["reply"] = debug_request("lint", port=ing.debug.port,
+                                              timeout=180)
+                lint["s"] = time.perf_counter() - t0
+            asker = threading.Thread(target=ask_lint, daemon=True)
+            asker.start()
+            traffic = replay_traffic(rng)
+            ramp, windows = traffic["ramp"], traffic["windows"]
+            total = sum(len(w["cols"]["ip_src"]) for w in windows)
+            n_frames = sum(len(w["l4"]) + len(w["metrics"])
+                           for w in windows) + len(traffic["red"])
+            log(f"  (a) the ramp built in {traffic['build_s']:.1f} s by "
+                f"{RP_BUILDERS} processes: {ramp.n_windows} windows, "
+                f"{total} l4 records in "
+                f"{sum(len(w['l4']) for w in windows)} TAGGEDFLOW frames, "
+                f"{len(windows)} METRICS Documents, {RP_RED} l7 requests")
+            r = {"windows": ramp.n_windows, "records": total}
+            asker.join(RP_WAIT_S)
+            rep = lint.get("reply")
+            r["debug_lint_s"] = lint.get("s")
+            if rep is None or not rep.get("ok") or sorted(rep["data"]) != \
+                    ["by_rule", "findings", "total"]:
+                raise AssertionError(f"phase 22 (b): debug lint {rep}")
+            r["debug_lint"] = {k: rep["data"][k] for k in ("total",
+                                                            "by_rule")}
+            snaps, outs, alerts = bus_snapshots(exp), [], []
+            l4 = decoder(ing, "l4_flow_log")
+            torch.cuda.synchronize()
+            zero_launches()
+            conn = socket.create_connection(("127.0.0.1", ing.port))
+            try:
+                t_first = time.perf_counter()
+                n = 0
+                for w, win in enumerate(windows):
+                    for f in win["l4"]:
+                        conn.sendall(f)
+                    for f in win["metrics"]:
+                        conn.sendall(f)
+                    n += len(win["cols"]["ip_src"])
+                    wait_for(lambda: exp.rows_in == n, "the sketch exporter",
+                             RP_WAIT_S)
+                    if w == len(windows) - 1:
+                        r["records_per_s"] = total / (time.perf_counter()
+                                                      - t_first)
+                    out = exp.flush_window(now=RP_NOW + w)
+                    outs.append(type(out)(*[x.cpu() for x in out]))
+                    alerts.append(int(exp.anomaly.alerts_total[0]))
+                for f in traffic["red"]:
+                    conn.sendall(f)
+                wait_for(lambda: ing.app_red.rows_in == RP_RED,
+                         "the RED exporter", RP_WAIT_S)
+                red = ing.app_red.flush_window(now=RP_NOW)
+                wait_for(lambda: ing.flow_metrics.records == len(windows),
+                         "the METRICS unmarshaller", RP_WAIT_S)
+            finally:
+                conn.close()
+            torch.cuda.synchronize()
+            r["launches"] = read_launches(
+                "phase 22", wants=("hist", "fused_lane_hists",
+                                   "fused_news_hists"))
+            want_red = np.bincount(traffic["red_groups"],
+                                   minlength=red.requests.shape[0])
+            if not np.array_equal(red.requests.cpu().numpy(), want_red):
+                raise AssertionError("phase 22: the RED lane's requests per "
+                                     "service differ from the generator's")
+            # the CPU run, fed the same frames decoded here
+            t0 = time.perf_counter()
+            y_snaps, y_outs = replay_yardstick("cpu", ing.cfg, ing.platform,
+                                               windows)
+            r["cpu_run_s"] = time.perf_counter() - t0
+            ing.flush()
+            tables = {w.table.schema.name: w.table
+                      for w in ing.flow_log.writers}
+            base = ing.flow_metrics.rollups.base
+            wait_for(lambda: tables["l4_flow_log"].rows_written >= total
+                     and base.rows_written >= len(windows),
+                     "the store writers", RP_WAIT_S)
+            rc = ing.receiver.counters()
+            dc = l4.counters()
+            sc = exp.counters()
+            sampled = l4.throttler.counters()["sampled_out"]
+            docs = base.scan()
+            store = Store(ing.cfg.store_path)
+            rows = store.table("flow_log", "l4_flow_log").scan()
+            r["plane"] = exp.anomaly.counters()
+        finally:
+            if asker is not None:
+                asker.join(RP_WAIT_S)
+            srv.close()
+    # conservation, hop by hop: sent = decoded = rows_in, no counted loss
+    if (rc["rx_frames"] != n_frames or rc["no_handler"]
+            or rc["rx_duplicate"] or rc["rx_errors"]):
+        raise AssertionError(f"phase 22: receiver counters {rc} "
+                             f"({n_frames} frames sent)")
+    if dc["records"] != total or dc["decode_errors"]:
+        raise AssertionError(f"phase 22: l4 decoder counters {dc}")
+    if sc["rows_in"] != total or sc["lost_rows"] or sc["device_errors"] \
+            or sampled or len(rows["flow_id"]) != total:
+        raise AssertionError(f"phase 22: exporter {sc}, {sampled} sampled "
+                             f"out, {len(rows['flow_id'])} l4 rows stored")
+    p = r["plane"]
+    if p["rows_seen"] != total or p["feed_errors"] or p["score_errors"]:
+        raise AssertionError(f"phase 22: anomaly plane {p}")
+    # each window's l4 rows (flow_id's high word) against the generator
+    w_of = (rows["flow_id"] >> np.uint64(32)).astype(np.int64)
+    for w, win in enumerate(windows):
+        sel = w_of == w
+        for k in ("packet_tx", "packet_rx", "byte_tx", "byte_rx"):
+            got = int(rows[k][sel].astype(np.uint64).sum())
+            want = int(win["cols"][k].astype(np.uint64).sum())
+            if got != want:
+                raise AssertionError(f"phase 22 window {w}: the l4 rows' "
+                                     f"{k} sum {got}, the generator's {want}")
+    # each window's Document = golden_traffic
+    order = np.argsort(docs["timestamp"], kind="stable")
+    if len(order) != len(windows):
+        raise AssertionError(f"phase 22: {len(order)} Documents stored")
+    for w, i in enumerate(order):
+        got = {k: int(docs[k][i]) for k in windows[w]["golden"]}
+        if got != windows[w]["golden"]:
+            raise AssertionError(f"phase 22 window {w}: the Document "
+                                 f"{got}, golden_traffic "
+                                 f"{windows[w]['golden']}")
+    # detection within two windows of the onset
+    first = next((w for w, a in enumerate(alerts) if a), None)
+    if first is None or first > ramp.onset_window + 2 \
+            or first < ramp.onset_window:
+        raise AssertionError(f"phase 22: the first entropy_ddos alert at "
+                             f"window {first}, onset {ramp.onset_window}")
+    # the card's sketch leaves and readouts against the CPU run
+    compare_snaps(snaps[:len(windows)], y_snaps, None, "the card's server",
+                  "the CPU run")
+    compare_readouts(outs, y_outs, "the card's server", "the CPU run")
+    k = FlowSuiteConfig().top_k
+    recalls = []
+    for w, out in enumerate(outs):
+        check_output(torch, out, FlowSuiteConfig())
+        got = set(out.topk_keys.numpy().view(np.uint32).tolist())
+        recalls.append(len(got & exact_topk(windows[w]["cols"], k)) / k)
+    r["recall"] = recalls
+    r["first_alert_window"] = first
+    r["onset_window"] = ramp.onset_window
+    return r
+
+
+def check_replay_node(torch, dev, rng, card):
+    """Phase 22: the port's replay generator drives phase 16's server on
+    the card ((a)), the analyzers run on the card host beside it ((b)),
+    and the native decoder's TSan harness ((c)). On a failure of (a) the
+    subprocesses of (b) are killed and (c) is waited for."""
+    t_phase = time.perf_counter()
+    analyzers = start_analyzers()
+    tsan_r = {}
+    tsan_thread = threading.Thread(target=run_tsan, args=(tsan_r,),
+                                   daemon=True)
+    tsan_thread.start()
+    try:
+        r = drive_replay_node(torch, dev, rng, card)
+    except BaseException:
+        for a in analyzers.values():
+            a["proc"].kill()
+        tsan_thread.join(RP_WAIT_S)
+        raise
+    # (b) and (c) joined
+    r["analyzers"] = join_analyzers(analyzers)
+    tsan_thread.join(RP_WAIT_S)
+    if tsan_thread.is_alive():
+        raise AssertionError("phase 22 (c): the TSan harness did not end")
+    if "seconds" not in tsan_r:
+        raise AssertionError("phase 22 (c): the TSan harness raised (see "
+                             "the thread's traceback above)")
+    if tsan_r["refused"] is None and tsan_r["rc"] != 0:
+        raise AssertionError(f"phase 22 (c): the TSan harness exited "
+                             f"{tsan_r['rc']}: {tsan_r['stderr']}")
+    r["tsan"] = {k: v for k, v in tsan_r.items() if k != "stderr"}
+    r["seconds"] = time.perf_counter() - t_phase
+    a = r["analyzers"]
+    tsan_line = (f"the TSan harness on {RP_TSAN_RECORDS} records (min-bad "
+                 f"{RP_TSAN_MIN_BAD}): exit 0 at 1-8 threads, "
+                 f"{tsan_r['seconds']:.1f} s with the build"
+                 if tsan_r["refused"] is None else
+                 f"the TSan harness did not run: the card host's g++ cannot "
+                 f"link a -fsanitize=thread probe ({tsan_r['refused']})")
+    recalls = r["recall"]
+    log(f"  on {card}: (a) {r['records']} records over {r['windows']} "
+        f"windows, {r['records_per_s']:.0f} records/s from the first frame "
+        f"to the last row landed; sent = decoded = rows_in, nothing lost; "
+        f"every window's packet and byte sums and Document = the "
+        f"generator's; the first entropy_ddos alert at window "
+        f"{r['first_alert_window']} (onset {r['onset_window']}); every "
+        f"sketch leaf = the CPU run's, readouts within {RP_RTOL} "
+        f"({r['cpu_run_s']:.1f} s on the CPU); top-K recall min "
+        f"{min(recalls):.3f} mean {np.mean(recalls):.3f} (printed, not "
+        f"gated); the RED window's {RP_RED} requests per service exact; "
+        f"launches {r['launches']}")
+    log(f"  (b) df-ctl lint (port baseline) {a['lint']['seconds']:.1f} s: "
+        f"{a['lint']['last_line']}; df-ctl verify {a['verify']['seconds']:.1f}"
+        f" s: {a['verify']['last_line']}; the debug port's lint "
+        f"{r['debug_lint_s']:.1f} s (beside the ramp's build): "
+        f"{r['debug_lint']}")
+    log(f"  (c) {tsan_line}; phase 22 {r['seconds']:.1f} s")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--window-records", type=int, default=1 << 20)
-    ap.add_argument("--ramp-records", type=int, default=1 << 18)
+    # phase 7's depth: 2^15 records per 1x window (cut from 2^18 for the
+    # time budget; the ramp's schedule, its 28 windows, stays)
+    ap.add_argument("--ramp-records", type=int, default=1 << 15)
     ap.add_argument("--one-generator", action="store_true",
                     help="draw phase 2's rows for phase 9's shapes from "
                     "the generator phases 2-8 share")
@@ -10062,7 +10574,7 @@ def main() -> int:
         red = check_red(torch, dev, rng, card, tmp)
         phase_done(8)
     log("phase 9: the multi-device suites (4 shards on one card)")
-    shard, mesh_ref = check_sharded(torch, dev, rng9, args, windows, card)
+    shard, mesh_ref = check_sharded(torch, dev, rng9, windows, card)
     phase_done(9)
     log("phase 10: the flow_metrics store lane and the rollup GROUP BY, "
         "and phase 15 (a): the querier's SQL over its store")
@@ -10130,6 +10642,13 @@ def main() -> int:
     ebpf_node = check_ebpf_node(
         torch, dev, np.random.default_rng((args.seed, 21)), card)
     phase_done(21)
+    log("phase 22: a replay-driven node (the port's DDoS ramp generator "
+        "into server.Server with the anomaly plane on, a CPU run beside "
+        "it; df-ctl lint and verify and the debug port's lint; the native "
+        "decoder's TSan harness)")
+    replay_node = check_replay_node(
+        torch, dev, np.random.default_rng((args.seed, 22)), card)
+    phase_done(22)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -10141,7 +10660,8 @@ def main() -> int:
             + [ingest["launches"], ops["launches"], serving["launches"],
                server["launches"], agent["launches"],
                agent_proc["launches"], managed["launches"],
-               plugin_node["launches"], ebpf_node["launches"]]:
+               plugin_node["launches"], ebpf_node["launches"],
+               replay_node["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -10160,7 +10680,8 @@ def main() -> int:
         "ingester": ingest, "operations": ops, "querier": querier,
         "serving": serving, "server": server, "agent": agent,
         "agent_process": agent_proc, "managed_node": managed,
-        "plugin_node": plugin_node, "ebpf_node": ebpf_node, "gate": gate,
+        "plugin_node": plugin_node, "ebpf_node": ebpf_node,
+        "replay_node": replay_node, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

@@ -34,6 +34,7 @@ import torch
 
 from deepflow_tpu_torch.models import flow_dict, flow_suite
 from deepflow_tpu_torch.ops import matrix_profile, pca
+from deepflow_tpu_torch.utils.twinmark import host_twin_of
 from deepflow_tpu_torch.utils.u32 import as_u32, fold_columns, mix32, to_bits
 
 __all__ = ["AnomalyConfig", "AnomalyState", "WindowScores", "DETECTORS",
@@ -353,6 +354,7 @@ def feed_dict_flat(state: AnomalyState, table: torch.Tensor,
 
 # -- host scorer (the detection audit) ----------------------------------------
 
+@host_twin_of("deepflow_tpu_torch/anomaly/detectors.py:_ddos_score")
 def ddos_score_np(z: np.ndarray) -> float:
     """`_ddos_score` in plain numpy on host values: the shadow auditor
     scores its exact entropies with the same directional rule the device

@@ -8,8 +8,8 @@ The port's own copy of the JAX package's `cli.py`: it talks to the
 port's controller, querier and debug servers (any server of the same
 protocols answers it). `replay-pcap` and `capture` build the port's
 `Agent`, whose flow map runs on `--device` (the card by default).
-`lint` and `verify` exit 2: the `analysis/` package they read is not
-ported.
+`lint` and `verify` run the port's own `analysis/` over the port's tree
+against its own stores (`analysis/stores/`).
 """
 
 from __future__ import annotations
@@ -581,26 +581,330 @@ def cmd_capture(args) -> int:
     return 0
 
 
-def _analysis_not_ported(cmd: str) -> int:
-    """`lint` and `verify` read the invariant checks and protocol models
-    of `analysis/`, which this package does not hold yet."""
-    print(f"error: df-ctl {cmd} needs deepflow_tpu_torch/analysis/, which "
-          f"is not ported yet (ROADMAP Queue 1 item 4: analysis/)",
-          file=sys.stderr)
-    return 2
-
-
 def cmd_lint(args) -> int:
-    """deepflow-lint: AST invariant checks over the package (the rules
-    of `analysis/`). Exits 2: `analysis/` is not ported."""
-    return _analysis_not_ported("lint")
+    """deepflow-lint (deepflow_tpu_torch/analysis/): AST invariant checks
+    for the pipeline's concurrency / trace-safety / metrics disciplines.
+    The zero-arg form self-scans the installed port package; --baseline
+    gates on NEW findings only (the port's committed baseline is
+    analysis/stores/lint-baseline.json); --twins/--ack-twin manage the
+    host/device twin fingerprints (analysis/stores/lint-twins.json) the
+    twin-drift rule gates on; --programs/--ack-programs and
+    --schemas/--ack-schemas manage the jit cache-key store
+    (lint-programs.json, retrace-hazard) and the durable-pytree schema
+    store (lint-schemas.json, pytree-schema-drift) under exactly the
+    twin-store contract; --sarif writes the gated findings as SARIF
+    2.1.0 for CI annotation."""
+    from deepflow_tpu_torch import analysis
+    from deepflow_tpu_torch.analysis import core as _ana_core
+    from deepflow_tpu_torch.analysis import devprog as _ana_devprog
+    from deepflow_tpu_torch.analysis import twins as _ana_twins
+
+    if args.list_rules:
+        for name, cls in sorted(analysis.all_rules().items()):
+            print(f"{name} [{cls.severity}]: {cls.description}")
+        return 0
+    rules = [r.strip() for r in args.rules.split(",") if r.strip()] \
+        if args.rules else None
+    twins_path = args.twins or _ana_core.default_twin_store_path()
+    if args.ack_twin:
+        # re-acknowledge every declared twin pair: recompute normalized
+        # fingerprints from the CURRENT tree and rewrite the store. The
+        # bit-identity tests in the same CI run are what make this an
+        # informed signature, not a rubber stamp.
+        files = _ana_core.load_path_sources(args.paths) if args.paths \
+            else _ana_core.load_package_sources()
+        _ctxs, index, errors = _ana_core.build_index(files)
+        if errors:
+            print(analysis.format_findings(errors), file=sys.stderr)
+            return 2
+        store, missing = _ana_twins.build_store(index)
+        if missing:
+            print("--ack-twin refuses unresolvable twin refs "
+                  "(fix the registry first):", file=sys.stderr)
+            for m in missing:
+                print(f"  {m}", file=sys.stderr)
+            return 2
+        if args.paths:
+            # partial scope: MERGE into the existing store — a scan
+            # that never saw a pair must not silently un-acknowledge
+            # it (only the full self-scan may drop pairs)
+            try:
+                prior = _ana_twins.load_store(twins_path)
+            except FileNotFoundError:
+                prior = None
+            if prior is not None:
+                merged = dict(prior.get("pairs", {}))
+                merged.update(store["pairs"])
+                store["pairs"] = merged
+                print(f"note: path-scoped ack merged into "
+                      f"{len(merged)} committed pair(s); only a full "
+                      f"self-scan ack drops pairs", file=sys.stderr)
+        _ana_twins.save_store(store, twins_path)
+        print(f"twin store updated: {len(store['pairs'])} pair(s) "
+              f"acknowledged -> {twins_path}")
+        return 0
+    programs_path = args.programs or _ana_core.default_programs_store_path()
+    schemas_path = args.schemas or _ana_core.default_schemas_store_path()
+    if args.ack_programs or args.ack_schemas:
+        # the device-plane acks: recompute from the CURRENT tree and
+        # rewrite the store(s) — same contract as --ack-twin, including
+        # the partial-scope MERGE (a scan that never saw a site/schema
+        # must not silently un-acknowledge it)
+        files = _ana_core.load_path_sources(args.paths) if args.paths \
+            else _ana_core.load_package_sources()
+        _ctxs, index, errors = _ana_core.build_index(files)
+        if errors:
+            print(analysis.format_findings(errors), file=sys.stderr)
+            return 2
+        for enabled, build, load, save, key, path, what in (
+                (args.ack_programs, _ana_devprog.build_programs_store,
+                 _ana_devprog.load_programs_store,
+                 _ana_devprog.save_programs_store, "programs",
+                 programs_path, "jit program"),
+                (args.ack_schemas, _ana_devprog.build_schemas_store,
+                 _ana_devprog.load_schemas_store,
+                 _ana_devprog.save_schemas_store, "schemas",
+                 schemas_path, "schema")):
+            if not enabled:
+                continue
+            store, missing = build(index)
+            if missing:
+                print(f"--ack-{key} refuses unresolvable refs "
+                      f"(fix the registry first):", file=sys.stderr)
+                for m in missing:
+                    print(f"  {m}", file=sys.stderr)
+                return 2
+            if args.paths:
+                try:
+                    prior = load(path)
+                except FileNotFoundError:
+                    prior = None
+                if prior is not None:
+                    merged = dict(prior.get(key, {}))
+                    merged.update(store[key])
+                    store[key] = merged
+                    print(f"note: path-scoped ack merged into "
+                          f"{len(merged)} committed {what}(s); only a "
+                          f"full self-scan ack drops entries",
+                          file=sys.stderr)
+            save(store, path)
+            print(f"{key} store updated: {len(store[key])} {what}(s) "
+                  f"acknowledged -> {path}")
+        return 0
+    twin_store = "auto"
+    if args.twins:
+        try:
+            twin_store = _ana_twins.load_store(args.twins)
+        except FileNotFoundError:
+            twin_store = None       # no store yet: pairs read as unacked
+    programs_store = "auto"
+    if args.programs:
+        try:
+            programs_store = _ana_devprog.load_programs_store(args.programs)
+        except FileNotFoundError:
+            programs_store = None   # no store yet: sites read as unacked
+    schemas_store = "auto"
+    if args.schemas:
+        try:
+            schemas_store = _ana_devprog.load_schemas_store(args.schemas)
+        except FileNotFoundError:
+            schemas_store = None    # no store yet: schemas read as unacked
+    findings = analysis.run_lint(args.paths or None, rules=rules,
+                                 twin_store=twin_store,
+                                 programs_store=programs_store,
+                                 schemas_store=schemas_store)
+    if args.update_baseline:
+        if not args.baseline:
+            print("--update-baseline requires --baseline FILE",
+                  file=sys.stderr)
+            return 2
+        if rules:
+            # a rule-subset scan rewriting the baseline would silently
+            # delete every OTHER rule's grandfathered entries — the next
+            # full gate then fails on all of them as "new"
+            print("--update-baseline refuses --rules: a subset scan "
+                  "would drop the other rules' grandfathered findings",
+                  file=sys.stderr)
+            return 2
+        if args.paths:
+            print("note: baseline updated from an explicit path scope — "
+                  "gate with the same paths, or findings outside them "
+                  "will read as new", file=sys.stderr)
+        analysis.save_baseline(findings, args.baseline)
+        print(f"baseline updated: {len(findings)} grandfathered "
+              f"finding(s) -> {args.baseline}")
+        return 0
+    gated = findings
+    if args.baseline:
+        gated = analysis.new_findings(findings,
+                                      analysis.load_baseline(args.baseline))
+    if args.sarif:
+        doc = analysis.findings_to_sarif(gated)
+        with open(args.sarif, "w", encoding="utf-8") as fh:
+            json.dump(doc, fh, indent=1, sort_keys=True)
+            fh.write("\n")
+    if args.json:
+        print(analysis.findings_to_json(gated))
+    else:
+        print(analysis.format_findings(gated))
+        if args.baseline and len(findings) > len(gated):
+            print(f"({len(findings) - len(gated)} baselined finding(s) "
+                  f"suppressed)")
+    return 1 if gated else 0
 
 
 def cmd_verify(args) -> int:
-    """deepflow-model: exhaustive explicit-state checking of the pod
-    epoch, spill/drain and sender retransmit protocols (the models of
-    `analysis/model/`). Exits 2: `analysis/` is not ported."""
-    return _analysis_not_ported("verify")
+    """deepflow-model (deepflow_tpu_torch/analysis/model/): exhaustive
+    explicit-state checking of the pod epoch (single-host shard ladder
+    AND the cross-host host ladder), spill/drain and sender retransmit
+    protocols. The zero-flag form sweeps every model plus the
+    conformance gate; --protocol pod covers both pod granularities
+    (pod + hostpod); --mutants runs the seeded kill sweep
+    (every mutant must die with a counterexample); --mutant NAME runs
+    one mutant and prints its counterexample schedule; --ack-conform
+    rewrites the committed analysis/stores/model-conform.json from the
+    current tree
+    (run AFTER a green `df-ctl verify` — the ack is the informed
+    signature tying the models to the code).
+
+    Exit codes: 0 = proven; 1 = violation / surviving mutant /
+    conformance drift; 2 = budget exhausted (INCOMPLETE — a partial
+    sweep is not a proof) or usage error."""
+    import time as _time
+
+    from deepflow_tpu_torch import analysis
+    from deepflow_tpu_torch.analysis import core as _ana_core
+    from deepflow_tpu_torch.analysis.model import (PROTOCOLS, check,
+                                                   expand_protocol,
+                                                   model_for, render_trace)
+    from deepflow_tpu_torch.analysis.model import conform as _conform
+    from deepflow_tpu_torch.analysis.model.mutate import (all_mutants,
+                                                          kill_all)
+
+    if args.list_mutants:
+        for proto, name, why in all_mutants():
+            print(f"{proto}/{name}: {why}")
+        return 0
+
+    if args.ack_conform:
+        files = _ana_core.load_package_sources()
+        _ctxs, index, errors = _ana_core.build_index(files)
+        if errors:
+            print(analysis.format_findings(errors), file=sys.stderr)
+            return 2
+        store, missing = _conform.build_store(index)
+        if missing:
+            print("--ack-conform refuses unresolvable model refs "
+                  "(fix the CONFORMANCE contracts first):",
+                  file=sys.stderr)
+            for m in missing:
+                print(f"  {m}", file=sys.stderr)
+            return 2
+        path = args.conform or _ana_core.default_conform_store_path()
+        _conform.save_store(store, path)
+        print(f"conformance store updated: "
+              f"{len(store['protocols'])} protocol(s) acknowledged "
+              f"-> {path}")
+        return 0
+
+    deadline = None
+    if args.budget_s is not None:
+        deadline = _time.monotonic() + args.budget_s
+
+    def remaining():
+        if deadline is None:
+            return None
+        return max(0.0, deadline - _time.monotonic())
+
+    texts = []
+    rc = 0
+
+    def emit(text: str) -> None:
+        texts.append(text)
+        if not args.json:
+            print(text)
+
+    if args.mutant:
+        cands = expand_protocol(args.protocol) if args.protocol else None
+        protos = sorted({p for p, n, _w in all_mutants()
+                         if n == args.mutant
+                         and (cands is None or p in cands)}) \
+            or list(cands or ())
+        if len(protos) != 1:
+            print(f"--mutant {args.mutant}: unknown mutant (see "
+                  f"--list-mutants), or ambiguous without --protocol",
+                  file=sys.stderr)
+            return 2
+        try:
+            model = model_for(protos[0], args.mutant)
+        except ValueError as e:
+            # a typo'd protocol/mutant pair is a USAGE error (2) —
+            # exit 1 is reserved for "the checker found the bug"
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        res = check(model, max_faults=args.max_faults,
+                    budget_s=remaining())
+        emit(render_trace(res))
+        results = [res]
+        # for a mutant run, "found the bug" IS the expected outcome:
+        # exit 1 (a violation was found), so a gate can assert the
+        # checker kills a live injected bug
+        rc = 2 if not res.complete and res.violation is None \
+            else (1 if res.violation is not None else 0)
+    elif args.mutants:
+        report = kill_all(protocol=args.protocol,
+                          max_faults=args.max_faults,
+                          budget_s=args.budget_s)
+        results = []
+        for (proto, name), res in sorted(report.results.items()):
+            results.append(res)
+            v = res.violation
+            verdict = "KILLED" if v is not None else (
+                "INCOMPLETE" if not res.complete else "SURVIVED")
+            detail = f" ({v.kind}/{v.name}, {len(v.trace)}-step trace)" \
+                if v is not None else ""
+            emit(f"mutant {proto}/{name}: {verdict}{detail}  "
+                 f"[{res.states} states, {res.elapsed_s:.2f}s]")
+        if report.survivors:
+            emit(f"SURVIVING mutant(s): the checker has a blind spot: "
+                 f"{report.survivors}")
+            rc = 1
+        elif report.incomplete:
+            emit(f"INCOMPLETE mutant sweep(s) within the budget: "
+                 f"{report.incomplete}")
+            rc = 2
+        else:
+            emit(f"mutation self-test: all "
+                 f"{len(report.results)} seeded mutants killed")
+    else:
+        protos = list(expand_protocol(args.protocol)) if args.protocol \
+            else list(PROTOCOLS)
+        results = []
+        for proto in protos:
+            res = check(model_for(proto), max_faults=args.max_faults,
+                        budget_s=remaining())
+            results.append(res)
+            emit(render_trace(res))
+            if not res.complete and res.violation is None:
+                rc = max(rc, 2)
+            elif res.violation is not None:
+                rc = max(rc, 1)
+        if args.protocol is None and rc == 0:
+            # whole-sweep runs also gate model<->code conformance (the
+            # same check the lint rule rides in CI)
+            findings = analysis.run_lint(rules=["model-conform"])
+            if findings:
+                emit(analysis.format_findings(findings))
+                rc = 1
+            else:
+                emit("conformance: models and code agree "
+                     "(.model-conform.json acknowledged)")
+    if args.trace_out:
+        with open(args.trace_out, "w", encoding="utf-8") as fh:
+            fh.write("\n\n".join(texts) + "\n")
+    if args.json:
+        print(json.dumps([r.to_dict() for r in results], indent=1))
+    return rc
 
 
 def cmd_promql(args) -> int:
@@ -796,12 +1100,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="machine-readable findings on stdout")
     ln.add_argument("--sarif", metavar="FILE",
                     help="write gated findings as SARIF 2.1.0 (CI "
-                         "annotation surfaces; ci.sh writes "
-                         "artifacts/lint.sarif)")
+                         "annotation surfaces)")
     ln.add_argument("--twins", metavar="FILE",
                     help="twin-fingerprint store for the twin-drift "
                          "rule (default: the committed "
-                         ".lint-twins.json next to the package)")
+                         "analysis/stores/lint-twins.json)")
     ln.add_argument("--ack-twin", action="store_true",
                     help="re-acknowledge all declared host/device twin "
                          "pairs: recompute fingerprints and rewrite the "
@@ -809,7 +1112,7 @@ def build_parser() -> argparse.ArgumentParser:
     ln.add_argument("--programs", metavar="FILE",
                     help="jit cache-key store for the retrace-hazard "
                          "rule (default: the committed "
-                         ".lint-programs.json next to the package)")
+                         "analysis/stores/lint-programs.json)")
     ln.add_argument("--ack-programs", action="store_true",
                     help="re-acknowledge every jit site's cache-key "
                          "fingerprint and compiled-program bound "
@@ -817,8 +1120,7 @@ def build_parser() -> argparse.ArgumentParser:
     ln.add_argument("--schemas", metavar="FILE",
                     help="durable-pytree schema store for the "
                          "pytree-schema-drift rule (default: the "
-                         "committed .lint-schemas.json next to the "
-                         "package)")
+                         "committed analysis/stores/lint-schemas.json)")
     ln.add_argument("--ack-schemas", action="store_true",
                     help="re-acknowledge every declared state pytree's "
                          "leaf layout (run the snapshot round-trip "
@@ -844,8 +1146,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default 2 — the CI acceptance bound)")
     vf.add_argument("--trace-out", metavar="FILE",
                     help="write the verdicts + any counterexample "
-                         "schedule to FILE (ci.sh uploads it beside "
-                         "artifacts/lint.sarif)")
+                         "schedule to FILE")
     vf.add_argument("--mutants", action="store_true",
                     help="mutation self-test: every seeded mutant must "
                          "die with a counterexample")
@@ -857,12 +1158,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="list the seeded mutants per protocol")
     vf.add_argument("--ack-conform", action="store_true",
                     help="re-acknowledge the model<->code conformance "
-                         "fingerprints (.model-conform.json); run "
+                         "fingerprints (model-conform.json); run "
                          "after a green `df-ctl verify`")
     vf.add_argument("--conform", metavar="FILE",
                     help="conformance store path (default: the "
-                         "committed .model-conform.json next to the "
-                         "package)")
+                         "committed analysis/stores/model-conform.json)")
     vf.add_argument("--json", action="store_true",
                     help="machine-readable results on stdout")
     vf.set_defaults(fn=cmd_verify)

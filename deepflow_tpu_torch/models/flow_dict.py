@@ -27,6 +27,7 @@ from deepflow_tpu_torch.models import flow_suite
 from deepflow_tpu_torch.models.flow_suite import (FlowSuiteConfig,
                                                   FlowSuiteState)
 from deepflow_tpu_torch.ops import cuda_sketch
+from deepflow_tpu_torch.utils.twinmark import host_twin_of
 from deepflow_tpu_torch.utils.u32 import as_u32, to_bits
 
 PKTS_CAP = 0xFFFF
@@ -179,6 +180,7 @@ def mirror_news_np(wire, table: np.ndarray) -> None:
         table[3, idx] = plane[4, :n] << u(24)
 
 
+@host_twin_of("deepflow_tpu_torch/models/flow_dict.py:make_wire_update")
 def unpack_wire_np(flat: np.ndarray, sig: Tuple[Tuple[str, int], ...],
                    table: np.ndarray):
     """Host twin of `make_wire_update`: one staged flat buffer back into

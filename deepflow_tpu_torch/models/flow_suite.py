@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from deepflow_tpu_torch.ops import cms, cuda_sketch, entropy, hll, topk
+from deepflow_tpu_torch.utils.twinmark import host_twin_of
 from deepflow_tpu_torch.utils.u32 import as_u32, fold_columns, to_bits
 
 ENTROPY_FEATURES = ("ip_src", "ip_dst", "port_src", "port_dst")
@@ -220,6 +221,7 @@ def unpack_lanes(lanes: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     }
 
 
+@host_twin_of("deepflow_tpu_torch/models/flow_suite.py:unpack_lanes")
 def unpack_lanes_np(plane: np.ndarray, n: int) -> Dict[str, np.ndarray]:
     """Host twin of `unpack_lanes` over one (4, C) uint32 staged plane,
     trimmed to its n valid rows: what degraded mode hands the host

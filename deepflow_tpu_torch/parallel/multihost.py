@@ -761,11 +761,11 @@ class HostPodCoordinator:
         want = {ln.idx for ln in live}
         arrived: List[_DcnMessage] = []
         while time.monotonic() < deadline:
-            arrived.extend(self.transport.recv_contributions())
+            arrived.extend(self._collect())
             if want <= {m.host for m in arrived if m.global_epoch == ep}:
                 break
             time.sleep(0.002)
-        arrived.extend(self.transport.recv_contributions())
+        arrived.extend(self._collect())
         res = self._merge_global(ep, arrived, live, lost_now, now, t0)
         self._epoch = ep + 1
         if self.auto_rejoin:
@@ -779,6 +779,11 @@ class HostPodCoordinator:
             tr.gauge("pod_hosts_missed", float(self._hosts_missed))
             tr.gauge("pod_merge_epoch_s", self._last_merge_s)
         return res
+
+    def _collect(self) -> List[_DcnMessage]:
+        """Take contributions off the DCN channel (the model's
+        `deliver`)."""
+        return self.transport.recv_contributions()
 
     def _merge_global(self, ep: int, arrived: List[_DcnMessage],
                       live: List[_HostLane], lost_now: List[int],

@@ -7,9 +7,9 @@ Requests and replies are single-datagram JSON: {"cmd": ...} in,
 (the Countable registry), `stacks` (every thread's Python stack),
 `latency`, `spans`, `rrt` (the flight recorder), `supervisor` (the
 supervision tree), `trace-export` (the profiler's span ring as a
-Chrome trace); the Ingester registers its own. The replies are the JAX
-package's. `lint`, which there scans the installed JAX package with its
-analyzer, is answered here as unsupported (an error reply).
+Chrome trace), `lint` (the port's analyzer over the installed port
+package); the Ingester registers its own. The replies are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -136,11 +136,26 @@ class DebugServer:
 
     @staticmethod
     def _lint(req: dict) -> dict:
-        """The analyzer's self-scan: it scans the JAX package and is not
-        part of this one, so the request gets an error reply."""
-        raise NotImplementedError(
-            "lint is not supported by deepflow_tpu_torch: the analyzer "
-            "scans the JAX package (deepflow_tpu.analysis)")
+        """deepflow-lint self-scan of the INSTALLED port package
+        (analysis/): is the code this process is actually running clean?
+        Per-rule totals plus the first findings, truncated for the
+        one-datagram budget; `module` substring-filters finding paths.
+        No baseline is applied here — this is the raw discipline
+        surface; `df-ctl lint --baseline` owns the grandfathered gate.
+        The ast.parse pass over the package runs inside the debug loop's
+        request slot and takes SECONDS in a busy process (GIL
+        contention) — the CLI client raises its datagram timeout for
+        this command, and other debug requests queue behind it (ops
+        surface, not hot path)."""
+        from collections import Counter
+
+        from deepflow_tpu_torch.analysis import scan_package
+
+        want = req.get("module") or ""
+        fs = [f for f in scan_package() if want in f.path]
+        return {"total": len(fs),
+                "by_rule": dict(sorted(Counter(f.rule for f in fs).items())),
+                "findings": [f.to_dict() for f in fs[:25]]}
 
     @staticmethod
     def _stacks(req: dict) -> dict:

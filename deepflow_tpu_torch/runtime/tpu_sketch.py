@@ -755,7 +755,7 @@ class TpuSketchExporter(QueueWorkerExporter):
             self._detailed = self._batches_traced % self._attrib_every == 0
             self._batches_traced += 1
 
-    def _timed_update(self, key: str, run, rows: int) -> None:
+    def _timed_update(self, key: str, run, nrows: int) -> None:
         """Call one program (`run`), attributed when the tracer (or a busy
         reader) is on and this group is a detailed one or the program's
         first traced call. On a card a warm attributed call is gated and
@@ -781,7 +781,7 @@ class TpuSketchExporter(QueueWorkerExporter):
             t0 = time.perf_counter()
             run()
             dt = time.perf_counter() - t0
-            self._read_attribution([(key, first, rows, dt, dt, h2d, None)])
+            self._read_attribution([(key, first, nrows, dt, dt, h2d, None)])
             return
         ticket = None
         if not first and self._gate_timeouts.get(key, 0) < 2:
@@ -796,21 +796,21 @@ class TpuSketchExporter(QueueWorkerExporter):
             ev[1].record(self._stream)
             if ticket is not None:
                 self._gate.release(ticket)
-        rec = (key, first, rows, dispatch_s, ev, h2d, ticket)
+        rec = (key, first, nrows, dispatch_s, ev, h2d, ticket)
         if self._feed is None:
             ev[1].synchronize()
             self._read_attribution([rec])
         else:
             self._attr_pending.append(rec)
 
-    def _lanes_update(self, key: str, run, rows: int) -> None:
+    def _lanes_update(self, key: str, run, nrows: int) -> None:
         """The detection lanes' launches after a program: on a card timed
         (and gated) as a program of their own, `anomaly:<key>`, so the
         busy estimate counts their kernels too; on the CPU untimed."""
         if self._stream is None:
             run()
         else:
-            self._timed_update("anomaly:" + key, run, rows)
+            self._timed_update("anomaly:" + key, run, nrows)
 
     def _read_attribution(self, recs) -> None:
         """Record attributed calls whose events have completed: stages,
@@ -821,21 +821,23 @@ class TpuSketchExporter(QueueWorkerExporter):
         ungated warm call (its program no longer gated) times nothing."""
         tr, prof = self._tracer, self._prof
         traced = tr.enabled
-        for key, first, rows, dispatch_s, dev, h2d, ticket in recs:
+        for key, first, nrows, dispatch_s, dev, h2d, ticket in recs:
+            h2d = h2d if traced else None
             try:
-                if h2d is not None and traced:
+                if h2d is not None:
                     h2d_s, ev, nbytes = h2d
                     if ev is not None:
                         h2d_s = ev[0].elapsed_time(ev[1]) / 1e3
-                    tr.observe("kernel.h2d", h2d_s, stream=self.wire,
-                               rows=rows)
-                    prof.record("h2d", self.wire, h2d_s, rows=rows)
-                    if h2d_s > 0:
-                        tr.gauge("tpu_h2d_mb_s", nbytes / 1e6 / h2d_s)
                 dev_s = dev if not isinstance(dev, tuple) \
                     else dev[0].elapsed_time(dev[1]) / 1e3
             except RuntimeError:
                 continue
+            if h2d is not None:
+                tr.observe("kernel.h2d", h2d_s, stream=self.wire,
+                           rows=nrows)
+                prof.record("h2d", self.wire, h2d_s, rows=nrows)
+                if h2d_s > 0:
+                    tr.gauge("tpu_h2d_mb_s", nbytes / 1e6 / h2d_s)
             if first:
                 if traced:
                     compile_s = max(dispatch_s, dev_s)

@@ -1,9 +1,11 @@
 """The host/device twin marker, dependency-free on purpose.
 
 Modules tag a host twin of a device op with `@host_twin_of(...)`
-(`serving/tables.py`'s scalar CMS hash and flow-key fold). It costs
-nothing to import and imports nothing. A copy of the JAX package's
-`utils/twinmark.py`, whose twin-drift check reads the decorator.
+(`utils/u32`, `models/flow_suite`, `models/flow_dict`,
+`anomaly/detectors`, `serving/tables`). It costs nothing to import and
+imports nothing. The twin-drift rule (analysis/twins.py) reads the
+decorator lexically; analysis/twins re-exports it for tooling-side
+callers.
 """
 
 from __future__ import annotations

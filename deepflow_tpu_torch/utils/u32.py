@@ -26,6 +26,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from deepflow_tpu_torch.utils.twinmark import host_twin_of
+
 M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
 _C1 = 0x85EBCA6B
@@ -93,6 +95,7 @@ def _as_u32_np(x) -> np.ndarray:
     return x.astype(np.uint32)
 
 
+@host_twin_of("deepflow_tpu_torch/utils/u32.py:mix32")
 def _mix32_np(x: np.ndarray) -> np.ndarray:
     """numpy mix32, op for op."""
     x = x ^ (x >> _U32(16))
@@ -102,6 +105,7 @@ def _mix32_np(x: np.ndarray) -> np.ndarray:
     return x ^ (x >> _U32(16))
 
 
+@host_twin_of("deepflow_tpu_torch/utils/u32.py:fold_columns")
 def fold_columns_np(cols) -> np.ndarray:
     """numpy fold_columns, bit-identical to the torch one: host code
     resolves device flow keys back to the tuples that made them."""

@@ -11,14 +11,16 @@ against one set of servers, first the port's (controller, querier, an
 standard output and standard error are equal, under a frozen clock.
 `replay-pcap` gives equal counts through both packages' Agents, and
 both packages' agent processes answer the port's df-ctl alike on their
-debug ports. `lint` and `verify`, which read the unported
-`analysis/`, exit 2 naming ROADMAP Queue 1 item 4. The JAX package's
+debug ports. `lint`, `lint --list-rules`, `verify` and `verify
+--mutants` give the reference's exit codes and rule and mutant lists,
+each package over its own tree. The JAX package's
 `test_cli.py` then runs against the port
 (`torch_ctl_pair.adopt_reference_tests`).
 """
 
 import importlib
 import json
+import re
 
 import numpy as np
 import pytest
@@ -185,12 +187,48 @@ def test_cli_output_equal(servers, tmp_path, capsys, monkeypatch):
     assert "pong" in port[24][1] and "n1:eth0" in port[-1][1]
 
 
+_ELAPSED = re.compile(r"elapsed=[0-9.]+s|\[([0-9]+ states), [0-9.]+s\]")
+
+
+def _jax_conform_in_lockstep(monkeypatch, tmp_path):
+    """The JAX package's conformance store rebuilt from its own tree
+    into tmp_path (its committed one is behind its tree), so its
+    `verify` gates on the models alone, as the port's does."""
+    from deepflow_tpu.analysis import core
+    from deepflow_tpu.analysis.model import conform
+    _ctxs, index, errors = core.build_index(core.load_package_sources())
+    store, missing = conform.build_store(index)
+    assert errors == [] and missing == []
+    path = tmp_path / "model-conform.json"
+    conform.save_store(store, str(path))
+    monkeypatch.setattr(core, "default_conform_store_path",
+                        lambda: str(path))
+
+
 @pytest.mark.parametrize("cmd", [["lint"], ["lint", "--list-rules"],
                                  ["verify"], ["verify", "--mutants"]])
-def test_analysis_commands_exit_naming_the_queue(cmd, capsys):
-    rc, out, err = _run(tcli.main, cmd, capsys)
-    assert rc == 2 and out == ""
-    assert "ROADMAP Queue 1 item 4" in err and "analysis/" in err
+def test_analysis_commands_match_the_reference(cmd, capsys, monkeypatch,
+                                               tmp_path):
+    """`lint` (each package's self-scan with no baseline: both find
+    findings), `lint --list-rules` (the same rules, word for word),
+    `verify` (the same models proven, conformance clean) and `verify
+    --mutants` (the same mutants killed with the same traces): the
+    reference's exit codes and lists."""
+    if cmd[0] == "verify":
+        _jax_conform_in_lockstep(monkeypatch, tmp_path)
+    rp, out_p, _ = _run(tcli.main, cmd, capsys)
+    rj, out_j, _ = _run(jcli.main, cmd, capsys)
+    assert rp == rj == (1 if cmd == ["lint"] else 0)
+    if cmd == ["lint"]:
+        assert "deepflow_tpu_torch/" in out_p
+        assert "deepflow_tpu/" not in out_p.replace("deepflow_tpu_torch/", "")
+        return
+    assert _ELAPSED.sub(r"\1", out_p) == _ELAPSED.sub(r"\1", out_j)
+    if cmd == ["verify"]:
+        assert out_p.count("result: OK") == 4
+        assert "conformance: models and code agree" in out_p
+    elif cmd[0] == "verify":
+        assert "all 14 seeded mutants killed" in out_p
 
 
 def test_replay_pcap_equal(tmp_path, capsys):

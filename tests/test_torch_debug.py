@@ -3,8 +3,9 @@ commands against the JAX package's, on the CPU.
 
 Built-in commands: both servers over registries holding the same
 Countables answer `ping` and `counters` alike, and `supervisor` alike
-over fresh supervision trees; `lint` is answered as unsupported (an
-error reply, the server keeps serving); an unknown command gets the
+over fresh supervision trees; `lint` answers with the reference's keys
+and findings over one fixture tree (each package's analyzer), and the
+server keeps serving; an unknown command gets the
 reference's error. The Ingester's commands: both packages' ingesters,
 built on the same config (small ingest queues, a disk spill, storage,
 the timeline off) and not started, get the same frames put into their
@@ -78,10 +79,44 @@ def test_builtin_replies_equal(servers, req):
         assert rt["data"]["threads"][0]["name"] == "debug-udp"
 
 
-def test_lint_is_unsupported_and_the_server_keeps_serving(servers):
-    t, _ = servers
-    r = tdebug.debug_request("lint", port=t.port)
-    assert r["ok"] is False and "not supported" in r["error"]
+# one fixture tree with findings of several rules (an unsupervised
+# thread, an emit under a lock, a drop nothing counts)
+_LINT_TREE = {
+    "pkg/threads.py": "import threading\nt = threading.Thread(target=print)\n",
+    "runtime/q.py": ("import threading\n"
+                     "class Q:\n"
+                     "    def __init__(self):\n"
+                     "        self._lock = threading.Lock()\n"
+                     "    def go(self, sink, x):\n"
+                     "        with self._lock:\n"
+                     "            sink.emit(x)\n"),
+    "runtime/d.py": ("class D:\n"
+                     "    def put(self, batch):\n"
+                     "        if self._closed:\n"
+                     "            return\n"
+                     "        self._emit(batch)\n"),
+}
+
+
+def test_lint_answers_like_the_reference_and_the_server_keeps_serving(
+        servers, monkeypatch):
+    """Each package's debug `lint` over its own analyzer's scan of one
+    fixture tree: the reference's keys, totals, `by_rule` and findings;
+    `module` filters alike; the server answers `ping` after."""
+    from deepflow_tpu import analysis as janalysis
+    from deepflow_tpu_torch import analysis as tanalysis
+    for mod in (janalysis, tanalysis):
+        monkeypatch.setattr(
+            mod, "scan_package",
+            lambda run=mod.run_on_sources: run(_LINT_TREE))
+    t, j = servers
+    for kw in ({}, {"module": "runtime/"}):
+        rt = tdebug.debug_request("lint", port=t.port, timeout=60.0, **kw)
+        rj = jdebug.debug_request("lint", port=j.port, timeout=60.0, **kw)
+        assert rt["ok"] and rj["ok"]
+        assert sorted(rt["data"]) == ["by_rule", "findings", "total"]
+        assert rt == rj
+    assert rt["data"]["by_rule"] == {"emit-under-lock": 1, "silent-drop": 1}
     assert tdebug.debug_request("ping", port=t.port) == \
         {"ok": True, "data": "pong"}
 

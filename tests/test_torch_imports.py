@@ -74,7 +74,11 @@ def test_port_files_found():
             "k8s_watch.py", "integration.py", "bpf.py",
             "xdp.py", "x86_decode.py", "btf.py", "socket_trace.py",
             "perf_ring.py", "ebpf_source.py", "uprobe_trace.py",
-            "http2_trace.py", "cli.py"} <= names
+            "http2_trace.py", "cli.py", "frames.py", "generator.py",
+            "tsan.py", "core.py", "checkers.py", "concurrency.py",
+            "devprog.py", "docdrift.py", "twins.py", "spec.py",
+            "explore.py", "mutate.py", "conform.py", "pod_epoch.py",
+            "host_pod.py", "spill_drain.py", "sender_ring.py"} <= names
     agent = {p.name for p in PORT_FILES if p.parent.name == "agent"}
     assert {"plugin.py", "wasm_vm.py", "wasm_asm.py", "wasm_samples.py",
             "wasm_plugin.py", "k8s_watch.py", "profiler.py",
@@ -96,8 +100,11 @@ def test_port_files_found():
         assert (REPO / "deepflow_tpu_torch" / "wire" / "protos"
                 / f"{proto}.proto").is_file()
     assert (REPO / "deepflow_tpu_torch" / "server.py") in PORT_FILES
+    assert (REPO / "deepflow_tpu_torch" / "decode" / "native_src"
+            / "tsan_harness.cc").is_file()
     for pkg in ("wire", "wire/gen", "decode", "enrich", "serving", "querier",
-                "utils", "agent", "controller"):
+                "utils", "agent", "controller", "replay", "analysis",
+                "analysis/model"):
         assert (REPO / "deepflow_tpu_torch" / pkg / "__init__.py") \
             in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "anomaly" / "__init__.py") \
@@ -106,6 +113,22 @@ def test_port_files_found():
         in PORT_FILES
     assert (REPO / "deepflow_tpu_torch" / "pipelines" / "__init__.py") \
         in PORT_FILES
+
+
+def test_every_jax_package_file_has_its_counterpart():
+    """Every source of the JAX package (Python, C++, headers, protos) has
+    its file at the same path in the port, but the two Pallas modules,
+    whose kernels the port holds as CUDA (csrc/hist.cu,
+    csrc/fused_sketch.cu)."""
+    jax_pkg, port = REPO / "deepflow_tpu", REPO / "deepflow_tpu_torch"
+    missing = sorted(
+        str(f.relative_to(jax_pkg)) for f in jax_pkg.rglob("*")
+        if f.suffix in (".py", ".cc", ".h", ".proto")
+        and "__pycache__" not in f.parts
+        and not (port / f.relative_to(jax_pkg)).is_file())
+    assert missing == ["ops/pallas_hist.py", "ops/pallas_sketch.py"]
+    for cu in ("hist.cu", "fused_sketch.cu"):
+        assert (port / "csrc" / cu).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -261,7 +261,10 @@ def _probe_surface(ing):
         health = json.loads(r.read())
     replies = {cmd: debug_request(cmd, port=ing.debug.port)
                for cmd in ("ping", "counters", "queues", "breakers",
-                           "spill", "lint")}
+                           "spill")}
+    # the port's analyzer scans its whole package inside the request
+    replies["lint"] = debug_request("lint", port=ing.debug.port,
+                                    timeout=180)
     return {"problems": validate_exposition(body), "body": body,
             "health": health, "replies": replies,
             "timeline": ing.timeline.counters(),
@@ -452,7 +455,9 @@ def test_operations_surface_live(runs, runs_surface):
     assert "ingest.l4_flow_log" in r["queues"]["data"]
     assert set(r["breakers"]["data"]) == {"tpu_sketch", "app_red"}
     assert r["spill"]["data"]["enabled"] is True
-    assert r["lint"]["ok"] is False
+    assert r["lint"]["ok"] is True
+    assert sorted(r["lint"]["data"]) == ["by_rule", "findings", "total"]
+    assert r["lint"]["data"]["total"] == len(r["lint"]["data"]["findings"])
     assert probe["timeline"]["ticks"] >= 2
     assert probe["timeline"]["rule_errors"] == 0
     assert {"tpu_sketch_rows_in", "receiver_rx_frames",

@@ -115,39 +115,46 @@ _PORT_PREFIXES = ("controller", "wire.gen", "enrich", "server", "agent",
                   "querier", "store", "decode", "cli")
 
 
-def port_source(path):
+def port_source(path, replace=()):
     """A JAX-package test file's source, its imports of the modules the
-    port holds rewritten to deepflow_tpu_torch."""
+    port holds rewritten to deepflow_tpu_torch, then each (old, new) of
+    `replace` substituted in order."""
     src = Path(path).read_text()
     for p in _PORT_PREFIXES:
         src = src.replace(f"deepflow_tpu.{p}", f"deepflow_tpu_torch.{p}")
     # the port's store package exports nothing (its rollup imports torch,
     # which the host-only modules that import the store must not pull)
-    return src.replace(
+    src = src.replace(
         "from deepflow_tpu_torch.store import AggKind, ColumnSpec, Store, "
         "TableSchema",
         "from deepflow_tpu_torch.store.table import AggKind, ColumnSpec, "
         "TableSchema; from deepflow_tpu_torch.store.db import Store")
+    for old, new in replace:
+        assert old in src, f"{Path(path).name} has no {old!r}"
+        src = src.replace(old, new)
+    return src
 
 
-def reference_tests(path, skip=()):
+def reference_tests(path, skip=(), replace=()):
     """{name: function} of a JAX-package test file compiled against the
     port (port_source), its fixtures included, minus `skip`."""
     mod = types.ModuleType(f"_port_{Path(path).stem}")
     mod.__file__ = str(path)
-    exec(compile(port_source(path), str(path), "exec"), mod.__dict__)
+    exec(compile(port_source(path, replace), str(path), "exec"),
+         mod.__dict__)
     return {k: v for k, v in vars(mod).items()
             if k.startswith("test_") and k not in skip}, mod
 
 
-def adopt_reference_tests(namespace, path, only=None, skip=()):
+def adopt_reference_tests(namespace, path, only=None, skip=(),
+                          replace=()):
     """Put a JAX-package test file's tests, compiled against the port
     (port_source), into a test module's `namespace` as `test_ref_<name>`,
     with the file's fixtures under their own names and its module-level
     marks (`pytestmark`) on each test, so pytest collects and runs them
-    there. `only` names the tests to take (all, minus `skip`, when None).
-    Returns the compiled module."""
-    tests, mod = reference_tests(path, skip=skip)
+    there. `only` names the tests to take (all, minus `skip`, when None);
+    `replace` goes to port_source. Returns the compiled module."""
+    tests, mod = reference_tests(path, skip=skip, replace=replace)
     if only is not None:
         missing = set(only) - set(tests)
         assert not missing, f"{Path(path).name} has no {sorted(missing)}"
