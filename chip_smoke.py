@@ -148,19 +148,27 @@ is printed):
    records drawn as phase 8 draws them (cut from 2^20): every window
    output field equal to AppSuite on one device;
    (c) ShardedMetricsSuite at MetricsSuiteConfig() over phase 7's DDoS
-   ramp, one flow_metrics Document per l4 row (`metric_documents`): 4
-   shards on the card against 4 shards on the CPU (histograms exact,
-   entropies within 2e-6 relative, alarms equal, z within rtol 1e-5,
-   PCA projector and matrix-profile scores within rtol 1e-4) and against
-   1 shard on the card (the reference's 8-against-1 tolerances), the
-   basis and rings bit-identical across the 4 shards at every window;
+   ramp at --ramp-records, one flow_metrics Document per l4 row
+   (`metric_documents`): 4 shards on the card against 4 shards on the
+   CPU (histograms equal mod 2^32, entropies within 2e-6 relative,
+   alarms equal, z within rtol 1e-5, PCA projector and matrix-profile
+   scores within rtol 1e-4) and against 1 shard on the card (histograms
+   equal mod 2^32: the suites merge shards in int32, which wraps; the
+   reference's 8-against-1 tolerances), the basis and rings
+   bit-identical across the 4 shards at every window;
    then the same three meshes at an EWMA rate of 0.3 and 8-window
    subsequences over 20 windows of 2^17 Documents with signal levels
    spread over orders of magnitude and a destination concentration step
    at window 12: the alarm fires there and not before, and every
-   matrix-profile score from window 15 on is nonzero. Then one window
-   of each suite under torch.profiler, ingest and flush apart: launches
-   per global batch, busy share, a flush's syncs;
+   matrix-profile score from window 15 on is nonzero; then the wrap
+   window at MetricsSuiteConfig(), from a generator of its own: 2
+   windows of 2^17 Documents, every one at the victim, packet_tx +
+   packet_rx fixed at 24,576 and at 40,000, so the one-shard victim
+   cell passes 2^31 (negative as int32) and 2^32: in each, the victim
+   cell of both entropy features in the 1-shard suite and in both
+   4-shard sums equals rows x weight mod 2^32 (a numpy count). Then one
+   window of each suite under torch.profiler, ingest and flush apart:
+   launches per global batch, busy share, a flush's syncs;
 10. the flow_metrics pipeline's store lane and the rollup GROUP BY on
    the card: 4096 distinct vtap_flow_port tag tuples (cut from 16,384
    for time; ip over 4096 addresses, server_port by Zipf(1.1) over
@@ -2831,22 +2839,35 @@ def metric_suites(torch, dev, cfg):
                                                        device="cpu"))}
 
 
+def shard_hist_u32(torch, states):
+    """A suite's entropy histogram before its flush: the shards' int32
+    cells summed as the suites merge them (`sharded._sum`, the
+    reference's psum), which wraps mod 2^32, read as u32 (int64 on the
+    host)."""
+    return sum(s.ent.hist.cpu().to(torch.int64) for s in states) \
+        & 0xFFFFFFFF
+
+
 def run_metric_windows(torch, runs, windows, label, keep=0):
     """Each window's Documents through every suite of `runs`, then its
     flush against the last batch; at every window close the 4 card shards
-    equal the 4 CPU shards (histograms exact, entropies rtol ENT_CARD_CPU,
-    alarms equal, z rtol 1e-5, projector and mp_scores rtol 1e-4) and the
-    1 card shard (histograms and entropies exact, z rtol 1e-5, projector,
-    anomaly and mp scores rtol 1e-4), the basis and the rings
-    bit-identical across the 4 card shards. Launches are counted on the
-    4 card shards' updates and flushes only. The first `keep` windows'
-    Documents and 4-card-shard results are kept for phase 12
-    (`metrics_record`)."""
+    equal the 4 CPU shards (histograms equal mod 2^32, entropies rtol
+    ENT_CARD_CPU, alarms equal, z rtol 1e-5, projector and mp_scores rtol
+    1e-4) and the 1 card shard (histograms equal mod 2^32, entropies
+    exact, z rtol 1e-5, projector, anomaly and mp scores rtol 1e-4), the
+    basis and the rings bit-identical across the 4 card shards. The
+    histograms are `shard_hist_u32`: one int32 shard wraps where the sum
+    of four does not, and the suites merge in int32, so only mod 2^32 are
+    they the same function. Launches are counted on the 4 card shards'
+    updates and flushes only. Returns each window's histograms and the
+    largest u32 cell of any 4-card shard beside the outputs. The first
+    `keep` windows' Documents and 4-card-shard results are kept for phase
+    12 (`metrics_record`)."""
     states = {k: s.init() for k, s in runs.items()}
     kept = []
     seconds = dict.fromkeys(runs, 0.0)
     launches = {}
-    alarms, zmax, mp = [], [], []
+    alarms, zmax, mp, window_hists, shard_peaks = [], [], [], [], []
     for w, docs in enumerate(windows):
         batches = list(global_batches(docs))
         outs, hists = {}, {}
@@ -2857,9 +2878,12 @@ def run_metric_windows(torch, runs, windows, label, keep=0):
             st = states[name]
             for part, mask, _ in batches:
                 st = suite.update(st, *suite.put_batch(part, mask))
-            hists[name] = sum(s.ent.hist.cpu().to(torch.int64) for s in st)
-            if name == "card4" and w < keep:
-                kept.append({"docs": docs, "pre": metrics_int_hashes(st)})
+            hists[name] = shard_hist_u32(torch, st)
+            if name == "card4":
+                shard_peaks.append(max(int(shard_hist_u32(torch, [s]).max())
+                                       for s in st))
+                if w < keep:
+                    kept.append({"docs": docs, "pre": metrics_int_hashes(st)})
             last, mask, _ = batches[-1]
             states[name], outs[name] = suite.flush(
                 st, *suite.put_batch(last, mask))
@@ -2912,10 +2936,12 @@ def run_metric_windows(torch, runs, windows, label, keep=0):
         alarms.append(bool(c4.ddos_alarm))
         zmax.append(float(c4.z_scores.abs().max()))
         mp.append(c4.mp_scores.cpu().numpy())
+        window_hists.append(hists)
         if w < keep:
             kept[-1].update(metrics_record(c4, ws[0]))
     return {"alarms": alarms, "max_abs_z": zmax, "mp_scores": mp,
-            "seconds": seconds, "launches": launches, "kept": kept}
+            "seconds": seconds, "launches": launches, "kept": kept,
+            "hists": window_hists, "shard_peaks": shard_peaks}
 
 
 def metrics_int_hashes(states):
@@ -2957,26 +2983,77 @@ def level_documents(rng, n, level, victim):
 
 # the warm pass: an EWMA that settles within the 10 windows before the
 # alarm may fire and 8-window subsequences, scored from window 15 on
-# phase 9c's ramp depth, kept when phase 7's was cut (`--ramp-records`):
-# its warm pass draws from the same generator after the ramp, and its
-# data must not move with phase 7's depth
-METRICS_RAMP_RECORDS = 1 << 18
 WARM_CFG = dict(ewma_alpha=0.3, mp_length=32, mp_m=8)
 WARM_WINDOWS, WARM_STEP, WARM_RECORDS = 20, 12, 1 << 17
+# the wrap window: packet_tx + packet_rx of every Document of a window.
+# WARM_RECORDS of them put one shard's victim cell in [2^31, 2^32) (it
+# reads negative as int32), then past 2^32; each of 4 shards stays below
+# 2^31
+WRAP_WEIGHTS = (24_576, 40_000)
 
 
-def check_sharded_metrics(torch, dev, rng, card):
+def wrap_documents(rng):
+    """The wrap window's Documents: per weight of WRAP_WEIGHTS,
+    WARM_RECORDS Documents at the victim whose packet_tx + packet_rx is
+    that weight (split at random), the other signals as the warm pass
+    draws them."""
+    from deepflow_tpu_torch.models.metrics_suite import GOLDEN_SIGNALS
+    out = []
+    for weight in WRAP_WEIGHTS:
+        level = {s: int(10 ** rng.uniform(0.5, 4.5)) for s in GOLDEN_SIGNALS}
+        cols = level_documents(rng, WARM_RECORDS, level, True)
+        tx = rng.integers(0, weight + 1, WARM_RECORDS).astype(np.uint32)
+        cols["packet_tx"], cols["packet_rx"] = tx, np.uint32(weight) - tx
+        out.append(cols)
+    return out
+
+
+def check_metric_wrap(torch, dev, rng, cfg):
+    """Phase 9c's wrap window through the three meshes
+    (`run_metric_windows`), then in each window the victim cell of both
+    entropy features, in the 1-shard suite and in the 4-shard sums on the
+    card and on the CPU, against rows x weight mod 2^32 counted with
+    numpy from the Documents: every Document lands in that one cell."""
+    docs = wrap_documents(rng)
+    r = run_metric_windows(torch, metric_suites(torch, dev, cfg), docs,
+                           "wrap")
+    cells = []
+    for w, (cols, weight) in enumerate(zip(docs, WRAP_WEIGHTS)):
+        rows = len(cols["ip"])
+        want = int((cols["packet_tx"].astype(np.uint64)
+                    + cols["packet_rx"]).sum()) % (1 << 32)
+        if want != rows * weight % (1 << 32):
+            raise AssertionError(f"wrap window {w}: numpy count {want}, "
+                                 f"rows x weight {rows * weight}")
+        for name, h in r["hists"][w].items():
+            for f, row in enumerate(h.numpy()):
+                nz = np.flatnonzero(row)
+                if len(nz) != 1 or int(row[nz[0]]) != want:
+                    raise AssertionError(
+                        f"wrap window {w} {name} feature {f}: cells "
+                        f"{dict(zip(nz.tolist(), row[nz].tolist()))}, want "
+                        f"one cell of {want} ({rows} x {weight} mod 2^32)")
+        cells.append({"rows": rows, "weight": weight, "u32": want,
+                      "int32": want - (1 << 32) if want >= 1 << 31 else want,
+                      "shard_peak": r["shard_peaks"][w]})
+    return {"cells": cells, "seconds": r["seconds"],
+            "launches": r["launches"]}
+
+
+def check_sharded_metrics(torch, dev, rng, card, ramp_records, seed):
     """Phase 9c: ShardedMetricsSuite at MetricsSuiteConfig() over phase
-    7's DDoS ramp schedule at METRICS_RAMP_RECORDS, then at WARM_CFG over WARM_WINDOWS windows of
-    Documents with a destination concentration step at WARM_STEP, where
-    the alarm branch and the matrix profile's scores run: 4 shards on
-    the card against 4 shards on the CPU and 1 shard on the card."""
+    7's DDoS ramp schedule at `ramp_records` per 1x window, then at
+    WARM_CFG over WARM_WINDOWS windows of Documents with a destination
+    concentration step at WARM_STEP, where the alarm branch and the
+    matrix profile's scores run, then the wrap window
+    (`check_metric_wrap`, from a generator of its own): 4 shards on the
+    card against 4 shards on the CPU and 1 shard on the card."""
     from deepflow_tpu_torch.models.metrics_suite import (GOLDEN_SIGNALS,
                                                          MetricsSuiteConfig)
 
     cfg = MetricsSuiteConfig()
     t0 = time.perf_counter()
-    ramp = ramp_windows(rng, METRICS_RAMP_RECORDS)
+    ramp = ramp_windows(rng, ramp_records)
     docs = (metric_documents(rng, cols) for _phase, cols in ramp)
     log(f"  ramp: {len(ramp)} windows ({time.perf_counter() - t0:.1f} s to "
         "draw)")
@@ -3022,6 +3099,18 @@ def check_sharded_metrics(torch, dev, rng, card):
         f"{max(float(m.max()) for m in scored):.4f}), card4 = cpu4 = card1 "
         f"at every close; launches (4 shards) {warm['launches']}")
 
+    wrap = check_metric_wrap(torch, dev, np.random.default_rng((seed, 9, 3)),
+                             cfg)
+    for w, c in enumerate(wrap["cells"]):
+        log(f"  wrap window {w} ({c['rows']} Documents at the victim, "
+            f"packet_tx + packet_rx = {c['weight']}): the victim cell of "
+            f"both entropy features in card1, card4 and cpu4 = rows x "
+            f"weight mod 2^32 = {c['u32']} (u32), {c['int32']} (int32); the "
+            f"largest 4-card-shard cell {c['shard_peak']}")
+    log("  wrap window: card4 = cpu4 = card1 at every close; seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wrap["seconds"].items())
+        + f"; launches (4 shards) {wrap['launches']}")
+
     suite = runs["card4"]
     batches = list(global_batches(metric_documents(rng, ramp[0][1])))
     box = {"st": suite.init()}
@@ -3039,8 +3128,9 @@ def check_sharded_metrics(torch, dev, rng, card):
     prof = report_profile("ShardedMetricsSuite", *profile_window(
         torch, dev, ingest, flush), len(batches), card)
     launches = dict(r["launches"])
-    for k, v in warm["launches"].items():
-        launches[k] = launches.get(k, 0) + v
+    for part in (warm, wrap):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     return {"records": records, "windows": len(ramp),
             "first_alarm_window": first_alarm, "alarms": alarms,
             "max_abs_z": zmax, "seconds": r["seconds"],
@@ -3049,14 +3139,16 @@ def check_sharded_metrics(torch, dev, rng, card):
                      "mp_scores": [m.tolist() for m in warm["mp_scores"]],
                      "seconds": warm["seconds"],
                      "launches": warm["launches"]},
-            "launches": launches, "profile": prof, "mesh_ref": r["kept"]}
+            "wrap": wrap, "launches": launches, "profile": prof,
+            "mesh_ref": r["kept"]}
 
 
-def check_sharded(torch, dev, rng, windows, card):
+def check_sharded(torch, dev, rng, windows, card, ramp_records, seed):
     """Phase 9: the three sharded suites on a 4-shard mesh of the card."""
     flow = check_sharded_flow(torch, dev, windows, card)
     app = check_sharded_app(torch, dev, rng, card)
-    metrics = check_sharded_metrics(torch, dev, rng, card)
+    metrics = check_sharded_metrics(torch, dev, rng, card, ramp_records,
+                                    seed)
     launches = [f["launches"] for f in flow["forms"].values()] \
         + [app["launches"], metrics["launches"]]
     mesh_ref = {"flow": flow.pop("mesh_ref"), "app": app.pop("mesh_ref"),
@@ -10471,8 +10563,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--window-records", type=int, default=1 << 20)
-    # phase 7's depth: 2^15 records per 1x window (cut from 2^18 for the
-    # time budget; the ramp's schedule, its 28 windows, stays)
+    # the depth of phases 7 and 9c: 2^15 records per 1x window (cut from
+    # 2^18 for the time budget; the ramp's schedule, its 28 windows, stays)
     ap.add_argument("--ramp-records", type=int, default=1 << 15)
     ap.add_argument("--one-generator", action="store_true",
                     help="draw phase 2's rows for phase 9's shapes from "
@@ -10574,7 +10666,8 @@ def main() -> int:
         red = check_red(torch, dev, rng, card, tmp)
         phase_done(8)
     log("phase 9: the multi-device suites (4 shards on one card)")
-    shard, mesh_ref = check_sharded(torch, dev, rng9, windows, card)
+    shard, mesh_ref = check_sharded(torch, dev, rng9, windows, card,
+                                    args.ramp_records, args.seed)
     phase_done(9)
     log("phase 10: the flow_metrics store lane and the rollup GROUP BY, "
         "and phase 15 (a): the querier's SQL over its store")
