@@ -4,7 +4,8 @@ suites, flow_metrics store lane, pod, global mesh, ingester with its
 operations surface, serving with the querier, and the server process
 with every ingest lane, the agent process, a node managed by the
 controller, a node whose L7 plugins the controller pushes, a node fed
-by the eBPF tracer front, and a node driven by the replay generator, on
+by the eBPF tracer front, a node driven by the replay generator, and the
+documented drives (examples/torch/ and the shipped server config), on
 one CUDA card.
 
     python3 chip_smoke.py [--seed S] [--window-records N] [--ramp-records N]
@@ -137,8 +138,8 @@ is printed):
    the CPU, every leaf and output equal;
 9. the multi-device suites on a mesh of 4 shards that share the card
    (parallel/mesh.py), global batches of 2^16 rows (2^14 per shard):
-   (a) ShardedFlowSuite at FlowSuiteConfig() over phase 3's two windows
-   through its four forms (columns, the full-row plane, the lanes plane,
+   (a) ShardedFlowSuite at FlowSuiteConfig() over the first half of each
+   of phase 3's two windows (the half is the cut) through its four forms (columns, the full-row plane, the lanes plane,
    the dict wire from FlowDictPacker with a replicated table of 2^20
    entries): at each window close the merged CMS, HLL, entropy and rows
    equal flow_suite.update on one device, recall >= 0.99, the table
@@ -229,8 +230,8 @@ is printed):
    `make_global_mesh` of 4 shards, each fed only its own half of every
    global batch of 2^16 rows (`process_local_batch`, or its half of the
    lane plane) of phase 9's rows: (a) ShardedFlowSuite at
-   FlowSuiteConfig(), columns, lanes and dict forms, over phase 3's two
-   windows (the dict form: each process runs phase 9's FlowDictPacker
+   FlowSuiteConfig(), columns, lanes and dict forms, over phase 9's halves
+   of phase 3's two windows (the dict form: each process runs phase 9's FlowDictPacker
    over the whole stream and passes the same full news and hits planes):
    at each window close every merged leaf and every output field in
    both processes equal to phase 9's single-process 4-shard suite, for
@@ -256,9 +257,9 @@ is printed):
    surface on its defaults: the timeline at 1.0 s with its SLO rules,
    `prom_port=0`, `debug_port=0`, a spill and an incident directory;
    windows closed by `flush_window(now)`) fed over loopback TCP with
-   frames built by the port's wire modules: the first half of each of
-   phase 3's two windows of l4 records (the half is the cut; window 0's
-   first 2^16 as TAGGEDFLOW protobuf records,
+   frames built by the port's wire modules: the first quarter of each of
+   phase 3's two windows of l4 records (the quarter is the cut; window 0's
+   first 2^15 as TAGGEDFLOW protobuf records,
    the rest as planar COLUMNAR_FLOW frames; the L4_SCHEMA columns phase
    3 does not draw from the seed), 2^15 l7 requests drawn as phase 8
    draws them (PROTOCOLLOG) and 2^15 Documents drawn as phase 10 draws
@@ -329,9 +330,9 @@ is printed):
    and AppSuiteConfig() with their windows closed by `flush_window(now)`,
    the RED lane's Prometheus le buckets every 8th gamma bound, a Store)
    on the card, fed over one loopback connection stream after stream:
-   phase 3's window 0 cut to 2^18 records as planar frames; 4 RED
+   phase 3's window 0 cut to 2^17 records as planar frames; 4 RED
    windows of 2^14 PROTOCOLLOG requests over all 1024 services
-   (log-normal rrt_us, a median per service); 2^14 OTel spans, half in
+   (log-normal rrt_us, a median per service); 2^13 OTel spans, half in
    zlib-compressed frames; PACKETSEQUENCE blocks of 2^12 flows;
    Prometheus remote write (1,024 series x 60 samples, one frame bare
    and snappy); Telegraf lines; proc and alarm events; profiles; syslog,
@@ -535,6 +536,23 @@ is printed):
    50,000 generated records (every 97th garbage, every 193rd from the
    31st without a Flow field, min-bad 500): exit 0; where the card
    host's g++ cannot link a sanitized probe, that and why are printed.
+23. the documented drives. (a) examples/torch/e2e_l4_topk.py's `run` at
+   the README's 50,000 records and the drive's defaults (--batch 8192,
+   --top-k 20, FlowSuiteConfig's widths) at --devices 1 and at 4 (four
+   shards sharing the card, as phase 9), each beside a CPU run of the
+   same drive: rows counted = 50,000 on both, every leaf of the flushed
+   window equal (integer leaves exact, float readouts within 1e-5), no
+   top-K estimate below its exact count; recall and records/s printed.
+   (b) examples/torch/all_in_one_demo.py's `run` on the card to "demo
+   OK" (its step 3b, a live AF_PACKET socket, not run here): non-empty
+   topk_flows and app_red answers, hist and news launched. (c)
+   server.Server on the card from the shipped manifests/server.yaml
+   (listeners on port 0, the store in a temporary directory, the sketch
+   and RED windows the file leaves commented set to 3600 s and closed by
+   hand), fed (a)'s TAGGEDFLOW stream over one connection: rows_in and
+   the l4 decoders' records = 50,000, no decode error, topk_flows over
+   the querier's HTTP with no count below its exact count, lane and news
+   launched. hist, lane and news launched during the phase.
 
 Phases 6 and 7's traced windows also hold the device-busy measure
 against torch.profiler: tpu_device_busy_fraction's spans over the
@@ -4570,7 +4588,8 @@ def check_global_mesh(torch, dev, windows, ref, tmp, card):
 
 # -- phase 13: the ingester entry point --------------------------------------
 
-ING_TAGGED = 1 << 16       # window 0's first records, as TAGGEDFLOW protobuf
+ING_TAGGED = 1 << 15       # window 0's first records, as TAGGEDFLOW protobuf
+#                            (cut from 2^16 for time)
 ING_L7 = 1 << 15           # phase 8's l7 requests, as PROTOCOLLOG (cut
 #                            from 2^17, then 2^16, for time)
 ING_DOC_TUPLES = 2048      # phase 10's tag tuples x seconds: 2^15 Documents,
@@ -6182,12 +6201,13 @@ def check_serving(torch, dev, rng, windows, card):
 
 # -- phase 16: the whole ingest surface and the server --------------------
 
-SRV_L4 = 1 << 18           # phase 3's window 0, cut, as planar frames
+SRV_L4 = 1 << 17           # phase 3's window 0, cut, as planar frames
 SRV_RED_WINDOWS = 4
 SRV_RED_RECORDS = 1 << 14  # l7 requests per RED window (cut from 2^18)
 SRV_RED_STEP = 15          # seconds between the RED windows' stamps
 SRV_PROM_BUCKETS = 8       # le bounds every 8th gamma bucket (g^8 ~ 1.38)
-SRV_OTEL_SPANS = 1 << 14   # half of them in zlib-compressed frames
+SRV_OTEL_SPANS = 1 << 13   # half of them in zlib-compressed frames (cut
+#                            from 2^14 for time)
 SRV_OTEL_PER_REQ = 256
 SRV_PSEQ_FLOWS = 1 << 12
 SRV_PROM_SERIES = 1024     # remote-write series x samples
@@ -10559,6 +10579,210 @@ def check_replay_node(torch, dev, rng, card):
     return r
 
 
+
+# -- phase 23: the documented drives -------------------------------------------
+
+DR_RECORDS = 50_000        # the README's e2e drive: --records 50000
+DR_DEVICES = (1, 4)        # --devices: one shard, then 4 sharing the card
+DR_BATCH = 8192            # the drive's --batch default
+DR_TOP_K = 20              # the drive's --top-k default
+DR_RTOL = 1e-5             # float readouts, the card against the CPU run
+DR_WAIT_S = 120
+
+
+def load_drive(name):
+    """A drive of examples/torch/ as a module (not a package)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"drive_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launch_counts():
+    return {k: c.launches for k, c in launch_counters().items()}
+
+
+def grown(before, what, wants):
+    """Launches since `before`; fail if a kernel of `wants` made none."""
+    now = launch_counts()
+    delta = {k: now[k] - before[k] for k in now}
+    for k in wants:
+        if delta[k] <= 0:
+            raise AssertionError(f"phase 23 {what}: kernel {k} never "
+                                 f"launched")
+    return delta
+
+
+def check_e2e_drive(torch, dev, e2e):
+    """(a) examples/torch/e2e_l4_topk.run at the README's 50,000 records
+    and the drive's defaults, on the card and on the CPU, at each
+    --devices of DR_DEVICES: rows counted = records on both, every
+    output leaf equal (integer leaves exact, float readouts within
+    DR_RTOL), no top-K estimate below its exact count. A shard's batch
+    below mxu_hist.MIN_LANES rows (8192 / 4 shards) takes the exact
+    scatter-add, not hist, as the reference's dispatch does."""
+    runs = {}
+    for n in DR_DEVICES:
+        before = launch_counts()
+        out, truth, rep = e2e.run(DR_RECORDS, n, DR_BATCH, DR_TOP_K, dev)
+        launches = grown(before, f"(a) --devices {n}", ())
+        cpu_out, _, cpu_rep = e2e.run(DR_RECORDS, n, DR_BATCH, DR_TOP_K,
+                                      "cpu")
+        label = f"(a) --devices {n}"
+        for where, r in (("the card", rep), ("the CPU", cpu_rep)):
+            if r["rows"] != DR_RECORDS or r["devices"] != n:
+                raise AssertionError(f"phase 23 {label}: {r['rows']} rows "
+                                     f"on {r['devices']} shards on {where}")
+        for name in out._fields:
+            x, y = getattr(out, name), getattr(cpu_out, name)
+            same = x.dtype == y.dtype and (
+                np.allclose(x, y, rtol=DR_RTOL, atol=0)
+                if x.dtype.kind == "f" else np.array_equal(x, y))
+            if not same:
+                raise AssertionError(f"phase 23 {label}: output {name} "
+                                     "differs from the CPU run's")
+        under = [(k, est, exact) for k, est, exact in rep["top"]
+                 if est < exact]
+        if under:
+            raise AssertionError(f"phase 23 {label}: top-K estimates below "
+                                 f"their exact counts: {under[:4]}")
+        runs[n] = {"records_per_s": rep["records_per_s"],
+                   "cpu_records_per_s": cpu_rep["records_per_s"],
+                   "seconds": rep["seconds"], "recall": rep["recall"],
+                   "batches": rep["batches"], "launches": launches}
+        log(f"  {label}: rows counted {rep['rows']} on the card and the "
+            f"CPU, every leaf equal; recall {rep['recall']:.3f}; "
+            f"{rep['records_per_s']:.0f} records/s on the card "
+            f"({cpu_rep['records_per_s']:.0f} on the CPU), "
+            f"{rep['batches']} batches of {DR_BATCH}; launches {launches}")
+    return runs
+
+
+def check_demo_drive(torch, dev):
+    """(b) examples/torch/all_in_one_demo.run on the card to "demo OK",
+    step 3b (a live AF_PACKET socket) not run: non-empty topk_flows and
+    app_red answers."""
+    import contextlib
+    import io
+    from deepflow_tpu_torch.agent import bpf
+    demo = load_drive("all_in_one_demo")
+    bpf_works = bpf.available()
+    available, bpf.available = bpf.available, lambda: False
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            answers = demo.run(dev)
+    finally:
+        bpf.available = available
+        for line in text.getvalue().splitlines():
+            log(f"  | {line}")
+    if text.getvalue().rstrip().splitlines()[-1] != "demo OK":
+        raise AssertionError("phase 23 (b): the demo did not end on demo OK")
+    if not answers["topk"]["values"] or not answers["red"]["values"]:
+        raise AssertionError("phase 23 (b): empty topk_flows or app_red "
+                             "answer")
+    return {"topk_rows": len(answers["topk"]["values"]),
+            "red_rows": len(answers["red"]["values"]),
+            "bpf_available": bpf_works}
+
+
+def check_shipped_server(torch, dev, e2e, tmp):
+    """(c) server.Server on the card from the shipped manifests/server.yaml
+    (listeners on port 0, the store in a temporary directory, the sketch
+    and RED windows that the file leaves commented at 3600 s, closed by
+    hand; every other key as shipped), fed the e2e drive's TAGGEDFLOW
+    stream over one connection: rows_in = records, no decode error, a
+    the l4 decoders' records = records with no decode error, a topk_flows
+    answer over the querier's HTTP with no count below its exact count."""
+    from deepflow_tpu_torch import server as srv_mod
+    cfg = srv_mod.load_config(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "manifests",
+        "server.yaml"))
+    cfg["controller"].update(port=0, grpc_port=0)
+    cfg["ingester"].update(port=0, debug_port=0,
+                           store_path=os.path.join(tmp, "store"),
+                           tpu_sketch_window_s=3600, app_red_window_s=3600)
+    cfg["querier"].update(port=0)
+    path = os.path.join(tmp, "server.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    cols, stream = e2e.encode(DR_RECORDS)
+    truth = e2e.exact_counts(cols)
+    server = srv_mod.Server(path, device=dev)
+    server.start()
+    try:
+        exp = server.ingester.tpu_sketch
+        t0 = time.perf_counter()
+        send_all(server.ingester.port, [stream])
+        wait_until(lambda: exp.rows_in >= DR_RECORDS,
+                   "phase 23 (c): the sketch's rows", DR_WAIT_S)
+        exp.flush_window()
+        server.ingester.flush()
+        dt = time.perf_counter() - t0
+        if exp.rows_in != DR_RECORDS:
+            raise AssertionError(f"phase 23 (c): rows_in {exp.rows_in}")
+        dc = [d.counters() for d in server.ingester.flow_log.decoders
+              if d.stream == "l4_flow_log"]
+        if sum(c["records"] for c in dc) != DR_RECORDS \
+                or any(c["decode_errors"] for c in dc):
+            raise AssertionError(f"phase 23 (c): l4 decoders {dc}")
+        rows = http_json(
+            f"http://127.0.0.1:{server.querier.port}/v1/query",
+            {"db": "tpu_sketch",
+             "sql": "SELECT flow_key, count FROM topk_flows ORDER BY count "
+                    f"DESC LIMIT {DR_TOP_K}"})["result"]["values"]
+    finally:
+        server.close()
+    if not rows or any(c < truth.get(k, 0) for k, c in rows):
+        raise AssertionError(f"phase 23 (c): topk_flows {rows[:4]}")
+    exact = sorted(truth, key=truth.get, reverse=True)[:DR_TOP_K]
+    recall = len({k for k, _ in rows} & set(exact)) / DR_TOP_K
+    log(f"  (c) the shipped server.yaml: {DR_RECORDS} TaggedFlow records "
+        f"in {dt:.2f} s from the first byte to the window flushed "
+        f"({DR_RECORDS / dt:.0f} records/s), rows_in and decoded records "
+        f"exact, no decode error, topk_flows recall {recall:.3f}")
+    return {"seconds": dt, "records_per_s": DR_RECORDS / dt,
+            "recall": recall}
+
+
+def check_drives(torch, dev, card):
+    """Phase 23: the documented drives on the card, (a) to (c); hist,
+    lane and news launched during the phase."""
+    t_phase = time.perf_counter()
+    zero_launches()
+    e2e = load_drive("e2e_l4_topk")
+    t0 = time.perf_counter()
+    r = {"e2e": check_e2e_drive(torch, dev, e2e)}
+    r["e2e_launches"] = grown({k: 0 for k in launch_counters()}, "(a)",
+                              ("hist",))
+    r["e2e_seconds"] = time.perf_counter() - t0
+    before, t0 = launch_counts(), time.perf_counter()
+    r["demo"] = check_demo_drive(torch, dev)
+    r["demo_launches"] = grown(before, "(b)",
+                               ("hist", "fused_news_hists"))
+    r["demo_seconds"] = time.perf_counter() - t0
+    before, t0 = launch_counts(), time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drives_") as tmp:
+        r["server"] = check_shipped_server(torch, dev, e2e, tmp)
+    r["server_launches"] = grown(before, "(c)",
+                                 ("fused_lane_hists", "fused_news_hists"))
+    r["server_seconds"] = time.perf_counter() - t0
+    r["launches"] = read_launches(
+        "phase 23", ("hist", "fused_lane_hists", "fused_news_hists"))
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"  on {card}: (a) {r['e2e_seconds']:.1f} s, (b) "
+        f"{r['demo_seconds']:.1f} s (demo OK; {r['demo']['topk_rows']} top "
+        f"flows, {r['demo']['red_rows']} RED rows; step 3b not run here, "
+        f"bpf(2) {'works' if r['demo']['bpf_available'] else 'refused'} on "
+        f"this host), (c) {r['server_seconds']:.1f} s; launches (a) "
+        f"{r['e2e_launches']}, (b) {r['demo_launches']}, (c) "
+        f"{r['server_launches']}; phase 23 {r['seconds']:.1f} s")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10665,8 +10889,12 @@ def main() -> int:
         log("phase 8: the L7 RED lane")
         red = check_red(torch, dev, rng, card, tmp)
         phase_done(8)
+    # phases 9, 11 and 12 run the first half of each window, phase 13 the
+    # first quarter (the cuts for the time budget: every check and path
+    # stays)
+    halves = [{k: v[:len(v) // 2] for k, v in w.items()} for w in windows]
     log("phase 9: the multi-device suites (4 shards on one card)")
-    shard, mesh_ref = check_sharded(torch, dev, rng9, windows, card,
+    shard, mesh_ref = check_sharded(torch, dev, rng9, halves, card,
                                     args.ramp_records, args.seed)
     phase_done(9)
     log("phase 10: the flow_metrics store lane and the rollup GROUP BY, "
@@ -10676,21 +10904,19 @@ def main() -> int:
         check_querier_sql(torch, dev, root, db, cols, t0, card))
     log(f"phase 15 (a): {querier['seconds']:.1f} s (inside phase 10)")
     phase_done(10)
-    # phases 11 and 13 run the first half of each window (the cut for
-    # the time budget: every check and path stays)
-    halves = [{k: v[:len(v) // 2] for k, v in w.items()} for w in windows]
     log("phase 11: the pod fault domains and the cross-host pod")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
         pod = check_pod(torch, dev, halves, card, tmp)
     phase_done(11)
     log("phase 12: the global mesh across processes")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        mesh = check_global_mesh(torch, dev, windows, mesh_ref, tmp, card)
+        mesh = check_global_mesh(torch, dev, halves, mesh_ref, tmp, card)
     del mesh_ref
     phase_done(12)
     log("phase 13: the ingester entry point over loopback TCP")
+    quarters = [{k: v[:len(v) // 4] for k, v in w.items()} for w in windows]
     ingest = check_ingester(torch, dev, np.random.default_rng((args.seed, 13)),
-                            halves, card,
+                            quarters, card,
                             ingester["dict_feed"]["records_per_s"])
     phase_done(13)
     log("phase 14: the operations surface under injected faults")
@@ -10742,6 +10968,11 @@ def main() -> int:
     replay_node = check_replay_node(
         torch, dev, np.random.default_rng((args.seed, 22)), card)
     phase_done(22)
+    log("phase 23: the documented drives (examples/torch/e2e_l4_topk.py at "
+        "--devices 1 and 4 against the CPU, the all-in-one demo, the "
+        "shipped server.yaml)")
+    drives = check_drives(torch, dev, card)
+    phase_done(23)
     log(f"phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", {time.perf_counter() - t_run:.1f} s in all")
 
@@ -10754,7 +10985,7 @@ def main() -> int:
                server["launches"], agent["launches"],
                agent_proc["launches"], managed["launches"],
                plugin_node["launches"], ebpf_node["launches"],
-               replay_node["launches"]]:
+               replay_node["launches"], drives["launches"]]:
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     for entry in kernels:
@@ -10774,7 +11005,7 @@ def main() -> int:
         "serving": serving, "server": server, "agent": agent,
         "agent_process": agent_proc, "managed_node": managed,
         "plugin_node": plugin_node, "ebpf_node": ebpf_node,
-        "replay_node": replay_node, "gate": gate,
+        "replay_node": replay_node, "drives": drives, "gate": gate,
         "phase_seconds": phase_s,
         "kernel_inputs": extra, "full_row_update_kernels": update_kernels,
         "card": card}))

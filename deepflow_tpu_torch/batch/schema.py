@@ -1,7 +1,9 @@
 """The decoded columnar schemas: L4_SCHEMA (104 columns of the
 reference's l4_flow_log families), L7_SCHEMA (73 columns of l7_flow_log)
 and METRIC_SCHEMA (the agent's 1 s metrics Documents), as the decoders
-hand them to the exporters and the store.
+hand them to the exporters and the store; and the sketch wire contracts:
+SKETCH_L4_SCHEMA (the columns the l4 sketch step reads) and the lanes,
+dict hits and dict news planes.
 
 Copies of the JAX package's batch/schema.py schemas (this package imports
 none of it). Strings travel as u32 content hashes, IPv6 addresses fold to
@@ -15,7 +17,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from deepflow_tpu_torch.batch.batcher import Schema
+from deepflow_tpu_torch.batch.batcher import SKETCH_L4_SCHEMA, Schema
+
+__all__ = ["Schema", "L4_SCHEMA", "L7_SCHEMA", "METRIC_SCHEMA",
+           "SKETCH_L4_SCHEMA", "SKETCH_LANES_SCHEMA", "SKETCH_HITS_SCHEMA",
+           "SKETCH_NEWS_SCHEMA"]
 
 _U32 = np.dtype(np.uint32)
 _I32 = np.dtype(np.int32)
@@ -175,6 +181,29 @@ L4_SCHEMA = Schema(
              + _L4_APP + _L4_INTERNET + _L4_FLOWINFO + _L4_METRICS
              + _L4_WIDE64),
 )
+
+# The packed sketch-lane wire: the 7 sketch-consumed columns folded into
+# 4 uint32 planes at the sender (models/flow_suite.py pack_lanes /
+# unpack_lanes), 16 B a record against the 68 B sketch row.
+SKETCH_LANES_SCHEMA = Schema(
+    name="l4_sketch_lanes",
+    columns=(("ip_src", _U32), ("ip_dst", _U32),
+             ("ports", _U32), ("proto_pkts", _U32)))
+
+# The dictionary-lane wire (models/flow_dict.py): a flow's 5-tuple
+# crosses once, as a news row (dictionary index, the four lane key
+# words, the first packet count: 24 B); every later record of the flow
+# rides the pairs-packed hits plane, two records per three u32 words
+# {idx_a, idx_b, pkts_a | pkts_b << 16} (6 B a record; packet counts
+# saturate at 65535 on this wire).
+SKETCH_HITS_SCHEMA = Schema(
+    name="l4_sketch_hits_pairs",
+    columns=(("idx_a", _U32), ("idx_b", _U32), ("pkts_ab", _U32)))
+
+SKETCH_NEWS_SCHEMA = Schema(
+    name="l4_sketch_news",
+    columns=(("idx", _U32), ("ip_src", _U32), ("ip_dst", _U32),
+             ("ports", _U32), ("proto", _U32), ("pkts", _U32)))
 
 # -- L7 flow log -----------------------------------------------------------
 # Reference: log_data/l7_flow_log.go L7Base + L7FlowLog :187-286. String

@@ -1,8 +1,9 @@
-"""deepflow_tpu_torch, chip_smoke.py and chip_pod_probe.py stand alone: no
-import of jax or of the deepflow_tpu package (host-only helpers are kept
-as the port's own copies), no path to a source or library file under
-deepflow_tpu/ (the native decoder builds the port's own copy), and
-chip_smoke.py refuses to report a result without a card."""
+"""deepflow_tpu_torch, its drives under examples/torch/, chip_smoke.py and
+chip_pod_probe.py stand alone: no import of jax or of the deepflow_tpu
+package (host-only helpers are kept as the port's own copies), no path to
+a source or library file under deepflow_tpu/ (the native decoder builds
+the port's own copy), and chip_smoke.py refuses to report a result
+without a card."""
 
 import ast
 import os
@@ -16,6 +17,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "deepflow_tpu_torch").rglob("*.py")) \
+    + sorted((REPO / "examples" / "torch").glob("*.py")) \
     + [REPO / "chip_smoke.py", REPO / "chip_pod_probe.py"]
 
 
@@ -86,6 +88,8 @@ def test_port_files_found():
             "socket_trace.py", "perf_ring.py", "ebpf_source.py",
             "uprobe_trace.py", "http2_trace.py"} <= agent
     assert (REPO / "deepflow_tpu_torch" / "cli.py") in PORT_FILES
+    for drive in ("e2e_l4_topk.py", "all_in_one_demo.py"):
+        assert (REPO / "examples" / "torch" / drive) in PORT_FILES
     for src in ("df_plugin.h", "memcached_plugin.cc"):
         assert (REPO / "deepflow_tpu_torch" / "agent" / "native_src"
                 / src).is_file()
