@@ -464,7 +464,7 @@ def cmd_trace(args) -> int:
         # occupancy timeline -> Chrome-trace/Perfetto JSON (loads in
         # ui.perfetto.dev / chrome://tracing)
         out = debug_request("trace-export", port=port,
-                            limit=args.count or 350)
+                            limit=args.count or 175)
         if not out.get("ok"):
             print(f"error: {out.get('error')}", file=sys.stderr)
             return 1
@@ -1075,8 +1075,8 @@ def build_parser() -> argparse.ArgumentParser:
                                     "spans exact)")
     tr.add_argument("--count", type=int, default=None,
                     help="spans: max spans to list (default 20); "
-                         "export: max events (default and cap 350 — "
-                         "the one-datagram budget)")
+                         "export: max events of each ring (default and "
+                         "cap 175 — the one-datagram budget)")
     tr.add_argument("--slow-ms", type=float, default=None,
                     help="spans: only spans slower than this")
     tr.add_argument("--out", default="-",

@@ -33,6 +33,17 @@ float64 running counters, the +Inf bucket and the counter reset past
 A kernel that cannot be built or launched raises `KernelError`; it is
 kept, and every later `process` and `flush_window` raises it.
 
+Stages (always on, runtime/tracing.py; in `counters()` as
+`<stage>_count` and `<stage>_sum_s`, dots as underscores). The worker,
+per chunk list: `red.cut` (`coerce_to_schema` and the Batcher's cut),
+`red.lock_wait` (taking the state lock); per batch: `red.stage` (the
+pinned buffer, the word pack and the copy's enqueue) and `red.update`
+(the suite's update, which launches its kernels). The window close:
+`red.close.lock_wait`, `red.close.drain` (the Batcher's open batch),
+`red.close.readout` (the flush and its read-back, handed to the
+caller's stream), `red.close.store` (the rows into the writers) and
+the whole, `red.close`.
+
 With `stats=` the exporter's counters register with a `StatsRegistry`
 as `exporter.app_red`.
 """
@@ -217,22 +228,42 @@ class AppRedExporter(QueueWorkerExporter):
     # -- data path -----------------------------------------------------------
     def process(self, chunks: List[Any]) -> None:
         """Queue worker: decoded (stream, idx, cols, batch_id) chunks ->
-        static batches -> device, under the lock the window flush takes."""
+        static batches -> device, under the lock the window flush takes.
+        `red.cut` and `red.lock_wait` are stages of the chunk list: each
+        the sum over its chunks, its ring entry from the list's start."""
+        clock = time.perf_counter
+        start = clock()
+        cut = wait = 0.0
+        rows = 0
         for _stream, _idx, cols, *_rest in chunks:
+            t0 = clock()
             schema_cols = self.coerce_to_schema(cols, _RED_SCHEMA)
             n = len(next(iter(schema_cols.values())))
+            t1 = clock()
             with self._state_lock:
+                t2 = clock()
                 self._raise_kernel_error()
+                # the cut runs inside the Batcher's generator, between
+                # the batches it yields: the batches' own time is theirs
                 for tb in self.batcher.put(schema_cols):
-                    self._run_batch_locked(tb)
+                    cut -= self._run_batch_locked(tb)
                 self.rows_in += n
+                t3 = clock()
+            cut += t1 - t0 + t3 - t2
+            wait += t2 - t1
+            rows += n
+        self._tracer.stage_run(self.name, rows, (
+            ("red.cut", start, start + cut),
+            ("red.lock_wait", start, start + wait)))
 
     def _raise_kernel_error(self) -> None:
         if self._kernel_error is not None:
             raise self._kernel_error
 
-    def _run_batch_locked(self, tb: TensorBatch) -> None:
-        """One batch: pack its columns, one copy, one update."""
+    def _run_batch_locked(self, tb: TensorBatch) -> float:
+        """One batch: pack its columns, one copy, one update; its
+        seconds, the stages `red.stage` and `red.update`."""
+        t0 = time.perf_counter()
         cuda = self._stream is not None
         host = torch.empty((len(_RED_SCHEMA.columns), tb.capacity),
                            dtype=torch.int32, pin_memory=cuda)
@@ -245,12 +276,17 @@ class AppRedExporter(QueueWorkerExporter):
             dev = host.to(self.device, non_blocking=True) if cuda else host
             self.h2d_transfers += 1
             cols = dict(zip(_RED_SCHEMA.names, dev))
+            t1 = time.perf_counter()
             try:
                 self.state = app_suite.update(self.state, cols,
                                               self._lanes < valid, self.cfg)
             except KernelError as e:
                 self._kernel_error = e
                 raise
+        t2 = time.perf_counter()
+        self._tracer.stage_run(self.name, valid, (("red.stage", t0, t1),
+                                                  ("red.update", t1, t2)))
+        return t2 - t0
 
     # -- windows -------------------------------------------------------------
     def flush_window(self, now: Optional[float] = None
@@ -258,10 +294,13 @@ class AppRedExporter(QueueWorkerExporter):
         """Ship the buffered rows, read the window out and start a fresh
         state; with a store, write the window's rows."""
         now = time.time() if now is None else now
+        t_close = time.perf_counter()
         with self._state_lock:
+            t0 = time.perf_counter()
             self._raise_kernel_error()
             for tb in self.batcher.flush():
                 self._run_batch_locked(tb)
+            t1 = time.perf_counter()
             self.windows += 1
             with self._on_stream():
                 self.state, out = app_suite.flush(self.state, self.cfg)
@@ -278,10 +317,18 @@ class AppRedExporter(QueueWorkerExporter):
             for t in out:
                 t.record_stream(caller)
         self.last_output = out
+        t2 = time.perf_counter()
+        spans = [("red.close.lock_wait", t_close, t0),
+                 ("red.close.drain", t0, t1),
+                 ("red.close.readout", t1, t2)]
         if host is not None:
             self._write_output(*host, int(now))
-        if sketch is not None:
-            self._write_buckets(*sketch, int(now))
+            if sketch is not None:
+                self._write_buckets(*sketch, int(now))
+            t1, t2 = t2, time.perf_counter()
+            spans.append(("red.close.store", t1, t2))
+        spans.append(("red.close", t_close, t2))
+        self._tracer.stage_run(self.name, 0, spans)
         return out
 
     def _readout(self, out: app_suite.AppWindowOutput):

@@ -6,8 +6,8 @@ Requests and replies are single-datagram JSON: {"cmd": ...} in,
 {"ok": ..., "data": ...} out. Built-in commands: `ping`, `counters`
 (the Countable registry), `stacks` (every thread's Python stack),
 `latency`, `spans`, `rrt` (the flight recorder), `supervisor` (the
-supervision tree), `trace-export` (the profiler's span ring as a
-Chrome trace), `lint` (the port's analyzer over the installed port
+supervision tree), `trace-export` (the profiler's span ring and the
+tracer's stages as a Chrome trace), `lint` (the port's analyzer over the installed port
 package); the Ingester registers its own. The replies are the JAX
 package's.
 """
@@ -81,15 +81,16 @@ class DebugServer:
 
     @staticmethod
     def _trace_export(req: dict) -> dict:
-        """The occupancy profiler's span ring as a Chrome-trace /
-        Perfetto JSON timeline (`df-ctl trace export`). `limit` caps
-        the newest events so the reply fits the one-datagram budget:
-        a serialized X event runs ~130-145B (epoch-microsecond floats
-        are 18-19 chars), so 350 events + track metadata + the
-        occupancy wrapper stays comfortably under 65000B."""
+        """The occupancy profiler's span ring and the tracer's stages as
+        a Chrome-trace / Perfetto JSON timeline (`df-ctl trace export`).
+        `limit` caps the newest events of each ring so the reply fits
+        the one-datagram budget: a serialized occupancy event runs
+        ~130-145B and a stage ~165-200B (epoch-microsecond floats are
+        18-19 chars), so 175 of each + track metadata + the occupancy
+        wrapper stays under 65000B."""
         from deepflow_tpu_torch.runtime.profiler import default_profiler
 
-        limit = max(0, min(int(req.get("limit", 350)), 350))
+        limit = max(0, min(int(req.get("limit", 175)), 175))
         prof = default_profiler()
         return {"trace": prof.to_chrome_trace(limit=limit),
                 "spans_recorded": prof.counters()["spans"],

@@ -11,9 +11,11 @@ counted) and drains them on supervised worker threads into the
 subclass's `process(chunks)`.
 
 With `stats=` the exporter's counters register with a `StatsRegistry` as
-`exporter.<name>`. With the process tracer on, a chunk carries the
-enqueuing thread's batch id across the queue, and the worker pins it
-and records each drained batch as an `export` span.
+`exporter.<name>`. Each drained batch's `process` call is the
+always-on tracer stage `export` under the exporter's name, and
+`counters()` carries the totals of every stage recorded under that name
+(runtime/tracing.py). With the process tracer on, a chunk carries the
+enqueuing thread's batch id across the queue, and the worker pins it.
 """
 
 from __future__ import annotations
@@ -238,14 +240,13 @@ class QueueWorkerExporter:
                         faults.maybe_raise(FAULT_EXPORTER_PROCESS,
                                            key=self.name)
                     if tracer.enabled:
-                        rows = sum(len(next(iter(c[2].values())))
-                                   if c[2] else 0 for c in chunks)
                         tracer.set_batch(chunks[0][3])
-                        with tracer.span("export", stream=self.name,
-                                         batch_id=chunks[0][3], rows=rows):
-                            self.process(chunks)
-                    else:
-                        self.process(chunks)
+                    t0 = time.perf_counter()
+                    self.process(chunks)
+                    tracer.stage("export", t0, time.perf_counter(),
+                                 sum(len(next(iter(c[2].values())))
+                                     if c[2] else 0 for c in chunks),
+                                 self.name)
                 except Exception:
                     self.process_errors += 1
                 else:
@@ -257,4 +258,5 @@ class QueueWorkerExporter:
         c = self.queue.counters()
         c["processed"] = self.processed
         c["process_errors"] = self.process_errors
+        c.update(self._tracer.stage_counters(self.name))
         return c

@@ -19,7 +19,12 @@ reduced into live gauges:
   nothing in flight before work arrived: the device starved by the host.
 
 The ring exports as a Chrome-trace / Perfetto JSON timeline
-(`to_chrome_trace`). Recording is one tuple store per span (group
+(`to_chrome_trace`), with the process tracer's ring beside it: one track
+per program thread, holding the stages every thread records
+(runtime/tracing.py). Given the `baseTimeNanoseconds` of a
+`torch.profiler` trace of the same process, the export takes that
+trace's timebase, so the program's stages lie over its kernels and
+copies. Recording is one tuple store per span (group
 granularity, never per record), written without a lock like the
 tracer's ring; the profiler never waits on the device itself, it only
 timestamps waits that already happen (fences, the sampled drains).
@@ -57,7 +62,9 @@ class OccupancyProfiler:
     """Bounded span ring and its occupancy reductions; one per process
     (`default_profiler`), spans of two exporters told apart by name."""
 
-    def __init__(self, ring: int = 8192) -> None:
+    def __init__(self, ring: int = 8192, tracer=None) -> None:
+        # the tracer whose ring the trace export lays beside this one
+        self.tracer = tracer
         self._ring: List[Optional[tuple]] = [None] * ring
         self._cap = ring
         self._n = 0                         # spans recorded, ever
@@ -142,28 +149,46 @@ class OccupancyProfiler:
         }
 
     # -- trace export --------------------------------------------------------
-    def to_chrome_trace(self, limit: Optional[int] = None) -> dict:
+    def to_chrome_trace(self, limit: Optional[int] = None,
+                        base_ns: Optional[int] = None) -> dict:
         """The ring as a Chrome-trace / Perfetto JSON object: complete
-        "X" events in microseconds, one tid per track; `limit` keeps the
-        newest N events."""
-        spans = self._snapshot()
-        if limit is not None and len(spans) > limit:
-            spans = spans[len(spans) - max(0, limit):]
-        tids = {t: i + 1 for i, t in enumerate(_TRACKS)}
+        "X" events in microseconds, one tid per track (pid 1), and the
+        tracer's ring, one tid per program thread (pid 2). `ts` is the
+        wall clock in microseconds, less `base_ns` / 1000 when given (a
+        Kineto trace's `baseTimeNanoseconds`: its own timebase). `limit`
+        keeps the newest N events of each ring."""
+        base_us = 0.0 if base_ns is None else base_ns / 1e3
+        rings = [[(t_end - dur, 1, track, name, track, dur, {"rows": rows})
+                  for track, name, t_end, dur, rows in self._snapshot()]]
+        if self.tracer is not None:
+            rings.append([(wall0, 2, thread, stage, "stage", dur,
+                           {"stream": stream, "batch_id": batch_id,
+                            "rows": rows})
+                          for stage, stream, batch_id, wall0, dur, rows,
+                          thread in self.tracer.ring()])
+        if limit is not None:
+            rings = [r[len(r) - min(len(r), max(0, limit)):] for r in rings]
+        spans = sorted((s for r in rings for s in r), key=lambda s: s[0])
+        tids = {(1, t): i + 1 for i, t in enumerate(_TRACKS)}
         events: List[dict] = []
-        for track in sorted({s[0] for s in spans},
-                            key=lambda t: tids.get(t, 99)):
+        for pid, name in ((1, "occupancy"), (2, "program threads")):
+            if any(s[1] == pid for s in spans):
+                events.append({"name": "process_name", "ph": "M",
+                               "pid": pid, "args": {"name": name}})
+        for pid, track in sorted({(s[1], s[2]) for s in spans},
+                                 key=lambda k: (k[0], tids.get(k, 99),
+                                                k[1])):
             events.append({
-                "name": "thread_name", "ph": "M", "pid": 1,
-                "tid": tids.setdefault(track, len(tids) + 1),
+                "name": "thread_name", "ph": "M", "pid": pid,
+                "tid": tids.setdefault((pid, track), len(tids) + 1),
                 "args": {"name": track},
             })
-        for track, name, t_end, dur, rows in spans:
+        for start, pid, track, name, cat, dur, args in spans:
             events.append({
-                "name": name, "cat": track, "ph": "X",
-                "ts": (t_end - dur) * 1e6, "dur": dur * 1e6, "pid": 1,
-                "tid": tids.setdefault(track, len(tids) + 1),
-                "args": {"rows": rows},
+                "name": name, "cat": cat, "ph": "X",
+                "ts": round(start * 1e6 - base_us, 3),
+                "dur": round(dur * 1e6, 3), "pid": pid,
+                "tid": tids[(pid, track)], "args": args,
             })
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
@@ -257,5 +282,6 @@ def default_profiler() -> OccupancyProfiler:
     global _default
     with _default_lock:
         if _default is None:
-            _default = OccupancyProfiler()
+            from deepflow_tpu_torch.runtime.tracing import default_tracer
+            _default = OccupancyProfiler(tracer=default_tracer())
         return _default

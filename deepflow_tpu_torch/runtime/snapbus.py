@@ -137,10 +137,22 @@ class SnapshotBus:
         FlowSuiteState goes through `convert.state_to_numpy`, any other
         state is taken as its list of host leaves (the anomaly plane's
         AlertSnapshot). `to_disk=False` skips the file."""
+        return self.publish_host(self.host_leaves(state), step, wall_time,
+                                 tags, to_disk)
+
+    @staticmethod
+    def host_leaves(state: Any) -> tuple:
+        """`publish`'s copy of `state` to host numpy."""
         if isinstance(state, FlowSuiteState):
-            leaves = tuple(convert.state_to_numpy(state))
-        else:
-            leaves = tuple(np.array(a) for a in state)
+            return tuple(convert.state_to_numpy(state))
+        return tuple(np.array(a) for a in state)
+
+    def publish_host(self, leaves: tuple, step: int,
+                     wall_time: Optional[float] = None,
+                     tags: Optional[Dict[str, Any]] = None,
+                     to_disk: bool = True) -> SketchSnapshot:
+        """`publish` of leaves already copied by `host_leaves`, as they
+        are (the exporter's close times the copy and the rest apart)."""
         with self._lock:
             self._seq += 1
             seq = self._seq

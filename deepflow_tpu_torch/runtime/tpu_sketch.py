@@ -138,7 +138,23 @@ retires (the feed) or by a synchronize of the sampled group's last event
 (the inline path, as the reference's sampled drain): the feed path makes
 no sync of its own for the recorder. On the CPU the program runs inside
 the call, whose wall time is both its dispatch and its device time. A
-window flush is a `window` span and a `window` profiler record; `stats=`
+window flush is a `window` span and a `window` profiler record, from the
+one timing of the always-on `l4.close` stage.
+
+Stages (always on, runtime/tracing.py; in `counters()` as
+`<stage>_count` and `<stage>_sum_s`, dots as underscores). The worker's
+`process`, per chunk: `l4.coerce` (`coerce_to_schema`), `l4.keymap`
+(the sampled key map), `l4.lock_wait` (taking `_state_lock`), `l4.pack`
+(the stager's packing, or the batcher's cut), `l4.feed_put` (handing
+groups to the feed, blocked while its queue is full), `l4.audit` (the
+auditor's `absorb`). The feed thread: `l4.dispatch`, each group's copy
+enqueue and program launches (inline, the worker's dispatch). The window
+close: `l4.close.lock_wait`, `l4.close.drain` (the stager or batcher
+flush and the feed's drain), `l4.close.snapshot_copy` and
+`l4.close.snapshot_write` (the snapshot's host copy, then its file and
+subscribers: a close's publish only), `l4.close.readout` (the
+flush, its host copy and the lanes' close), `l4.close.store` (the rows
+into the writers) and the whole, `l4.close`. `stats=`
 registers the exporter's counters (`exporter.tpu_sketch`), the
 auditor's (`tpu_sketch_accuracy`) and the anomaly plane's (`anomaly`)
 with a `StatsRegistry`.
@@ -636,33 +652,68 @@ class TpuSketchExporter(QueueWorkerExporter):
     def process(self, chunks: List[Any]) -> None:
         """Queue worker: decoded (stream, idx, cols, batch_id) chunks ->
         static batches -> device. Holds _state_lock across the batcher
-        or stager and the state: the window flush takes the same lock."""
+        or stager and the state: the window flush takes the same lock.
+        Each step of a chunk is a stage, timed end to end: those ahead
+        of the lock recorded before it is taken, the rest after it is
+        let go."""
+        run, name = self._tracer.stage_run, self.name
+        clock = time.perf_counter
         for _stream, _idx, cols, *_rest in chunks:
+            t0 = clock()
             schema_cols = self.coerce_to_schema(cols, SKETCH_L4_SCHEMA)
+            rows = len(next(iter(schema_cols.values())))
+            t1 = clock()
+            spans = [("l4.coerce", t0, t1)]
             if self._stager is not None or self._pod is not None:
                 # the staged words and the pod's lane planes carry no tuple
                 # columns: the reverse map samples the decoded chunk,
                 # outside the lock
                 self._record_key_tuples(schema_cols)
+                t0, t1 = t1, clock()
+                spans.append(("l4.keymap", t0, t1))
+            run(name, rows, spans)
+            spans = []
             with self._state_lock:
+                t0, t1 = t1, clock()
+                spans.append(("l4.lock_wait", t0, t1))
                 self._raise_kernel_error()
                 if self._pod is not None:
                     # put_lanes never blocks (a slow or LOST shard drops
-                    # counted on its own queue)
+                    # counted on its own queue); the lane planes' packing
+                    # and the fan-out are one stage
                     for tb in self.batcher.put(schema_cols):
                         self._pod_submit_locked(tb)
+                    t0, t1 = t1, clock()
+                    spans.append(("l4.pack", t0, t1))
                 elif self._stager is not None:
                     # the stager is private state guarded by this lock;
                     # a full feed queue is back-pressure, not deadlock
-                    for sg in self._stager.put(schema_cols):
-                        self._feed.put(sg, self._tracer.current_batch()
-                                       if self._tracer.enabled else -1)
+                    groups = self._stager.put(schema_cols)
+                    t0, t1 = t1, clock()
+                    spans.append(("l4.pack", t0, t1))
+                    if groups:
+                        for sg in groups:
+                            self._feed.put(sg, self._tracer.current_batch()
+                                           if self._tracer.enabled else -1)
+                        t0, t1 = t1, clock()
+                        spans.append(("l4.feed_put", t0, t1))
                 else:
+                    # the batcher's cut is `l4.pack`; each batch's
+                    # hand-off to the feed `l4.feed_put`, inline its
+                    # dispatch `l4.dispatch`
+                    hand = "l4.feed_put" if self._feed is not None \
+                        else "l4.dispatch"
+                    t0 = t1
                     for tb in self.batcher.put(schema_cols):
+                        t1 = clock()
+                        spans.append(("l4.pack", t0, t1))
                         self._submit_batch_locked(tb)
+                        t0 = clock()
+                        spans.append((hand, t1, t0))
+                    t1 = clock()
+                    spans.append(("l4.pack", t0, t1))
                 # counted once handed to the device path: a processed
                 # watermark (every flush drains the feed first)
-                rows = len(next(iter(schema_cols.values())))
                 self.rows_in += rows
                 # the lanes' mirrors move at the same boundary, so
                 # anomaly.rows_seen == rows_in and the audit window is
@@ -671,6 +722,8 @@ class TpuSketchExporter(QueueWorkerExporter):
                     self._anomaly.observe_rows(rows)
                 if self._audit is not None:
                     self._audit.absorb(schema_cols)
+                    spans.append(("l4.audit", t1, clock()))
+            run(name, rows, spans)
 
     def _pod_submit_locked(self, tb: TensorBatch) -> None:
         """One TensorBatch onto the pod lane: pack the (4, batch_rows)
@@ -1105,6 +1158,7 @@ class TpuSketchExporter(QueueWorkerExporter):
             return None
         rows = sum(int(item.valid) for item, _ in group)
         tr = self._tracer
+        t0 = time.perf_counter()
         try:
             with self._on_stream():
                 if not tr.enabled:
@@ -1120,6 +1174,9 @@ class TpuSketchExporter(QueueWorkerExporter):
         except RuntimeError:
             self._on_device_error_locked(rows)
             return None
+        finally:
+            tr.stage("l4.dispatch", t0, time.perf_counter(), rows,
+                     self.name)
 
     def _feed_process_group(self, group) -> Optional[InFlight]:
         """The TensorBatch feed: a group of up to `coalesce_batches`
@@ -1366,14 +1423,12 @@ class TpuSketchExporter(QueueWorkerExporter):
         and read it out. None when no output was made (an idle degraded
         window, or a readout that died on the device)."""
         now = time.time() if now is None else now
-        tr = self._tracer
         t0 = time.perf_counter()
-        if not tr.enabled:
-            out = self._flush_window(now)
-        else:
-            with tr.span("window", stream=self.wire):
-                out = self._flush_window(now)
-        self._prof.record("window", "flush", time.perf_counter() - t0)
+        out = self._flush_window(now)
+        t1 = time.perf_counter()
+        self._tracer.stage("l4.close", t0, t1, stream=self.name)
+        self._tracer.observe("window", t1 - t0, stream=self.wire, t0=t0)
+        self._prof.record("window", "flush", t1 - t0)
         return out
 
     def _flush_window(self, now: float) -> Optional[
@@ -1387,7 +1442,11 @@ class TpuSketchExporter(QueueWorkerExporter):
             self._hand_to_caller(out)
             self.last_output = out
             return out
+        stage, name = self._tracer.stage, self.name
+        t0 = time.perf_counter()
         with self._state_lock:
+            t1 = time.perf_counter()
+            stage("l4.close.lock_wait", t0, t1, stream=name)
             if self._stager is not None:
                 # the open staging prefix ships as it is
                 for sg in self._stager.flush():
@@ -1408,28 +1467,35 @@ class TpuSketchExporter(QueueWorkerExporter):
                 elif self._dict_packer is None:
                     with self._on_stream():
                         self._ship_lanes_locked()
+            stage("l4.close.drain", t1, time.perf_counter(), stream=name)
             self._raise_kernel_error()
             self.windows += 1
             was_degraded = self.degraded
             with self._on_stream():
                 if self.degraded:
+                    t1 = time.perf_counter()
                     out = None if self._host is None \
                         else self._host.flush(self.cfg)
                     self._rows_at_flush = self.rows_in
                     self._probe_device_locked()
                 else:
-                    out = self._publish_and_flush_locked(now)
+                    self._publish_locked(now)
+                    t1 = time.perf_counter()
+                    out = self._flush_state_locked()
                 host_out = self._host_copy(out)
                 self._close_lanes_locked(out, host_out, now, was_degraded,
                                          self._window_lost_counted)
             # the lost-window guard resets at the true window boundary
             self._window_lost_counted = False
+            stage("l4.close.readout", t1, time.perf_counter(), stream=name)
         if self._anomaly is not None:
             self._anomaly.publish_pending()     # emissions: no lock held
         if out is None:
             return None
         if self.topk_writer is not None:
+            t1 = time.perf_counter()
             self._write_output(host_out, int(now))
+            stage("l4.close.store", t1, time.perf_counter(), stream=name)
         self._hand_to_caller(out)
         self.last_output = out
         return out
@@ -1469,7 +1535,7 @@ class TpuSketchExporter(QueueWorkerExporter):
             self._anomaly.publish_pending()     # emissions: no lock held
         return res.out, host_out
 
-    def _publish_and_flush_locked(self, now: float):
+    def _publish_locked(self, now: float) -> None:
         # publish the PRE-flush state (the window's accumulation; a
         # restore replays it at least once): to disk on the cadence when
         # the window is dirty, to subscribers on every dirty window,
@@ -1478,11 +1544,21 @@ class TpuSketchExporter(QueueWorkerExporter):
         want_disk = (self.checkpointer is not None and dirty
                      and self.windows % self.checkpoint_every == 0)
         if want_disk or (dirty and self._snapbus.has_subscribers()):
-            self._snapbus.publish(
-                self.state, self.windows, wall_time=now,
+            t0 = time.perf_counter()
+            leaves = self._snapbus.host_leaves(self.state)
+            t1 = time.perf_counter()
+            self._snapbus.publish_host(
+                leaves, self.windows, wall_time=now,
                 tags={"lossy": self._window_lost_counted},
                 to_disk=want_disk)
+            self._tracer.stage_run(self.name, 0, (
+                ("l4.close.snapshot_copy", t0, t1),
+                ("l4.close.snapshot_write", t1, time.perf_counter())))
         self._rows_at_flush = self.rows_in
+
+    def _flush_state_locked(self):
+        """The window's readout and a fresh state; None when the readout
+        died on the device."""
         try:
             self.state, out = flow_suite.flush(self.state, self.cfg)
         except RuntimeError:

@@ -20,6 +20,10 @@
   on the same samples; a disabled tracer allocates no span.
 - `stats=` registers the same modules with a `StatsRegistry` as the
   reference's, and the registries read the same counters.
+- The port's always-on stages: written with the tracer off, summing to
+  their whole close and worker call on CPU runs of both exporters,
+  counting a held state lock, and exported onto a `torch.profiler`
+  trace's timebase.
 """
 
 import tracemalloc
@@ -113,6 +117,14 @@ def test_feed_totals_stages_and_gauges_match_jax(tracers, wire):
     assert {k: tc[k] for k in TOTALS} == {k: jc[k] for k in TOTALS}
     assert tc["dispatches"] == tc["h2d_transfers"] > 0
     stages = set(ttr.latency())
+    # the port's own always-on stages (enabled, they feed the sketches
+    # too) besides the reference's
+    own = {s for s in stages if s.startswith("l4.")}
+    assert {"l4.coerce", "l4.keymap", "l4.lock_wait", "l4.pack",
+            "l4.feed_put", "l4.audit", "l4.dispatch", "l4.close",
+            "l4.close.lock_wait", "l4.close.drain",
+            "l4.close.readout"} <= own
+    stages -= own
     assert stages == set(jtr.latency())
     assert {"kernel", "kernel.h2d", "kernel.dispatch", "kernel.device",
             "kernel.compile", "window"} <= stages
@@ -267,11 +279,15 @@ def test_sharded_suite_spans_match_jax(tracers):
     assert ttr.latency()["shard.update"]["count"] == 3
     assert ttr.latency()["shard.h2d"]["count"] == 1     # 1 put in 16
     assert set(ttr.gauges()) == set(jtr.gauges()) == {"mesh_h2d_mb_s"}
-    names = {e["name"] for e in profiler.default_profiler()
-             .to_chrome_trace()["traceEvents"] if e["ph"] == "X"}
+    events = profiler.default_profiler().to_chrome_trace()["traceEvents"]
+    names = {e["name"] for e in events if e["ph"] == "X" and e["pid"] == 1}
     jnames = {e["name"] for e in jprofiler.default_profiler()
               .to_chrome_trace()["traceEvents"] if e["ph"] == "X"}
     assert names == jnames == {"shard:ShardedFlowSuite"}
+    # the port's export also lays the tracer's spans out by thread
+    assert {e["name"] for e in events if e["ph"] == "X"
+            and e["pid"] == 2} == {"shard.h2d", "shard.update",
+                                   "shard.flush"}
 
 
 # -- the device-busy measure (gated samples, runtime/profiler.py) ---------
@@ -402,3 +418,323 @@ def test_gated_attribution_discards_timed_out_samples(tracers):
         assert exp._gate_timeouts == {"dict:n8": 2}
     finally:
         exp.close()
+
+
+# -- the always-on stages (the port's own) --------------------------------
+
+def test_stages_are_recorded_with_the_tracer_disabled():
+    """A stage adds to its stream's totals and writes a ring entry with
+    its thread's name and wall-clock start, the tracer off; no latency
+    sketch is made, and `span()` stays the shared no-op."""
+    import threading
+    import time
+    tr = tracing.Tracer()
+    assert not tr.enabled
+    w0 = time.time()
+    t0 = time.perf_counter()
+    tr.stage("l4.pack", t0, t0 + 0.25, rows=4096, stream="tpu_sketch")
+
+    def other():
+        t = time.perf_counter()
+        tr.stage("l4.pack", t - 0.5, t, rows=10, stream="tpu_sketch")
+        tr.stage("red.cut", t - 0.125, t, stream="app_red")
+
+    th = threading.Thread(target=other, name="stage-writer")
+    th.start()
+    th.join()
+    assert tr.stage_counters("tpu_sketch") == {
+        "l4_pack_count": 2, "l4_pack_sum_s": pytest.approx(0.75)}
+    assert tr.stage_counters("app_red") == {
+        "red_cut_count": 1, "red_cut_sum_s": pytest.approx(0.125)}
+    assert tr.stage_counters("nothing") == {}
+    assert tr.spans_recorded == 3 and tr.latency() == {}
+    first, second, third = tr.ring()
+    assert first[:3] == ("l4.pack", "tpu_sketch", -1)
+    assert first[3] == pytest.approx(w0, abs=0.05)
+    assert first[4:] == (pytest.approx(0.25), 4096,
+                         threading.current_thread().name)
+    assert second[6] == third[6] == "stage-writer"
+    assert second[3] == pytest.approx(time.time() - 0.5, abs=1.0)
+    assert [s["thread"] for s in tr.recent(2)] == ["stage-writer"] * 2
+    assert tr.span("l4.pack") is tr.span("export")
+    tr.enable()
+    tr.stage("l4.pack", t0, t0 + 0.01, stream="tpu_sketch")
+    assert tr.latency()["l4.pack"]["count"] == 1
+    assert tr.stage_counters("tpu_sketch")["l4_pack_count"] == 3
+
+
+def test_stage_totals_hold_under_racing_threads():
+    """More writers than cores, switching every microsecond, on one
+    stage: no add is lost (metrics read the totals)."""
+    import os
+    import sys
+    import threading
+    tr = tracing.Tracer(ring=64)
+    n, per = 2 * (os.cpu_count() or 4) + 2, 2000
+
+    def write():
+        for _ in range(per):
+            tr.stage("export", 0.0, 0.5, stream="x")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=write) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert tr.stage_counters("x") == {"export_count": n * per,
+                                      "export_sum_s": 0.5 * n * per}
+
+
+def _l4_chunks(rng, n, rows=4096):
+    names = ("ip_src", "ip_dst", "port_src", "port_dst", "proto",
+             "packet_tx", "packet_rx", "byte_tx", "byte_rx")
+    return [{k: rng.integers(0, 1 << 12, rows).astype(np.uint32)
+             for k in names} for _ in range(n)]
+
+
+def _wait_processed(exp, n, timeout=60.0):
+    import time
+    deadline = time.perf_counter() + timeout
+    while exp.processed < n and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    assert exp.processed == n
+
+
+def _parts(c, whole, parts):
+    return sum(c.get(f"{p}_sum_s", 0.0) for p in parts), c[f"{whole}_sum_s"]
+
+
+L4_WORKER = ("l4_coerce", "l4_keymap", "l4_lock_wait", "l4_pack",
+             "l4_feed_put", "l4_audit")
+L4_CLOSE = tuple(f"l4_close_{p}" for p in (
+    "lock_wait", "drain", "snapshot_copy", "snapshot_write", "readout",
+    "store"))
+
+
+def test_l4_stages_sum_to_the_close_and_the_worker(tmp_path):
+    """The benchmark's l4 exporter on the CPU (dict wire, zero-copy
+    staging, the feed, the auditor at 1/64, a Store, a snapshot every
+    window): each close's six phases sum to within 10% of `l4.close`,
+    and the worker's stages to within 10% of `export`, its `process`
+    call; every stage of the path is counted, and the ring holds them
+    by thread."""
+    from deepflow_tpu_torch.store.db import Store
+    tracing.default_tracer().reset()
+    exp = TpuSketchExporter(
+        cfg=flow_suite.FlowSuiteConfig(**_SMALL), batch_rows=8192,
+        window_seconds=3600, checkpoint_dir=str(tmp_path / "ckpt"),
+        wire="dict", prefetch_depth=2, zero_copy=True, audit_rate=1 / 64,
+        store=Store(str(tmp_path / "store")), device="cpu")
+    rng = np.random.default_rng(7)
+    exp.start()
+    try:
+        for w in range(3):
+            for cols in _l4_chunks(rng, 6):
+                exp.put("l4_flow_log", 0, cols)
+            _wait_processed(exp, 6 * (w + 1))
+            exp.flush_window(now=1000.0 + w)
+        c = exp.counters()
+        # the shutdown checkpoint publishes too, but is no close
+        assert exp.checkpoint_now()
+        snaps = {k: exp.counters()[k] for k in (
+            "l4_close_snapshot_copy_count", "l4_close_snapshot_write_count")}
+    finally:
+        exp.close()
+    assert snaps == {"l4_close_snapshot_copy_count": 3,
+                     "l4_close_snapshot_write_count": 3}
+    for stage in L4_WORKER + L4_CLOSE + ("l4_dispatch", "export",
+                                         "l4_close"):
+        assert c[f"{stage}_count"] > 0, stage
+    assert c["l4_close_count"] == c["l4_close_readout_count"] == 3
+    assert c["l4_coerce_count"] == 18
+    parts, whole = _parts(c, "l4_close", L4_CLOSE)
+    assert abs(parts - whole) <= 0.1 * whole
+    parts, whole = _parts(c, "export", L4_WORKER)
+    assert abs(parts - whole) <= 0.1 * whole
+    threads = {s[6] for s in tracing.default_tracer().ring()}
+    assert {"tpu_sketch-0", "tpu-sketch-feed", "MainThread"} <= threads
+
+
+RED_WORKER = ("red_cut", "red_lock_wait", "red_stage", "red_update")
+RED_CLOSE = ("red_close_lock_wait", "red_close_drain", "red_close_readout",
+             "red_close_store")
+
+
+def test_red_stages_sum_to_the_close_and_the_worker(tmp_path):
+    """The RED exporter on the CPU with a Store: each close's phases sum
+    to within 10% of `red.close`, the worker's stages to within 10% of
+    `export`; `red.stage` and `red.update` count every batch, those the
+    close cuts (its `red.close.drain`) too."""
+    from deepflow_tpu_torch.runtime.app_red import AppRedExporter
+    from deepflow_tpu_torch.store.db import Store
+    tracing.default_tracer().reset()
+    exp = AppRedExporter(store=Store(str(tmp_path / "store")),
+                         batch_rows=4096, window_seconds=3600, device="cpu")
+    rng = np.random.default_rng(8)
+    exp.start()
+    try:
+        for w in range(3):
+            for _ in range(5):
+                exp.put("l7_flow_log", 0, {
+                    "ip_dst": rng.integers(0, 64, 3000).astype(np.uint32),
+                    "port_dst": np.full(3000, 80, np.uint32),
+                    "protocol": np.full(3000, 20, np.uint32),
+                    "status": rng.integers(0, 3, 3000).astype(np.uint32),
+                    "rrt_us": rng.integers(1, 1 << 16, 3000).astype(
+                        np.uint32)})
+            _wait_processed(exp, 5 * (w + 1))
+            exp.flush_window(now=1000.0 + w)
+        c = exp.counters()
+    finally:
+        exp.close()
+    assert c["red_close_count"] == c["red_close_store_count"] == 3
+    assert c["red_update_count"] == c["red_stage_count"] == c["batches"]
+    # the cut and the lock are stages of each chunk list
+    assert c["red_cut_count"] == c["red_lock_wait_count"] == \
+        c["export_count"] >= 3
+    parts, whole = _parts(c, "red_close", RED_CLOSE)
+    assert abs(parts - whole) <= 0.1 * whole
+    parts, whole = _parts(c, "export", RED_WORKER)
+    parts -= c["red_close_drain_sum_s"]
+    assert abs(parts - whole) <= 0.1 * whole
+
+
+def test_lock_wait_counts_a_held_state_lock():
+    """A put that meets `_state_lock` held by another thread counts at
+    least the time it was held against it in `l4.lock_wait`."""
+    import threading
+    import time
+    tracing.default_tracer().reset()
+    exp = TpuSketchExporter(cfg=flow_suite.FlowSuiteConfig(**_SMALL),
+                            batch_rows=B, window_seconds=3600, wire="dict",
+                            prefetch_depth=2, zero_copy=True, device="cpu")
+    (cols,) = _l4_chunks(np.random.default_rng(9), 1, rows=256)
+    try:
+        before = exp.counters().get("l4_lock_wait_sum_s", 0.0)
+        worker = threading.Thread(
+            target=exp.process, args=([("l4_flow_log", 0, cols, -1)],))
+        with exp._state_lock:
+            worker.start()
+            # the put is queued on the lock once it has coerced its chunk
+            while exp.counters().get("l4_coerce_count", 0) < 1:
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            time.sleep(0.2)
+            held = time.perf_counter() - t0
+        worker.join()
+        waited = exp.counters()["l4_lock_wait_sum_s"] - before
+    finally:
+        exp.close()
+    assert waited >= held
+
+
+def test_stage_run_records_each_stage_of_a_call_site():
+    """`stage_run` records several stages at once, as `stage` would
+    each: totals, ring entries in order, one thread and rows."""
+    import time
+    tr = tracing.Tracer()
+    t0 = time.perf_counter()
+    tr.stage_run("app_red", 16384, (("red.stage", t0, t0 + 0.25),
+                                    ("red.update", t0 + 0.25, t0 + 1.0)))
+    tr.stage("red.stage", t0, t0 + 0.5, 8, "app_red")
+    assert tr.stage_counters("app_red") == {
+        "red_stage_count": 2, "red_stage_sum_s": pytest.approx(0.75),
+        "red_update_count": 1, "red_update_sum_s": pytest.approx(0.75)}
+    first, second, _ = tr.ring()
+    assert [first[0], second[0]] == ["red.stage", "red.update"]
+    assert first[5] == second[5] == 16384 and first[6] == second[6]
+    assert second[3] - first[3] == pytest.approx(0.25)
+
+
+def test_trace_export_fits_one_datagram_with_full_rings():
+    """`df-ctl trace export` with both rings full, the stages at the
+    longest names and thread the exporters use: the reply fits one
+    datagram and holds the newest occupancy spans and stages alike."""
+    import json
+    import threading
+    import time
+    from deepflow_tpu_torch.runtime.debug import DebugServer, debug_request
+    from deepflow_tpu_torch.runtime.stats import StatsRegistry
+    prof = profiler.default_profiler()
+    tr = tracing.default_tracer()
+    prof.reset()
+    tr.reset()
+
+    def fill():
+        for i in range(2 * tr._ring_cap):
+            t = time.perf_counter()
+            tr.stage(f"l4.close.snapshot_write{i % 7}", t - 0.0123, t,
+                     rows=1 << 20, stream="tpu_sketch")
+
+    for i in range(2 * 8192):
+        prof.record("device", f"update:lanes_x{i % 7}", 0.0123, rows=65536)
+    # the stages newest, from the longest of the exporters' thread names
+    th = threading.Thread(target=fill, name="tpu-sketch-feed")
+    th.start()
+    th.join()
+    srv = DebugServer(StatsRegistry(), port=0)
+    srv.start()
+    try:
+        out = debug_request("trace-export", port=srv.port, limit=10_000,
+                            timeout=10.0)
+        assert out["ok"], out
+        xs = [e for e in out["data"]["trace"]["traceEvents"]
+              if e["ph"] == "X"]
+        assert sum(e["pid"] == 1 for e in xs) == 175
+        assert sum(e["pid"] == 2 for e in xs) == 175
+        assert len(json.dumps(out).encode()) < 65000
+    finally:
+        srv.close()
+        prof.reset()
+        tr.reset()
+
+
+def test_stage_overlays_a_torch_profiler_trace():
+    """torch.profiler on the main thread sees only that thread's ranges;
+    a stage recorded on another thread, exported with the profiler
+    trace's `baseTimeNanoseconds`, falls inside the main thread's
+    enclosing `record_function` range."""
+    import json
+    import threading
+    import time
+    from torch.profiler import ProfilerActivity, profile, record_function
+    tr = tracing.Tracer()
+    prof = profiler.OccupancyProfiler(tracer=tr)
+
+    def work():
+        t0 = time.perf_counter()
+        time.sleep(0.03)
+        tr.stage("l4.pack", t0, time.perf_counter(), stream="tpu_sketch")
+
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        with record_function("enclosing"):
+            time.sleep(0.03)
+            th = threading.Thread(target=work, name="worker")
+            th.start()
+            th.join()
+            time.sleep(0.03)
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/trace.json"
+        p.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    outer, = [e for e in doc["traceEvents"] if e.get("name") == "enclosing"]
+    assert not any(e.get("name") == "l4.pack" for e in doc["traceEvents"])
+    mine = prof.to_chrome_trace(base_ns=int(doc["baseTimeNanoseconds"]))
+    stage, = [e for e in mine["traceEvents"] if e["ph"] == "X"]
+    assert stage["name"] == "l4.pack" and stage["pid"] == 2
+    assert outer["ts"] < stage["ts"]
+    assert stage["ts"] + stage["dur"] < outer["ts"] + outer["dur"]
+    track, = [e for e in mine["traceEvents"] if e["name"] == "thread_name"]
+    assert track["args"]["name"] == "worker" and track["tid"] == stage["tid"]
+    # without a base the export stays on the wall clock, in microseconds
+    wall = prof.to_chrome_trace()["traceEvents"][-1]
+    assert wall["ts"] == pytest.approx(
+        stage["ts"] + doc["baseTimeNanoseconds"] / 1e3)
