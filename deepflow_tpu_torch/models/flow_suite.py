@@ -364,7 +364,9 @@ def flush(state: FlowSuiteState, cfg: FlowSuiteConfig
         topk_counts=counts,
         service_cardinality=hll.estimate(state.services),
         entropies=entropy.entropies(state.ent),
-        rows=state.rows_seen,
+        # a copy: a caller may keep updating the state's own tensor
+        # (runtime/wire_graphs.py replays into one static set)
+        rows=state.rows_seen.clone(),
     )
     fresh = FlowSuiteState(
         sketch=cms.reset(state.sketch),

@@ -30,7 +30,9 @@ Pallas deltas: state + delta, exact (int32 atomics never round).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -166,6 +168,33 @@ fused_lane_hists_cuda.launches = 0
 fused_news_hists_cuda.launches = 0
 
 
+# While a CUDA graph capture splits a program at the hand kernels
+# (runtime/wire_graphs.py), the capturing thread's launches go to its
+# hook instead of to the stream.
+_split = threading.local()
+
+
+@contextlib.contextmanager
+def split_launches(hook):
+    """Hand every `fused_lane_hists`/`fused_news_hists` call made on this
+    thread inside the block to `hook(fn, args)` instead of launching it:
+    a graph capture ends its segment there, and its replay makes the
+    call from the host."""
+    _split.hook = hook
+    try:
+        yield
+    finally:
+        _split.hook = None
+
+
+def _split_off(fn, args) -> bool:
+    hook = getattr(_split, "hook", None)
+    if hook is None:
+        return False
+    hook(fn, args)
+    return True
+
+
 def _dispatch(cuda_fn, plain_fn, plane, *args, **kw) -> None:
     if plane.device.type == "cuda":
         return cuda_fn(plane, *args, **kw)
@@ -180,6 +209,10 @@ def fused_lane_hists(plane, n, cms_counts, ent_hist, cms_seeds, ent_seeds,
     added IN PLACE into `cms_counts` [d, 2^cms_lw] and `ent_hist`
     [4, 2^ent_lw]. The kernel for CUDA tensors, the plain version for
     CPU ones."""
+    args = (plane, n, cms_counts, ent_hist, cms_seeds, ent_seeds,
+            weight_planes)
+    if _split_off(fused_lane_hists, args):
+        return
     _dispatch(fused_lane_hists_cuda, fused_lane_hists_plain, plane, n,
               cms_counts, ent_hist, cms_seeds, ent_seeds, weight_planes)
 
@@ -187,5 +220,9 @@ def fused_lane_hists(plane, n, cms_counts, ent_hist, cms_seeds, ent_seeds,
 def fused_news_hists(plane, n, cms_counts, ent_hist, cms_seeds, ent_seeds,
                      weight_planes: int = 2) -> None:
     """(6, C) dict-wire news plane; otherwise as `fused_lane_hists`."""
+    args = (plane, n, cms_counts, ent_hist, cms_seeds, ent_seeds,
+            weight_planes)
+    if _split_off(fused_news_hists, args):
+        return
     _dispatch(fused_news_hists_cuda, fused_news_hists_plain, plane, n,
               cms_counts, ent_hist, cms_seeds, ent_seeds, weight_planes)

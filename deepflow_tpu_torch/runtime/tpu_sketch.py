@@ -36,7 +36,9 @@ on the compute stream after its program; a staging buffer is recycled
 only after its fence retired. Between fences the feed path makes no
 device-to-host copy and no synchronization: the programs read each
 plane's valid count from the staged buffer on the device. On a CPU
-device everything runs synchronously and fences are None.
+device everything runs synchronously and fences are None. On a card the
+dict wire's programs replay from CUDA graphs captured per signature
+(`runtime/wire_graphs.py`), on every dict path.
 
 Window flush (after a drain barrier): the pre-flush state is published
 to the `SnapshotBus` -- to disk every `checkpoint_every`-th dirty window
@@ -195,6 +197,7 @@ from deepflow_tpu_torch.runtime.snapbus import SnapshotBus
 from deepflow_tpu_torch.runtime.stats import StatsRegistry
 from deepflow_tpu_torch.runtime.supervisor import default_supervisor
 from deepflow_tpu_torch.runtime.tracing import default_tracer
+from deepflow_tpu_torch.runtime.wire_graphs import WireGraphs
 from deepflow_tpu_torch.store.db import Store
 from deepflow_tpu_torch.store.table import AggKind, ColumnSpec, TableSchema
 from deepflow_tpu_torch.store.writer import StoreWriter
@@ -536,6 +539,8 @@ class TpuSketchExporter(QueueWorkerExporter):
         self.coalesce_batches = max(1, int(coalesce_batches))
         self._feed: Optional[DeviceFeed] = None
         self._programs: Dict[Any, Any] = {}
+        # the dict wire's programs, replayed from CUDA graphs on a card
+        self._graphs = WireGraphs(self._stream) if wire == "dict" else None
         self.zero_copy = (bool(zero_copy) and wire in ("lanes", "dict")
                           and not staged and self.prefetch_depth > 0)
         self._stager = None
@@ -931,8 +936,8 @@ class TpuSketchExporter(QueueWorkerExporter):
             ("dict", sig), lambda: flow_dict.make_wire_update(self.cfg, sig))
 
         def run():
-            self.state, self._dict_state, _ = prog(
-                self.state, self._dict_state, flat_d)
+            self.state, self._dict_state = self._graphs.run(
+                sig, prog, self.state, self._dict_state, flat_d)
         key = "dict:" + "+".join(f"{k[0]}{w}" for k, w in sig)
         self._timed_update(key, run, rows)
         self.dispatches += 1
@@ -1356,6 +1361,8 @@ class TpuSketchExporter(QueueWorkerExporter):
         if prog is None:
             if len(self._programs) >= self._PROGRAM_CACHE_CAP:
                 self._programs.clear()
+                if self._graphs is not None:
+                    self._graphs.clear()
             prog = self._programs[key] = build()
         return prog
 
@@ -1687,6 +1694,8 @@ class TpuSketchExporter(QueueWorkerExporter):
                   "lost_rows": self.lost_rows,
                   "host_rows": self.host_rows,
                   "shed_rows": self.shed_rows})
+        if self._graphs is not None:
+            c.update(self._graphs.counters())
         if self._feed is not None:
             c.update(self._feed.counters())
         if self._busy is not None:
