@@ -304,6 +304,7 @@ class FlowDictPacker:
         self._hit_pkts: List[np.ndarray] = []
         self._hit_count = 0
         self.evictions = 0
+        self.news_rows = 0
         self.bytes_news = 0
         self.bytes_hits = 0
 
@@ -328,6 +329,7 @@ class FlowDictPacker:
             plane[1:5, :e - s] = keys[s:e].T
             plane[5, :e - s] = pkts[s:e]
             out.append(("news", plane, e - s))
+            self.news_rows += e - s
             self.bytes_news += plane.nbytes
 
     def _flush_hits(self, out: List[Tuple[str, np.ndarray, int]],

@@ -37,7 +37,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 from deepflow_tpu_torch.enrich.platform_data import PlatformDataManager
-from deepflow_tpu_torch.models.flow_suite import check_device
+from deepflow_tpu_torch.models.flow_suite import (FlowSuiteConfig,
+                                                  check_device)
 from deepflow_tpu_torch.pipelines.droplet import DropletPipeline
 from deepflow_tpu_torch.pipelines.event import EventPipeline
 from deepflow_tpu_torch.pipelines.ext_metrics import ExtMetricsPipeline
@@ -60,7 +61,9 @@ from deepflow_tpu_torch.store.monitor import DiskMonitor
 class IngesterConfig:
     """Mirrors the reference's per-module config blocks
     (flow_log/config/config.go defaults). Field for field, and default
-    for default, the JAX package's IngesterConfig."""
+    for default, the JAX package's IngesterConfig, plus
+    `tpu_sketch_topk_sample_log2`, which the JAX package's ingester does
+    not expose (its FlowSuiteConfig has the same knob)."""
 
     listen_port: int = 30033
     listen_host: str = "127.0.0.1"
@@ -78,6 +81,11 @@ class IngesterConfig:
     # news/hits planes, the smallest bytes-per-record) or "lanes"
     # (packed 4-plane batches)
     tpu_sketch_wire: str = "dict"
+    # the top-K ring's admission: each batch offers one lane in
+    # 2^n to the candidate ring (FlowSuiteConfig.topk_sample_log2).
+    # 0 offers every lane, for a stream where most keys never repeat
+    # (a spoofed-source flood), whose top-K flows hold few records
+    tpu_sketch_topk_sample_log2: int = 4
     # -- overlapped device feed (runtime/feed.py) ----------------------
     # host->device prefetch for the tpu_sketch lane: a supervised feed
     # thread copies and dispatches group N+1 while group N's update runs
@@ -335,6 +343,8 @@ class Ingester:
                 anomaly_dir = None if cfg.store_path is None else \
                     os.path.join(cfg.store_path, "anomaly_ckpt")
             self.tpu_sketch = TpuSketchExporter(
+                cfg=FlowSuiteConfig(
+                    topk_sample_log2=cfg.tpu_sketch_topk_sample_log2),
                 store=self.store, window_seconds=cfg.tpu_sketch_window_s,
                 checkpoint_dir=ckpt_dir, stats=self.stats,
                 wire=cfg.tpu_sketch_wire,

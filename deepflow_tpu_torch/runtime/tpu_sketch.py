@@ -171,6 +171,7 @@ import heapq
 import logging
 import threading
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -472,14 +473,23 @@ class TpuSketchExporter(QueueWorkerExporter):
             self.window_writer = StoreWriter(
                 store.create_table(SKETCH_DB, WINDOW_TABLE),
                 batch_rows=1024, flush_interval=5.0)
-        # flow key -> 5-tuple, sampled from the stream for the writers
-        self._key_tuples: Dict[int, tuple] = {}
+        # flow key -> 5-tuple, sampled from the stream for the writers;
+        # least recently seen first
+        self._key_tuples: "OrderedDict[int, list]" = OrderedDict()
+        self.keymap_evictions = 0
+        # ring candidates the device batches offered (from their shapes)
+        self.topk_lanes_offered = 0
         # dict wire: a flow's 5-tuple crosses once (news), repeats cross
         # as hits against the device key table. The table is not
         # checkpointed: after a restore a fresh packer re-announces
         # flows as news. Pairs-packed hits planes need an even batch.
         self._dict_packer = None
         self._dict_state = None
+        # the live packer generation (the stager's or the inline one), and
+        # the news rows and LRU evictions of the generations before it
+        self._packer_live: Optional[flow_dict.FlowDictPacker] = None
+        self._packer_news_rows = 0
+        self._packer_evictions = 0
         if wire == "dict":
             self._packer_capacity = max(2 * self.batch_rows, 1 << 17)
             self._packer_hits_batch = max(2, self.batch_rows & ~1)
@@ -606,8 +616,16 @@ class TpuSketchExporter(QueueWorkerExporter):
                                              stats=stats, device=self.device)
 
     def _new_packer(self) -> flow_dict.FlowDictPacker:
-        return flow_dict.FlowDictPacker(capacity=self._packer_capacity,
-                                        hits_batch=self._packer_hits_batch)
+        """A fresh packer generation (at start and after a restore); the
+        counts of the one it replaces stay in `counters()`."""
+        old = self._packer_live
+        if old is not None:
+            self._packer_news_rows += old.news_rows
+            self._packer_evictions += old.evictions
+        self._packer_live = flow_dict.FlowDictPacker(
+            capacity=self._packer_capacity,
+            hits_batch=self._packer_hits_batch)
+        return self._packer_live
 
     def _on_stream(self):
         """Enter the exporter's compute stream on the calling thread
@@ -941,6 +959,9 @@ class TpuSketchExporter(QueueWorkerExporter):
         key = "dict:" + "+".join(f"{k[0]}{w}" for k, w in sig)
         self._timed_update(key, run, rows)
         self.dispatches += 1
+        # a hits plane holds two records a column
+        self._count_offers(w * (2 if kind == "hits" else 1)
+                           for kind, w in sig)
         if self._anomaly is not None:
             self._lanes_update(key, lambda: self._anomaly.feed_dict_flat(
                 self._dict_state.table, flat_d, sig), rows)
@@ -955,10 +976,17 @@ class TpuSketchExporter(QueueWorkerExporter):
             self.state, _ = prog(self.state, flat_d)
         self._timed_update(f"lanes_x{k}", run, rows)
         self.dispatches += 1
+        self._count_offers([c] * k)
         if self._anomaly is not None:
             self._lanes_update(
                 f"lanes_x{k}",
                 lambda: self._anomaly.feed_flat(flat_d, k, c), rows)
+
+    def _count_offers(self, widths) -> None:
+        """Count the ring candidates that batches of `widths` lanes offer:
+        `topk.candidate_keys` takes one lane in 2^topk_sample_log2."""
+        s = self.cfg.topk_sample_log2
+        self.topk_lanes_offered += sum(-(-w >> s) for w in widths)
 
     def _run_batch_locked(self, tb: TensorBatch) -> None:
         """Inline path, on the compute stream."""
@@ -1607,7 +1635,8 @@ class TpuSketchExporter(QueueWorkerExporter):
         top-K rows (only with a store: nothing else reads it). Heavy
         hitters recur, so a 1/16 stride sample resolves them with near
         certainty. A key seen again moves to the newest end, and the
-        oldest keys go at the cap."""
+        oldest keys go at the cap, each in O(1): under a stream of
+        never-repeating keys (a flood) the map evicts on every chunk."""
         if self.topk_writer is None:
             return
         sample = [np.asarray(cols[k][::16]) for k in _TUPLE_NAMES]
@@ -1615,10 +1644,12 @@ class TpuSketchExporter(QueueWorkerExporter):
         tuples = np.stack([c.astype(np.uint32) for c in sample], axis=1)
         kt = self._key_tuples
         for key, tup in zip(keys.tolist(), tuples.tolist()):
-            kt.pop(key, None)
+            if key in kt:
+                kt.move_to_end(key)
             kt[key] = tup
         while len(kt) > self._KEY_TUPLES_CAP:
-            kt.pop(next(iter(kt)))
+            kt.popitem(last=False)
+            self.keymap_evictions += 1
 
     def _write_output(self, out: flow_suite.FlowWindowOutput,
                       second: int) -> None:
@@ -1693,7 +1724,13 @@ class TpuSketchExporter(QueueWorkerExporter):
                   "lost_windows": self.lost_windows,
                   "lost_rows": self.lost_rows,
                   "host_rows": self.host_rows,
-                  "shed_rows": self.shed_rows})
+                  "shed_rows": self.shed_rows,
+                  "l4_keymap_evictions": self.keymap_evictions,
+                  "l4_topk_lanes_offered": self.topk_lanes_offered})
+        live = self._packer_live
+        if live is not None:
+            c["l4_dict_news_rows"] = self._packer_news_rows + live.news_rows
+            c["l4_dict_evictions"] = self._packer_evictions + live.evictions
         if self._graphs is not None:
             c.update(self._graphs.counters())
         if self._feed is not None:
